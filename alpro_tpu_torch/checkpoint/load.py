@@ -1,0 +1,68 @@
+"""Load ALPRO-key-space weights into the port's model.
+
+The port's parameter names *are* the original ALPRO torch keys (what
+``alpro_tpu/checkpoint/export_torch.py::export_reference_state_dict``
+emits), with Linear weights in torch (out, in) layout, so a JAX-trained tree
+and an official ALPRO ``.pt`` state dict load through the same function.
+Nothing is transposed here that the export already transposed; the one
+conversion is the strided-conv patch embedding ``patch_embed.proj.weight``
+(D, C, p, p), which becomes the (p·p·C, D) matmul kernel of ``PatchEmbed``
+with rows in (ph, pw, c) order.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_CONV_W = "patch_embed.proj.weight"
+_CONV_B = "patch_embed.proj.bias"
+
+
+def _to_port_keys(sd: Mapping) -> dict:
+    out = {}
+    for key, value in sd.items():
+        t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
+            np.array(value, copy=True)
+        )
+        if key.endswith(_CONV_W):
+            D, C, p, _ = t.shape
+            t = t.permute(2, 3, 1, 0).reshape(p * p * C, D)
+            key = key[: -len(_CONV_W)] + "patch_embed.kernel"
+        elif key.endswith(_CONV_B):
+            key = key[: -len(_CONV_B)] + "patch_embed.bias"
+        out[key] = t
+    return out
+
+
+@torch.no_grad()
+def load_alpro_state_dict(model: nn.Module, sd: Mapping) -> nn.Module:
+    """Copy ``sd`` (ALPRO keys → numpy arrays or tensors) into ``model``'s
+    parameters, converting dtype and device. Raises ``KeyError`` on any
+    missing or unexpected key and ``ValueError`` on a shape mismatch."""
+    src = _to_port_keys(sd)
+    own = dict(model.named_parameters())
+    missing = sorted(own.keys() - src.keys())
+    unexpected = sorted(src.keys() - own.keys())
+    if missing or unexpected:
+        raise KeyError(f"state dict mismatch: missing {missing}, unexpected {unexpected}")
+    for key, param in own.items():
+        if tuple(src[key].shape) != tuple(param.shape):
+            raise ValueError(
+                f"{key}: shape {tuple(src[key].shape)} != model {tuple(param.shape)}"
+            )
+        param.copy_(src[key])
+    return model
+
+
+def from_jax_params(model: nn.Module, params) -> nn.Module:
+    """Load a JAX ``AlproModel`` param tree (numpy or jax arrays): the JAX
+    package's ``export_reference_state_dict`` followed by
+    ``load_alpro_state_dict``. Importing the exporter imports the JAX
+    package, so this is for environments that hold the JAX tree anyway."""
+    from alpro_tpu.checkpoint.export_torch import export_reference_state_dict
+
+    return load_alpro_state_dict(model, export_reference_state_dict(params))

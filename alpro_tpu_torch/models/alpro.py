@@ -1,0 +1,120 @@
+"""ALPRO retrieval model: video tower, split BERT, projections, ITM head.
+
+Counterpart of ``alpro_tpu/models/alpro.py`` for the retrieval slice
+(``AlproForVideoTextRetrieval``): the building blocks the serving path
+composes (``embed_video``, ``embed_text``, ``video_feat``/``text_feat``,
+``fuse``, ``itm_logits``, ``temperature``). Parameter names are the ALPRO
+state-dict keys (``checkpoint/load.py``).
+
+``dtype`` is the compute dtype: weights are cast to it at use (so fp32
+weights serve in bf16, as in the JAX package), LayerNorm statistics stay
+fp32, and the contrastive features and logits come back in fp32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from alpro_tpu_torch.models.bert import BertConfig, BertModel, container
+from alpro_tpu_torch.models.timesformer import TimeSformer, TimeSformerConfig
+from alpro_tpu_torch.ops.layers import LayerNorm, linear
+
+
+@dataclasses.dataclass(frozen=True)
+class AlproConfig:
+    bert: BertConfig
+    visual: TimeSformerConfig
+    embed_dim: int = 256
+    temp_init: float = 0.07
+
+
+class AlproModel(nn.Module):
+    def __init__(self, cfg: AlproConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        D = cfg.bert.hidden_size
+        self.visual_encoder = container(model=TimeSformer(cfg.visual, dtype))
+        self.text_encoder = container(bert=BertModel(cfg.bert, dtype))
+        self.vision_proj = nn.Linear(cfg.visual.embed_dim, cfg.embed_dim)
+        self.text_proj = nn.Linear(D, cfg.embed_dim)
+        self.itm_head = nn.Linear(D, 2)
+        self.temp = nn.Parameter(torch.tensor(cfg.temp_init))
+
+    def temperature(self) -> torch.Tensor:
+        return torch.clamp(self.temp, 0.001, 0.5)
+
+    def embed_video(self, pixels: torch.Tensor) -> torch.Tensor:
+        """Video (see ``TimeSformer.forward`` for the input forms) →
+        temporally pooled (B, 1+N, D) tokens."""
+        return self.visual_encoder.model(pixels)
+
+    def embed_text(self, input_ids: torch.Tensor,
+                   attention_mask: torch.Tensor) -> torch.Tensor:
+        """Token ids → (B, Lt, D) through the text half (layers 0..fusion)."""
+        return self.text_encoder.bert(
+            input_ids=input_ids, attention_mask=attention_mask, mode="text"
+        )
+
+    def _l2_feat(self, tokens: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
+        feat = linear(tokens[:, 0, :], proj, self.dtype).float()
+        return feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
+
+    def video_feat(self, video_embeds: torch.Tensor) -> torch.Tensor:
+        """CLS token → L2-normalized fp32 contrastive feature."""
+        return self._l2_feat(video_embeds, self.vision_proj)
+
+    def text_feat(self, text_embeds: torch.Tensor) -> torch.Tensor:
+        return self._l2_feat(text_embeds, self.text_proj)
+
+    def fuse(self, text_embeds: torch.Tensor, text_mask: torch.Tensor,
+             video_embeds: torch.Tensor,
+             video_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """[text; video] through the fusion half (layers fusion..end)."""
+        B, Lv = video_embeds.shape[:2]
+        if video_mask is None:
+            video_mask = torch.ones((B, Lv), dtype=text_mask.dtype, device=text_mask.device)
+        embeds = torch.cat(
+            [text_embeds.to(self.dtype), video_embeds.to(self.dtype)], dim=1
+        )
+        mask = torch.cat([text_mask, video_mask], dim=1)
+        return self.text_encoder.bert(
+            encoder_embeds=embeds, attention_mask=mask, mode="fusion"
+        )
+
+    def itm_logits(self, fusion_cls: torch.Tensor) -> torch.Tensor:
+        return linear(fusion_cls, self.itm_head, self.dtype).float()
+
+
+def build_retrieval_model(bert_cfg, video_enc_cfg, img_size: int = 224,
+                          num_frm: int = 8, dtype=torch.float32) -> AlproModel:
+    """``bert_cfg``: a BertConfig or a ``configs/base_model.json`` dict;
+    ``video_enc_cfg``: a TimeSformerConfig or a
+    ``configs/timesformer_divst_8x32_224_k600.json`` dict."""
+    bert = (bert_cfg if isinstance(bert_cfg, BertConfig)
+            else BertConfig.from_json_dict(bert_cfg))
+    vis = (video_enc_cfg if isinstance(video_enc_cfg, TimeSformerConfig)
+           else TimeSformerConfig.from_reference_cfg(video_enc_cfg, img_size, num_frm))
+    return AlproModel(AlproConfig(bert=bert, visual=vis), dtype=dtype)
+
+
+@torch.no_grad()
+def init_random_(model: AlproModel, generator: torch.Generator) -> AlproModel:
+    """Seeded random weights in place: every matrix, embedding and bias
+    ~ N(0, initializer_range), LayerNorm scales 1 and biases 0, ``temp`` at
+    its init. For runs with no trained checkpoint."""
+    std = model.cfg.bert.initializer_range
+    norms = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
+             for p in m.parameters()}
+    for name, p in model.named_parameters():
+        if name == "temp":
+            p.fill_(model.cfg.temp_init)
+        elif id(p) in norms:
+            p.fill_(1.0 if name.endswith("weight") else 0.0)
+        else:
+            p.normal_(0.0, std, generator=generator)
+    return model

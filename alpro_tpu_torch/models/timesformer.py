@@ -1,0 +1,298 @@
+"""TimeSformer video encoder with divided space-time attention, serving mode.
+
+Counterpart of ``alpro_tpu/models/timesformer.py`` in deterministic
+(eval) mode, with its layouts: channels-last video (B, T, H, W, 3), tokens as
+(B, T, N, D) with the CLS carried as (B, 1, D), packed ``[q|k|v]`` channels.
+Parameter names follow the ALPRO state dict (``checkpoint/load.py``), except
+the patch embedding, held as the (p·p·C, D) matmul kernel.
+
+Per block, the three ``*_impl`` fields pick the kernel or the plain path:
+
+* ``temporal_attn_impl``: ``fused_qkv_fold`` — LN, qkv matmul, the temporal
+  kernel (``ops/qkv_attn.py``), then proj·temporal_fc folded into one matmul
+  ``w_eff``/``b_eff`` computed in the compute dtype; ``plain`` — relayout to
+  (B·N, T, D), plain attention, proj, temporal_fc;
+* ``attn_impl``: ``fused_qkv`` — the spatial kernel over the packed qkv of
+  [cls_rep; x] per frame; ``plain`` — plain attention;
+* ``mlp_impl``: ``fused`` — the LN→MLP→residual kernel (``ops/ln_mlp.py``),
+  called on the patch rows and on the B cls rows; ``plain`` — LN, fc1,
+  exact GELU, fc2, residual.
+
+``auto`` resolves to the kernel for a CUDA tensor and to ``plain`` for a CPU
+tensor; ``xla`` (a JAX config's name for the plain path) means ``plain``.
+The TPU package's measured gates (``_on_tpu()``, temporal only at T <= 8,
+D % 128) are not carried over: they are to be re-decided on the H100.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
+from alpro_tpu_torch.ops.layers import LayerNorm, gelu_exact, linear
+from alpro_tpu_torch.ops.ln_mlp import ln_mlp
+from alpro_tpu_torch.ops.qkv_attn import (
+    spatial_attention_qkv,
+    temporal_attention_qkv,
+)
+
+_KERNEL_IMPL = {
+    "attn_impl": "fused_qkv",
+    "temporal_attn_impl": "fused_qkv_fold",
+    "mlp_impl": "fused",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeSformerConfig:
+    img_size: int = 224
+    patch_size: int = 16
+    num_frames: int = 8
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    ln_eps: float = 1e-6
+    attn_impl: str = "auto"
+    temporal_attn_impl: str = "auto"
+    mlp_impl: str = "auto"
+    # uint8 inputs are normalized with these stats (CLIP defaults)
+    pixel_mean: tuple = (0.48145466, 0.4578275, 0.40821073)
+    pixel_std: tuple = (0.26862954, 0.26130258, 0.27577711)
+    # fold the uint8 /255-mean/std normalize into the patch-embed matmul:
+    # 'auto' → on for bf16 compute, off for fp32 | 'on' | 'off'
+    fold_uint8_norm: str = "auto"
+
+    def __post_init__(self):
+        for field, kernel in _KERNEL_IMPL.items():
+            value = getattr(self, field)
+            if value not in ("auto", "plain", "xla", kernel):
+                raise ValueError(
+                    f"{field}={value!r}: expected 'auto', {kernel!r}, 'plain' or 'xla'"
+                )
+        if self.fold_uint8_norm not in ("auto", "on", "off"):
+            raise ValueError(f"fold_uint8_norm={self.fold_uint8_norm!r}")
+
+    @property
+    def patches_per_side(self) -> int:
+        return self.img_size // self.patch_size
+
+    @property
+    def num_patches(self) -> int:
+        return self.patches_per_side ** 2
+
+    @classmethod
+    def from_reference_cfg(cls, video_enc_cfg: dict, img_size: int, num_frm: int):
+        """Build from a ``configs/timesformer_*.json``-style dict."""
+        return cls(img_size=img_size, patch_size=video_enc_cfg.get("patch_size", 16),
+                   num_frames=num_frm)
+
+    def use_kernel(self, field: str, x: torch.Tensor) -> bool:
+        """Whether ``field`` resolves to its kernel for activations ``x``."""
+        value = getattr(self, field)
+        if value == "auto":
+            return x.device.type == "cuda"
+        return value == _KERNEL_IMPL[field]
+
+
+def _nearest_index(old_len: int, new_len: int, device) -> torch.Tensor:
+    """torch F.interpolate 'nearest' indices: floor(i · old / new), in fp32
+    like the JAX package."""
+    pos = torch.arange(new_len, dtype=torch.float32, device=device)
+    return torch.floor(pos * (old_len / new_len)).long()
+
+
+class Attention(nn.Module):
+    """qkv (D→3D) and proj (D→D) of one attention (ALPRO ``attn.qkv``/``attn.proj``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.qkv = nn.Linear(dim, 3 * dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def plain(self, x: torch.Tensor, num_heads: int, dtype) -> torch.Tensor:
+        """qkv → plain attention → proj over x (M, S, D)."""
+        M, S, D = x.shape
+        qkv = linear(x, self.qkv, dtype).reshape(M, S, 3, num_heads, D // num_heads)
+        out = multi_head_attention_bshd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        return linear(out.reshape(M, S, D), self.proj, dtype)
+
+
+class Mlp(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """Plain fc1 → exact GELU → fc2."""
+        return linear(gelu_exact(linear(x, self.fc1, dtype)), self.fc2, dtype)
+
+
+class DividedSTBlock(nn.Module):
+    """One divided space-time block on (cls (B, 1, D), x (B, T, N, D))."""
+
+    def __init__(self, cfg: TimeSformerConfig):
+        super().__init__()
+        D = cfg.embed_dim
+        self.norm1 = LayerNorm(D, cfg.ln_eps)
+        self.attn = Attention(D)
+        self.norm2 = LayerNorm(D, cfg.ln_eps)
+        self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
+        self.temporal_norm1 = LayerNorm(D, cfg.ln_eps)
+        self.temporal_attn = Attention(D)
+        self.temporal_fc = nn.Linear(D, D)
+
+    def forward(self, cls, x, cfg: TimeSformerConfig, dtype):
+        B, T, N, D = x.shape
+        H = cfg.num_heads
+
+        # ---- temporal attention over T at each patch location ----
+        xt = self.temporal_norm1(x, dtype)
+        if cfg.use_kernel("temporal_attn_impl", x):
+            qkv = linear(xt, self.temporal_attn.qkv, dtype)       # (B, T, N, 3D)
+            t_att = temporal_attention_qkv(qkv, H)
+            # (a·Wp + bp)·Wt + bt = a·(Wp Wt) + (bp Wt + bt), torch layout
+            wt = self.temporal_fc.weight.to(dtype)
+            w_eff = wt @ self.temporal_attn.proj.weight.to(dtype)
+            b_eff = torch.nn.functional.linear(
+                self.temporal_attn.proj.bias.to(dtype), wt,
+                self.temporal_fc.bias.to(dtype),
+            )
+            x = x + torch.nn.functional.linear(t_att, w_eff, b_eff).to(x.dtype)
+        else:
+            xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
+            t_out = self.temporal_attn.plain(xt, H, dtype)
+            t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
+            x = x + linear(t_out, self.temporal_fc, dtype)
+
+        # ---- spatial attention over [cls; N patches] per frame ----
+        cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
+        xs = torch.cat([cls_rep, x], dim=2)                       # (B, T, 1+N, D)
+        xs = self.norm1(xs, dtype).reshape(B * T, 1 + N, D)
+        if cfg.use_kernel("attn_impl", x):
+            s_att = spatial_attention_qkv(linear(xs, self.attn.qkv, dtype), H)
+            s_out = linear(s_att, self.attn.proj, dtype)
+        else:
+            s_out = self.attn.plain(xs, H, dtype)
+        s_out = s_out.reshape(B, T, 1 + N, D)
+        cls = cls + s_out[:, :, 0, :].mean(dim=1, keepdim=True)
+        x = x + s_out[:, :, 1:, :]
+
+        # ---- MLP tail ----
+        if cfg.use_kernel("mlp_impl", x):
+            args = (
+                self.norm2.weight, self.norm2.bias,
+                self.mlp.fc1.weight.to(dtype), self.mlp.fc1.bias.to(dtype),
+                self.mlp.fc2.weight.to(dtype), self.mlp.fc2.bias.to(dtype),
+            )
+            x = ln_mlp(x.reshape(B * T * N, D), *args, eps=cfg.ln_eps).reshape(B, T, N, D)
+            cls = ln_mlp(cls.reshape(B, D), *args, eps=cfg.ln_eps).reshape(B, 1, D)
+            return cls, x
+        cls = cls + self.mlp(self.norm2(cls, dtype), dtype)
+        x = x + self.mlp(self.norm2(x, dtype), dtype)
+        return cls, x
+
+
+class PatchEmbed(nn.Module):
+    """Patch embedding as a (p·p·C, D) matmul over (ph, pw, c)-ordered patch
+    vectors (the ALPRO strided conv, ``checkpoint/load.py`` converts)."""
+
+    def __init__(self, cfg: TimeSformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.kernel = nn.Parameter(torch.zeros(cfg.patch_size ** 2 * 3, cfg.embed_dim))
+        self.bias = nn.Parameter(torch.zeros(cfg.embed_dim))
+
+    def forward(self, patches: torch.Tensor, dtype, uint8_norm: bool = False):
+        if uint8_norm:
+            # norm(v) @ W + b = v @ (a ⊙ W) + (c @ W + b), with per-column
+            # a_k = 1/(255·std_{k%C}), c_k = -mean_{k%C}/std_{k%C}
+            p = self.cfg.patch_size
+            mean = torch.tensor(self.cfg.pixel_mean, device=patches.device)
+            std = torch.tensor(self.cfg.pixel_std, device=patches.device)
+            a = (1.0 / (255.0 * std)).repeat(p * p)
+            c = (-mean / std).repeat(p * p)
+            kernel = self.kernel.float()
+            w_eff = (kernel * a[:, None]).to(dtype)
+            b_eff = (self.bias.float() + c @ kernel).to(dtype)
+            return patches.to(dtype) @ w_eff + b_eff
+        return patches.to(dtype) @ self.kernel.to(dtype) + self.bias.to(dtype)
+
+
+class TimeSformer(nn.Module):
+    def __init__(self, cfg: TimeSformerConfig, dtype=torch.float32):
+        super().__init__()
+        self.cfg = cfg
+        self.dtype = dtype
+        D = cfg.embed_dim
+        self.patch_embed = PatchEmbed(cfg)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D))
+        self.time_embed = nn.Parameter(torch.zeros(1, cfg.num_frames, D))
+        self.blocks = nn.ModuleList(DividedSTBlock(cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(D, cfg.ln_eps)
+
+    def _embed_patches(self, pixels: torch.Tensor):
+        """The three input forms → ((B, T, N, D) tokens, hp, wp)."""
+        cfg, dt = self.cfg, self.dtype
+        p = cfg.patch_size
+        fold = cfg.fold_uint8_norm == "on" or (
+            cfg.fold_uint8_norm == "auto" and dt == torch.bfloat16
+        )
+        mean = torch.tensor(cfg.pixel_mean, device=pixels.device)
+        std = torch.tensor(cfg.pixel_std, device=pixels.device)
+        if pixels.dim() == 4:  # pre-patchified (B, T, N, p·p·C)
+            side = int(round(pixels.shape[2] ** 0.5))
+            if pixels.dtype == torch.uint8:
+                if fold:
+                    return self.patch_embed(pixels, dt, uint8_norm=True), side, side
+                # per-column stats: column k ↔ channel k % C
+                v = (pixels.float() / 255.0 - mean.repeat(p * p)) / std.repeat(p * p)
+                return self.patch_embed(v, dt), side, side
+            return self.patch_embed(pixels, dt), side, side
+        if pixels.dim() != 5:
+            raise ValueError(
+                f"pixels must be (B, T, H, W, C) or (B, T, N, p·p·C), got {tuple(pixels.shape)}"
+            )
+        B, T, H, W, C = pixels.shape
+        hp, wp = H // p, W // p
+        uint8_fold = pixels.dtype == torch.uint8 and fold
+        if pixels.dtype == torch.uint8 and not fold:
+            pixels = (pixels.float() / 255.0 - mean) / std
+        # patch extraction in (ph, pw, c) order (the reference's strided conv)
+        v = pixels.reshape(B, T, hp, p, wp, p, C).permute(0, 1, 2, 4, 3, 5, 6)
+        v = v.reshape(B, T, hp * wp, p * p * C)
+        return self.patch_embed(v, dt, uint8_norm=uint8_fold), hp, wp
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels: (B, T, H, W, 3) uint8 or normalized float, or pre-patchified
+        (B, T, N, p·p·3) uint8/float. Returns the temporally pooled tokens
+        (B, 1+N, D): the final LN runs before the pooling."""
+        cfg, dt = self.cfg, self.dtype
+        D = cfg.embed_dim
+        x, hp, wp = self._embed_patches(pixels)
+        B, T, N, _ = x.shape
+
+        pos_cls, pos_patch = self.pos_embed[:, :1], self.pos_embed[:, 1:]
+        if N != cfg.num_patches:
+            side = cfg.patches_per_side
+            grid = pos_patch.reshape(1, side, side, D)
+            grid = grid[:, _nearest_index(side, hp, grid.device)]
+            grid = grid[:, :, _nearest_index(side, wp, grid.device)]
+            pos_patch = grid.reshape(1, N, D)
+        te = self.time_embed
+        if T != cfg.num_frames:
+            te = te[:, _nearest_index(cfg.num_frames, T, te.device)]
+
+        cls = (self.cls_token + pos_cls).to(dt).expand(B, 1, D).contiguous()
+        x = x + pos_patch[:, None].to(x.dtype)
+        x = x + te[:, :, None, :].to(x.dtype)
+        for blk in self.blocks:
+            cls, x = blk(cls, x, cfg, dt)
+        cls = self.norm(cls, dt)
+        x = self.norm(x, dt)
+        return torch.cat([cls, x.mean(dim=1)], dim=1)

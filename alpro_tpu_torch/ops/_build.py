@@ -1,0 +1,143 @@
+"""Build and load the port's CUDA kernels (``alpro_tpu_torch/csrc/*.cu``).
+
+All sources are compiled by ``nvcc`` into one shared library with a plain C
+interface and loaded with ``ctypes``. Nothing here runs at import: the build
+happens at the first kernel launch (or an explicit ``build()``), into
+``alpro_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one loads the cached
+library. The library is written under a temporary name and renamed into
+place, so concurrent processes never load a half-written file.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on a non-zero code (a refused launch — too many threads or
+too much shared memory — never runs, and a later synchronize would not
+report it).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libalpro_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of every entry point: (argtypes, restype)
+_SIGNATURES = {
+    # qkv, out, M, S, H, hd, scale, is_bf16, device, stream
+    "alpro_spatial_attn": ([_P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # qkv, out, B, T, N, H, hd, scale, is_bf16, device, stream
+    "alpro_temporal_attn": ([_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, partial, R, D, Dh, h_split,
+    # eps, residual, is_bf16, device, stream
+    "alpro_ln_mlp": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], _I
+    ),
+    "alpro_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+
+
+def sources() -> list:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def find_nvcc() -> str:
+    cands = [os.environ.get("CUDACXX")]
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home:
+            cands.append(os.path.join(home, "bin", "nvcc"))
+    cands.append(shutil.which("nvcc"))
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked at $CUDACXX, $CUDA_HOME/bin, /usr/local/cuda/bin "
+        "and PATH): the CUDA kernels cannot be built"
+    )
+
+
+def build() -> Path:
+    """Compile csrc/*.cu into one .so (cached by source hash); returns its
+    path."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.is_file():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
+    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = handle
+        return _lib
+
+
+def check_cuda_operand(t, name: str, dtypes, align: int = 16) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
+    whose data pointer is ``align``-byte aligned (the kernels use vector and
+    tensor-core loads)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def stream_args(t) -> tuple:
+    """(device index, current stream handle) for a launch on ``t``'s device."""
+    import torch
+
+    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = lib().alpro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} ({msg})")

@@ -1,0 +1,54 @@
+"""Tower-level inference functions of retrieval serving.
+
+Counterpart of the inference builders in ``alpro_tpu/train/step.py``
+(``make_text_encode_fn``, ``make_video_embed_fn``, ``make_fusion_score_fn``;
+the port has no ``train`` package yet). The JAX builders return pure
+functions of ``(params, ...)``; here the model owns its weights, so each
+function takes only the inputs and runs under ``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from alpro_tpu_torch.models.alpro import AlproModel
+
+
+def make_text_encode_fn(model: AlproModel) -> Callable:
+    """(batch with ``text_input_ids``/``text_input_mask``) →
+    (text_embeds (B, L, D), text_feat (B, 256) fp32)."""
+
+    @torch.inference_mode()
+    def encode(batch):
+        text_embeds = model.embed_text(batch["text_input_ids"], batch["text_input_mask"])
+        return text_embeds, model.text_feat(text_embeds)
+
+    return encode
+
+
+def make_video_embed_fn(model: AlproModel) -> Callable:
+    """pixels → (video_embeds (B, 1+N, D), video_feat (B, 256) fp32)."""
+
+    @torch.inference_mode()
+    def embed(pixels):
+        video_embeds = model.embed_video(pixels)
+        return video_embeds, model.video_feat(video_embeds)
+
+    return embed
+
+
+def make_fusion_score_fn(model: AlproModel) -> Callable:
+    """ITM logits (B, 2) fp32 for pre-encoded (text, video) pairs; one video
+    (1, 1+N, D) is broadcast over B texts."""
+
+    @torch.inference_mode()
+    def score(text_embeds, text_mask, video_embeds):
+        n_text = text_embeds.shape[0]
+        if video_embeds.shape[0] == 1 and n_text > 1:
+            video_embeds = video_embeds.expand(n_text, *video_embeds.shape[1:])
+        fusion = model.fuse(text_embeds, text_mask, video_embeds)
+        return model.itm_logits(fusion[:, 0, :])
+
+    return score
