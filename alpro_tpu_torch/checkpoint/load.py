@@ -2,7 +2,7 @@
 
 The port's parameter names *are* the original ALPRO torch keys (what
 ``alpro_tpu/checkpoint/export_torch.py::export_reference_state_dict``
-emits), with Linear weights in torch (out, in) layout, so a JAX-trained tree
+emits, and the port's copy of it in ``checkpoint/from_jax.py``), with Linear weights in torch (out, in) layout, so a JAX-trained tree
 and an official ALPRO ``.pt`` state dict load through the same function.
 Nothing is transposed here that the export already transposed; the one
 conversion is the strided-conv patch embedding ``patch_embed.proj.weight``
@@ -17,6 +17,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from alpro_tpu_torch.checkpoint.from_jax import alpro_state_dict
 
 _CONV_W = "patch_embed.proj.weight"
 _CONV_B = "patch_embed.proj.bias"
@@ -59,10 +61,7 @@ def load_alpro_state_dict(model: nn.Module, sd: Mapping) -> nn.Module:
 
 
 def from_jax_params(model: nn.Module, params) -> nn.Module:
-    """Load a JAX ``AlproModel`` param tree (numpy or jax arrays): the JAX
-    package's ``export_reference_state_dict`` followed by
-    ``load_alpro_state_dict``. Importing the exporter imports the JAX
-    package, so this is for environments that hold the JAX tree anyway."""
-    from alpro_tpu.checkpoint.export_torch import export_reference_state_dict
-
-    return load_alpro_state_dict(model, export_reference_state_dict(params))
+    """Load a JAX ``AlproModel`` param tree (numpy or jax arrays): the
+    port's own tree → ALPRO-key mapping (``checkpoint/from_jax.py``)
+    followed by ``load_alpro_state_dict``."""
+    return load_alpro_state_dict(model, alpro_state_dict(params))

@@ -1,85 +1,70 @@
-// Fused LayerNorm -> fc1 -> exact GELU -> fc2 -> (+ residual) over rows:
-// out = [x +] fc2(gelu(fc1(LN(x)))), x (R, D), hidden Dh.
+// Fused row MLP over x (R, D), hidden Dh, in two placements of the LN:
+//   pre-LN  (K3):  out = [x +] fc2(gelu(fc1(LN(x))))         TimeSformer tail
+//   post-LN (K5):  out = LN(x + fc2(gelu(fc1(x))))           BERT MLP chain
 //
-// Replaces the TPU kernel alpro_tpu/ops/pallas_ln_mlp.py::fused_ln_mlp
-// (_ln_mlp_kernel). Contract kept from it: one-pass fp32 LN statistics
-// (E[x^2] - E[x]^2, clamped at 0); fc1 on operands in the weights' dtype with
-// fp32 accumulation, plus b1; GELU with the exact erf in fp32; fc2 the same,
-// plus b2; the residual added in fp32; the (R, Dh) hidden never written to
-// device memory. The weights come in torch Linear layout: w1 (Dh, D),
-// w2 (D, Dh).
+// Replaces the TPU kernels alpro_tpu/ops/pallas_ln_mlp.py::fused_ln_mlp
+// (_ln_mlp_kernel) and alpro_tpu/ops/pallas_bert_block.py::
+// fused_bert_mlp_block (_bert_mlp_kernel). Contract kept from them: one-pass
+// fp32 LN statistics (E[x^2] - E[x]^2, clamped at 0); fc1 on operands in the
+// weights' dtype with fp32 accumulation, plus b1; GELU with the exact erf in
+// fp32; fc2 the same, plus b2; the residual added in fp32; the (R, Dh)
+// hidden never written to device memory. The weights come in torch Linear
+// layout: w1 (Dh, D), w2 (D, Dh).
 //
 // What bounds it on an H100: at the flagship (R = 3136, D = 768, Dh = 3072)
 // it is 30 GFLOP against 4.8 MB of activations and 9.4 MB of bf16 weights, so
 // the tensor cores bound it, provided the hidden stays on chip — which is the
 // point of fusing. Design: one block of 16 warps per tile of 32 rows; the
-// LN'd tile (32 x D, input dtype) sits in shared memory and the fp32 32 x D
-// accumulator in registers (warp w owns rows 16*(w/8).., one 16x16 output
-// tile in each 128-column group). The hidden is walked in chunks of 128:
-//   fc1: h = LN(x) . W1[chunk]^T over D/128 k-tiles (one 16x16 h tile per
+// (LN'd, for pre-LN) tile (32 x D, input dtype) sits in shared memory and the
+// fp32 32 x D accumulator in registers (warp w owns rows 16*(w/8).., one
+// 16x16 output tile in each 128-column group; row_tile.cuh). The hidden is
+// walked in chunks of 128:
+//   fc1: h = xn . W1[chunk]^T over D/128 k-tiles (one 16x16 h tile per
 //        warp), + b1, exact GELU into a small shared buffer;
 //   fc2: acc += gelu(h) . W2[:, chunk]^T over D/128 output groups.
 // Every weight tile (128 x 128) is read from device memory once per block
 // with coalesced 16-byte loads, stored to shared memory and shared by all
 // warps; the next tile is loaded into registers while the current one is
-// multiplied. When there are fewer row tiles than SMs (the B cls rows, small
-// batches) the hidden is split across blocks (grid.y): each writes its fp32
-// partial to a scratch buffer from the wrapper, and a second pass sums the
-// partials in a fixed order, adds b2 and the residual. bf16 products run on
-// the tensor cores (WMMA), fp32 on the CUDA cores (warp_tile.cuh).
-#include "warp_tile.cuh"
+// multiplied. The post-LN epilogue stages the whole fp32 row tile in shared
+// memory (aliasing the main loop's buffers) and applies LN per row. When
+// there are fewer row tiles than SMs (the B cls rows, one text query) the
+// hidden is split across blocks (grid.y): each writes its fp32 partial to a
+// scratch buffer from the wrapper, and a second pass sums the partials in a
+// fixed order, adds b2 and the residual (and, post-LN, applies the LN with
+// one block per row). bf16 products run on the tensor cores (WMMA), fp32 on
+// the CUDA cores (warp_tile.cuh).
+#include "row_tile.cuh"
 
 namespace {
 
-constexpr int kTM = 32;     // rows per block
-constexpr int kTile = 128;  // weight tile edge = hidden chunk = output group
-constexpr int kWarps = 16;
-constexpr int kThreads = kWarps * 32;
-static_assert((kTM / 16) * (kTile / 16) == kWarps, "one 16x16 tile per warp");
-
-// elements per 16 bytes: the vector width of the tile loads, and the padding
-// of every shared-memory row (against bank conflicts)
-template <typename T> __host__ __device__ constexpr int vec() { return 16 / int(sizeof(T)); }
-// 16-byte vectors of one 128 x 128 weight tile per thread
-template <typename T> __host__ __device__ constexpr int tile_vecs() {
-  return kTile * kTile / vec<T>() / kThreads;
-}
+using alpro::rows::kThreads;
+using alpro::rows::kTile;
+using alpro::rows::kTM;
+using alpro::rows::kWarps;
+using alpro::rows::tile_vecs;
+using alpro::rows::vec;
 
 template <typename T>
-size_t smem_bytes(int D) {
-  return size_t(kTM) * (D + vec<T>()) * sizeof(T)         // LN(x)
-         + size_t(kTM) * (kTile + vec<float>()) * 4       // fp32 fc1 chunk / epilogue
-         + size_t(kTM) * (kTile + vec<T>()) * sizeof(T)   // gelu chunk
-         + size_t(kTile) * (kTile + vec<T>()) * sizeof(T);  // weight tile
+size_t smem_bytes(int D, bool post_ln) {
+  const size_t main = size_t(kTM) * (D + vec<T>()) * sizeof(T)  // (LN'd) x tile
+                      + size_t(kTM) * (kTile + vec<float>()) * 4  // fp32 fc1 chunk / epilogue
+                      + size_t(kTM) * (kTile + vec<T>()) * sizeof(T)  // gelu chunk
+                      + size_t(kTile) * (kTile + vec<T>()) * sizeof(T);  // weight tile
+  // the post-LN row buffer aliases all of the above once the main loop is done
+  return post_ln ? std::max(main, alpro::rows::ybuf_bytes(D)) : main;
 }
 
 // Stage s of a hidden chunk h0: s < NG is fc1 k-tile s (W1 rows h0.., columns
 // 128*s..); s >= NG is fc2 output group g = s - NG (W2 rows 128*g..,
 // columns h0..). Tile row r is weight row (hidden unit or output column).
 template <typename T, int NG>
-__device__ __forceinline__ void load_tile(uint4 (&buf)[tile_vecs<T>()], const T* w1,
-                                          const T* w2, int D, int Dh, int h0, int s) {
+__device__ __forceinline__ void load_stage(uint4 (&buf)[tile_vecs<T>()], const T* w1,
+                                           const T* w2, int D, int Dh, int h0, int s) {
   const T* src = s < NG ? w1 + long(h0) * D + s * kTile : w2 + long(s - NG) * kTile * Dh + h0;
-  const int stride = s < NG ? D : Dh;
-  constexpr int vpr = kTile / vec<T>();  // vectors per tile row
-#pragma unroll
-  for (int i = 0; i < tile_vecs<T>(); ++i) {
-    const int idx = threadIdx.x + i * kThreads, r = idx / vpr, c = idx % vpr;
-    buf[i] = reinterpret_cast<const uint4*>(src + long(r) * stride)[c];
-  }
+  alpro::rows::load_tile<T>(buf, src, s < NG ? D : Dh);
 }
 
-template <typename T>
-__device__ __forceinline__ void store_tile(const uint4 (&buf)[tile_vecs<T>()], T* wt) {
-  constexpr int vpr = kTile / vec<T>(), ld = kTile + vec<T>();
-#pragma unroll
-  for (int i = 0; i < tile_vecs<T>(); ++i) {
-    const int idx = threadIdx.x + i * kThreads, r = idx / vpr, c = idx % vpr;
-    reinterpret_cast<uint4*>(wt + r * ld)[c] = buf[i];
-  }
-}
-
-template <typename T, int NG>  // NG = D / 128
+template <typename T, int NG, bool kPostLN>  // NG = D / 128
 __global__ void __launch_bounds__(kThreads, 1)
 ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
               const float* __restrict__ ln_b, const T* __restrict__ w1,
@@ -102,13 +87,18 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
 
   const int h_lo = blockIdx.y * h_split, h_hi = min(Dh, h_lo + h_split);
   uint4 buf[tile_vecs<T>()];
-  load_tile<T, NG>(buf, w1, w2, D, Dh, h_lo, 0);  // in flight during the LN
+  load_stage<T, NG>(buf, w1, w2, D, Dh, h_lo, 0);  // in flight during the LN
 
-  // ---- LN rows (one warp per row), one-pass fp32 statistics ----
+  // ---- the x tile: LN'd (one warp per row, one-pass fp32 statistics) for
+  //      pre-LN, as it is for post-LN ----
   for (int r = warp; r < kTM; r += kWarps) {
     const int row = r0 + r;
     T* xr = xn + r * ldx;
-    if (row < R) {
+    if (row < R && kPostLN) {
+      const T* src = x + long(row) * D;
+      for (int c = lane * vec<T>(); c < D; c += 32 * vec<T>())
+        *reinterpret_cast<uint4*>(xr + c) = *reinterpret_cast<const uint4*>(src + c);
+    } else if (row < R) {
       const T* src = x + long(row) * D;
       float s = 0.0f, ss = 0.0f;
       for (int c = lane; c < D; c += 32) {
@@ -138,12 +128,12 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
 #pragma unroll
     for (int s = 0; s < 2 * NG; ++s) {
       __syncthreads();  // every warp is done with the previous tile (and the LN)
-      store_tile<T>(buf, wt);
+      alpro::rows::store_tile<T>(buf, wt);
       __syncthreads();
       if (s + 1 < 2 * NG)
-        load_tile<T, NG>(buf, w1, w2, D, Dh, h0, s + 1);
+        load_stage<T, NG>(buf, w1, w2, D, Dh, h0, s + 1);
       else if (h0 + kTile < h_hi)
-        load_tile<T, NG>(buf, w1, w2, D, Dh, h0 + kTile, 0);
+        load_stage<T, NG>(buf, w1, w2, D, Dh, h0 + kTile, 0);
       if (s < NG) {
         // fc1 k-tile s: h(tr, tc) += xn[rows, 128s..] . W1tile^T (col-major in wt)
 #pragma unroll
@@ -170,9 +160,16 @@ ln_mlp_kernel(const T* __restrict__ x, const float* __restrict__ ln_s,
     }
   }
 
+  __syncthreads();  // every buffer of the main loop is free again
+  if constexpr (kPostLN) {
+    if (partial == nullptr) {
+      alpro::rows::post_ln_epilogue<T, NG>(acc, reinterpret_cast<float*>(smem), b2, x, ln_s,
+                                           ln_b, out, r0, R, eps);
+      return;
+    }
+  }
   // ---- epilogue, one 16x16 tile at a time through a per-warp buffer:
   //      + b2, + residual in fp32, store; or the fp32 partial of this split ----
-  __syncthreads();  // hb is free again
   float* stage = hb + warp * 256;
 #pragma unroll
   for (int g = 0; g < NG; ++g) {
@@ -212,25 +209,84 @@ __global__ void ln_mlp_finalize(const float* __restrict__ partial, int splits,
   out[i] = alpro::from_f32<T>(y);
 }
 
-template <typename T, int NG>
+// post-LN: the same sum, + b2 + x, then LN of the row; one block per row
+constexpr int kFinThreads = 256;
+constexpr int kFinMaxPer = 4;  // D <= 1024
+
+template <typename T>
+__global__ void __launch_bounds__(kFinThreads)
+bert_mlp_finalize(const float* __restrict__ partial, int splits, const float* __restrict__ b2,
+                  const T* __restrict__ x, const float* __restrict__ ln_s,
+                  const float* __restrict__ ln_b, T* __restrict__ out, int R, int D,
+                  float eps) {
+  __shared__ float red[2][kFinThreads / 32];
+  const int row = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long n = long(R) * D, base = long(row) * D;
+  float y[kFinMaxPer];
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kFinMaxPer; ++j) {
+    const int c = threadIdx.x + j * kFinThreads;
+    y[j] = 0.0f;
+    if (c < D) {
+      float v = 0.0f;
+      for (int k = 0; k < splits; ++k) v += partial[k * n + base + c];
+      v += b2[c] + alpro::to_f32(x[base + c]);
+      y[j] = v;
+      s += v;
+      ss = fmaf(v, v, ss);
+    }
+  }
+  s = alpro::warp_sum(s);
+  ss = alpro::warp_sum(ss);
+  if (lane == 0) {
+    red[0][warp] = s;
+    red[1][warp] = ss;
+  }
+  __syncthreads();
+  s = ss = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kFinThreads / 32; ++w) {
+    s += red[0][w];
+    ss += red[1][w];
+  }
+  const float mean = s / D;
+  const float var = fmaxf(ss / D - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int j = 0; j < kFinMaxPer; ++j) {
+    const int c = threadIdx.x + j * kFinThreads;
+    if (c < D) out[base + c] = alpro::from_f32<T>((y[j] - mean) * rstd * ln_s[c] + ln_b[c]);
+  }
+}
+
+template <typename T, int NG, bool kPostLN>
 int launch(const void* x, const void* s, const void* b, const void* w1, const void* b1,
            const void* w2, const void* b2, void* out, void* partial, int R, int Dh,
            int h_split, float eps, int residual, cudaStream_t stream) {
   constexpr int D = NG * kTile;
-  const size_t smem = smem_bytes<T>(D);
-  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<T, NG>,
+  static_assert(D <= kFinMaxPer * kFinThreads, "bert_mlp_finalize holds a row in registers");
+  const size_t smem = smem_bytes<T>(D, kPostLN);
+  cudaError_t err = cudaFuncSetAttribute(ln_mlp_kernel<T, NG, kPostLN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(smem));
   if (err != cudaSuccess) return int(err);
   const int splits = (Dh + h_split - 1) / h_split;
   dim3 grid((R + kTM - 1) / kTM, splits);
-  ln_mlp_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
+  ln_mlp_kernel<T, NG, kPostLN><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(s), static_cast<const float*>(b),
       static_cast<const T*>(w1), static_cast<const float*>(b1), static_cast<const T*>(w2),
       static_cast<const float*>(b2), static_cast<T*>(out),
       splits > 1 ? static_cast<float*>(partial) : nullptr, R, Dh, h_split, eps, residual);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return int(err);
+  if constexpr (kPostLN) {
+    bert_mlp_finalize<T><<<R, kFinThreads, 0, stream>>>(
+        static_cast<const float*>(partial), splits, static_cast<const float*>(b2),
+        static_cast<const T*>(x), static_cast<const float*>(s), static_cast<const float*>(b),
+        static_cast<T*>(out), R, D, eps);
+    return int(cudaGetLastError());
+  }
   const long n = long(R) * D;
   ln_mlp_finalize<T><<<unsigned((n + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(partial), splits, static_cast<const float*>(b2),
@@ -238,15 +294,15 @@ int launch(const void* x, const void* s, const void* b, const void* w1, const vo
   return int(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kPostLN>
 int dispatch(const void* x, const void* s, const void* b, const void* w1, const void* b1,
              const void* w2, const void* b2, void* out, void* partial, int R, int D, int Dh,
              int h_split, float eps, int residual, cudaStream_t st) {
   switch (D) {
-#define ALPRO_LN_MLP_CASE(NG)                                                          \
-  case NG * kTile:                                                                      \
-    return launch<T, NG>(x, s, b, w1, b1, w2, b2, out, partial, R, Dh, h_split, eps, \
-                         residual, st);
+#define ALPRO_LN_MLP_CASE(NG)                                                               \
+  case NG * kTile:                                                                           \
+    return launch<T, NG, kPostLN>(x, s, b, w1, b1, w2, b2, out, partial, R, Dh, h_split, \
+                                  eps, residual, st);
     ALPRO_LN_MLP_CASE(2)
     ALPRO_LN_MLP_CASE(4)
     ALPRO_LN_MLP_CASE(6)
@@ -256,20 +312,39 @@ int dispatch(const void* x, const void* s, const void* b, const void* w1, const 
   }
 }
 
-}  // namespace
-
-// partial: fp32 (ceil(Dh / h_split), R, D) scratch, used when h_split < Dh.
-extern "C" int alpro_ln_mlp(const void* x, const void* ln_s, const void* ln_b,
-                            const void* w1, const void* b1, const void* w2, const void* b2,
-                            void* out, void* partial, int R, int D, int Dh, int h_split,
-                            float eps, int residual, int is_bf16, int device, void* stream) {
+template <bool kPostLN>
+int run(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
+        const void* w2, const void* b2, void* out, void* partial, int R, int D, int Dh,
+        int h_split, float eps, int residual, int is_bf16, int device, void* stream) {
   if (h_split < 1 || h_split % kTile != 0 || Dh % kTile != 0) return int(cudaErrorInvalidValue);
   if (h_split < Dh && partial == nullptr) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R,
-                                           D, Dh, h_split, eps, residual, st)
-                 : dispatch<float>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh,
-                                   h_split, eps, residual, st);
+  return is_bf16 ? dispatch<__nv_bfloat16, kPostLN>(x, ln_s, ln_b, w1, b1, w2, b2, out,
+                                                    partial, R, D, Dh, h_split, eps,
+                                                    residual, st)
+                 : dispatch<float, kPostLN>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R,
+                                            D, Dh, h_split, eps, residual, st);
+}
+
+}  // namespace
+
+// K3, pre-LN: out = [x +] fc2(gelu(fc1(LN(x)))).
+// partial: fp32 (ceil(Dh / h_split), R, D) scratch, used when h_split < Dh.
+extern "C" int alpro_ln_mlp(const void* x, const void* ln_s, const void* ln_b,
+                            const void* w1, const void* b1, const void* w2, const void* b2,
+                            void* out, void* partial, int R, int D, int Dh, int h_split,
+                            float eps, int residual, int is_bf16, int device, void* stream) {
+  return run<false>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh, h_split, eps,
+                    residual, is_bf16, device, stream);
+}
+
+// K5, post-LN: out = LN(x + fc2(gelu(fc1(x)))); ln_s, ln_b are the closing LN's.
+extern "C" int alpro_bert_mlp(const void* x, const void* w1, const void* b1, const void* w2,
+                              const void* b2, const void* ln_s, const void* ln_b, void* out,
+                              void* partial, int R, int D, int Dh, int h_split, float eps,
+                              int is_bf16, int device, void* stream) {
+  return run<true>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh, h_split, eps, 1,
+                   is_bf16, device, stream);
 }

@@ -1,0 +1,100 @@
+// Shared pieces of the row-tile kernels (ln_mlp.cu, bert_attn.cu's
+// projection + LN pass): a block of kWarps warps owns kTM whole rows across
+// all D output columns, with one fp32 16x16 accumulator tile per warp in
+// every 128-column group held in registers; weight tiles of 128 x 128 are
+// read from device memory with coalesced 16-byte loads into registers,
+// stored to shared memory, and multiplied by every warp.
+#pragma once
+
+#include <algorithm>
+
+#include "warp_tile.cuh"
+
+namespace alpro {
+namespace rows {
+
+constexpr int kTM = 32;     // rows per block
+constexpr int kTile = 128;  // weight tile edge = output group width
+constexpr int kWarps = 16;
+constexpr int kThreads = kWarps * 32;
+static_assert((kTM / 16) * (kTile / 16) == kWarps, "one 16x16 tile per warp");
+
+// elements per 16 bytes: the vector width of the tile loads, and the padding
+// of every shared-memory row (against bank conflicts)
+template <typename T> __host__ __device__ constexpr int vec() { return 16 / int(sizeof(T)); }
+// 16-byte vectors of one 128 x 128 weight tile per thread
+template <typename T> __host__ __device__ constexpr int tile_vecs() {
+  return kTile * kTile / vec<T>() / kThreads;
+}
+// leading dimension of the fp32 (kTM x D) row buffer of the post-LN epilogue
+__host__ __device__ constexpr int ybuf_ld(int D) { return D + 8; }
+inline size_t ybuf_bytes(int D) { return size_t(kTM) * ybuf_ld(D) * 4; }
+
+// the 128 x 128 tile at src (row stride `stride` elements) into registers
+template <typename T>
+__device__ __forceinline__ void load_tile(uint4 (&buf)[tile_vecs<T>()], const T* src,
+                                          int stride) {
+  constexpr int vpr = kTile / vec<T>();  // vectors per tile row
+#pragma unroll
+  for (int i = 0; i < tile_vecs<T>(); ++i) {
+    const int idx = threadIdx.x + i * kThreads, r = idx / vpr, c = idx % vpr;
+    buf[i] = reinterpret_cast<const uint4*>(src + long(r) * stride)[c];
+  }
+}
+
+// registers -> shared tile wt (leading dimension kTile + vec<T>())
+template <typename T>
+__device__ __forceinline__ void store_tile(const uint4 (&buf)[tile_vecs<T>()], T* wt) {
+  constexpr int vpr = kTile / vec<T>(), ld = kTile + vec<T>();
+#pragma unroll
+  for (int i = 0; i < tile_vecs<T>(); ++i) {
+    const int idx = threadIdx.x + i * kThreads, r = idx / vpr, c = idx % vpr;
+    reinterpret_cast<uint4*>(wt + r * ld)[c] = buf[i];
+  }
+}
+
+// Post-LN epilogue: out[r0 + r] = LN(acc + bias + x), fp32 residual and
+// one-pass fp32 statistics (E[y^2] - E[y]^2, clamped at 0), for the block's
+// kTM rows. ybuf: fp32 (kTM x ybuf_ld(D)) shared memory that nothing else
+// uses any more (the caller syncs the block before). Ends with the block
+// synced.
+template <typename T, int NG>
+__device__ __forceinline__ void post_ln_epilogue(WarpTile<T> (&acc)[NG], float* ybuf,
+                                                 const float* __restrict__ bias,
+                                                 const T* __restrict__ x,
+                                                 const float* __restrict__ ln_s,
+                                                 const float* __restrict__ ln_b,
+                                                 T* __restrict__ out, int r0, int R,
+                                                 float eps) {
+  constexpr int D = NG * kTile, ld = ybuf_ld(D);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = warp / (kTile / 16), tc = warp % (kTile / 16);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g].store(ybuf + tr * 16 * ld + g * kTile + tc * 16, ld);
+  __syncthreads();
+  for (int r = warp; r < kTM; r += kWarps) {
+    const int row = r0 + r;
+    if (row >= R) continue;
+    float* yr = ybuf + r * ld;
+    const T* xr = x + long(row) * D;
+    float s = 0.0f, ss = 0.0f;
+    for (int c = lane; c < D; c += 32) {
+      const float v = yr[c] + bias[c] + to_f32(xr[c]);
+      yr[c] = v;
+      s += v;
+      ss = fmaf(v, v, ss);
+    }
+    s = warp_sum(s);
+    ss = warp_sum(ss);
+    const float mean = s / D;
+    const float var = fmaxf(ss / D - mean * mean, 0.0f);
+    const float rstd = rsqrtf(var + eps);
+    T* orow = out + long(row) * D;
+    for (int c = lane; c < D; c += 32)
+      orow[c] = from_f32<T>((yr[c] - mean) * rstd * ln_s[c] + ln_b[c]);
+  }
+  __syncthreads();
+}
+
+}  // namespace rows
+}  // namespace alpro

@@ -1,10 +1,13 @@
-"""ALPRO retrieval model: video tower, split BERT, projections, ITM head.
+"""ALPRO model: video tower, split BERT, projections, ITM head, QA classifier.
 
-Counterpart of ``alpro_tpu/models/alpro.py`` for the retrieval slice
-(``AlproForVideoTextRetrieval``): the building blocks the serving path
-composes (``embed_video``, ``embed_text``, ``video_feat``/``text_feat``,
-``fuse``, ``itm_logits``, ``temperature``). Parameter names are the ALPRO
-state-dict keys (``checkpoint/load.py``).
+Counterpart of ``alpro_tpu/models/alpro.py`` for the serving slices
+(``AlproForVideoTextRetrieval``; ``AlproForSequenceClassification`` when
+``num_labels > 0``): the building blocks the serving paths compose
+(``embed_video``, ``embed_text``, ``video_feat``/``text_feat``, ``fuse``,
+``itm_logits``, ``classify``, ``temperature``). Parameter names are the
+ALPRO state-dict keys (``checkpoint/load.py``); the classifier is
+``classifier.0`` (768 → 768·cls_hidden_scale), ReLU, ``classifier.2``
+(→ num_labels).
 
 ``dtype`` is the compute dtype: weights are cast to it at use (so fp32
 weights serve in bf16, as in the JAX package), LayerNorm statistics stay
@@ -30,6 +33,8 @@ class AlproConfig:
     visual: TimeSformerConfig
     embed_dim: int = 256
     temp_init: float = 0.07
+    num_labels: int = 0
+    cls_hidden_scale: int = 2
 
 
 class AlproModel(nn.Module):
@@ -44,6 +49,11 @@ class AlproModel(nn.Module):
         self.text_proj = nn.Linear(D, cfg.embed_dim)
         self.itm_head = nn.Linear(D, 2)
         self.temp = nn.Parameter(torch.tensor(cfg.temp_init))
+        if cfg.num_labels > 0:
+            hidden = D * cfg.cls_hidden_scale
+            self.classifier = nn.Sequential(
+                nn.Linear(D, hidden), nn.ReLU(), nn.Linear(hidden, cfg.num_labels)
+            )
 
     def temperature(self) -> torch.Tensor:
         return torch.clamp(self.temp, 0.001, 0.5)
@@ -89,24 +99,44 @@ class AlproModel(nn.Module):
     def itm_logits(self, fusion_cls: torch.Tensor) -> torch.Tensor:
         return linear(fusion_cls, self.itm_head, self.dtype).float()
 
+    def classify(self, fusion_cls: torch.Tensor) -> torch.Tensor:
+        """QA head: (B, D) fusion CLS → (B, num_labels) fp32 logits."""
+        hidden = torch.relu(linear(fusion_cls, self.classifier[0], self.dtype))
+        return linear(hidden, self.classifier[2], self.dtype).float()
+
+
+def _cfgs(bert_cfg, video_enc_cfg, img_size: int, num_frm: int):
+    bert = (bert_cfg if isinstance(bert_cfg, BertConfig)
+            else BertConfig.from_json_dict(bert_cfg))
+    vis = (video_enc_cfg if isinstance(video_enc_cfg, TimeSformerConfig)
+           else TimeSformerConfig.from_reference_cfg(video_enc_cfg, img_size, num_frm))
+    return bert, vis
+
 
 def build_retrieval_model(bert_cfg, video_enc_cfg, img_size: int = 224,
                           num_frm: int = 8, dtype=torch.float32) -> AlproModel:
     """``bert_cfg``: a BertConfig or a ``configs/base_model.json`` dict;
     ``video_enc_cfg``: a TimeSformerConfig or a
     ``configs/timesformer_divst_8x32_224_k600.json`` dict."""
-    bert = (bert_cfg if isinstance(bert_cfg, BertConfig)
-            else BertConfig.from_json_dict(bert_cfg))
-    vis = (video_enc_cfg if isinstance(video_enc_cfg, TimeSformerConfig)
-           else TimeSformerConfig.from_reference_cfg(video_enc_cfg, img_size, num_frm))
+    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm)
     return AlproModel(AlproConfig(bert=bert, visual=vis), dtype=dtype)
+
+
+def build_qa_model(bert_cfg, video_enc_cfg, num_labels: int, img_size: int = 224,
+                   num_frm: int = 16, cls_hidden_scale: int = 2,
+                   dtype=torch.float32) -> AlproModel:
+    """The retrieval model plus the QA classifier (``configs/msrvtt_qa.json``:
+    1500 labels, 16 frames, ``cls_hidden_scale`` 2)."""
+    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm)
+    return AlproModel(AlproConfig(bert=bert, visual=vis, num_labels=num_labels,
+                                  cls_hidden_scale=cls_hidden_scale), dtype=dtype)
 
 
 @torch.no_grad()
 def init_random_(model: AlproModel, generator: torch.Generator) -> AlproModel:
     """Seeded random weights in place: every matrix, embedding and bias
-    ~ N(0, initializer_range), LayerNorm scales 1 and biases 0, ``temp`` at
-    its init. For runs with no trained checkpoint."""
+    (the QA classifier's too) ~ N(0, initializer_range), LayerNorm scales 1
+    and biases 0, ``temp`` at its init. For runs with no trained checkpoint."""
     std = model.cfg.bert.initializer_range
     norms = {id(p) for m in model.modules() if isinstance(m, LayerNorm)
              for p in m.parameters()}

@@ -7,11 +7,14 @@ layers [0, fusion_layer) on token embeddings, ``mode='fusion'`` runs
 the HF constant ``(1-mask)·-10000``. Parameter names follow the ALPRO state
 dict (``text_encoder.bert.*``).
 
-``block_impl``: only the plain layer is ported (``plain``, the default;
-``xla``, as a JAX config names it, means the same).
-``fused`` — the two Pallas BERT block kernels the TPU package uses at
-serving — raises until those kernels are ported (ROADMAP queue B, items 4
-and 5).
+``block_impl``: ``fused`` runs each layer as two kernels — the masked
+attention chain and the post-LN MLP chain (``ops/bert_block.py``), reading
+the same parameters as the plain layer; ``plain`` runs the plain layer
+(``xla``, as a JAX config names it, means the same); ``auto`` (the default)
+resolves to ``fused`` for a CUDA tensor and to ``plain`` for a CPU tensor.
+The TPU package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried
+over: the kernels take every S the model gives, up to a limit they raise on
+(``bert_block.max_seq_len``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from torch import nn
 
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
+from alpro_tpu_torch.ops.bert_block import bert_attention_block, bert_mlp_block
 from alpro_tpu_torch.ops.layers import LayerNorm, gelu_exact, linear
 
 
@@ -38,19 +42,19 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     fusion_layer: int = 6
     initializer_range: float = 0.02
-    block_impl: str = "plain"
+    block_impl: str = "auto"
 
     def __post_init__(self):
-        if self.block_impl == "fused":
-            raise NotImplementedError(
-                "block_impl='fused' needs the fused BERT attention and MLP block "
-                "kernels, which are not ported yet (ROADMAP queue B, items 4-5); "
-                "use 'plain'"
-            )
-        if self.block_impl not in ("plain", "xla"):
+        if self.block_impl not in ("auto", "fused", "plain", "xla"):
             raise ValueError(
-                f"block_impl={self.block_impl!r}: expected 'plain' or 'xla'"
+                f"block_impl={self.block_impl!r}: expected 'auto', 'fused', 'plain' or 'xla'"
             )
+
+    def use_fused(self, x: torch.Tensor) -> bool:
+        """Whether the layers run the fused kernels for activations ``x``."""
+        if self.block_impl == "auto":
+            return x.device.type == "cuda"
+        return self.block_impl == "fused"
 
     @classmethod
     def from_json_dict(cls, d: dict) -> "BertConfig":
@@ -101,7 +105,9 @@ class BertLayer(nn.Module):
             dense=nn.Linear(cfg.intermediate_size, D), LayerNorm=LayerNorm(D, eps)
         )
 
-    def forward(self, x, attention_mask, dtype):
+    def forward(self, x, attention_mask, dtype, fused: bool):
+        if fused:
+            return self._fused(x, attention_mask, dtype)
         B, L, D = x.shape
         H = self.num_heads
         sa = self.attention.self
@@ -112,6 +118,22 @@ class BertLayer(nn.Module):
         x = out.LayerNorm(linear(ctx, out.dense, dtype) + x, dtype)
         inter = gelu_exact(linear(x, self.intermediate.dense, dtype))
         return self.output.LayerNorm(linear(inter, self.output.dense, dtype) + x, dtype)
+
+    def _fused(self, x, attention_mask, dtype):
+        """The two kernels, on the weights and biases cast to the compute
+        dtype (as the JAX layer casts them) and the LN parameters as stored."""
+        sa, ao = self.attention.self, self.attention.output
+        x = bert_attention_block(
+            x.to(dtype), attention_mask,
+            *(t.to(dtype) for lin in (sa.query, sa.key, sa.value, ao.dense)
+              for t in (lin.weight, lin.bias)),
+            ao.LayerNorm.weight, ao.LayerNorm.bias, self.num_heads, eps=ao.LayerNorm.eps,
+        )
+        fc1, fc2, ln = self.intermediate.dense, self.output.dense, self.output.LayerNorm
+        return bert_mlp_block(
+            x, fc1.weight.to(dtype), fc1.bias.to(dtype), fc2.weight.to(dtype),
+            fc2.bias.to(dtype), ln.weight, ln.bias, eps=ln.eps,
+        )
 
 
 class BertModel(nn.Module):
@@ -147,6 +169,9 @@ class BertModel(nn.Module):
             x = encoder_embeds.to(self.dtype)
         if attention_mask is None:
             attention_mask = torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
+        fused = cfg.use_fused(x)
+        if fused:  # the kernels read an fp32 mask: convert once, not per layer
+            attention_mask = attention_mask.float()
         for layer in self.encoder.layer[lo:hi]:
-            x = layer(x, attention_mask, self.dtype)
+            x = layer(x, attention_mask, self.dtype, fused)
         return x

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``alpro_tpu_torch/csrc/*.cu``).
 
-All sources are compiled by ``nvcc`` into one shared library with a plain C
-interface and loaded with ``ctypes``. Nothing here runs at import: the build
+Each source is compiled by its own ``nvcc`` process, all started together,
+and the objects are linked into one shared library with a plain C interface,
+loaded with ``ctypes``. Nothing here runs at import: the build
 happens at the first kernel launch (or an explicit ``build()``), into
 ``alpro_tpu_torch/_build/<hash>/``, keyed by a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one loads the cached
@@ -31,7 +32,7 @@ BUILD_ROOT = _PKG / "_build"
 LIB_NAME = "libalpro_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -46,6 +47,18 @@ _SIGNATURES = {
     "alpro_ln_mlp": (
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], _I
     ),
+    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, partial, R, D, Dh, h_split,
+    # eps, is_bf16, device, stream
+    "alpro_bert_mlp": (
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I
+    ),
+    # x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, heads, out,
+    # M, S, H, q_split, scale, eps, is_bf16, device, stream
+    "alpro_bert_attn": (
+        [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _P], _I
+    ),
+    # is_bf16, device
+    "alpro_bert_attn_max_seq": ([_I, _I], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -81,23 +94,40 @@ def find_nvcc() -> str:
     )
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, process); then raise on the failed ones."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
-    """Compile csrc/*.cu into one .so (cached by source hash); returns its
-    path."""
+    """Compile csrc/*.cu, one nvcc process per source all at once, and link
+    them into one .so (cached by source hash); returns its path."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp)]
-    cmd += [str(p) for p in sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    objs, procs = [], []
+    for src in (p for p in sources() if p.suffix == ".cu"):
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj), str(src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True)))
+        objs.append(obj)
+    _run(procs)
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True))])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, lib_path)
     return lib_path
 

@@ -1,8 +1,9 @@
-"""Tower-level inference functions of retrieval serving.
+"""Tower-level inference functions of retrieval and QA serving.
 
 Counterpart of the inference builders in ``alpro_tpu/train/step.py``
-(``make_text_encode_fn``, ``make_video_embed_fn``, ``make_fusion_score_fn``;
-the port has no ``train`` package yet). The JAX builders return pure
+(``make_text_encode_fn``, ``make_video_embed_fn``, ``make_fusion_score_fn``,
+``_qa_logits``, ``make_qa_inference_fn``, ``make_qa_video_encode_fn``; the
+port has no ``train`` package yet). The JAX builders return pure
 functions of ``(params, ...)``; here the model owns its weights, so each
 function takes only the inputs and runs under ``torch.inference_mode``.
 """
@@ -52,3 +53,46 @@ def make_fusion_score_fn(model: AlproModel) -> Callable:
         return model.itm_logits(fusion[:, 0, :])
 
     return score
+
+
+def qa_logits(model: AlproModel, batch, n_options: int = 1) -> torch.Tensor:
+    """QA logits (B, num_labels) fp32 (``_qa_logits``). ``batch`` holds
+    ``text_input_ids``/``text_input_mask`` and either cached
+    ``video_embeds`` (n, 1+N, D) or ``visual_inputs`` pixels. With
+    ``n_options > 1`` (multi-choice, ``num_labels`` 1) the text rows are
+    question-major (B·n_options) Q+option sequences against B videos: each
+    video row repeats per option and the scores regroup to (B, n_options)."""
+    if "video_embeds" in batch:
+        video_embeds = batch["video_embeds"]
+    else:
+        video_embeds = model.embed_video(batch["visual_inputs"])
+    mask = batch["text_input_mask"]
+    text_embeds = model.embed_text(batch["text_input_ids"], mask)
+    if n_options > 1:
+        video_embeds = video_embeds.repeat_interleave(n_options, dim=0)
+    fusion = model.fuse(text_embeds, mask, video_embeds)
+    logits = model.classify(fusion[:, 0, :])
+    if n_options > 1:
+        logits = logits.reshape(-1, n_options)
+    return logits
+
+
+def make_qa_inference_fn(model: AlproModel, n_options: int = 1) -> Callable:
+    """batch → ``qa_logits(model, batch, n_options)``."""
+
+    @torch.inference_mode()
+    def infer(batch):
+        return qa_logits(model, batch, n_options)
+
+    return infer
+
+
+def make_qa_video_encode_fn(model: AlproModel) -> Callable:
+    """(n, T, H, W, 3) pixels → (n, 1+N, D) video tokens: the tower half of
+    ``qa_logits``, so QA serving encodes a video once for many questions."""
+
+    @torch.inference_mode()
+    def encode(pixels):
+        return model.embed_video(pixels)
+
+    return encode

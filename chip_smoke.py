@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
-retrieval serving path at full ALPRO-base width.
+retrieval and the video QA serving paths at full ALPRO-base width.
 
     python3 chip_smoke.py
 
@@ -11,16 +11,25 @@ line):
    power limit (``nvidia-smi``); TF32 off for matmuls and cuDNN;
 2. build — compiles ``alpro_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each CUDA kernel against its plain PyTorch twin on the same
-   bf16 inputs at the shapes of the main path, with the tolerance stated
-   beside it, and the median time of both;
-4. slice — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
+   bf16 inputs at the shapes of the main paths, with the tolerance stated
+   beside it; the median time of both, of one PyTorch library call that
+   computes the same function where there is one, and the least time the
+   card could take at the main shape (``bound_ms``);
+4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
    ``add_videos`` calls, then answers 4 texts by ``query`` and by
    ``query_batch``. The kernel launch counts of that run must be 12
-   (attention) and 24 (MLP tail) per embed call. The same index on the
-   plain path (every ``*_impl='plain'``) is the reference for features and
-   P(match), and must launch no kernel.
+   (spatial), 12 (temporal) and 24 (MLP tail) per embed call and 12 of each
+   BERT kernel per query call. The same index on the plain path (every
+   ``*_impl='plain'``) is the reference for features and P(match), and must
+   launch no kernel. Query p50 is read with and without the BERT kernels;
+5. QA — the ALPRO-base MSRVTT-QA model (``configs/msrvtt_qa.json``: T=16,
+   1500 labels, synthetic answers ``ans{i}``) behind a ``VideoQAPredictor``:
+   ``encode_video`` on 2 clips, ``predict`` on the cached tokens for 4
+   questions and once from pixels, ``predict_batch`` on the 4 questions,
+   each with its exact launch counts; cached agrees with pixels, ``predict``
+   with ``predict_batch``, and the kernel path with the plain path.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -44,6 +53,9 @@ REPO = Path(__file__).resolve().parent
 SEED = 0
 N_CLIPS, CLIPS_PER_CALL = 16, 8
 FRAMES, PATCHES = 8, 196  # TimeSformer-B/16 at 8 x 224²
+QA_FRAMES, QA_CLIPS, QA_TXT_LEN = 16, 2, 40  # configs/msrvtt_qa.json
+QUESTIONS = ["what is the man doing", "what color is the car", "who is singing",
+             "how many people are dancing"]
 TEXTS = ["a dog catches a frisbee", "the cat jumps", "a person is playing",
          "a man is cooking"]
 CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
@@ -51,14 +63,29 @@ CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
 # kernel vs twin, elementwise |kernel - twin| <= atol + rtol·|twin|, bf16:
 # the outputs are bf16 (one ulp is 2^-8 relative); the spatial kernel also
 # rounds p to bf16 before PV where its twin keeps fp32
-KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2}
+# rounds p to bf16 before PV where its twin keeps fp32, and the BERT attention
+# kernel q, k, v, p and the per-head output (its TPU kernel's rounding points)
+KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2,
+              "bert_attn": 3e-2, "bert_mlp": 2e-2}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # query vs query_batch: the same bf16 towers at batch 1 and 4
 QUERY_PROB_TOL = 1e-2
 # kernel path vs plain path, 12 bf16 blocks apart: VTC features (unit norm,
 # entries ~0.06) and P(match)
 PLAIN_FEAT_TOL = 2e-2
 PLAIN_PROB_TOL = 3e-2
-
+# QA, pooled answer distributions over 1500 labels (random weights make them
+# near uniform, 1/1500 = 6.7e-4, so they are compared as probabilities and
+# as log-probabilities): kernel path vs plain path (video tower and 12 BERT
+# layers in bf16 apart) and predict vs predict_batch (the same kernels at
+# other batch sizes). A top-1 answer must agree wherever the reference's
+# top-1 log-probability margin exceeds twice the tolerance (each side may
+# move by the tolerance).
+QA_PLAIN_TOL = {"prob": 1e-4, "logp": 1e-1}
+QA_BATCH_TOL = {"prob": 2e-5, "logp": 2e-2}
+# cached tokens vs pixels: the same kernels on the same batch
+QA_CACHE_TOL = {"prob": 1e-6, "logp": 1e-3}
 
 def fail_if(cond: bool, msg: str) -> None:
     if cond:
@@ -108,10 +135,12 @@ def phase_build() -> None:
           flush=True)
 
 
-def _compare(name, shape, kernel, twin, card, main: bool = False) -> dict:
-    """Kernel vs twin on the same inputs; ``main`` marks the shape one
-    ``add_videos`` call of the slice gives the kernel (the JSON line reports
-    that one)."""
+def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
+             work=None) -> dict:
+    """Kernel vs twin on the same inputs; ``main`` marks the shape the main
+    path gives the kernel (the JSON line reports that one), with ``work`` =
+    (FLOP, bytes) of the function there and ``library`` one PyTorch call
+    that computes it, where one exists."""
     got, want = kernel(), twin()
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -120,20 +149,35 @@ def _compare(name, shape, kernel, twin, card, main: bool = False) -> dict:
     max_rel = max_abs / max(float(want.float().abs().max()), 1e-30)
     bad = int((diff > tol + tol * want.float().abs()).sum())
     ms, plain_ms = median_ms(kernel), median_ms(twin)
-    print(f"[kernel] {name} {shape}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
-          f"(tol atol=rtol={tol}, {bad} outside); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-          f"[{card}]", flush=True)
+    lib_ms = median_ms(library) if library is not None else None
+    res = {"shape": list(shape), "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "main": main}
+    extra = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    if work is not None:
+        flop_ms, byte_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
+        res["bound_ms"] = max(flop_ms, byte_ms)
+        res["bound_by"] = "operations" if flop_ms >= byte_ms else "bytes"
+        extra += (f"; bound {res['bound_ms']:.4f} ms by {res['bound_by']} ({work[0] / 1e9:.2f}"
+                  f" GFLOP, {work[1] / 1e6:.2f} MB)")
+    print(f"[kernel] {name} {tuple(shape)}: max_abs {max_abs:.3e} max_rel {max_rel:.3e} "
+          f"(tol atol=rtol={tol}, {bad} outside); kernel {ms:.4f} ms, twin {plain_ms:.4f} ms"
+          f"{extra} [{card}]", flush=True)
     fail_if(not bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
     fail_if(bad > 0, f"{name} {shape}: {bad} elements outside tolerance {tol}")
-    return {"shape": list(shape), "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "main": main}
+    return res
+
+
+def _sdpa(q, k, v):
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v)
 
 
 def phase_kernels(card: str) -> dict:
-    """Each kernel at B=2 clips (T=16 too for the temporal kernel, the QA
-    frame count; R=B cls rows without the residual for the MLP tail) and at
-    the shapes of one add_videos call of CLIPS_PER_CALL clips."""
-    from alpro_tpu_torch.ops import ln_mlp, qkv_attn
+    """Each kernel against its twin: the video kernels at B=2 clips (T=16
+    too for the temporal kernel, QA's frame count; R=B cls rows without the
+    residual for the MLP tail) and at the shapes of one add_videos call of
+    CLIPS_PER_CALL clips (main); the BERT kernels at one text query, a
+    batch of 8 texts, the fusion of 8 (main) and 16 candidates."""
+    from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
     bf = torch.bfloat16
@@ -142,21 +186,31 @@ def phase_kernels(card: str) -> dict:
         return (torch.randn(shape, generator=g, device="cuda") * std).to(bf)
 
     H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
-    res = {"spatial_attn": [], "temporal_attn": [], "ln_mlp": []}
+    D, Dh = H * hd, 3072
+    res = {k: [] for k in KERNEL_TOL}
     for M, main in ((2 * T, False), (B * T, True)):
-        x = randn(M, 1 + N, 3 * H * hd)
+        x = randn(M, 1 + N, 3 * D)
+        q, k, v = (x[..., i * D:(i + 1) * D].unflatten(-1, (H, hd)).transpose(1, 2)
+                   for i in range(3))
+        S = 1 + N
         res["spatial_attn"].append(_compare(
             "spatial_attn", x.shape, lambda: qkv_attn.spatial_attention_qkv(x, H),
-            lambda: qkv_attn.spatial_attention_plain(x, H, hd ** -0.5), card, main))
+            lambda: qkv_attn.spatial_attention_plain(x, H, hd ** -0.5), card, main,
+            library=lambda: _sdpa(q, k, v),
+            work=(4 * M * H * S * S * hd, 2 * x.numel() * 4 // 3)))
     for b, t, main in ((2, T, False), (2, 16, False), (B, T, True)):
-        xt = randn(b, t, N, 3 * H * hd)
+        xt = randn(b, t, N, 3 * D)
+        qt, kt, vt = (xt[..., i * D:(i + 1) * D].unflatten(-1, (H, hd)).permute(0, 2, 3, 1, 4)
+                      for i in range(3))
         res["temporal_attn"].append(_compare(
             "temporal_attn", xt.shape, lambda: qkv_attn.temporal_attention_qkv(xt, H),
-            lambda: qkv_attn.temporal_attention_plain(xt, H, hd ** -0.5), card, main))
-    D, Dh = 768, 3072
+            lambda: qkv_attn.temporal_attention_plain(xt, H, hd ** -0.5), card, main,
+            library=lambda: _sdpa(qt, kt, vt),
+            work=(4 * b * N * H * t * t * hd, 2 * xt.numel() * 4 // 3)))
     w = (randn(Dh, D, std=D ** -0.5), randn(Dh, std=0.02),
          randn(D, Dh, std=Dh ** -0.5), randn(D, std=0.02))
     ln = (1 + randn(D, std=0.1).float(), randn(D, std=0.1).float())
+    w_bytes = 2 * D * Dh * 2 + (Dh + 3 * D) * 4
     for R, residual, main in ((2 * T * N, True, False), (2, False, False),
                               (B * T * N, True, True), (B, True, False)):
         xr = randn(R, D, std=2.0)
@@ -165,7 +219,30 @@ def phase_kernels(card: str) -> dict:
             lambda: ln_mlp.ln_mlp(xr, *ln, w[0], w[1], w[2], w[3], eps=1e-6,
                                   residual=residual),
             lambda: ln_mlp.ln_mlp_plain(xr, *ln, w[0], w[1], w[2], w[3], 1e-6, residual),
-            card, main))
+            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
+    # BERT layer: text S = 40 (max_txt_len), fusion S = 40 + 197 video tokens
+    wa = [t for _ in range(4) for t in (randn(D, D, std=D ** -0.5), randn(D, std=0.02))]
+    for M, S, main in ((1, 40, False), (8, 40, False), (8, 40 + 1 + N, True),
+                       (16, 40 + 1 + N, False)):
+        xa = randn(M, S, D)
+        mask = torch.ones(M, S, device="cuda")
+        for m in range(M):  # padded text tails of different lengths
+            mask[m, 8 + 3 * m % 32:40] = 0.0
+        res["bert_attn"].append(_compare(
+            "bert_attn", xa.shape,
+            lambda: bert_block.bert_attention_block(xa, mask, *wa, *ln, H, eps=1e-12),
+            lambda: bert_block.bert_attention_block_plain(xa, mask, *wa, *ln, H, 1e-12),
+            card, main,
+            work=(8 * M * S * D * D + 4 * M * H * S * S * hd,
+                  2 * xa.numel() * 2 + 4 * D * D * 2 + M * S * 4 + 6 * D * 4)))
+    for R, main in ((40, False), (8 * 40, False), (8 * (40 + 1 + N), True),
+                    (16 * (40 + 1 + N), False)):
+        xr = randn(R, D, std=2.0)
+        res["bert_mlp"].append(_compare(
+            "bert_mlp", (R, D),
+            lambda: bert_block.bert_mlp_block(xr, *w, *ln, eps=1e-12),
+            lambda: bert_block.bert_mlp_block_plain(xr, *w, *ln, 1e-12),
+            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
     return res
 
 
@@ -191,42 +268,67 @@ class HashTokenizer:
         return {"input_ids": ids, "attention_mask": mask}
 
 
-def _build_model():
-    from alpro_tpu_torch.models.alpro import build_retrieval_model, init_random_
+def _build_model(build, vis_json: str, frames: int, **kwargs):
+    from alpro_tpu_torch.models.alpro import init_random_
 
     bert_cfg = json.loads((REPO / "configs" / "base_model.json").read_text())
-    vis_cfg = json.loads((REPO / "configs" / "timesformer_divst_8x32_224_k600.json").read_text())
+    vis_cfg = json.loads((REPO / "configs" / vis_json).read_text())
     with torch.device("meta"):
-        model = build_retrieval_model(bert_cfg, vis_cfg, img_size=224, num_frm=FRAMES,
-                                      dtype=torch.bfloat16)
+        model = build(bert_cfg, vis_cfg, img_size=224, num_frm=frames, dtype=torch.bfloat16,
+                      **kwargs)
     model = model.to_empty(device="cuda")
     init_random_(model, torch.Generator(device="cuda").manual_seed(SEED))
     return model.to(torch.bfloat16).eval()
 
 
 def _counts():
-    from alpro_tpu_torch.ops import ln_mlp, qkv_attn
+    from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
 
     return {"spatial_attn": qkv_attn.spatial_launches,
-            "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches}
+            "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches,
+            "bert_attn": bert_block.attn_launches, "bert_mlp": bert_block.mlp_launches}
 
 
 def _reset_counts():
-    from alpro_tpu_torch.ops import ln_mlp, qkv_attn
+    from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
 
     qkv_attn.spatial_launches = qkv_attn.temporal_launches = ln_mlp.launches = 0
+    bert_block.attn_launches = bert_block.mlp_launches = 0
 
 
-def _warm(model, cfg, tok, clips) -> None:
-    """Select ``cfg``'s path and run ``add_videos`` twice on a throwaway
-    index at the timed batch size (lazy CUDA module loads, cuBLAS heuristics,
-    allocator pools), right before timing that path."""
+def _launches(video_calls: int = 0, text_calls: int = 0) -> dict:
+    """Launches per video tower call (12 blocks) and per text + fusion call
+    (6 + 6 BERT layers)."""
+    return {"spatial_attn": 12 * video_calls, "temporal_attn": 12 * video_calls,
+            "ln_mlp": 24 * video_calls, "bert_attn": 12 * text_calls,
+            "bert_mlp": 12 * text_calls}
+
+
+def _set_path(model, vis_cfg, bert_cfg) -> None:
+    model.visual_encoder.model.cfg = vis_cfg
+    model.text_encoder.bert.cfg = bert_cfg
+
+
+def _plain_cfgs(model):
+    vis, bert = model.visual_encoder.model.cfg, model.text_encoder.bert.cfg
+    return (dataclasses.replace(vis, attn_impl="plain", temporal_attn_impl="plain",
+                                mlp_impl="plain"),
+            dataclasses.replace(bert, block_impl="plain"))
+
+
+def _warm(model, cfgs, tok, clips) -> None:
+    """Select the path of ``cfgs`` (video, BERT) and run ``add_videos`` twice
+    and ``query`` twice on a throwaway index at the timed batch size (lazy
+    CUDA module loads, cuBLAS heuristics, allocator pools), right before
+    timing that path."""
     from alpro_tpu_torch.serving.retrieval import RetrievalIndex
 
-    model.visual_encoder.model.cfg = cfg
+    _set_path(model, *cfgs)
     scratch = RetrievalIndex(model, tok, "cuda")
     for _ in range(2):
         scratch.add_videos(clips[:CLIPS_PER_CALL], [""] * CLIPS_PER_CALL)
+    for _ in range(2):
+        scratch.query(TEXTS[0])
     torch.cuda.synchronize()
 
 
@@ -238,6 +340,16 @@ def _fill(index, clips, ids) -> float:
         index.add_videos(clips[lo:lo + CLIPS_PER_CALL], ids[lo:lo + CLIPS_PER_CALL])
     torch.cuda.synchronize()
     return len(ids) / (time.perf_counter() - t0)
+
+
+def _query_ms(index, rounds: int = 5) -> list:
+    out = []
+    for _ in range(rounds):
+        for t in TEXTS:
+            t0 = time.perf_counter()
+            index.query(t)
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 def _check_query_vs_batch(single, batched, text) -> None:
@@ -252,35 +364,29 @@ def _check_query_vs_batch(single, batched, text) -> None:
 
 
 def phase_slice(card: str) -> dict:
+    from alpro_tpu_torch.models.alpro import build_retrieval_model
     from alpro_tpu_torch.serving.retrieval import RetrievalIndex
 
-    model = _build_model()
-    vis = model.visual_encoder.model
-    kernel_cfg = vis.cfg
+    model = _build_model(build_retrieval_model, "timesformer_divst_8x32_224_k600.json", FRAMES)
+    kernel_cfgs = (model.visual_encoder.model.cfg, model.text_encoder.bert.cfg)
+    plain_cfgs = _plain_cfgs(model)
     tok = HashTokenizer(model.cfg.bert.vocab_size)
     clips = np.random.RandomState(SEED).randint(
         0, 256, (N_CLIPS, FRAMES, 224, 224, 3), dtype=np.uint8)
     ids = [f"vid{i:02d}" for i in range(N_CLIPS)]
-    plain_cfg = dataclasses.replace(kernel_cfg, attn_impl="plain",
-                                    temporal_attn_impl="plain", mlp_impl="plain")
 
     # ---- the main path, kernels on ('auto' on a CUDA tensor) ----
-    _warm(model, kernel_cfg, tok, clips)
+    _warm(model, kernel_cfgs, tok, clips)
     index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
     _reset_counts()
     clips_per_s = _fill(index, clips, ids)
     single = [index.query(t, topk=CHECK_TOPK) for t in TEXTS]
     batched = index.query_batch(TEXTS, topk=CHECK_TOPK)
-    query_ms = []
-    for _ in range(5):
-        for t in TEXTS:
-            t0 = time.perf_counter()
-            index.query(t)
-            query_ms.append((time.perf_counter() - t0) * 1e3)
+    query_ms = _query_ms(index)
     launches = _counts()
-    calls = -(-N_CLIPS // CLIPS_PER_CALL)
-    want = {"spatial_attn": 12 * calls, "temporal_attn": 12 * calls, "ln_mlp": 24 * calls}
-    print(f"[slice] kernel launches {launches} (expected {want})", flush=True)
+    want = _launches(video_calls=-(-N_CLIPS // CLIPS_PER_CALL),
+                     text_calls=len(single) + 1 + len(query_ms))
+    print(f"[retrieval] kernel launches {launches} (expected {want})", flush=True)
     fail_if(launches != want, f"launch counts {launches} != {want}")
 
     feats, tokens = index._banks()
@@ -294,32 +400,157 @@ def phase_slice(card: str) -> dict:
                 f"{t!r}: non-finite scores")
         _check_query_vs_batch(s, b, t)
 
-    # ---- the same index on the plain path: the reference ----
+    # ---- query latency without the BERT kernels (video banks as they are) ----
     full = [index.query(t, topk=N_CLIPS) for t in TEXTS]
+    _set_path(model, kernel_cfgs[0], plain_cfgs[1])
+    _query_ms(index, rounds=1)  # warm the plain BERT path
     before = _counts()
-    _warm(model, plain_cfg, tok, clips)
+    bert_plain_ms = _query_ms(index)
+    fail_if(_counts()["bert_attn"] != before["bert_attn"], "plain BERT launched bert_attn")
+
+    # ---- the same index on the plain path: the reference ----
+    before = _counts()
+    _warm(model, plain_cfgs, tok, clips)
     plain = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
     plain_clips_per_s = _fill(plain, clips, ids)
     plain_full = [plain.query(t, topk=N_CLIPS) for t in TEXTS]
     fail_if(_counts() != before, f"plain path launched kernels: {before} -> {_counts()}")
-    vis.cfg = kernel_cfg
+    _set_path(model, *kernel_cfgs)
     pfeats, ptokens = plain._banks()
     feat_err = float((feats - pfeats).abs().max())
     tok_err = float((tokens.float() - ptokens.float()).abs().max())
     prob_err = max(abs(dict((r[0], r[1]) for r in a)[v] - p)
                    for a, b in zip(full, plain_full) for v, p, _ in b)
-    print(f"[slice] kernel vs plain path: VTC feature max_abs {feat_err:.3e} (tol "
+    print(f"[retrieval] kernel vs plain path: VTC feature max_abs {feat_err:.3e} (tol "
           f"{PLAIN_FEAT_TOL}), token bank max_abs {tok_err:.3e}, P(match) max_abs "
           f"{prob_err:.3e} (tol {PLAIN_PROB_TOL})", flush=True)
     fail_if(feat_err > PLAIN_FEAT_TOL, f"VTC features differ from the plain path by {feat_err}")
     fail_if(prob_err > PLAIN_PROB_TOL, f"P(match) differs from the plain path by {prob_err}")
 
-    p50 = statistics.median(query_ms)
-    print(f"[slice] add_videos {clips_per_s:.2f} clips/s with kernels, "
+    print(f"[retrieval] add_videos {clips_per_s:.2f} clips/s with kernels, "
           f"{plain_clips_per_s:.2f} clips/s plain ({N_CLIPS} clips, {CLIPS_PER_CALL} per call); "
-          f"query p50 {p50:.2f} ms over {len(query_ms)} (topk 16, gallery {N_CLIPS}) "
-          f"[{card}]", flush=True)
+          f"query p50 {statistics.median(query_ms):.2f} ms with the BERT kernels, "
+          f"{statistics.median(bert_plain_ms):.2f} ms with plain BERT layers, over "
+          f"{len(query_ms)} each (topk 16, gallery {N_CLIPS}) [{card}]", flush=True)
     return launches
+
+
+def _answer_dists(answers, labels) -> tuple:
+    """[(answer, prob)] over every label → (probs, log-probs) in label order."""
+    p = np.zeros(len(labels))
+    for a, prob in answers:
+        p[labels[a]] = prob
+    return p, np.log(np.maximum(p, 1e-30))
+
+
+def _check_answers(got, ref, tol: dict, what: str) -> dict:
+    """Per question: pooled probabilities and log-probabilities within
+    ``tol``; the same top-1 wherever the reference's top-1 log-probability
+    margin exceeds 2·tol['logp']."""
+    worst = {"prob": 0.0, "logp": 0.0}
+    for q, (gp, gl), (rp, rl) in zip(QUESTIONS, got, ref):
+        worst["prob"] = max(worst["prob"], float(np.abs(gp - rp).max()))
+        worst["logp"] = max(worst["logp"], float(np.abs(gl - rl).max()))
+        top2 = np.sort(rl)[-2:]
+        if top2[1] - top2[0] > 2 * tol["logp"]:
+            fail_if(int(np.argmax(gp)) != int(np.argmax(rp)), f"{what}: {q!r} top-1 differs")
+    print(f"[qa] {what}: pooled prob max_abs {worst['prob']:.3e} (tol {tol['prob']}), "
+          f"log-prob max_abs {worst['logp']:.3e} (tol {tol['logp']})", flush=True)
+    for key in worst:
+        fail_if(worst[key] > tol[key], f"{what}: {key} differs by {worst[key]:.3e}")
+    return worst
+
+
+def _host_ms(fn, reps: int) -> list:
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_qa(card: str) -> dict:
+    from alpro_tpu_torch.models.alpro import build_qa_model
+    from alpro_tpu_torch.serving.qa import VideoQAPredictor
+
+    qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+    fail_if((qa_cfg["num_frm"], qa_cfg["max_txt_len"]) != (QA_FRAMES, QA_TXT_LEN),
+            f"configs/msrvtt_qa.json changed: {qa_cfg['num_frm']}, {qa_cfg['max_txt_len']}")
+    L = qa_cfg["num_labels"]
+    model = _build_model(build_qa_model, Path(qa_cfg["visual_model_cfg"]).name, QA_FRAMES,
+                         num_labels=L, cls_hidden_scale=qa_cfg["cls_hidden_scale"])
+    kernel_cfgs, plain_cfgs = ((model.visual_encoder.model.cfg, model.text_encoder.bert.cfg),
+                               _plain_cfgs(model))
+    labels = {f"ans{i}": i for i in range(L)}
+    qa = VideoQAPredictor(model, HashTokenizer(model.cfg.bert.vocab_size), labels, "cuda",
+                          max_txt_len=QA_TXT_LEN)
+    clips = np.random.RandomState(SEED + 1).randint(
+        0, 256, (QA_CLIPS, QA_FRAMES, 224, 224, 3), dtype=np.uint8)
+
+    def warm():
+        feats = qa.encode_video(clips)
+        qa.predict(clips, QUESTIONS[0])
+        for _ in range(2):
+            qa.encode_video(clips)
+            qa.predict(feats, QUESTIONS[0])
+            qa.predict_batch(feats, QUESTIONS)
+        torch.cuda.synchronize()
+
+    def counted(fn, want: dict, what: str):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _counts()
+        print(f"[qa] {what}: launches {got} (expected {want})", flush=True)
+        fail_if(got != want, f"{what}: launch counts {got} != {want}")
+        return out
+
+    # ---- the main path, kernels on ----
+    warm()
+    feats = counted(lambda: qa.encode_video(clips), _launches(video_calls=1), "encode_video")
+    fail_if(tuple(feats.shape) != (QA_CLIPS, 1 + PATCHES, 768)
+            or not bool(torch.isfinite(feats.float()).all()), "bad video tokens")
+    cached = counted(lambda: [qa.predict(feats, q, topk=L) for q in QUESTIONS],
+                     _launches(text_calls=len(QUESTIONS)), "predict x4 (cached)")
+    from_pixels = counted(lambda: qa.predict(clips, QUESTIONS[0], topk=L),
+                          _launches(video_calls=1, text_calls=1), "predict (pixels)")
+    batched = counted(lambda: qa.predict_batch(feats, QUESTIONS, topk=L),
+                      _launches(text_calls=1), "predict_batch x4 (cached)")
+    for answers in cached + [from_pixels] + batched:
+        fail_if(len(answers) != L or not all(np.isfinite(p) for _, p in answers),
+                "answers: wrong count or non-finite")
+    cached_d = [_answer_dists(a, labels) for a in cached]
+    _check_answers([_answer_dists(from_pixels, labels)], cached_d[:1], QA_CACHE_TOL,
+                   "pixels vs cached")
+    _check_answers([_answer_dists(a, labels) for a in batched], cached_d, QA_BATCH_TOL,
+                   "predict_batch vs predict")
+    encode_ms = _host_ms(lambda: qa.encode_video(clips), 5)
+    predict_ms = _host_ms(lambda: qa.predict(feats, QUESTIONS[0]), 20)
+    batch_ms = _host_ms(lambda: qa.predict_batch(feats, QUESTIONS), 5)
+
+    # ---- the plain path: the reference ----
+    _set_path(model, *plain_cfgs)
+    warm()
+    before = _counts()
+    pfeats = qa.encode_video(clips)
+    plain = [_answer_dists(qa.predict(pfeats, q, topk=L), labels) for q in QUESTIONS]
+    plain_encode_ms = _host_ms(lambda: qa.encode_video(clips), 5)
+    plain_predict_ms = _host_ms(lambda: qa.predict(pfeats, QUESTIONS[0]), 20)
+    fail_if(_counts() != before, f"plain path launched kernels: {before} -> {_counts()}")
+    _set_path(model, *kernel_cfgs)
+    tok_err = float((feats.float() - pfeats.float()).abs().max())
+    print(f"[qa] kernel vs plain path: video token max_abs {tok_err:.3e}", flush=True)
+    _check_answers(cached_d, plain, QA_PLAIN_TOL, "kernel vs plain path")
+
+    med = statistics.median
+    print(f"[qa] encode_video ({QA_CLIPS} clips x {QA_FRAMES} frames) {med(encode_ms):.2f} ms "
+          f"with kernels, {med(plain_encode_ms):.2f} ms plain; cached predict p50 "
+          f"{med(predict_ms):.2f} ms with kernels, {med(plain_predict_ms):.2f} ms plain; "
+          f"predict_batch ({len(QUESTIONS)} questions) {med(batch_ms):.2f} ms [{card}]",
+          flush=True)
 
 
 def main() -> int:
@@ -327,12 +558,17 @@ def main() -> int:
     phase_build()
     res = phase_kernels(card)
     launches = phase_slice(card)
+    phase_qa(card)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
         "temporal_attn": ("alpro_tpu_torch/csrc/temporal_attn.cu",
                           "alpro_tpu/ops/pallas_qkv_attn.py:545"),
         "ln_mlp": ("alpro_tpu_torch/csrc/ln_mlp.cu", "alpro_tpu/ops/pallas_ln_mlp.py:85"),
+        "bert_attn": ("alpro_tpu_torch/csrc/bert_attn.cu",
+                      "alpro_tpu/ops/pallas_bert_block.py:151"),
+        "bert_mlp": ("alpro_tpu_torch/csrc/ln_mlp.cu",
+                     "alpro_tpu/ops/pallas_bert_block.py:298"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():
@@ -342,7 +578,8 @@ def main() -> int:
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in res[name]),
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-            "shape": main_shape["shape"],
+            "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
+            "library_ms": main_shape["library_ms"], "shape": main_shape["shape"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

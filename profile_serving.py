@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the device time of alpro_tpu_torch's serving calls goes, on one card.
+
+    python3 profile_serving.py [--iters 5]
+
+Builds the two ALPRO-base models of ``chip_smoke.py`` (seeded random bf16
+weights, hashing stand-in tokenizer) and runs ``torch.profiler`` over
+``iters`` repeats of each serving call, on the kernel path (``auto``) and on
+the plain path (every ``*_impl='plain'``), each warmed through the same call
+first:
+
+* retrieval: ``add_videos`` of 8 clips (8 × 224², T=8), one ``query``
+  (topk 16 of a 16-clip gallery);
+* QA: ``encode_video`` of 2 clips (16 × 224²), one cached ``predict``, one
+  ``predict_batch`` of 4 questions.
+
+For each it prints one line: host ms per call (synchronised), device kernel
+ms per call (the sum of kernel times), device busy ms (the union of kernel
+intervals), the idle share of the span from first kernel start to last
+kernel end, and the top kernels by device time with their launch counts.
+Exits non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+import chip_smoke as smoke
+
+
+def _device_stats(prof, iters: int) -> dict:
+    """Kernel time by name, busy time and idle share from a profiler run."""
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+    smoke.fail_if(not events, "the profiler recorded no device kernel")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    by_name: dict = {}
+    for e in events:
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+    total = sum(t for t, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"kernel_ms": total / iters / 1e3, "busy_ms": busy / iters / 1e3,
+            "idle": 1.0 - busy / span,
+            "top": [(name[:60], t / iters / 1e3, n // iters) for name, (t, n) in top]}
+
+
+def _profile(label: str, fn, iters: int, card: str) -> None:
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    st = _device_stats(prof, iters)
+    top = "; ".join(f"{n} {t:.3f} ms ({c}x)" for n, t, c in st["top"])
+    print(f"[profile] {label}: host {host_ms:.2f} ms/call, kernels {st['kernel_ms']:.2f} ms, "
+          f"busy {st['busy_ms']:.2f} ms, idle {100 * st['idle']:.1f}% | {top} [{card}]",
+          flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=5)
+    iters = ap.parse_args().iters
+    card = smoke.phase_device()
+    smoke.phase_build()
+    from alpro_tpu_torch.models.alpro import build_qa_model, build_retrieval_model
+    from alpro_tpu_torch.serving.qa import VideoQAPredictor
+    from alpro_tpu_torch.serving.retrieval import RetrievalIndex
+
+    rng = np.random.RandomState(smoke.SEED)
+    model = smoke._build_model(build_retrieval_model, "timesformer_divst_8x32_224_k600.json",
+                               smoke.FRAMES)
+    paths = {"kernels": (model.visual_encoder.model.cfg, model.text_encoder.bert.cfg),
+             "plain": smoke._plain_cfgs(model)}
+    tok = smoke.HashTokenizer(model.cfg.bert.vocab_size)
+    clips = rng.randint(0, 256, (smoke.N_CLIPS, smoke.FRAMES, 224, 224, 3), dtype=np.uint8)
+    for path, cfgs in paths.items():
+        smoke._set_path(model, *cfgs)
+        index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
+        index.add_videos(clips, [str(i) for i in range(smoke.N_CLIPS)])
+        batch = clips[:smoke.CLIPS_PER_CALL]
+        _profile(f"retrieval add_videos x{smoke.CLIPS_PER_CALL} clips, {path}",
+                 lambda: index._embed_video(torch.as_tensor(batch).cuda()), iters, card)
+        _profile(f"retrieval query, {path}", lambda: index.query(smoke.TEXTS[0]), iters, card)
+    del model, index
+
+    qa_model = smoke._build_model(build_qa_model, "timesformer_divst_8x32_224_k600_gc.json",
+                                  smoke.QA_FRAMES, num_labels=1500, cls_hidden_scale=2)
+    paths = {"kernels": (qa_model.visual_encoder.model.cfg, qa_model.text_encoder.bert.cfg),
+             "plain": smoke._plain_cfgs(qa_model)}
+    qa = VideoQAPredictor(qa_model, tok, {f"ans{i}": i for i in range(1500)}, "cuda",
+                          max_txt_len=smoke.QA_TXT_LEN)
+    qa_clips = rng.randint(0, 256, (smoke.QA_CLIPS, smoke.QA_FRAMES, 224, 224, 3),
+                           dtype=np.uint8)
+    for path, cfgs in paths.items():
+        smoke._set_path(qa_model, *cfgs)
+        feats = qa.encode_video(qa_clips)
+        _profile(f"qa encode_video x{smoke.QA_CLIPS} clips T={smoke.QA_FRAMES}, {path}",
+                 lambda: qa.encode_video(qa_clips), iters, card)
+        _profile(f"qa predict (cached), {path}",
+                 lambda: qa.predict(feats, smoke.QUESTIONS[0]), iters, card)
+        _profile(f"qa predict_batch x{len(smoke.QUESTIONS)} (cached), {path}",
+                 lambda: qa.predict_batch(feats, smoke.QUESTIONS), iters, card)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
