@@ -12,6 +12,11 @@ ALPRO state-dict keys (``checkpoint/load.py``); the classifier is
 ``dtype`` is the compute dtype: weights are cast to it at use (so fp32
 weights serve in bf16, as in the JAX package), LayerNorm statistics stay
 fp32, and the contrastive features and logits come back in fp32.
+
+The model is built in eval mode (the JAX ``deterministic=True`` default).
+After ``train()``, ``embed_video``, ``embed_text`` and ``fuse`` take the
+``generator`` their dropout and drop-path masks are drawn from
+(``train/step.py`` derives one per step from its seed and step).
 """
 
 from __future__ import annotations
@@ -54,20 +59,23 @@ class AlproModel(nn.Module):
             self.classifier = nn.Sequential(
                 nn.Linear(D, hidden), nn.ReLU(), nn.Linear(hidden, cfg.num_labels)
             )
+        self.eval()  # deterministic until train(), as the JAX default
 
     def temperature(self) -> torch.Tensor:
         return torch.clamp(self.temp, 0.001, 0.5)
 
-    def embed_video(self, pixels: torch.Tensor) -> torch.Tensor:
+    def embed_video(self, pixels: torch.Tensor,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Video (see ``TimeSformer.forward`` for the input forms) →
         temporally pooled (B, 1+N, D) tokens."""
-        return self.visual_encoder.model(pixels)
+        return self.visual_encoder.model(pixels, generator)
 
-    def embed_text(self, input_ids: torch.Tensor,
-                   attention_mask: torch.Tensor) -> torch.Tensor:
+    def embed_text(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids → (B, Lt, D) through the text half (layers 0..fusion)."""
         return self.text_encoder.bert(
-            input_ids=input_ids, attention_mask=attention_mask, mode="text"
+            input_ids=input_ids, attention_mask=attention_mask, mode="text",
+            generator=generator,
         )
 
     def _l2_feat(self, tokens: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
@@ -82,8 +90,8 @@ class AlproModel(nn.Module):
         return self._l2_feat(text_embeds, self.text_proj)
 
     def fuse(self, text_embeds: torch.Tensor, text_mask: torch.Tensor,
-             video_embeds: torch.Tensor,
-             video_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+             video_embeds: torch.Tensor, video_mask: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[text; video] through the fusion half (layers fusion..end)."""
         B, Lv = video_embeds.shape[:2]
         if video_mask is None:
@@ -93,7 +101,7 @@ class AlproModel(nn.Module):
         )
         mask = torch.cat([text_mask, video_mask], dim=1)
         return self.text_encoder.bert(
-            encoder_embeds=embeds, attention_mask=mask, mode="fusion"
+            encoder_embeds=embeds, attention_mask=mask, mode="fusion", generator=generator
         )
 
     def itm_logits(self, fusion_cls: torch.Tensor) -> torch.Tensor:
@@ -105,29 +113,41 @@ class AlproModel(nn.Module):
         return linear(hidden, self.classifier[2], self.dtype).float()
 
 
-def _cfgs(bert_cfg, video_enc_cfg, img_size: int, num_frm: int):
-    bert = (bert_cfg if isinstance(bert_cfg, BertConfig)
-            else BertConfig.from_json_dict(bert_cfg))
-    vis = (video_enc_cfg if isinstance(video_enc_cfg, TimeSformerConfig)
-           else TimeSformerConfig.from_reference_cfg(video_enc_cfg, img_size, num_frm))
+def _cfgs(bert_cfg, video_enc_cfg, img_size: int, num_frm: int,
+          attn_impl: Optional[str]):
+    """Config objects pass through (``attn_impl`` replaces theirs when
+    given); dicts go through as ``cli/common.py::build_model_from_cfg``
+    reads them, with ``attn_impl`` ('auto' when None) for both towers."""
+    if isinstance(bert_cfg, BertConfig):
+        bert = bert_cfg if attn_impl is None else dataclasses.replace(bert_cfg, attn_impl=attn_impl)
+    else:
+        bert = BertConfig.from_json_dict({"attn_impl": attn_impl or "auto", **bert_cfg})
+    if isinstance(video_enc_cfg, TimeSformerConfig):
+        vis = (video_enc_cfg if attn_impl is None
+               else dataclasses.replace(video_enc_cfg, attn_impl=attn_impl))
+    else:
+        vis = TimeSformerConfig.from_reference_cfg(video_enc_cfg, img_size, num_frm,
+                                                   attn_impl=attn_impl or "auto")
     return bert, vis
 
 
 def build_retrieval_model(bert_cfg, video_enc_cfg, img_size: int = 224,
-                          num_frm: int = 8, dtype=torch.float32) -> AlproModel:
+                          num_frm: int = 8, dtype=torch.float32,
+                          attn_impl: Optional[str] = None) -> AlproModel:
     """``bert_cfg``: a BertConfig or a ``configs/base_model.json`` dict;
     ``video_enc_cfg``: a TimeSformerConfig or a
-    ``configs/timesformer_divst_8x32_224_k600.json`` dict."""
-    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm)
+    ``configs/timesformer_divst_8x32_224_k600.json`` dict; ``attn_impl``:
+    the ``--attn_impl`` flag, set on both towers."""
+    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm, attn_impl)
     return AlproModel(AlproConfig(bert=bert, visual=vis), dtype=dtype)
 
 
 def build_qa_model(bert_cfg, video_enc_cfg, num_labels: int, img_size: int = 224,
                    num_frm: int = 16, cls_hidden_scale: int = 2,
-                   dtype=torch.float32) -> AlproModel:
+                   dtype=torch.float32, attn_impl: Optional[str] = None) -> AlproModel:
     """The retrieval model plus the QA classifier (``configs/msrvtt_qa.json``:
     1500 labels, 16 frames, ``cls_hidden_scale`` 2)."""
-    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm)
+    bert, vis = _cfgs(bert_cfg, video_enc_cfg, img_size, num_frm, attn_impl)
     return AlproModel(AlproConfig(bert=bert, visual=vis, num_labels=num_labels,
                                   cls_hidden_scale=cls_hidden_scale), dtype=dtype)
 

@@ -7,13 +7,24 @@ layers [0, fusion_layer) on token embeddings, ``mode='fusion'`` runs
 the HF constant ``(1-mask)·-10000``. Parameter names follow the ALPRO state
 dict (``text_encoder.bert.*``).
 
+The module is built in eval mode (the JAX ``deterministic=True`` default);
+``train()`` turns on dropout after the embeddings, on the attention
+probabilities (``attention_probs_dropout_prob``, plain attention only, as in
+JAX) and on both hidden outputs (``hidden_dropout_prob``), with masks from
+the ``generator`` passed to ``forward``, and per-layer gradient checkpointing
+when ``gradient_checkpointing`` is set.
+
 ``block_impl``: ``fused`` runs each layer as two kernels — the masked
 attention chain and the post-LN MLP chain (``ops/bert_block.py``), reading
-the same parameters as the plain layer; ``plain`` runs the plain layer
-(``xla``, as a JAX config names it, means the same); ``auto`` (the default)
-resolves to ``fused`` for a CUDA tensor and to ``plain`` for a CPU tensor.
-The TPU package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried
-over: the kernels take every S the model gives, up to a limit they raise on
+the same parameters as the plain layer — in eval only: in training it gives
+the plain layer, whose kernels have no backward; ``plain`` runs the plain
+layer (``xla``, as a JAX config names it, means the same); ``auto`` (the
+default) resolves to ``fused`` in eval on a CUDA tensor and to ``plain``
+otherwise. ``attn_impl`` picks the attention of the plain layer:
+``auto``/``xla``/``plain`` the plain attention, ``pallas`` the
+masked-attention kernel (``ops/masked_attn.py``) with its gradient. The TPU
+package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried over: the
+kernels take every S the model gives, up to a limit they raise on
 (``bert_block.max_seq_len``).
 """
 
@@ -27,7 +38,7 @@ from torch import nn
 
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
 from alpro_tpu_torch.ops.bert_block import bert_attention_block, bert_mlp_block
-from alpro_tpu_torch.ops.layers import LayerNorm, gelu_exact, linear
+from alpro_tpu_torch.ops.layers import LayerNorm, checkpoint, dropout, gelu_exact, linear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,19 +50,32 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout_prob: float = 0.1
+    attention_probs_dropout_prob: float = 0.1
     layer_norm_eps: float = 1e-12
     fusion_layer: int = 6
     initializer_range: float = 0.02
+    attn_impl: str = "auto"
     block_impl: str = "auto"
+    # per-layer torch.utils.checkpoint in training, saving nothing inside a
+    # layer (the JAX package's remat_policy='nothing'; no other policy is ported)
+    gradient_checkpointing: bool = False
 
     def __post_init__(self):
         if self.block_impl not in ("auto", "fused", "plain", "xla"):
             raise ValueError(
                 f"block_impl={self.block_impl!r}: expected 'auto', 'fused', 'plain' or 'xla'"
             )
+        if self.attn_impl not in ("auto", "xla", "plain", "pallas"):
+            raise ValueError(
+                f"attn_impl={self.attn_impl!r}: expected 'auto', 'xla', 'plain' or 'pallas'"
+            )
 
-    def use_fused(self, x: torch.Tensor) -> bool:
-        """Whether the layers run the fused kernels for activations ``x``."""
+    def use_fused(self, x: torch.Tensor, training: bool = False) -> bool:
+        """Whether the layers run the fused kernels for activations ``x``:
+        never in training (JAX: ``fused`` only when deterministic)."""
+        if training:
+            return False
         if self.block_impl == "auto":
             return x.device.type == "cuda"
         return self.block_impl == "fused"
@@ -79,13 +103,14 @@ class BertEmbeddings(nn.Module):
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, D)
         self.LayerNorm = LayerNorm(D, cfg.layer_norm_eps)
 
-    def forward(self, input_ids: torch.Tensor, dtype) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, dtype, rate: float = 0.0,
+                generator=None) -> torch.Tensor:
         L = input_ids.shape[1]
         pos = torch.arange(L, device=input_ids.device)
         x = (self.word_embeddings(input_ids).to(dtype)
              + self.position_embeddings(pos)[None].to(dtype)
              + self.token_type_embeddings.weight[0].to(dtype))
-        return self.LayerNorm(x, dtype)
+        return dropout(self.LayerNorm(x, dtype), rate, generator, self.training)
 
 
 class BertLayer(nn.Module):
@@ -105,19 +130,26 @@ class BertLayer(nn.Module):
             dense=nn.Linear(cfg.intermediate_size, D), LayerNorm=LayerNorm(D, eps)
         )
 
-    def forward(self, x, attention_mask, dtype, fused: bool):
+    def forward(self, x, attention_mask, dtype, fused: bool, cfg: BertConfig, generator=None):
         if fused:
             return self._fused(x, attention_mask, dtype)
+        train = self.training
         B, L, D = x.shape
         H = self.num_heads
         sa = self.attention.self
         q, k, v = (linear(x, lin, dtype).reshape(B, L, H, D // H)
                    for lin in (sa.query, sa.key, sa.value))
-        ctx = multi_head_attention_bshd(q, k, v, key_mask=attention_mask).reshape(B, L, D)
+        ctx = multi_head_attention_bshd(
+            q, k, v, key_mask=attention_mask, impl=cfg.attn_impl,
+            dropout_rate=cfg.attention_probs_dropout_prob, generator=generator, training=train,
+        ).reshape(B, L, D)
         out = self.attention.output
-        x = out.LayerNorm(linear(ctx, out.dense, dtype) + x, dtype)
+        attn = dropout(linear(ctx, out.dense, dtype), cfg.hidden_dropout_prob, generator, train)
+        x = out.LayerNorm(attn + x, dtype)
         inter = gelu_exact(linear(x, self.intermediate.dense, dtype))
-        return self.output.LayerNorm(linear(inter, self.output.dense, dtype) + x, dtype)
+        y = dropout(linear(inter, self.output.dense, dtype), cfg.hidden_dropout_prob,
+                    generator, train)
+        return self.output.LayerNorm(y + x, dtype)
 
     def _fused(self, x, attention_mask, dtype):
         """The two kernels, on the weights and biases cast to the compute
@@ -147,12 +179,16 @@ class BertModel(nn.Module):
         self.encoder = container(
             layer=nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_hidden_layers))
         )
+        self.eval()  # deterministic until train(), as the JAX default
 
     def forward(self, input_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
                 encoder_embeds: Optional[torch.Tensor] = None,
-                mode: str = "multi_modal") -> torch.Tensor:
-        cfg = self.cfg
+                mode: str = "multi_modal",
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """In training, dropout masks come from ``generator`` (on the
+        activations' device)."""
+        cfg, train = self.cfg, self.training
         ranges = {
             "text": (0, cfg.fusion_layer),
             "fusion": (cfg.fusion_layer, cfg.num_hidden_layers),
@@ -164,14 +200,19 @@ class BertModel(nn.Module):
         if encoder_embeds is None:
             if input_ids is None:
                 raise ValueError("input_ids required without encoder_embeds")
-            x = self.embeddings(input_ids, self.dtype)
+            x = self.embeddings(input_ids, self.dtype, cfg.hidden_dropout_prob, generator)
         else:
             x = encoder_embeds.to(self.dtype)
         if attention_mask is None:
             attention_mask = torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
-        fused = cfg.use_fused(x)
+        fused = cfg.use_fused(x, train)
         if fused:  # the kernels read an fp32 mask: convert once, not per layer
             attention_mask = attention_mask.float()
+        remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
         for layer in self.encoder.layer[lo:hi]:
-            x = layer(x, attention_mask, self.dtype, fused)
+            if remat:
+                x = checkpoint(lambda h, layer=layer: layer(h, attention_mask, self.dtype, fused,
+                                                            cfg, generator), generator, x)
+            else:
+                x = layer(x, attention_mask, self.dtype, fused, cfg, generator)
         return x

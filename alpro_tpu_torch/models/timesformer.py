@@ -1,48 +1,71 @@
-"""TimeSformer video encoder with divided space-time attention, serving mode.
+"""TimeSformer video encoder with divided space-time attention.
 
-Counterpart of ``alpro_tpu/models/timesformer.py`` in deterministic
-(eval) mode, with its layouts: channels-last video (B, T, H, W, 3), tokens as
-(B, T, N, D) with the CLS carried as (B, 1, D), packed ``[q|k|v]`` channels.
-Parameter names follow the ALPRO state dict (``checkpoint/load.py``), except
-the patch embedding, held as the (p·p·C, D) matmul kernel.
+Counterpart of ``alpro_tpu/models/timesformer.py``, with its layouts:
+channels-last video (B, T, H, W, 3), tokens as (B, T, N, D) with the CLS
+carried as (B, 1, D), packed ``[q|k|v]`` channels. Parameter names follow the
+ALPRO state dict (``checkpoint/load.py``), except the patch embedding, held
+as the (p·p·C, D) matmul kernel.
 
-Per block, the three ``*_impl`` fields pick the kernel or the plain path:
+The module is built in eval mode (the JAX modules' ``deterministic=True``
+default); ``train()`` is the JAX ``deterministic=False``: dropout
+(``drop_rate``, ``attn_drop_rate``) and drop-path (rates linspace(0,
+``drop_path_rate``, depth); masks (B, 1, N, 1) on the temporal branch,
+(B, T, 1, 1) on the spatial branch, one per sample on the MLP tail) drawn
+from the ``generator`` passed to ``forward``, and per-block gradient
+checkpointing when ``gradient_checkpointing`` is set.
 
-* ``temporal_attn_impl``: ``fused_qkv_fold`` — LN, qkv matmul, the temporal
-  kernel (``ops/qkv_attn.py``), then proj·temporal_fc folded into one matmul
-  ``w_eff``/``b_eff`` computed in the compute dtype; ``plain`` — relayout to
-  (B·N, T, D), plain attention, proj, temporal_fc;
+Per block, the three ``*_impl`` fields pick the kernel or the plain path,
+by the JAX package's rules in both modes:
+
+* ``temporal_attn_impl``: ``fused_qkv_fold`` — in eval LN, qkv matmul, the
+  temporal kernel (``ops/qkv_attn.py``), then proj·temporal_fc folded into
+  one matmul ``w_eff``/``b_eff`` computed in the compute dtype; in training
+  the temporal kernel with its backward between the unfolded projections;
+  ``plain`` — relayout to (B·N, T, D), plain attention, proj, temporal_fc;
 * ``attn_impl``: ``fused_qkv`` — the spatial kernel over the packed qkv of
-  [cls_rep; x] per frame; ``plain`` — plain attention;
-* ``mlp_impl``: ``fused`` — the LN→MLP→residual kernel (``ops/ln_mlp.py``),
-  called on the patch rows and on the B cls rows; ``plain`` — LN, fc1,
-  exact GELU, fc2, residual.
+  [cls_rep; x] per frame, in both modes (with its backward in training;
+  attention dropout in training takes the plain path, as in JAX);
+  ``pallas`` — the masked-attention kernel (``ops/masked_attn.py``) on views
+  of the packed qkv, in both modes; ``plain`` — plain attention;
+* ``mlp_impl``: ``fused`` — in eval the LN→MLP→residual kernel
+  (``ops/ln_mlp.py``), called on the patch rows and on the B cls rows; in
+  training the plain path; ``plain`` — LN, fc1, exact GELU, fc2, residual.
 
-``auto`` resolves to the kernel for a CUDA tensor and to ``plain`` for a CPU
-tensor; ``xla`` (a JAX config's name for the plain path) means ``plain``.
-The TPU package's measured gates (``_on_tpu()``, temporal only at T <= 8,
-D % 128) are not carried over: they are to be re-decided on the H100.
+``auto`` resolves to a kernel (``fused_qkv`` for the spatial attention)
+only in eval and only for a CUDA tensor; ``xla`` (a JAX config's name for
+the plain path) means ``plain``. The TPU
+package's measured gates (``_on_tpu()``, temporal only at T <= 8, D % 128)
+are not carried over: they are to be re-decided on the H100.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
-from alpro_tpu_torch.ops.layers import LayerNorm, gelu_exact, linear
+from alpro_tpu_torch.ops.layers import (
+    LayerNorm,
+    checkpoint,
+    drop_path,
+    dropout,
+    gelu_exact,
+    linear,
+)
 from alpro_tpu_torch.ops.ln_mlp import ln_mlp
 from alpro_tpu_torch.ops.qkv_attn import (
     spatial_attention_qkv,
     temporal_attention_qkv,
 )
 
+# field → the values naming a kernel (the first is what 'auto' gives in eval)
 _KERNEL_IMPL = {
-    "attn_impl": "fused_qkv",
-    "temporal_attn_impl": "fused_qkv_fold",
-    "mlp_impl": "fused",
+    "attn_impl": ("fused_qkv", "pallas"),
+    "temporal_attn_impl": ("fused_qkv_fold",),
+    "mlp_impl": ("fused",),
 }
 
 
@@ -55,6 +78,9 @@ class TimeSformerConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.1
     ln_eps: float = 1e-6
     attn_impl: str = "auto"
     temporal_attn_impl: str = "auto"
@@ -65,13 +91,18 @@ class TimeSformerConfig:
     # fold the uint8 /255-mean/std normalize into the patch-embed matmul:
     # 'auto' → on for bf16 compute, off for fp32 | 'on' | 'off'
     fold_uint8_norm: str = "auto"
+    # per-block torch.utils.checkpoint in training (the reference's
+    # per-block CheckpointFunction), saving nothing inside a block (the JAX
+    # package's remat_policy='nothing'; its 'dots' and 'names' are not ported)
+    gradient_checkpointing: bool = False
 
     def __post_init__(self):
-        for field, kernel in _KERNEL_IMPL.items():
+        for field, kernels in _KERNEL_IMPL.items():
             value = getattr(self, field)
-            if value not in ("auto", "plain", "xla", kernel):
+            if value not in ("auto", "plain", "xla", *kernels):
                 raise ValueError(
-                    f"{field}={value!r}: expected 'auto', {kernel!r}, 'plain' or 'xla'"
+                    f"{field}={value!r}: expected one of 'auto', 'plain', 'xla', "
+                    + ", ".join(map(repr, kernels))
                 )
         if self.fold_uint8_norm not in ("auto", "on", "off"):
             raise ValueError(f"fold_uint8_norm={self.fold_uint8_norm!r}")
@@ -85,17 +116,36 @@ class TimeSformerConfig:
         return self.patches_per_side ** 2
 
     @classmethod
-    def from_reference_cfg(cls, video_enc_cfg: dict, img_size: int, num_frm: int):
-        """Build from a ``configs/timesformer_*.json``-style dict."""
+    def from_reference_cfg(cls, video_enc_cfg: dict, img_size: int, num_frm: int, **kw):
+        """Build from a ``configs/timesformer_*.json``-style dict (its
+        dropout, drop-path and checkpointing fields included); ``kw`` sets
+        other fields (``attn_impl``)."""
         return cls(img_size=img_size, patch_size=video_enc_cfg.get("patch_size", 16),
-                   num_frames=num_frm)
+                   num_frames=num_frm,
+                   drop_rate=video_enc_cfg.get("drop_rate", 0.0),
+                   attn_drop_rate=video_enc_cfg.get("attn_drop_rate", 0.0),
+                   drop_path_rate=video_enc_cfg.get("drop_path_rate", 0.1),
+                   gradient_checkpointing=bool(video_enc_cfg.get("gradient_checkpointing", False)),
+                   **kw)
 
-    def use_kernel(self, field: str, x: torch.Tensor) -> bool:
-        """Whether ``field`` resolves to its kernel for activations ``x``."""
+    def impl(self, field: str, x: torch.Tensor, training: bool) -> str:
+        """What ``field`` resolves to for activations ``x``: a kernel name
+        from ``_KERNEL_IMPL`` or ``plain``. ``auto`` gives the first kernel
+        only in eval on a CUDA tensor; explicit ``fused`` (MLP tail) is
+        plain in training; explicit ``fused_qkv`` is plain when attention
+        dropout is on (JAX ``VitAttention``)."""
         value = getattr(self, field)
         if value == "auto":
-            return x.device.type == "cuda"
-        return value == _KERNEL_IMPL[field]
+            value = _KERNEL_IMPL[field][0] if (x.device.type == "cuda" and not training) else "plain"
+        if value not in _KERNEL_IMPL[field]:
+            return "plain"
+        if training and (value == "fused" or (value == "fused_qkv" and self.attn_drop_rate > 0)):
+            return "plain"
+        return value
+
+    def drop_path_rates(self) -> list:
+        """Per-block stochastic-depth rates, linspace(0, drop_path_rate, depth)."""
+        return [self.drop_path_rate * i / max(self.depth - 1, 1) for i in range(self.depth)]
 
 
 def _nearest_index(old_len: int, new_len: int, device) -> torch.Tensor:
@@ -113,11 +163,15 @@ class Attention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def plain(self, x: torch.Tensor, num_heads: int, dtype) -> torch.Tensor:
-        """qkv → plain attention → proj over x (M, S, D)."""
+    def plain(self, x: torch.Tensor, num_heads: int, dtype, impl: str = "xla",
+              attn_drop: float = 0.0, generator=None, training: bool = False) -> torch.Tensor:
+        """qkv → attention (``ops/attention.py``, ``impl`` 'xla' or 'pallas')
+        → proj over x (M, S, D)."""
         M, S, D = x.shape
         qkv = linear(x, self.qkv, dtype).reshape(M, S, 3, num_heads, D // num_heads)
-        out = multi_head_attention_bshd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+        out = multi_head_attention_bshd(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], impl=impl,
+                                        dropout_rate=attn_drop, generator=generator,
+                                        training=training)
         return linear(out.reshape(M, S, D), self.proj, dtype)
 
 
@@ -127,9 +181,11 @@ class Mlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor, dtype) -> torch.Tensor:
-        """Plain fc1 → exact GELU → fc2."""
-        return linear(gelu_exact(linear(x, self.fc1, dtype)), self.fc2, dtype)
+    def forward(self, x: torch.Tensor, dtype, rate: float = 0.0, generator=None,
+                training: bool = False) -> torch.Tensor:
+        """Plain fc1 → exact GELU → dropout → fc2 → dropout."""
+        h = dropout(gelu_exact(linear(x, self.fc1, dtype)), rate, generator, training)
+        return dropout(linear(h, self.fc2, dtype), rate, generator, training)
 
 
 class DividedSTBlock(nn.Module):
@@ -146,13 +202,16 @@ class DividedSTBlock(nn.Module):
         self.temporal_attn = Attention(D)
         self.temporal_fc = nn.Linear(D, D)
 
-    def forward(self, cls, x, cfg: TimeSformerConfig, dtype):
+    def forward(self, cls, x, cfg: TimeSformerConfig, dtype, dp_rate: float = 0.0,
+                generator=None):
         B, T, N, D = x.shape
         H = cfg.num_heads
+        train = self.training
 
         # ---- temporal attention over T at each patch location ----
+        t_impl = cfg.impl("temporal_attn_impl", x, train)
         xt = self.temporal_norm1(x, dtype)
-        if cfg.use_kernel("temporal_attn_impl", x):
+        if t_impl == "fused_qkv_fold" and not train:
             qkv = linear(xt, self.temporal_attn.qkv, dtype)       # (B, T, N, 3D)
             t_att = temporal_attention_qkv(qkv, H)
             # (a·Wp + bp)·Wt + bt = a·(Wp Wt) + (bp Wt + bt), torch layout
@@ -164,26 +223,36 @@ class DividedSTBlock(nn.Module):
             )
             x = x + torch.nn.functional.linear(t_att, w_eff, b_eff).to(x.dtype)
         else:
-            xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
-            t_out = self.temporal_attn.plain(xt, H, dtype)
-            t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
+            if t_impl == "fused_qkv_fold":  # training: the kernel, unfolded projections
+                t_att = temporal_attention_qkv(linear(xt, self.temporal_attn.qkv, dtype), H)
+                t_out = linear(t_att, self.temporal_attn.proj, dtype)
+            else:
+                xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
+                t_out = self.temporal_attn.plain(xt, H, dtype, "xla", cfg.attn_drop_rate,
+                                                 generator, train)
+                t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
+            t_out = dropout(t_out, cfg.drop_rate, generator, train)
+            t_out = drop_path(t_out, dp_rate, (B, 1, N, 1), generator, train)
             x = x + linear(t_out, self.temporal_fc, dtype)
 
         # ---- spatial attention over [cls; N patches] per frame ----
         cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
         xs = torch.cat([cls_rep, x], dim=2)                       # (B, T, 1+N, D)
         xs = self.norm1(xs, dtype).reshape(B * T, 1 + N, D)
-        if cfg.use_kernel("attn_impl", x):
+        s_impl = cfg.impl("attn_impl", x, train)
+        if s_impl == "fused_qkv":
             s_att = spatial_attention_qkv(linear(xs, self.attn.qkv, dtype), H)
             s_out = linear(s_att, self.attn.proj, dtype)
         else:
-            s_out = self.attn.plain(xs, H, dtype)
-        s_out = s_out.reshape(B, T, 1 + N, D)
+            s_out = self.attn.plain(xs, H, dtype, "pallas" if s_impl == "pallas" else "xla",
+                                    cfg.attn_drop_rate, generator, train)
+        s_out = dropout(s_out, cfg.drop_rate, generator, train).reshape(B, T, 1 + N, D)
+        s_out = drop_path(s_out, dp_rate, (B, T, 1, 1), generator, train)
         cls = cls + s_out[:, :, 0, :].mean(dim=1, keepdim=True)
         x = x + s_out[:, :, 1:, :]
 
         # ---- MLP tail ----
-        if cfg.use_kernel("mlp_impl", x):
+        if cfg.impl("mlp_impl", x, train) == "fused":
             args = (
                 self.norm2.weight, self.norm2.bias,
                 self.mlp.fc1.weight.to(dtype), self.mlp.fc1.bias.to(dtype),
@@ -192,9 +261,14 @@ class DividedSTBlock(nn.Module):
             x = ln_mlp(x.reshape(B * T * N, D), *args, eps=cfg.ln_eps).reshape(B, T, N, D)
             cls = ln_mlp(cls.reshape(B, D), *args, eps=cfg.ln_eps).reshape(B, 1, D)
             return cls, x
-        cls = cls + self.mlp(self.norm2(cls, dtype), dtype)
-        x = x + self.mlp(self.norm2(x, dtype), dtype)
-        return cls, x
+        mlp_cls = self.mlp(self.norm2(cls, dtype), dtype, cfg.drop_rate, generator, train)
+        mlp_x = self.mlp(self.norm2(x, dtype), dtype, cfg.drop_rate, generator, train)
+        if train and dp_rate > 0.0:  # one per-sample mask for cls and patches
+            keep = drop_path(torch.ones((B, 1, 1), dtype=x.dtype, device=x.device), dp_rate,
+                             (B, 1, 1), generator, train)
+            mlp_cls = mlp_cls * keep
+            mlp_x = mlp_x * keep[:, :, None, :]
+        return cls + mlp_cls, x + mlp_x
 
 
 class PatchEmbed(nn.Module):
@@ -235,6 +309,7 @@ class TimeSformer(nn.Module):
         self.time_embed = nn.Parameter(torch.zeros(1, cfg.num_frames, D))
         self.blocks = nn.ModuleList(DividedSTBlock(cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(D, cfg.ln_eps)
+        self.eval()  # deterministic until train(), as the JAX default
 
     def _embed_patches(self, pixels: torch.Tensor):
         """The three input forms → ((B, T, N, D) tokens, hp, wp)."""
@@ -268,11 +343,14 @@ class TimeSformer(nn.Module):
         v = v.reshape(B, T, hp * wp, p * p * C)
         return self.patch_embed(v, dt, uint8_norm=uint8_fold), hp, wp
 
-    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """pixels: (B, T, H, W, 3) uint8 or normalized float, or pre-patchified
         (B, T, N, p·p·3) uint8/float. Returns the temporally pooled tokens
-        (B, 1+N, D): the final LN runs before the pooling."""
-        cfg, dt = self.cfg, self.dtype
+        (B, 1+N, D): the final LN runs before the pooling. In training,
+        dropout and drop-path masks come from ``generator`` (on the
+        activations' device)."""
+        cfg, dt, train = self.cfg, self.dtype, self.training
         D = cfg.embed_dim
         x, hp, wp = self._embed_patches(pixels)
         B, T, N, _ = x.shape
@@ -289,10 +367,17 @@ class TimeSformer(nn.Module):
             te = te[:, _nearest_index(cfg.num_frames, T, te.device)]
 
         cls = (self.cls_token + pos_cls).to(dt).expand(B, 1, D).contiguous()
-        x = x + pos_patch[:, None].to(x.dtype)
-        x = x + te[:, :, None, :].to(x.dtype)
-        for blk in self.blocks:
-            cls, x = blk(cls, x, cfg, dt)
+        x = dropout(x + pos_patch[:, None].to(x.dtype), cfg.drop_rate, generator, train)
+        cls = dropout(cls, cfg.drop_rate, generator, train)
+        x = dropout(x + te[:, :, None, :].to(x.dtype), cfg.drop_rate, generator, train)
+        remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
+        for blk, rate in zip(self.blocks, cfg.drop_path_rates()):
+            if remat:
+                cls, x = checkpoint(
+                    lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator),
+                    generator, cls, x)
+            else:
+                cls, x = blk(cls, x, cfg, dt, rate, generator)
         cls = self.norm(cls, dt)
         x = self.norm(x, dt)
         return torch.cat([cls, x.mean(dim=1)], dim=1)

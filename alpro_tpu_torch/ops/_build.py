@@ -59,6 +59,11 @@ _SIGNATURES = {
     ),
     # is_bf16, device
     "alpro_bert_attn_max_seq": ([_I, _I], _I),
+    # q, k, v, bias, out, strides (12 int64: batch, sequence, head of q, k, v,
+    # out), B, H, Sq, Sk, hd, scale, is_bf16, device, stream
+    "alpro_masked_attn": ([_P] * 6 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # is_bf16, hd, device
+    "alpro_masked_attn_max_seq": ([_I, _I, _I], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -165,6 +170,19 @@ def stream_args(t) -> tuple:
     import torch
 
     return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has
+    none (its JAX counterpart runs only at serving): grad mode on and any
+    input requiring grad."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward (a serving kernel): call it under torch.no_grad() or "
+            f"torch.inference_mode(), or take the plain path for training"
+        )
 
 
 def check(err: int, name: str) -> None:

@@ -14,7 +14,9 @@ Weights are in torch Linear layout (out, in), the transposes of the JAX
 functions', so the model's ``nn.Linear`` weights go in without a copy. A
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it launches
 the kernel or raises. ``attn_launches`` and ``mlp_launches`` count kernel
-launches (one per call; the attention chain is two CUDA launches).
+launches (one per call; the attention chain is two CUDA launches). Neither
+kernel has a backward (the JAX model runs them only at serving): a wrapper
+raises when grad mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -105,6 +107,7 @@ def bert_attention_block(x: torch.Tensor, attention_mask: torch.Tensor,
             raise ValueError(f"{name}: shape {tuple(w.shape)} != {(D, D)}")
     if tuple(attention_mask.shape) != (M, S):
         raise ValueError(f"attention_mask: shape {tuple(attention_mask.shape)} != {(M, S)}")
+    _build.refuse_grad("bert_attention_block", x, wq, bq, wk, bk, wv, bv, wo, bo, ln_s, ln_b)
     if x.device.type == "cpu":
         return bert_attention_block_plain(x, attention_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                                           ln_s, ln_b, num_heads, eps)
@@ -160,6 +163,7 @@ def bert_mlp_block(x: torch.Tensor, w1, b1, w2, b2, ln_s, ln_b, *,
             f"shape mismatch: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)}, b1 {tuple(b1.shape)}, b2 {tuple(b2.shape)}"
         )
+    _build.refuse_grad("bert_mlp_block", x, w1, b1, w2, b2, ln_s, ln_b)
     if x.device.type == "cpu":
         return bert_mlp_block_plain(x, w1, b1, w2, b2, ln_s, ln_b, eps)
     _build.check_cuda_operand(x, "bert_mlp_block x", _DTYPES)

@@ -1,4 +1,5 @@
-"""LayerNorm and GELU of the encoders (counterpart of ``alpro_tpu/ops/layers.py``).
+"""LayerNorm, GELU, dropout, drop-path and per-block checkpointing of the
+encoders (counterpart of ``alpro_tpu/ops/layers.py``).
 
 LayerNorm statistics are one-pass fp32 (E[x²]−E[x]², clamped at 0) whatever
 the compute dtype. That is not the algorithm of ``torch.nn.functional
@@ -8,7 +9,10 @@ fused kernels and this module all share it.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
@@ -44,3 +48,63 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     fp32-stored weights are cast to the compute dtype at use)."""
     b = None if layer.bias is None else layer.bias.to(dtype)
     return torch.nn.functional.linear(x.to(dtype), layer.weight.to(dtype), b)
+
+
+# ---- training-time randomness, drawn from explicit generators ----------------
+# Masks come from the ``generator`` passed in (on the activations' device), never
+# from the global RNG, so a train step's draws are a function of its seed and
+# step (see ``checkpoint``).
+
+
+def _keep_mask(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError(f"a dropout or drop-path rate of {rate} in training needs a generator")
+    return torch.empty(shape, device=device).bernoulli_(1.0 - rate, generator=generator).bool()
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """flax ``nn.Dropout``: in training, each element kept with probability
+    1 - rate and scaled by 1/(1 - rate); the identity otherwise."""
+    if not training or rate == 0.0:
+        return x
+    keep = _keep_mask(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, mask_shape, generator: Optional[torch.Generator],
+              training: bool) -> torch.Tensor:
+    """Stochastic depth (``layers.py::apply_drop_path`` and the TimeSformer
+    block's masks): one keep draw per entry of ``mask_shape`` (x's shape with
+    1 on the shared axes), as ``x · keep / keep_prob`` in x's dtype."""
+    if not training or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = _keep_mask(mask_shape, rate, generator, x.device).to(x.dtype)
+    return x * keep / torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
+
+
+def checkpoint(fn, generator: Optional[torch.Generator], *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant; nothing
+    inside ``fn`` is saved, the JAX package's ``remat_policy='nothing'``).
+    The recompute in the backward pass draws its dropout and drop-path masks
+    from ``generator`` as the forward did: its state at the forward's start
+    is restored for the recompute, and the state the step had reached is put
+    back after it (checkpoint itself preserves only the global RNG)."""
+    if generator is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    start = generator.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(resume)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)

@@ -7,7 +7,9 @@ the transposes of the JAX kernels' (D, Dh) and (Dh, D), so the model's
 ``nn.Linear`` weights go in without a copy.
 
 The wrapper runs the twin only for a CPU tensor; for a CUDA tensor it
-launches the kernel or raises. ``launches`` counts kernel launches.
+launches the kernel or raises. ``launches`` counts kernel launches. The
+kernel has no backward (the JAX model runs it only at serving): the wrapper
+raises when grad mode is on and an input requires grad.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ def ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
             f"shape mismatch: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
             f"w2 {tuple(w2.shape)}, b1 {tuple(b1.shape)}, b2 {tuple(b2.shape)}"
         )
+    _build.refuse_grad("ln_mlp", x, scale, bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return ln_mlp_plain(x, scale, bias, w1, b1, w2, b2, eps, residual)
     _build.check_cuda_operand(x, "ln_mlp x", _DTYPES)

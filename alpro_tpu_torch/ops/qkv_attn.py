@@ -14,6 +14,11 @@ Channel layout is the fused qkv projection's: ``[q | k | v]``, each (H, hd)
 head-major. A wrapper runs the twin only for a CPU tensor; for a CUDA tensor
 it launches the kernel or raises. ``spatial_launches`` and
 ``temporal_launches`` count kernel launches.
+
+Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), the
+kernel call is a ``torch.autograd.Function`` whose backward is the vjp of the
+plain twin, recomputed from the saved packed qkv. On a CPU tensor the twin is
+differentiated directly, which is the same vjp.
 """
 
 from __future__ import annotations
@@ -72,10 +77,33 @@ def _head_dim(qkv: torch.Tensor, num_heads: int) -> int:
     return threeD // 3 // num_heads
 
 
+def _twin_vjp(twin, qkv, g, num_heads: int, scale: float) -> torch.Tensor:
+    """d qkv of ``twin(qkv)`` against the cotangent g (cast to qkv's dtype)."""
+    with torch.enable_grad():
+        x = qkv.detach().requires_grad_(True)
+        (dx,) = torch.autograd.grad(twin(x, num_heads, scale), x, g.to(qkv.dtype))
+    return dx
+
+
+class _KernelAttention(torch.autograd.Function):
+    """kernel(qkv) forward, vjp of the plain twin backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale, kernel, twin):
+        ctx.save_for_backward(qkv)
+        ctx.args = (num_heads, scale, twin)
+        return kernel(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        (qkv,) = ctx.saved_tensors
+        num_heads, scale, twin = ctx.args
+        return _twin_vjp(twin, qkv, g, num_heads, scale), None, None, None, None
+
+
 def spatial_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Mask-free attention over packed qkv (M, S, 3·H·hd) → (M, S, H·hd)."""
-    global spatial_launches
     if qkv.dim() != 3:
         raise ValueError(f"expected (M, S, 3D) qkv, got shape {tuple(qkv.shape)}")
     hd = _head_dim(qkv, num_heads)
@@ -83,6 +111,13 @@ def spatial_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
         scale = hd ** -0.5
     if qkv.device.type == "cpu":
         return spatial_attention_plain(qkv, num_heads, float(scale))
+    return _KernelAttention.apply(qkv, num_heads, float(scale), _spatial_launch,
+                                  spatial_attention_plain)
+
+
+def _spatial_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    global spatial_launches
+    hd = _head_dim(qkv, num_heads)
     _build.check_cuda_operand(qkv, "spatial_attention_qkv", _DTYPES)
     M, S, _ = qkv.shape
     if hd % 16 or M > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ or S < 1:
@@ -105,7 +140,6 @@ def temporal_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Attention over T at each (b, n): packed qkv (B, T, N, 3·H·hd) →
     (B, T, N, H·hd), no relayout."""
-    global temporal_launches
     if qkv.dim() != 4:
         raise ValueError(
             f"expected (B, T, N, 3D) qkv, got shape {tuple(qkv.shape)}"
@@ -115,6 +149,13 @@ def temporal_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
         scale = hd ** -0.5
     if qkv.device.type == "cpu":
         return temporal_attention_plain(qkv, num_heads, float(scale))
+    return _KernelAttention.apply(qkv, num_heads, float(scale), _temporal_launch,
+                                  temporal_attention_plain)
+
+
+def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    global temporal_launches
+    hd = _head_dim(qkv, num_heads)
     _build.check_cuda_operand(qkv, "temporal_attention_qkv", _DTYPES)
     B, T, N, _ = qkv.shape
     if hd not in (32, 64, 96, 128) or not 1 <= T <= 32:

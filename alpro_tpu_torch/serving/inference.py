@@ -2,15 +2,15 @@
 
 Counterpart of the inference builders in ``alpro_tpu/train/step.py``
 (``make_text_encode_fn``, ``make_video_embed_fn``, ``make_fusion_score_fn``,
-``_qa_logits``, ``make_qa_inference_fn``, ``make_qa_video_encode_fn``; the
-port has no ``train`` package yet). The JAX builders return pure
+``_qa_logits``, ``make_qa_inference_fn``, ``make_qa_video_encode_fn``;
+``train/step.py`` trains through ``qa_logits``). The JAX builders return pure
 functions of ``(params, ...)``; here the model owns its weights, so each
 function takes only the inputs and runs under ``torch.inference_mode``.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -55,22 +55,25 @@ def make_fusion_score_fn(model: AlproModel) -> Callable:
     return score
 
 
-def qa_logits(model: AlproModel, batch, n_options: int = 1) -> torch.Tensor:
+def qa_logits(model: AlproModel, batch, n_options: int = 1,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """QA logits (B, num_labels) fp32 (``_qa_logits``). ``batch`` holds
     ``text_input_ids``/``text_input_mask`` and either cached
     ``video_embeds`` (n, 1+N, D) or ``visual_inputs`` pixels. With
     ``n_options > 1`` (multi-choice, ``num_labels`` 1) the text rows are
     question-major (B·n_options) Q+option sequences against B videos: each
-    video row repeats per option and the scores regroup to (B, n_options)."""
+    video row repeats per option and the scores regroup to (B, n_options).
+    ``generator``: the dropout masks' source when the model is in training
+    (``train/step.py::make_qa_train_step``)."""
     if "video_embeds" in batch:
         video_embeds = batch["video_embeds"]
     else:
-        video_embeds = model.embed_video(batch["visual_inputs"])
+        video_embeds = model.embed_video(batch["visual_inputs"], generator)
     mask = batch["text_input_mask"]
-    text_embeds = model.embed_text(batch["text_input_ids"], mask)
+    text_embeds = model.embed_text(batch["text_input_ids"], mask, generator)
     if n_options > 1:
         video_embeds = video_embeds.repeat_interleave(n_options, dim=0)
-    fusion = model.fuse(text_embeds, mask, video_embeds)
+    fusion = model.fuse(text_embeds, mask, video_embeds, None, generator)
     logits = model.classify(fusion[:, 0, :])
     if n_options > 1:
         logits = logits.reshape(-1, n_options)

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
-retrieval and the video QA serving paths at full ALPRO-base width.
+retrieval and the video QA serving paths and their finetuning steps at full
+ALPRO-base width.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,7 @@ line):
 2. build — compiles ``alpro_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each CUDA kernel against its plain PyTorch twin on the same
    bf16 inputs at the shapes of the main paths, with the tolerance stated
-   beside it; the median time of both, of one PyTorch library call that
+   beside it (the masked attention's gradient too); the median time of both, of one PyTorch library call that
    computes the same function where there is one, and the least time the
    card could take at the main shape (``bound_ms``);
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
@@ -29,7 +30,15 @@ line):
    ``encode_video`` on 2 clips, ``predict`` on the cached tokens for 4
    questions and once from pixels, ``predict_batch`` on the 4 questions,
    each with its exact launch counts; cached agrees with pixels, ``predict``
-   with ``predict_batch``, and the kernel path with the plain path.
+   with ``predict_batch``, and the kernel path with the plain path;
+6. finetuning — retrieval (``configs/msrvtt_ret.json``: B = 8 per card, its
+   AdamW and schedule; fp32 parameters, bf16 compute, dropout and drop-path
+   on) under ``--attn_impl pallas`` in turns with ``xla``: 24 masked-attention
+   launches per pallas step and no serving kernel, finite losses, every
+   parameter changed, temp clamped; then pallas vs xla loss, whole gradient
+   and each parameter's gradient with dropout off; then two MSRVTT-QA steps (T=16, B=4) with
+   their launch counts. Step ms, train clips/s and peak device memory for
+   both paths.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -62,11 +72,17 @@ CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
 
 # kernel vs twin, elementwise |kernel - twin| <= atol + rtol·|twin|, bf16:
 # the outputs are bf16 (one ulp is 2^-8 relative); the spatial kernel also
-# rounds p to bf16 before PV where its twin keeps fp32
 # rounds p to bf16 before PV where its twin keeps fp32, and the BERT attention
-# kernel q, k, v, p and the per-head output (its TPU kernel's rounding points)
+# kernel q, k, v, p and the per-head output (its TPU kernel's rounding points);
+# the masked-attention kernel rounds p where its twin does, so only the
+# summation order and exp differ
 KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2,
-              "bert_attn": 3e-2, "bert_mlp": 2e-2}
+              "bert_attn": 3e-2, "bert_mlp": 2e-2, "masked_attn_bshd": 2e-2,
+              "masked_attn_bhsd": 2e-2}
+# masked attention's gradient (the Function's fp32 recompute, cast to bf16)
+# against autograd through the bf16 twin, which backpropagates through p
+# rounded to bf16: max |difference| <= this share of max |twin gradient|
+MASKED_GRAD_TOL = 3e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # query vs query_batch: the same bf16 towers at batch 1 and 4
@@ -86,6 +102,23 @@ QA_PLAIN_TOL = {"prob": 1e-4, "logp": 1e-1}
 QA_BATCH_TOL = {"prob": 2e-5, "logp": 2e-2}
 # cached tokens vs pixels: the same kernels on the same batch
 QA_CACHE_TOL = {"prob": 1e-6, "logp": 1e-3}
+# finetuning: the linear schedule with warmup ratio 0.1 runs over this many
+# steps (the run takes the first few); QA takes 4 clips per step
+FT_TRAIN_STEPS, QA_TRAIN_BATCH = 40, 4
+# attn_impl 'pallas' vs 'xla' in bf16, dropout off, same weights, batch and
+# negatives: the two attentions round at other points (the xla path keeps
+# bf16 scores), so the VTC + VTM loss may differ by this much and the whole
+# gradient by this relative L2 distance; the whole gradient's norm is carried
+# by its large leaves, so each parameter's gradient is also held to a
+# relative L2 distance, and the q/k/v weights that feed the masked attention
+# (the spatial attention's packed qkv, BERT's query/key/value) to a tighter
+# one. BERT's key biases are left out: a key bias adds q·b to every score of
+# a row, which the softmax cancels, so their exact gradient is 0 and both
+# paths give rounding noise (relative L2 ~1.3 between them on the H100)
+FT_LOSS_TOL, FT_GRAD_TOL = 2e-2, 5e-2
+FT_PARAM_GRAD_TOL, FT_QKV_GRAD_TOL = 2e-1, 1.5e-1
+QKV_WEIGHT = re.compile(r"(\.attn\.qkv|\.self\.(query|key|value))\.weight$")
+ZERO_GRAD = re.compile(r"\.self\.key\.bias$")
 
 def fail_if(cond: bool, msg: str) -> None:
     if cond:
@@ -243,7 +276,80 @@ def phase_kernels(card: str) -> dict:
             lambda: bert_block.bert_mlp_block(xr, *w, *ln, eps=1e-12),
             lambda: bert_block.bert_mlp_block_plain(xr, *w, *ln, 1e-12),
             card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
+    _masked_attn_kernels(res, randn, card)
     return res
+
+
+def _masked_grad_check(name, shape, fn, twin, inputs) -> None:
+    """The kernel's autograd Function (the JAX backward: an fp32 recompute)
+    against autograd through the twin, on the same inputs and cotangent."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ts)
+    cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, ts, cot)
+    refs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(twin(*refs), refs, cot)
+    err = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+              for a, b in zip(got, want))
+    print(f"[kernel] {name} {tuple(shape)} backward: dq, dk, dv max_abs / max|twin| {err:.3e} "
+          f"(tol {MASKED_GRAD_TOL})", flush=True)
+    fail_if(not all(bool(torch.isfinite(a).all()) for a in got), f"{name}: non-finite gradient")
+    fail_if(err > MASKED_GRAD_TOL, f"{name} {shape}: gradient differs from the twin's by {err}")
+
+
+def _masked_attn_kernels(res, randn, card) -> None:
+    """B13 (flat channels) and B12 (B, H, S, hd), forward and backward, at the
+    finetuning path's shapes: spatial attention on views of the packed qkv of
+    one 8-clip batch (64 frames, main), the text half (8, 40) and the fusion
+    of the 3B-row VTM batch (24, 237), and the longest fusion sequence (512
+    text + 197 video tokens). The library call is SDPA with the float key
+    bias on views of the same tensors."""
+    from alpro_tpu_torch.ops import masked_attn
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
+    D, bf, scale = H * hd, torch.bfloat16, hd ** -0.5
+    print(f"[kernel] masked_attn takes Sk <= {masked_attn.max_seq_len(bf, hd, 'cuda')} in bf16, "
+          f"<= {masked_attn.max_seq_len(torch.float32, hd, 'cuda')} in fp32 at head_dim {hd}",
+          flush=True)
+    for Bn, S, packed, main in ((B * T, 1 + N, True, True), (8, 40, False, False),
+                                (24, 40 + 1 + N, False, False), (1, 512 + 1 + N, False, False)):
+        if packed:
+            x = randn(Bn, S, 3 * D)
+            q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]
+        else:
+            q, k, v = (randn(Bn, S, D) for _ in range(3))
+        mask = torch.ones(Bn, S, device="cuda")
+        if not packed:
+            for b in range(Bn):  # padded text tails of different lengths
+                mask[b, 8 + 3 * b % 32:40] = 0.0
+        bias = masked_attn.key_bias(mask, Bn, S, "cuda")
+        lib_mask = bias[:, None, None, :].to(bf)
+        heads = [t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (q, k, v)]
+        contig = [t.contiguous() for t in heads]
+        work = (4 * Bn * H * S * S * hd, 4 * Bn * S * D * 2 + Bn * S * 4)
+        res["masked_attn_bshd"].append(_compare(
+            "masked_attn_bshd", (Bn, S, D),
+            lambda: masked_attn.fused_attention_bshd(q, k, v, H, key_mask=mask),
+            lambda: masked_attn.attention_plain(*heads, bias, scale).transpose(1, 2).flatten(2),
+            card, main, library=lambda: sdpa(*heads, attn_mask=lib_mask), work=work))
+        res["masked_attn_bhsd"].append(_compare(
+            "masked_attn_bhsd", (Bn, H, S, hd),
+            lambda: masked_attn.fused_attention(*contig, key_mask=mask),
+            lambda: masked_attn.attention_plain(*contig, bias, scale),
+            card, main, library=lambda: sdpa(*contig, attn_mask=lib_mask), work=work))
+        _masked_grad_check(
+            "masked_attn_bshd", (Bn, S, D),
+            lambda a, b, c: masked_attn.fused_attention_bshd(a, b, c, H, key_mask=mask),
+            lambda a, b, c: masked_attn.attention_plain(
+                *(t.unflatten(-1, (H, hd)).transpose(1, 2) for t in (a, b, c)), bias,
+                scale).transpose(1, 2).flatten(2),
+            (q, k, v))
+        _masked_grad_check(
+            "masked_attn_bhsd", (Bn, H, S, hd),
+            lambda a, b, c: masked_attn.fused_attention(a, b, c, key_mask=mask),
+            lambda a, b, c: masked_attn.attention_plain(a, b, c, bias, scale), contig)
 
 
 class HashTokenizer:
@@ -282,26 +388,30 @@ def _build_model(build, vis_json: str, frames: int, **kwargs):
 
 
 def _counts():
-    from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
+    from alpro_tpu_torch.ops import bert_block, ln_mlp, masked_attn, qkv_attn
 
     return {"spatial_attn": qkv_attn.spatial_launches,
             "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches,
-            "bert_attn": bert_block.attn_launches, "bert_mlp": bert_block.mlp_launches}
+            "bert_attn": bert_block.attn_launches, "bert_mlp": bert_block.mlp_launches,
+            "masked_attn_bshd": masked_attn.bshd_launches,
+            "masked_attn_bhsd": masked_attn.bhsd_launches}
 
 
 def _reset_counts():
-    from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
+    from alpro_tpu_torch.ops import bert_block, ln_mlp, masked_attn, qkv_attn
 
     qkv_attn.spatial_launches = qkv_attn.temporal_launches = ln_mlp.launches = 0
     bert_block.attn_launches = bert_block.mlp_launches = 0
+    masked_attn.bshd_launches = masked_attn.bhsd_launches = 0
 
 
-def _launches(video_calls: int = 0, text_calls: int = 0) -> dict:
-    """Launches per video tower call (12 blocks) and per text + fusion call
-    (6 + 6 BERT layers)."""
+def _launches(video_calls: int = 0, text_calls: int = 0, masked: int = 0) -> dict:
+    """Serving: launches per video tower call (12 blocks) and per text +
+    fusion call (6 + 6 BERT layers). Finetuning under attn_impl='pallas':
+    ``masked`` launches of the masked-attention kernel, no other."""
     return {"spatial_attn": 12 * video_calls, "temporal_attn": 12 * video_calls,
             "ln_mlp": 24 * video_calls, "bert_attn": 12 * text_calls,
-            "bert_mlp": 12 * text_calls}
+            "bert_mlp": 12 * text_calls, "masked_attn_bshd": masked, "masked_attn_bhsd": 0}
 
 
 def _set_path(model, vis_cfg, bert_cfg) -> None:
@@ -553,12 +663,242 @@ def phase_qa(card: str) -> dict:
           flush=True)
 
 
+def _train_model(build, vis_json: str, frames: int, attn_impl: str, **kwargs):
+    """fp32 parameters (seeded random) with bf16 compute, dropout and
+    drop-path at the configs' rates, built on the card."""
+    from alpro_tpu_torch.models.alpro import init_random_
+
+    bert_cfg = json.loads((REPO / "configs" / "base_model.json").read_text())
+    vis_cfg = json.loads((REPO / "configs" / vis_json).read_text())
+    with torch.device("meta"):
+        model = build(bert_cfg, vis_cfg, img_size=224, num_frm=frames, dtype=torch.bfloat16,
+                      attn_impl=attn_impl, **kwargs)
+    model = model.to_empty(device="cuda")
+    return init_random_(model, torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def _set_attn_impl(model, impl: str, **dropout) -> None:
+    """Switch both towers' attn_impl (and, given, their dropout fields)."""
+    vis, bert = model.visual_encoder.model, model.text_encoder.bert
+    vis.cfg = dataclasses.replace(vis.cfg, attn_impl=impl,
+                                  **{k: v for k, v in dropout.items() if hasattr(vis.cfg, k)})
+    bert.cfg = dataclasses.replace(bert.cfg, attn_impl=impl,
+                                   **{k: v for k, v in dropout.items() if hasattr(bert.cfg, k)})
+
+
+def _retrieval_train_setup(seed: int):
+    """Phase 6's retrieval finetuning under attn_impl='pallas': the model of
+    ``configs/msrvtt_ret.json`` (see ``_train_model``), its AdamW and linear
+    schedule over FT_TRAIN_STEPS, a TrainState, the train step with one
+    local block, and a batch of the reference's per-GPU B (train_batch_size
+    64 over 8 GPUs) synthetic uint8 clips and hashed texts drawn from
+    ``seed``. Returns (model, opt, state, step, batch)."""
+    from alpro_tpu_torch.models.alpro import build_retrieval_model
+    from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
+    from alpro_tpu_torch.train.state import TrainState
+    from alpro_tpu_torch.train.step import make_retrieval_train_step
+
+    cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
+    B = cfg["train_batch_size"] // 8
+    model = _train_model(build_retrieval_model, Path(cfg["visual_model_cfg"]).name,
+                         cfg["num_frm"], "pallas")
+    opt = build_optimizer(get_lr_schedule(cfg["decay"], cfg["learning_rate"], FT_TRAIN_STEPS),
+                          betas=tuple(cfg["betas"]), grad_norm=cfg["grad_norm"])
+    state = TrainState.create(model, opt)
+    step = make_retrieval_train_step(model, opt, num_local_blocks=1)
+    rng = np.random.RandomState(seed)
+    tok = HashTokenizer(model.cfg.bert.vocab_size)(
+        [f"{TEXTS[i % len(TEXTS)]} {i}" for i in range(B)], max_length=cfg["max_txt_len"])
+    batch = {"visual_inputs": torch.from_numpy(rng.randint(
+                 0, 256, (B, cfg["num_frm"], 224, 224, 3), dtype=np.uint8)).cuda(),
+             "text_input_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
+             "text_input_mask": torch.from_numpy(tok["attention_mask"]).long().cuda()}
+    return model, opt, state, step, batch
+
+
+def grad_gaps(got: dict, ref: dict) -> dict:
+    """Gradients ``got`` against ``ref`` (parameter name → fp32 tensor): the
+    relative L2 distance and cosine of the whole (``whole``, ``cosine``,
+    over ``values`` entries); per parameter with a gradient on either side,
+    the relative L2 distance, worst first (inf where only ``got`` has one),
+    for all but BERT's key biases (``params``), for the q/k/v weights among
+    them (``qkv``), and for the key biases (``key_bias``)."""
+    flat = [torch.cat([g.flatten() for g in gs.values()]) for gs in (got, ref)]
+    rel = {}
+    for n, r in ref.items():
+        dn, rn = float((got[n] - r).norm()), float(r.norm())
+        if dn > 0 or rn > 0:
+            rel[n] = dn / rn if rn > 0 else float("inf")
+    params = sorted(((n, r) for n, r in rel.items() if not ZERO_GRAD.search(n)),
+                    key=lambda kv: -kv[1])
+    return {"whole": float((flat[0] - flat[1]).norm() / flat[1].norm()),
+            "cosine": float(torch.nn.functional.cosine_similarity(flat[0], flat[1], dim=0)),
+            "values": flat[1].numel(), "params": params,
+            "qkv": [(n, r) for n, r in params if QKV_WEIGHT.search(n)],
+            "key_bias": [r for n, r in rel.items() if ZERO_GRAD.search(n)]}
+
+
+def _timed_step(step, state, batch, want: dict, what: str):
+    """One train step with the launch counts set to 0 just before it and
+    read just after; returns (metrics, host ms, peak device bytes, launch
+    counts)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch, SEED)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = _counts()
+    fail_if(got != want, f"{what} step {state.step}: launch counts {got} != {want}")
+    values = {k: float(v) for k, v in metrics.items()}
+    fail_if(not all(np.isfinite(v) for v in values.values()), f"{what}: non-finite {values}")
+    return values, ms, torch.cuda.max_memory_allocated(), got
+
+
+def phase_finetune(card: str) -> dict:
+    """(a) Retrieval finetuning at ALPRO-base width under attn_impl='pallas'
+    against 'xla', in turns on one model (a warm-up step each, then
+    pallas, xla, pallas, xla, pallas, xla): every pallas step launches the
+    masked-attention kernel 24 times (12 spatial, 6 text, 6 fusion) and no
+    serving kernel, every xla step no kernel; losses finite; after the
+    steps every parameter has changed and temp lies in [0.001, 0.5].
+    (b) With dropout and drop-path at 0, the same weights and batch: one
+    step's loss, whole gradient and each parameter's gradient under
+    'pallas' against 'xla', the hard negatives drawn once and replayed. (c) Two MSRVTT-QA steps (T=16, B=4,
+    gradient checkpointing and accumulation over 2 as in its config), with
+    their launch counts. Returns the masked-attention launches counted in
+    (a)'s pallas steps, per layout."""
+    from alpro_tpu_torch.models.alpro import build_qa_model
+    from alpro_tpu_torch.train import step as train_step
+    from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
+    from alpro_tpu_torch.train.state import TrainState
+
+    model, opt, state, step, batch = _retrieval_train_setup(SEED + 2)
+    B = batch["visual_inputs"].shape[0]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    want = {"pallas": _launches(masked=24), "xla": _launches()}
+    runs = {"pallas": [], "xla": []}
+    for impl in ["pallas", "xla"] + ["pallas", "xla"] * 3:
+        _set_attn_impl(model, impl)
+        runs[impl].append(_timed_step(step, state, batch, want[impl], f"retrieval {impl}"))
+    for impl, rows in runs.items():
+        print(f"[finetune] retrieval {impl}: losses "
+              + ", ".join(f"{r[0]['loss']:.5f} (vtc {r[0]['vtc_loss']:.5f}, vtm "
+                          f"{r[0]['vtm_loss']:.5f})" for r in rows), flush=True)
+    unchanged = [n for n, p in model.named_parameters() if torch.equal(p, before[n])]
+    fail_if(bool(unchanged), f"parameters unchanged after {state.step} steps: {unchanged}")
+    temp = float(model.temp.detach())
+    fail_if(not 0.001 <= temp <= 0.5, f"temp {temp} outside [0.001, 0.5]")
+    del before
+    for impl, rows in runs.items():
+        ms = statistics.median(r[1] for r in rows[1:])
+        print(f"[finetune] retrieval attn_impl={impl}: step p50 {ms:.2f} ms over {len(rows) - 1} "
+              f"steps after a warm-up, {B / ms * 1e3:.2f} train clips/s, peak "
+              f"{max(r[2] for r in rows) / 2**30:.2f} GiB (max_memory_allocated); launches per "
+              f"step {[r[3]['masked_attn_bshd'] for r in rows]} masked_attn_bshd, 0 of K1-K5 "
+              f"[{card}]", flush=True)
+    print(f"[finetune] all {state.step} steps: every parameter changed, temp {temp:.6f}",
+          flush=True)
+
+    # ---- (b) pallas vs xla: one step's loss and gradient, no dropout ----
+    drawn = []
+    sample = train_step.sample_hard_negatives
+
+    def record(*args, **kw):
+        drawn.append(sample(*args, **kw))
+        return drawn[-1]
+
+    grads, losses = {}, {}
+    for impl in ("pallas", "xla"):
+        _set_attn_impl(model, impl, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                       drop_path_rate=0.0, drop_rate=0.0)
+        train_step.sample_hard_negatives = record if impl == "pallas" else (
+            lambda *a, **k: drawn[0])
+        model.train()
+        model.zero_grad(set_to_none=True)
+        try:
+            loss, _ = train_step.retrieval_loss(
+                model, batch, train_step.step_generator(SEED, 0, "cuda"))
+            loss.backward()
+        finally:
+            train_step.sample_hard_negatives = sample
+            model.eval()
+        losses[impl] = float(loss.detach())
+        grads[impl] = {n: (torch.zeros_like(p) if p.grad is None else p.grad).float()
+                       for n, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+    gap = grad_gaps(grads["pallas"], grads["xla"])
+    worst, qkv = gap["params"], gap["qkv"]
+    ldiff = abs(losses["pallas"] - losses["xla"])
+    print(f"[finetune] pallas vs xla, no dropout: loss {losses['pallas']:.6f} vs "
+          f"{losses['xla']:.6f} (|diff| {ldiff:.3e}, tol {FT_LOSS_TOL}); full gradient "
+          f"({gap['values']} values) relative L2 {gap['whole']:.3e} (tol {FT_GRAD_TOL}), "
+          f"cosine {gap['cosine']:.6f}; per parameter, worst of {len(worst)} (and of the "
+          f"{len(gap['key_bias'])} key biases, not held: {max(gap['key_bias'], default=0):.3e}): "
+          + ", ".join(f"{n} {r:.3e}" for n, r in worst[:5])
+          + f" (tol {FT_PARAM_GRAD_TOL}); worst of the {len(qkv)} q/k/v weights: "
+          + ", ".join(f"{n} {r:.3e}" for n, r in qkv[:3]) + f" (tol {FT_QKV_GRAD_TOL})",
+          flush=True)
+    fail_if(ldiff > FT_LOSS_TOL, f"pallas vs xla loss differs by {ldiff}")
+    fail_if(gap["whole"] > FT_GRAD_TOL,
+            f"pallas vs xla gradient differs by {gap['whole']} (relative L2)")
+    fail_if(len(qkv) != model.cfg.visual.depth + 3 * model.cfg.bert.num_hidden_layers,
+            f"{len(qkv)} q/k/v weights with a gradient")
+    fail_if(worst[0][1] > FT_PARAM_GRAD_TOL, f"pallas vs xla gradient of {worst[0][0]} "
+            f"differs by {worst[0][1]} (relative L2)")
+    fail_if(qkv[0][1] > FT_QKV_GRAD_TOL, f"pallas vs xla gradient of {qkv[0][0]} differs by "
+            f"{qkv[0][1]} (relative L2)")
+    launches = {k: sum(r[3][k] for r in runs["pallas"])
+                for k in ("masked_attn_bshd", "masked_attn_bhsd")}
+    del model, state, opt, grads, step
+    torch.cuda.empty_cache()
+
+    # ---- (c) MSRVTT-QA finetuning steps ----
+    qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+    Bq, T, L = QA_TRAIN_BATCH, qa_cfg["num_frm"], qa_cfg["num_labels"]
+    vis_json = Path(qa_cfg["visual_model_cfg"]).name
+    model = _train_model(build_qa_model, vis_json, T, "pallas", num_labels=L,
+                         cls_hidden_scale=qa_cfg["cls_hidden_scale"])
+    remat = model.cfg.visual.gradient_checkpointing
+    opt = build_optimizer(
+        get_lr_schedule(qa_cfg["decay"], qa_cfg["learning_rate"], FT_TRAIN_STEPS),
+        betas=tuple(qa_cfg["betas"]), grad_norm=qa_cfg["grad_norm"],
+        accum_steps=qa_cfg["gradient_accumulation_steps"])
+    state = TrainState.create(model, opt)
+    step = train_step.make_qa_train_step(model, opt)
+    tok = HashTokenizer(model.cfg.bert.vocab_size)(QUESTIONS[:Bq], max_length=qa_cfg["max_txt_len"])
+    rng = np.random.RandomState(SEED + 3)
+    qbatch = {"visual_inputs": torch.from_numpy(rng.randint(
+                  0, 256, (Bq, T, 224, 224, 3), dtype=np.uint8)).cuda(),
+              "text_input_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
+              "text_input_mask": torch.from_numpy(tok["attention_mask"]).long().cuda(),
+              "labels": torch.from_numpy(rng.randint(0, L, Bq)).cuda()}
+    # 12 spatial attentions, again in the backward's recompute when the
+    # video tower is checkpointed (configs: gradient_checkpointing), + 6 + 6
+    qa_want = _launches(masked=12 * (1 + remat) + 12)
+    rows = [_timed_step(step, state, qbatch, qa_want, "qa") for _ in range(2)]
+    fail_if(state.opt_state.count != 1, f"QA: {state.opt_state.count} updates after 2 steps "
+            f"with accumulation over {qa_cfg['gradient_accumulation_steps']}")
+    print(f"[finetune] QA (T={T}, B={Bq}, {L} labels, video tower checkpointed: {remat}, "
+          f"accumulation {qa_cfg['gradient_accumulation_steps']}): losses "
+          f"{', '.join(f'{r[0]['loss']:.5f}' for r in rows)}; step ms "
+          f"{', '.join(f'{r[1]:.2f}' for r in rows)}; peak {max(r[2] for r in rows) / 2**30:.2f} "
+          f"GiB; launches per step {[r[3]['masked_attn_bshd'] for r in rows]} masked_attn_bshd, "
+          f"0 of K1-K5 [{card}]", flush=True)
+    del model, state, opt
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
     res = phase_kernels(card)
     launches = phase_slice(card)
     phase_qa(card)
+    # the finetuning path's own counts (the masked attention is on no serving path)
+    launches.update(phase_finetune(card))
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -569,6 +909,10 @@ def main() -> int:
                       "alpro_tpu/ops/pallas_bert_block.py:151"),
         "bert_mlp": ("alpro_tpu_torch/csrc/ln_mlp.cu",
                      "alpro_tpu/ops/pallas_bert_block.py:298"),
+        "masked_attn_bshd": ("alpro_tpu_torch/csrc/masked_attn.cu",
+                             "alpro_tpu/ops/pallas_attn.py:203"),
+        "masked_attn_bhsd": ("alpro_tpu_torch/csrc/masked_attn.cu",
+                             "alpro_tpu/ops/pallas_attn.py:78"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

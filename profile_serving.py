@@ -33,7 +33,7 @@ import torch
 import chip_smoke as smoke
 
 
-def _device_stats(prof, iters: int) -> dict:
+def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
     """Kernel time by name, busy time and idle share from a profiler run."""
     events = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
@@ -53,13 +53,14 @@ def _device_stats(prof, iters: int) -> dict:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
     total = sum(t for t, _ in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"kernel_ms": total / iters / 1e3, "busy_ms": busy / iters / 1e3,
             "idle": 1.0 - busy / span,
-            "top": [(name[:60], t / iters / 1e3, n // iters) for name, (t, n) in top]}
+            "top": [(name[:60], t / iters / 1e3, n // iters) for name, (t, n) in top[:top_n]],
+            "by_name": {name: (t / iters / 1e3, n // iters) for name, (t, n) in top}}
 
 
-def _profile(label: str, fn, iters: int, card: str) -> None:
+def _profile(label: str, fn, iters: int, card: str, top_n: int = 5) -> dict:
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
@@ -70,11 +71,13 @@ def _profile(label: str, fn, iters: int, card: str) -> None:
             fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    st = _device_stats(prof, iters)
+    st = _device_stats(prof, iters, top_n)
+    st["host_ms"] = host_ms
     top = "; ".join(f"{n} {t:.3f} ms ({c}x)" for n, t, c in st["top"])
     print(f"[profile] {label}: host {host_ms:.2f} ms/call, kernels {st['kernel_ms']:.2f} ms, "
           f"busy {st['busy_ms']:.2f} ms, idle {100 * st['idle']:.1f}% | {top} [{card}]",
           flush=True)
+    return st
 
 
 def main() -> int:

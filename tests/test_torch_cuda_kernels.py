@@ -5,8 +5,11 @@ file imports only torch and the port (no jax), so it runs on the machine with
 the GPU: ``python -m pytest tests/test_torch_cuda_kernels.py -m cuda``.
 Tolerances: bf16 outputs within a few bf16 ulps of the twin (the spatial
 kernel rounds p to bf16 before PV, and the BERT attention kernel q, k, v and
-p as its TPU kernel does, where the twins keep fp32); fp32 within
-summation-order noise.
+p as its TPU kernel does, where the twins keep fp32; the masked-attention
+kernel rounds where its twin does, so only summation order and exp differ);
+fp32 within summation-order noise. Gradients: K1/K2 and the masked attention
+through their autograd Functions against autograd through the twins; K3-K5
+refuse grad.
 """
 
 import pytest
@@ -172,3 +175,137 @@ def test_bert_kernels_reject_what_they_do_not_take(cuda):
         bert_block.bert_mlp_block(x[0], torch.zeros(100, 768, device=cuda),
                                   torch.zeros(100, device=cuda),
                                   torch.zeros(768, 100, device=cuda), ln[1], *ln, eps=1e-12)
+
+
+# ---- masked attention (B12 / B13) and the kernels' gradients ----------------
+
+
+def _attn_inputs(layout, Bn, S, cuda, dtype, seed=0, packed=False):
+    """q, k, v (bshd: (B, S, 768) — views of one packed (B, S, 2304)
+    projection when ``packed``; bhsd: (B, 12, S, 64)) and a key mask with
+    padded tails of different lengths."""
+    H, hd = 12, 64
+    D = H * hd
+    if layout == "bshd":
+        if packed:
+            x = _randn((Bn, S, 3 * D), seed, cuda, dtype)
+            q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]
+        else:
+            q, k, v = (_randn((Bn, S, D), seed + i, cuda, dtype) for i in range(3))
+    else:
+        q, k, v = (_randn((Bn, H, S, hd), seed + i, cuda, dtype) for i in range(3))
+    mask = torch.ones(Bn, S, device=cuda)
+    for b in range(Bn):
+        mask[b, max(1, S - (b * 11) % max(S // 2, 1)):] = 0.0
+    return q, k, v, mask
+
+
+def _attn(layout, q, k, v, mask):
+    from alpro_tpu_torch.ops import masked_attn
+
+    if layout == "bshd":
+        return masked_attn.fused_attention_bshd(q, k, v, 12, key_mask=mask)
+    return masked_attn.fused_attention(q, k, v, key_mask=mask)
+
+
+def _attn_twin(layout, q, k, v, mask):
+    from alpro_tpu_torch.ops import masked_attn
+
+    bias = masked_attn.key_bias(mask, q.shape[0], mask.shape[1], q.device)
+    if layout == "bshd":
+        heads = [t.unflatten(-1, (12, 64)).transpose(1, 2) for t in (q, k, v)]
+        return masked_attn.attention_plain(*heads, bias, 0.125).transpose(1, 2).flatten(2)
+    return masked_attn.attention_plain(q, k, v, bias, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bn,S", [(8, 40), (64, 197), (24, 237), (1, 709)])
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_masked_attn_kernel_matches_twin(cuda, layout, Bn, S, dtype):
+    from alpro_tpu_torch.ops import masked_attn
+
+    if dtype == torch.float32 and S > masked_attn.max_seq_len(dtype, 64, cuda):
+        pytest.skip(f"fp32 takes S <= {masked_attn.max_seq_len(dtype, 64, cuda)}; the raise "
+                    "is tested below")
+    q, k, v, mask = _attn_inputs(layout, Bn, S, cuda, dtype, packed=(S == 197))
+    n = (masked_attn.bshd_launches, masked_attn.bhsd_launches)
+    got = _attn(layout, q, k, v, mask)
+    torch.cuda.synchronize()
+    want = (n[0] + 1, n[1]) if layout == "bshd" else (n[0], n[1] + 1)
+    assert (masked_attn.bshd_launches, masked_attn.bhsd_launches) == want
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), _attn_twin(layout, q, k, v, mask).float(),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
+def test_masked_attn_backward_matches_twin_autograd(cuda, layout):
+    """fp32: the Function's backward (the JAX recompute) against autograd
+    through the twin, to summation order; bf16 runs and is finite."""
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, None)):
+        q, k, v, mask = _attn_inputs(layout, 4, 197, cuda, dtype, seed=3)
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = _attn(layout, *ts, mask)
+        g = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+        got = torch.autograd.grad(out, ts, g.to(dtype))
+        assert all(d.dtype == dtype and bool(torch.isfinite(d).all()) for d in got)
+        if tol is None:
+            continue
+        refs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(_attn_twin(layout, *refs, mask), refs, g)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=tol, rtol=tol)
+
+
+def test_masked_attn_raises_past_its_limit(cuda):
+    from alpro_tpu_torch.ops import masked_attn
+
+    limit = masked_attn.max_seq_len(torch.float32, 64, cuda)
+    assert masked_attn.max_seq_len(torch.bfloat16, 64, cuda) >= 709
+    q, k, v, mask = _attn_inputs("bshd", 1, limit + 1, cuda, torch.float32)
+    with pytest.raises(ValueError, match=f"Sk <= {limit}"):
+        _attn("bshd", q, k, v, mask)
+    with pytest.raises(ValueError, match="aligned"):
+        x = torch.zeros(1, 4, 3 * 768 + 1, device=cuda)
+        _attn("bshd", x[..., 1:769], x[..., 769:1537], x[..., 1537:], None)
+
+
+@pytest.mark.parametrize("kind", ["spatial", "temporal"])
+def test_qkv_kernel_gradients_match_twin(cuda, kind):
+    """K1/K2 under autograd: the kernel forward, and a backward (the twin's
+    vjp) equal to autograd through the twin."""
+    if kind == "spatial":
+        x0 = _randn((16, 197, 3 * 768), 11, cuda, torch.float32)
+        fn, twin = qkv_attn.spatial_attention_qkv, qkv_attn.spatial_attention_plain
+    else:
+        x0 = _randn((2, 8, 196, 3 * 768), 12, cuda, torch.float32)
+        fn, twin = qkv_attn.temporal_attention_qkv, qkv_attn.temporal_attention_plain
+    x = x0.clone().requires_grad_(True)
+    out = fn(x, 12)
+    assert out.grad_fn is not None
+    g = torch.randn(out.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1))
+    (got,) = torch.autograd.grad(out, x, g)
+    ref = x0.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(twin(ref, 12, 0.125), ref, g)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_serving_kernels_refuse_grad(cuda):
+    """K3-K5 have no backward: under grad with an input that requires grad
+    they raise instead of returning a tensor without a grad_fn; under
+    no_grad they run."""
+    D, Dh = 768, 3072
+    x = _randn((40, D), 0, cuda, torch.float32)
+    w1 = _randn((Dh, D), 1, cuda, torch.float32, D ** -0.5).requires_grad_(True)
+    b1 = torch.zeros(Dh, device=cuda)
+    w2 = _randn((D, Dh), 2, cuda, torch.float32, Dh ** -0.5)
+    b2, s, b = torch.zeros(D, device=cuda), torch.ones(D, device=cuda), torch.zeros(D, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ln_mlp.ln_mlp(x, s, b, w1, b1, w2, b2, eps=1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bert_block.bert_mlp_block(x, w1, b1, w2, b2, s, b, eps=1e-12)
+    xa, mask, ws, ln = _bert_attn_args(1, 40, cuda, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bert_block.bert_attention_block(xa.requires_grad_(True), mask, *ws, *ln, 12, eps=1e-12)
+    with torch.no_grad():
+        assert ln_mlp.ln_mlp(x, s, b, w1, b1, w2, b2, eps=1e-6).shape == (40, D)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``alpro_tpu_torch`` and neither
-``chip_smoke.py`` nor ``profile_serving.py`` imports jax or anything of the JAX package ``alpro_tpu``
+``chip_smoke.py``, ``profile_serving.py`` nor ``profile_train.py`` imports jax or anything of the JAX package ``alpro_tpu``
 (not even a module there that does not import jax), anywhere in its source —
 including imports inside functions, which only an AST scan sees. And the
 port loads in a fresh interpreter with ``ALPRO_PLATFORM`` unset without
@@ -17,7 +17,7 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "alpro_tpu"}
 _SOURCES = sorted((REPO / "alpro_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "profile_serving.py"]
+    REPO / "chip_smoke.py", REPO / "profile_serving.py", REPO / "profile_train.py"]
 
 
 def _imported_roots(path: Path):
@@ -51,6 +51,9 @@ import alpro_tpu_torch.models.alpro
 import alpro_tpu_torch.checkpoint.load, alpro_tpu_torch.checkpoint.from_jax
 import alpro_tpu_torch.evals.qa
 import alpro_tpu_torch.ops.qkv_attn, alpro_tpu_torch.ops.ln_mlp, alpro_tpu_torch.ops.bert_block
+import alpro_tpu_torch.ops.masked_attn, alpro_tpu_torch.ops.attention, alpro_tpu_torch.ops.layers
+import alpro_tpu_torch.objectives.vtc, alpro_tpu_torch.objectives.vtm
+import alpro_tpu_torch.train.optimizer, alpro_tpu_torch.train.state, alpro_tpu_torch.train.step
 heavy = sorted({m.split('.')[0] for m in sys.modules}
                & {'jax', 'flax', 'optax', 'PIL', 'alpro_tpu'})
 from alpro_tpu_torch.ops import _build
