@@ -277,17 +277,13 @@ bert_attn_proj_ln(const T* __restrict__ heads, const T* __restrict__ wo,
                   T* __restrict__ out, int R, float eps) {
   using namespace alpro::rows;
   constexpr int D = NG * kTile;
-  constexpr int ldo = D + vec<T>(), ldw = kTile + vec<T>();
+  constexpr int ldo = D + vec<T>();
   const int r0 = blockIdx.x * kTM;
-  const int warp = threadIdx.x >> 5;
-  const int tr = warp / (kTile / 16), tc = warp % (kTile / 16);
 
   extern __shared__ __align__(128) unsigned char smem[];
   T* ot = reinterpret_cast<T*>(smem);
   T* wt = ot + kTM * ldo;
 
-  uint4 buf[tile_vecs<T>()];
-  load_tile<T>(buf, wo, D);  // group 0, k-tile 0, in flight during the row loads
   constexpr int vpr = D / vec<T>();
   for (int i = threadIdx.x; i < kTM * vpr; i += kThreads) {
     const int r = i / vpr, c = i % vpr;
@@ -298,24 +294,10 @@ bert_attn_proj_ln(const T* __restrict__ heads, const T* __restrict__ wo,
 
   WarpTile<T> acc[NG];
 #pragma unroll
-  for (int g = 0; g < NG; ++g) {
-    acc[g].zero();
-    for (int kt = 0; kt < NG; ++kt) {
-      __syncthreads();  // every warp is done with the previous tile (and the row loads)
-      store_tile<T>(buf, wt);
-      __syncthreads();
-      if (kt + 1 < NG)
-        load_tile<T>(buf, wo + long(g) * kTile * D + (kt + 1) * kTile, D);
-      else if (g + 1 < NG)
-        load_tile<T>(buf, wo + long(g + 1) * kTile * D, D);
-      // acc[g](tr, tc) += heads[rows, 128kt..] . Wo[128g.., 128kt..]^T
-#pragma unroll
-      for (int kk = 0; kk < kTile; kk += 16)
-        acc[g].template mma<true>(ot + tr * 16 * ldo + kt * kTile + kk, ldo,
-                                  wt + tc * 16 * ldw + kk, ldw);
-    }
-  }
-  __syncthreads();  // the row tile and weight tile are free for the row buffer
+  for (int g = 0; g < NG; ++g) acc[g].zero();
+  // acc += heads . Wo^T; ends with a block sync, so the row tile and the
+  // weight tile are free for the row buffer
+  gemm<T, NG, true>(acc, ot, ldo, wo, D, NG, wt);
   post_ln_epilogue<T, NG>(acc, reinterpret_cast<float*>(smem), bo, x, ln_s, ln_b, out, r0, R,
                           eps);
 }

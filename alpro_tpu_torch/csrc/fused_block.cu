@@ -1,0 +1,540 @@
+// Whole attention chains of the divided space-time block, the packed qkv
+// never written to device memory:
+//   spatial (B9):  out = [x +] proj(softmax(q k^T) v),  x (M, S, D) per cell;
+//   temporal (B10): out = x + attn_T(q, k, v) . w_eff^T + b_eff,  x (B, T, N, D),
+//                   attention over T at each (b, n);
+//   q, k, v = LN(x) . Wqkv^T + b per head (q scaled by hd^-1/2), D = H * 64.
+//
+// Replaces the TPU kernels alpro_tpu/ops/pallas_fused_block.py::
+// fused_spatial_block (_spatial_block_kernel) and fused_temporal_block
+// (_temporal_block_kernel). Their rounding points are the contract kept here:
+//   * one-pass fp32 LN statistics, the LN output rounded to the weights'
+//     dtype, the q/k/v products accumulated in fp32 plus the bias in fp32;
+//   * spatial: q, k, v stay fp32; scores, the exact softmax (row max first,
+//     then exp and sum) and p.v are fp32, then o / l;
+//   * temporal: q, k, v are staged in x's dtype after their bias; the
+//     attention over T <= 32 runs in fp32 on them (max, exp, sum, then
+//     sum_u p_u v_u / l);
+//   * the per-head output rounds to the projection weight's dtype; the
+//     projection sums the heads in fp32, plus its bias (and, temporal always,
+//     spatial when asked, the fp32 residual).
+// Weights come in torch Linear layout (out, in); biases and LN parameters
+// in fp32.
+//
+// What bounds it on an H100: at 8 clips x 8 frames the spatial chain is
+// 67 GFLOP (the q/k/v and output projections on the tensor cores, 7.6 GFLOP
+// of fp32 attention core) and the temporal 59.5 GFLOP, against ~20 MB in and
+// out each, so both are bound by operations. A Hopper block cannot carry
+// the projection's cross-head sum from one grid step to the next as the TPU
+// grid does, so each chain runs as two launches, as bert_attn.cu's does:
+//   1. a heads launch, one block of 4 warps per (head, group of rows): the
+//      rows' LN statistics first (one warp per row), then their q, k, v
+//      projections with the LN applied while x is staged through shared
+//      memory in 64 x 64 chunks beside the head's weight chunks (WMMA bf16 /
+//      fp32 CUDA cores, one warp per 16 rows), the attention, and the rounded
+//      per-head output written into an (rows, D) scratch;
+//        spatial (spatial_block_heads): per (query-tile group, head, cell),
+//        fp32 K and V of the whole cell in shared memory, then per 64-row
+//        query tile fp32 Q, full fp32 score rows per warp (16 x S), softmax,
+//        p.V on the CUDA cores (warp_tile.cuh); S <= 256;
+//        temporal (temporal_block_heads): per (patch-location tile, head,
+//        clip), T x (64 / T) rows, q, k, v of the head in x's dtype in shared
+//        memory, then temporal_attn.cu's warp per (location, head): lanes
+//        over the head's channels, scores by warp reductions, lane u keeping
+//        score u;
+//   2. a projection launch (proj_rows): the row-tile GEMM of row_tile.cuh,
+//      heads . W^T + bias (+ residual).
+#include "row_tile.cuh"
+
+namespace {
+
+using alpro::WarpTile;
+
+constexpr int kHD = 64;   // head dim
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kKC = 64;   // depth chunk of the projections
+constexpr int kRC = 64;   // rows per projection step, 16 per warp
+constexpr int kQT = 64;   // spatial query rows per tile
+constexpr int kLdF = kHD + 4;  // fp32 q/k/v rows (spatial)
+
+template <typename T> __host__ __device__ constexpr int pad() { return 16 / int(sizeof(T)); }
+template <typename T> __host__ __device__ constexpr int ldc() { return kKC + pad<T>(); }
+template <typename T> __host__ __device__ constexpr size_t staging_bytes(int nw) {
+  return size_t(kRC + nw * kHD) * ldc<T>() * sizeof(T);
+}
+
+int max_smem(int device) {
+  int v = 0;
+  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
+    return 0;
+  return v;
+}
+
+// ---- shared pieces of the heads launches ----
+
+// fp32 one-pass LN statistics of rows 0..rows-1 (one warp per row, 16-byte
+// loads; D % (32 * 16 / sizeof(T)) == 0); rows whose pointer is null get 0
+template <typename T, typename RowFn>
+__device__ __forceinline__ void ln_stats(RowFn row_ptr, int rows, int D, float eps, float* mean,
+                                         float* rstd) {
+  constexpr int vx = 16 / int(sizeof(T));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    const T* src = row_ptr(r);
+    float mu = 0.0f, rs = 0.0f;
+    if (src != nullptr) {
+      float s = 0.0f, ss = 0.0f;
+#pragma unroll 4
+      for (int c = lane * vx; c < D; c += 32 * vx) {
+        const uint4 u = *reinterpret_cast<const uint4*>(src + c);
+        const T* v = reinterpret_cast<const T*>(&u);
+#pragma unroll
+        for (int q = 0; q < vx; ++q) {
+          const float f = alpro::to_f32(v[q]);
+          s += f;
+          ss = fmaf(f, f, ss);
+        }
+      }
+      s = alpro::warp_sum(s);
+      ss = alpro::warp_sum(ss);
+      mu = s / D;
+      rs = rsqrtf(fmaxf(ss / D - mu * mu, 0.0f) + eps);
+    }
+    if (lane == 0) {
+      mean[r] = mu;
+      rstd[r] = rs;
+    }
+  }
+}
+
+// Project kRC rows (g0..; a null row pointer is a zero row) through NW
+// 64-row weight slices w[i] (torch layout, row stride D): the LN is applied
+// while each 64 x 64 chunk of x is staged. Warp w accumulates rows 16w..
+// into acc[i][0..4) when active. Every load of a chunk is a 16-byte vector,
+// and a thread issues all of its x loads before it uses any, so a chunk
+// costs about one trip to L2. Begins and ends with a block sync.
+template <typename T, int NW, typename RowFn>
+__device__ __forceinline__ void project(RowFn row_ptr, int g0, const float* mean,
+                                        const float* rstd, const float* __restrict__ ln_s,
+                                        const float* __restrict__ ln_b, int D,
+                                        const T* const (&w)[NW], T* stage,
+                                        WarpTile<T> (&acc)[NW][kHD / 16], bool active) {
+  constexpr int ld = ldc<T>(), vx = 16 / int(sizeof(T)), vpr = kKC / vx;
+  constexpr int x_vecs = kRC * vpr / kThreads, w_vecs = kHD * vpr / kThreads;
+  const int warp = threadIdx.x >> 5;
+  T* xs = stage;
+  T* ws = xs + kRC * ld;
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+#pragma unroll
+    for (int n = 0; n < kHD / 16; ++n) acc[i][n].zero();
+  for (int kc = 0; kc < D; kc += kKC) {
+    __syncthreads();  // every warp is done with the previous chunk (and the statistics)
+    uint4 xv[x_vecs];
+#pragma unroll
+    for (int i = 0; i < x_vecs; ++i) {
+      const int e = threadIdx.x + i * kThreads;
+      const T* src = row_ptr(g0 + e / vpr);
+      xv[i] = src != nullptr ? reinterpret_cast<const uint4*>(src + kc)[e % vpr]
+                             : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+#pragma unroll
+      for (int j = 0; j < w_vecs; ++j) {
+        const int e = threadIdx.x + j * kThreads, r = e / vpr, c = e % vpr;
+        reinterpret_cast<uint4*>(ws + (i * kHD + r) * ld)[c] =
+            reinterpret_cast<const uint4*>(w[i] + long(r) * D + kc)[c];
+      }
+#pragma unroll
+    for (int i = 0; i < x_vecs; ++i) {
+      const int e = threadIdx.x + i * kThreads, r = e / vpr, c = (e % vpr) * vx;
+      const bool valid = row_ptr(g0 + r) != nullptr;
+      const T* v = reinterpret_cast<const T*>(&xv[i]);
+      alignas(16) T out[vx];
+#pragma unroll
+      for (int q = 0; q < vx; ++q) {
+        const int col = kc + c + q;
+        out[q] = alpro::from_f32<T>(
+            valid ? (alpro::to_f32(v[q]) - mean[g0 + r]) * rstd[g0 + r] * ln_s[col] + ln_b[col]
+                  : 0.0f);
+      }
+      *reinterpret_cast<uint4*>(xs + r * ld + c) = *reinterpret_cast<const uint4*>(out);
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int kk = 0; kk < kKC; kk += 16)
+#pragma unroll
+      for (int i = 0; i < NW; ++i)
+#pragma unroll
+        for (int n = 0; n < kHD / 16; ++n)
+          acc[i][n].template mma<true>(xs + warp * 16 * ld + kk, ld,
+                                       ws + (i * kHD + n * 16) * ld + kk, ld);
+  }
+  __syncthreads();  // the staging buffer is free again
+}
+
+// (acc + bias[0..64)) * mul in fp32 into 16 rows of dst (leading dimension
+// ldd), converted to Out, through the warp's 256-float scratch
+template <typename Out, typename T>
+__device__ __forceinline__ void store_biased(WarpTile<T> (&acc)[kHD / 16], float* scr,
+                                             const float* __restrict__ bias, Out* dst, int ldd,
+                                             float mul) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int n = 0; n < kHD / 16; ++n) {
+    acc[n].store(scr, 16);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = lane * 8 + j, r = e / 16, c = e % 16;
+      dst[r * ldd + n * 16 + c] = alpro::from_f32<Out>((scr[e] + bias[n * 16 + c]) * mul);
+    }
+    __syncwarp();
+  }
+}
+
+// ---- spatial (B9) ----
+
+// per warp: 16 fp32 score rows (leading dimension SP + 4), a 16 x 16 scratch
+// and the 16 row sums
+__host__ __device__ constexpr int spatial_warp_floats(int SP) { return 16 * (SP + 4) + 256 + 16; }
+template <typename T> size_t spatial_smem(int SP) {
+  return 2 * size_t(SP) * kLdF * 4 + size_t(kQT) * kLdF * 4 + 2 * size_t(SP) * 4 +
+         std::max(staging_bytes<T>(2), size_t(kWarps) * spatial_warp_floats(SP) * 4);
+}
+
+// the largest S whose fp32 K, V and score rows fit
+template <typename T> int spatial_max_seq(int device) {
+  const size_t limit = size_t(max_smem(device));
+  int s = 0;
+  while (spatial_smem<T>(s + 16) <= limit) s += 16;
+  return s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
+                    const float* __restrict__ ln_b, const T* __restrict__ wqkv,
+                    const float* __restrict__ bqkv, T* __restrict__ heads, int S, int SP, int H,
+                    float scale, float eps) {
+  const int h = blockIdx.y, m = blockIdx.z;
+  const int D = H * kHD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ldsc = SP + 4;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + SP * kLdF;
+  float* Qs = Vs + SP * kLdF;
+  float* mean = Qs + kQT * kLdF;
+  float* rstd = mean + SP;
+  T* stage = reinterpret_cast<T*>(rstd + SP);
+  float* sc = reinterpret_cast<float*>(stage) + warp * spatial_warp_floats(SP);
+  float* scr = sc + 16 * ldsc;  // 16 x 16 scratch, 32-byte aligned
+  float* lrow = scr + 256;
+
+  const T* xm = x + long(m) * S * D;
+  auto row_ptr = [&](int r) -> const T* { return r < S ? xm + long(r) * D : nullptr; };
+  ln_stats<T>(row_ptr, SP, D, eps, mean, rstd);
+
+  // ---- fp32 K and V of head h for all SP rows ----
+  const T* wkv[2] = {wqkv + long(D + h * kHD) * D, wqkv + long(2 * D + h * kHD) * D};
+  WarpTile<T> kv[2][kHD / 16];
+  for (int g0 = 0; g0 < SP; g0 += kRC) {
+    const bool active = g0 + warp * 16 < SP;
+    project<T, 2>(row_ptr, g0, mean, rstd, ln_s, ln_b, D, wkv, stage, kv, active);
+    if (active) {
+      store_biased<float>(kv[0], scr, bqkv + D + h * kHD, Ks + (g0 + warp * 16) * kLdF, kLdF,
+                          1.0f);
+      store_biased<float>(kv[1], scr, bqkv + 2 * D + h * kHD, Vs + (g0 + warp * 16) * kLdF,
+                          kLdF, 1.0f);
+    }
+  }
+
+  const T* wq[1] = {wqkv + long(h) * kHD * D};
+  for (int q0 = blockIdx.x * kQT; q0 < S; q0 += gridDim.x * kQT) {
+    const bool active = q0 + warp * 16 < S;
+    WarpTile<T> qa[1][kHD / 16];
+    project<T, 1>(row_ptr, q0, mean, rstd, ln_s, ln_b, D, wq, stage, qa, active);
+    if (!active) continue;  // no block sync follows before the next project
+    float* qs = Qs + warp * 16 * kLdF;
+    store_biased<float>(qa[0], scr, bqkv + h * kHD, qs, kLdF, scale);  // q * hd^-1/2
+    // ---- scores: (16 x 64) . (64 x SP), fp32 ----
+    for (int j = 0; j < SP / 16; ++j) {
+      WarpTile<float> acc;
+      acc.zero();
+#pragma unroll
+      for (int kk = 0; kk < kHD; kk += 16)
+        acc.template mma<true>(qs + kk, kLdF, Ks + j * 16 * kLdF + kk, kLdF);
+      acc.store(sc + j * 16, ldsc);
+    }
+    __syncwarp();
+    // ---- softmax per row: fp32 max, then p = exp(s - max) in place, l ----
+    for (int r = 0; r < 16; ++r) {
+      float* srow = sc + r * ldsc;
+      float mx = -INFINITY;
+      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c]);
+      mx = alpro::warp_max(mx);
+      float l = 0.0f;
+      for (int c = lane; c < SP; c += 32) {
+        const float p = c < S ? expf(srow[c] - mx) : 0.0f;
+        srow[c] = p;
+        l += p;
+      }
+      l = alpro::warp_sum(l);
+      if (lane == 0) lrow[r] = l;
+    }
+    __syncwarp();
+    // ---- o = p . V: (16 x SP) . (SP x 64), fp32; o / l into the heads ----
+    WarpTile<float> o[kHD / 16];
+#pragma unroll
+    for (int n = 0; n < kHD / 16; ++n) o[n].zero();
+    for (int j = 0; j < SP / 16; ++j)
+#pragma unroll
+      for (int n = 0; n < kHD / 16; ++n)
+        o[n].template mma<false>(sc + j * 16, ldsc, Vs + j * 16 * kLdF + n * 16, kLdF);
+#pragma unroll
+    for (int n = 0; n < kHD / 16; ++n) {
+      o[n].store(scr, 16);
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = lane * 8 + i, r = e / 16, c = e % 16, row = q0 + warp * 16 + r;
+        if (row < S)
+          heads[(long(m) * S + row) * D + h * kHD + n * 16 + c] =
+              alpro::from_f32<T>(scr[e] / lrow[r]);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---- temporal (B10) ----
+
+template <typename T> __host__ __device__ constexpr int ldq() { return kHD + pad<T>(); }
+template <typename T> size_t temporal_smem() {
+  return 2 * size_t(kRC) * 4 + 3 * size_t(kRC) * ldq<T>() * sizeof(T) +
+         std::max(staging_bytes<T>(3), size_t(kWarps) * 256 * 4);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+temporal_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
+                     const float* __restrict__ ln_b, const T* __restrict__ wqkv,
+                     const float* __restrict__ bqkv, T* __restrict__ heads, int Tn, int N,
+                     int NT, int H, float scale, float eps) {
+  const int n0 = blockIdx.x * NT, h = blockIdx.y, b = blockIdx.z;
+  const int D = H * kHD;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int lq = ldq<T>();
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kRC * lq;
+  T* Vs = Ks + kRC * lq;
+  float* mean = reinterpret_cast<float*>(Vs + kRC * lq);
+  float* rstd = mean + kRC;
+  T* stage = reinterpret_cast<T*>(rstd + kRC);
+  float* scr = reinterpret_cast<float*>(stage) + warp * 256;
+
+  // local row r = t * NT + j is x[b, t, n0 + j]
+  auto row_ptr = [&](int r) -> const T* {
+    const int t = r / NT, j = r % NT;
+    return (t < Tn && n0 + j < N) ? x + ((long(b) * Tn + t) * N + n0 + j) * D : nullptr;
+  };
+  ln_stats<T>(row_ptr, kRC, D, eps, mean, rstd);
+
+  const T* w[3] = {wqkv + long(h) * kHD * D, wqkv + long(D + h * kHD) * D,
+                   wqkv + long(2 * D + h * kHD) * D};
+  WarpTile<T> acc[3][kHD / 16];
+  const bool active = warp * 16 < Tn * NT;
+  project<T, 3>(row_ptr, 0, mean, rstd, ln_s, ln_b, D, w, stage, acc, active);
+  if (active) {
+    const int r0 = warp * 16;
+    store_biased<T>(acc[0], scr, bqkv + h * kHD, Qs + r0 * lq, lq, 1.0f);
+    store_biased<T>(acc[1], scr, bqkv + D + h * kHD, Ks + r0 * lq, lq, 1.0f);
+    store_biased<T>(acc[2], scr, bqkv + 2 * D + h * kHD, Vs + r0 * lq, lq, 1.0f);
+  }
+  __syncthreads();
+
+  // ---- attention over T at each location, one warp per location: lane
+  //      channels 2l, 2l+1; lane u keeps score u ----
+  const int c0 = lane * 2;
+  for (int j = warp; j < NT && n0 + j < N; j += kWarps) {
+    for (int t = 0; t < Tn; ++t) {
+      const T* qr = Qs + (t * NT + j) * lq;
+      const float qa = alpro::to_f32(qr[c0]) * scale, qb = alpro::to_f32(qr[c0 + 1]) * scale;
+      float my_s = -INFINITY;
+      for (int u = 0; u < Tn; ++u) {
+        const T* kr = Ks + (u * NT + j) * lq;
+        const float part = alpro::warp_sum(
+            fmaf(qb, alpro::to_f32(kr[c0 + 1]), qa * alpro::to_f32(kr[c0])));
+        if (lane == u) my_s = part;
+      }
+      const float mx = alpro::warp_max(my_s);
+      const float p = lane < Tn ? expf(my_s - mx) : 0.0f;
+      const float l = alpro::warp_sum(p);
+      float oa = 0.0f, ob = 0.0f;
+      for (int u = 0; u < Tn; ++u) {
+        const float pu = __shfl_sync(0xffffffffu, p, u);
+        const T* vr = Vs + (u * NT + j) * lq;
+        oa = fmaf(pu, alpro::to_f32(vr[c0]), oa);
+        ob = fmaf(pu, alpro::to_f32(vr[c0 + 1]), ob);
+      }
+      T* orow = heads + ((long(b) * Tn + t) * N + n0 + j) * D + h * kHD;
+      orow[c0] = alpro::from_f32<T>(oa / l);
+      orow[c0 + 1] = alpro::from_f32<T>(ob / l);
+    }
+  }
+}
+
+// ---- the projection launch: out = heads . W^T + bias (+ residual) ----
+
+// (row_tile.cuh's names are qualified here: this file's kWarps and kThreads
+// are the 4-warp heads launches')
+namespace rows = alpro::rows;
+
+template <typename T, int NG>
+__global__ void __launch_bounds__(rows::kThreads, 1)
+proj_rows(const T* __restrict__ heads, const T* __restrict__ w, const float* __restrict__ bias,
+          const T* __restrict__ residual, T* __restrict__ out, int R) {
+  constexpr int D = NG * rows::kTile, ldo = D + rows::vec<T>();
+  const int r0 = blockIdx.x * rows::kTM;
+  const int warp = threadIdx.x >> 5;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ot = reinterpret_cast<T*>(smem);
+  T* wt = ot + rows::kTM * ldo;
+  float* stage =
+      reinterpret_cast<float*>(wt + rows::kTile * (rows::kTile + rows::vec<T>())) + warp * 256;
+
+  constexpr int vpr = D / rows::vec<T>();
+  for (int i = threadIdx.x; i < rows::kTM * vpr; i += rows::kThreads) {
+    const int r = i / vpr, c = i % vpr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < R) v = reinterpret_cast<const uint4*>(heads + long(r0 + r) * D)[c];
+    reinterpret_cast<uint4*>(ot + r * ldo)[c] = v;
+  }
+  WarpTile<T> acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g].zero();
+  rows::gemm<T, NG, true>(acc, ot, ldo, w, D, NG, wt);  // begins with a block sync
+  rows::store_rows<T, NG>(acc, stage, bias, residual, out, D, 0, r0, R);
+}
+
+template <typename T, int NG>
+int launch_proj(const void* heads, const void* w, const void* bias, const void* residual,
+                void* out, int R, cudaStream_t stream) {
+  constexpr int D = NG * rows::kTile;
+  const size_t smem = size_t(rows::kTM) * (D + rows::vec<T>()) * sizeof(T) +
+                      size_t(rows::kTile) * (rows::kTile + rows::vec<T>()) * sizeof(T) +
+                      size_t(rows::kWarps) * 256 * 4;
+  cudaError_t err = cudaFuncSetAttribute(proj_rows<T, NG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  proj_rows<T, NG><<<(R + rows::kTM - 1) / rows::kTM, rows::kThreads, smem, stream>>>(
+      static_cast<const T*>(heads), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const T*>(residual), static_cast<T*>(out), R);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_proj(int D, const void* heads, const void* w, const void* bias, const void* residual,
+                  void* out, int R, cudaStream_t st) {
+  switch (D) {
+#define ALPRO_PROJ_CASE(NG) \
+  case NG * alpro::rows::kTile: return launch_proj<T, NG>(heads, w, bias, residual, out, R, st);
+    ALPRO_PROJ_CASE(2)
+    ALPRO_PROJ_CASE(4)
+    ALPRO_PROJ_CASE(6)
+    ALPRO_PROJ_CASE(8)
+#undef ALPRO_PROJ_CASE
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T>
+int spatial(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+            const void* bqkv, const void* wproj, const void* bproj, void* heads, void* out,
+            int M, int S, int H, int q_split, float scale, float eps, int residual, int device,
+            cudaStream_t stream) {
+  const int SP = (S + 15) / 16 * 16;
+  const size_t smem = spatial_smem<T>(SP);
+  if (smem > size_t(max_smem(device))) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(spatial_block_heads<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(std::min(q_split, (S + kQT - 1) / kQT), H, M);
+  spatial_block_heads<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(heads), S,
+      SP, H, scale, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return dispatch_proj<T>(H * kHD, heads, wproj, bproj, residual ? x : nullptr, out, M * S,
+                          stream);
+}
+
+template <typename T>
+int temporal(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
+             const void* bqkv, const void* w_eff, const void* b_eff, void* heads, void* out,
+             int B, int Tn, int N, int H, float scale, float eps, cudaStream_t stream) {
+  const int NT = kRC / Tn;  // patch locations per block: T x NT <= 64 rows
+  const size_t smem = temporal_smem<T>();
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_heads<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid((N + NT - 1) / NT, H, B);
+  temporal_block_heads<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
+      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(heads), Tn,
+      N, NT, H, scale, eps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+  return dispatch_proj<T>(H * kHD, heads, w_eff, b_eff, x, out, B * Tn * N, stream);
+}
+
+}  // namespace
+
+// The largest S the spatial chain takes for this dtype on this device.
+extern "C" int alpro_fused_spatial_max_seq(int is_bf16, int device) {
+  return is_bf16 ? spatial_max_seq<__nv_bfloat16>(device) : spatial_max_seq<float>(device);
+}
+
+// x, heads (scratch), out: (M, S, H * 64) in one dtype; wqkv (3D, D) and
+// wproj (D, D) in it; ln_*, bqkv, bproj fp32. Blocks per (head, cell):
+// q_split (at most the number of 64-row query tiles).
+extern "C" int alpro_fused_spatial_block(const void* x, const void* ln_s, const void* ln_b,
+                                         const void* wqkv, const void* bqkv, const void* wproj,
+                                         const void* bproj, void* heads, void* out, int M, int S,
+                                         int H, int q_split, float scale, float eps, int residual,
+                                         int is_bf16, int device, void* stream) {
+  if (M < 1 || S < 1 || H < 1 || q_split < 1) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? spatial<__nv_bfloat16>(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, out,
+                                          M, S, H, q_split, scale, eps, residual, device, st)
+                 : spatial<float>(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, out, M, S, H,
+                                  q_split, scale, eps, residual, device, st);
+}
+
+// x, heads (scratch), out: (B, T, N, H * 64) in one dtype, 1 <= T <= 32;
+// wqkv (3D, D) and w_eff (D, D) in it; ln_*, bqkv, b_eff fp32.
+extern "C" int alpro_fused_temporal_block(const void* x, const void* ln_s, const void* ln_b,
+                                          const void* wqkv, const void* bqkv, const void* w_eff,
+                                          const void* b_eff, void* heads, void* out, int B,
+                                          int Tn, int N, int H, float scale, float eps,
+                                          int is_bf16, int device, void* stream) {
+  if (B < 1 || N < 1 || H < 1 || Tn < 1 || Tn > 32) return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? temporal<__nv_bfloat16>(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, heads, out,
+                                           B, Tn, N, H, scale, eps, st)
+                 : temporal<float>(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, heads, out, B, Tn,
+                                   N, H, scale, eps, st);
+}

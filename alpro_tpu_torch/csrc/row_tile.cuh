@@ -1,5 +1,6 @@
 // Shared pieces of the row-tile kernels (ln_mlp.cu, bert_attn.cu's
-// projection + LN pass): a block of kWarps warps owns kTM whole rows across
+// projection + LN pass, ln_matmul.cu, patchify_embed.cu, fused_block.cu's
+// projection pass): a block of kWarps warps owns kTM whole rows across
 // all D output columns, with one fp32 16x16 accumulator tile per warp in
 // every 128-column group held in registers; weight tiles of 128 x 128 are
 // read from device memory with coalesced 16-byte loads into registers,
@@ -50,6 +51,77 @@ __device__ __forceinline__ void store_tile(const uint4 (&buf)[tile_vecs<T>()], T
   for (int i = 0; i < tile_vecs<T>(); ++i) {
     const int idx = threadIdx.x + i * kThreads, r = idx / vpr, c = idx % vpr;
     reinterpret_cast<uint4*>(wt + r * ld)[c] = buf[i];
+  }
+}
+
+// acc[g] (this warp's 16x16 tile in output group g, columns 128 g + 16 tc..)
+// += A[16 tr.., 0..K) . B[0..K), 128 g..) over KT = K / 128 k-tiles, with A
+// the block's kTM x K tile in shared memory (leading dimension lda) and B
+// read in 128 x 128 tiles through the shared tile wt: a torch Linear weight
+// (out, in) when kOutIn, B(k, n) = w[n * ldw + k]; else row-major (in, out),
+// B(k, n) = w[k * ldw + n]. w points at output column 0 of group 0. The next
+// tile is loaded into registers while the current one is multiplied. Every
+// thread of the block calls it; it begins and ends with a block sync.
+template <typename T, int NG, bool kOutIn>
+__device__ __forceinline__ void gemm(WarpTile<T> (&acc)[NG], const T* a, int lda,
+                                     const T* __restrict__ w, int ldw, int KT, T* wt) {
+  constexpr int ldt = kTile + vec<T>();
+  const int warp = threadIdx.x >> 5;
+  const int tr = warp / (kTile / 16), tc = warp % (kTile / 16);
+  auto tile = [&](int g, int kt) {
+    return kOutIn ? w + long(g) * kTile * ldw + kt * kTile : w + long(kt) * kTile * ldw + g * kTile;
+  };
+  uint4 buf[tile_vecs<T>()];
+  load_tile<T>(buf, tile(0, 0), ldw);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    for (int kt = 0; kt < KT; ++kt) {
+      __syncthreads();  // every warp is done with the previous tile (and A is staged)
+      store_tile<T>(buf, wt);
+      __syncthreads();
+      if (kt + 1 < KT)
+        load_tile<T>(buf, tile(g, kt + 1), ldw);
+      else if (g + 1 < NG)
+        load_tile<T>(buf, tile(g + 1, 0), ldw);
+      const T* ar = a + tr * 16 * lda + kt * kTile;
+#pragma unroll
+      for (int kk = 0; kk < kTile; kk += 16) {
+        if constexpr (kOutIn)
+          acc[g].template mma<true>(ar + kk, lda, wt + tc * 16 * ldt + kk, ldt);
+        else
+          acc[g].template mma<false>(ar + kk, lda, wt + kk * ldt + tc * 16, ldt);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// out[r0 + r, col0 + c] = acc + bias[col0 + c] (+ residual at the same place)
+// in fp32, rounded to T, for the rows below R; ld is the row stride of out
+// and residual. One 16x16 tile at a time through the warp's 256-float stage
+// buffer (32-byte aligned).
+template <typename T, int NG>
+__device__ __forceinline__ void store_rows(WarpTile<T> (&acc)[NG], float* stage,
+                                           const float* __restrict__ bias,
+                                           const T* __restrict__ residual, T* __restrict__ out,
+                                           int ld, int col0, int r0, int R) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = warp / (kTile / 16), tc = warp % (kTile / 16);
+#pragma unroll
+  for (int g = 0; g < NG; ++g) {
+    acc[g].store(stage, 16);
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = lane * 8 + j, row = r0 + tr * 16 + e / 16;
+      const int col = col0 + g * kTile + tc * 16 + e % 16;
+      if (row < R) {
+        float y = stage[e] + bias[col];
+        if (residual != nullptr) y += to_f32(residual[long(row) * ld + col]);
+        out[long(row) * ld + col] = from_f32<T>(y);
+      }
+    }
+    __syncwarp();
   }
 }
 

@@ -19,23 +19,37 @@ by the JAX package's rules in both modes:
 
 * ``temporal_attn_impl``: ``fused_qkv_fold`` — in eval LN, qkv matmul, the
   temporal kernel (``ops/qkv_attn.py``), then proj·temporal_fc folded into
-  one matmul ``w_eff``/``b_eff`` computed in the compute dtype; in training
-  the temporal kernel with its backward between the unfolded projections;
-  ``plain`` — relayout to (B·N, T, D), plain attention, proj, temporal_fc;
+  one matmul ``w_eff``/``b_eff`` computed in the compute dtype;
+  ``fused_ln_qkv`` — the same with LN and the qkv matmul in one kernel
+  (``ops/ln_matmul.py``); ``fused_block`` — LN, qkv, the attention, the
+  folded projection and the residual in one kernel
+  (``ops/fused_block.py``); ``fused_qkv`` — in eval LN, qkv matmul, the
+  temporal kernel, then proj and temporal_fc unfolded. In training all four
+  are the temporal kernel with its backward between the unfolded
+  projections; ``plain`` — relayout to (B·N, T, D), plain attention, proj,
+  temporal_fc;
 * ``attn_impl``: ``fused_qkv`` — the spatial kernel over the packed qkv of
   [cls_rep; x] per frame, in both modes (with its backward in training;
   attention dropout in training takes the plain path, as in JAX);
-  ``pallas`` — the masked-attention kernel (``ops/masked_attn.py``) on views
-  of the packed qkv, in both modes; ``plain`` — plain attention;
+  ``fused_ln_qkv`` — in eval the LN→qkv kernel, the spatial kernel, then
+  proj; ``fused_block`` — in eval LN, qkv, attention and proj in one kernel;
+  in training both are ``fused_qkv``; ``pallas`` — the masked-attention
+  kernel (``ops/masked_attn.py``) on views of the packed qkv, in both modes;
+  ``plain`` — plain attention;
 * ``mlp_impl``: ``fused`` — in eval the LN→MLP→residual kernel
   (``ops/ln_mlp.py``), called on the patch rows and on the B cls rows; in
   training the plain path; ``plain`` — LN, fc1, exact GELU, fc2, residual.
 
-``auto`` resolves to a kernel (``fused_qkv`` for the spatial attention)
-only in eval and only for a CUDA tensor; ``xla`` (a JAX config's name for
-the plain path) means ``plain``. The TPU
-package's measured gates (``_on_tpu()``, temporal only at T <= 8, D % 128)
-are not carried over: they are to be re-decided on the H100.
+``auto`` resolves to a kernel (``fused_qkv`` for the spatial attention,
+``fused_qkv_fold`` for the temporal) only in eval and only for a CUDA
+tensor; ``xla`` (a JAX config's name for the plain path) means ``plain``.
+The TPU package's measured gates (``_on_tpu()``, temporal only at T <= 8,
+D % 128) are not carried over: they are to be re-decided on the H100.
+
+``fused_patchify='on'`` sends raw uint8 frames (B, T, H, W, 3) through the
+normalize → patchify → embed kernel (``ops/preprocess.py``) in both modes;
+``auto`` and ``off`` keep the unfused path, as in JAX. Pre-patchified input
+never takes it.
 """
 
 from __future__ import annotations
@@ -55,7 +69,10 @@ from alpro_tpu_torch.ops.layers import (
     gelu_exact,
     linear,
 )
+from alpro_tpu_torch.ops.fused_block import fused_spatial_block, fused_temporal_block
+from alpro_tpu_torch.ops.ln_matmul import ln_matmul
 from alpro_tpu_torch.ops.ln_mlp import ln_mlp
+from alpro_tpu_torch.ops.preprocess import patchify_embed
 from alpro_tpu_torch.ops.qkv_attn import (
     spatial_attention_qkv,
     temporal_attention_qkv,
@@ -63,8 +80,8 @@ from alpro_tpu_torch.ops.qkv_attn import (
 
 # field → the values naming a kernel (the first is what 'auto' gives in eval)
 _KERNEL_IMPL = {
-    "attn_impl": ("fused_qkv", "pallas"),
-    "temporal_attn_impl": ("fused_qkv_fold",),
+    "attn_impl": ("fused_qkv", "pallas", "fused_ln_qkv", "fused_block"),
+    "temporal_attn_impl": ("fused_qkv_fold", "fused_qkv", "fused_ln_qkv", "fused_block"),
     "mlp_impl": ("fused",),
 }
 
@@ -91,6 +108,9 @@ class TimeSformerConfig:
     # fold the uint8 /255-mean/std normalize into the patch-embed matmul:
     # 'auto' → on for bf16 compute, off for fp32 | 'on' | 'off'
     fold_uint8_norm: str = "auto"
+    # raw uint8 frames through the normalize → patchify → embed kernel:
+    # 'on'; 'auto' | 'off' → the unfused path
+    fused_patchify: str = "auto"
     # per-block torch.utils.checkpoint in training (the reference's
     # per-block CheckpointFunction), saving nothing inside a block (the JAX
     # package's remat_policy='nothing'; its 'dots' and 'names' are not ported)
@@ -104,8 +124,9 @@ class TimeSformerConfig:
                     f"{field}={value!r}: expected one of 'auto', 'plain', 'xla', "
                     + ", ".join(map(repr, kernels))
                 )
-        if self.fold_uint8_norm not in ("auto", "on", "off"):
-            raise ValueError(f"fold_uint8_norm={self.fold_uint8_norm!r}")
+        for field in ("fold_uint8_norm", "fused_patchify"):
+            if getattr(self, field) not in ("auto", "on", "off"):
+                raise ValueError(f"{field}={getattr(self, field)!r}")
 
     @property
     def patches_per_side(self) -> int:
@@ -131,17 +152,23 @@ class TimeSformerConfig:
     def impl(self, field: str, x: torch.Tensor, training: bool) -> str:
         """What ``field`` resolves to for activations ``x``: a kernel name
         from ``_KERNEL_IMPL`` or ``plain``. ``auto`` gives the first kernel
-        only in eval on a CUDA tensor; explicit ``fused`` (MLP tail) is
-        plain in training; explicit ``fused_qkv`` is plain when attention
-        dropout is on (JAX ``VitAttention``)."""
+        only in eval on a CUDA tensor. In training (the JAX rules): explicit
+        ``fused`` (MLP tail) is plain; the spatial ``fused_qkv``,
+        ``fused_ln_qkv`` and ``fused_block`` are ``fused_qkv``, or plain when
+        attention dropout is on (JAX ``VitAttention``); every temporal
+        kernel value is ``fused_qkv`` (the kernel, unfolded projections)."""
         value = getattr(self, field)
         if value == "auto":
             value = _KERNEL_IMPL[field][0] if (x.device.type == "cuda" and not training) else "plain"
         if value not in _KERNEL_IMPL[field]:
             return "plain"
-        if training and (value == "fused" or (value == "fused_qkv" and self.attn_drop_rate > 0)):
-            return "plain"
-        return value
+        if not training or value == "pallas":
+            return value
+        if field == "temporal_attn_impl":
+            return "fused_qkv"
+        if field == "attn_impl" and self.attn_drop_rate == 0:
+            return "fused_qkv"
+        return "plain"
 
     def drop_path_rates(self) -> list:
         """Per-block stochastic-depth rates, linspace(0, drop_path_rate, depth)."""
@@ -202,29 +229,42 @@ class DividedSTBlock(nn.Module):
         self.temporal_attn = Attention(D)
         self.temporal_fc = nn.Linear(D, D)
 
+    def _folded_temporal_proj(self, dtype):
+        """proj·temporal_fc as one matmul in the compute dtype, torch layout:
+        (a·Wp + bp)·Wt + bt = a·(Wp Wt) + (bp Wt + bt)."""
+        wt = self.temporal_fc.weight.to(dtype)
+        w_eff = wt @ self.temporal_attn.proj.weight.to(dtype)
+        b_eff = torch.nn.functional.linear(self.temporal_attn.proj.bias.to(dtype), wt,
+                                           self.temporal_fc.bias.to(dtype))
+        return w_eff, b_eff
+
     def forward(self, cls, x, cfg: TimeSformerConfig, dtype, dp_rate: float = 0.0,
                 generator=None):
         B, T, N, D = x.shape
         H = cfg.num_heads
         train = self.training
+        eps = cfg.ln_eps
 
         # ---- temporal attention over T at each patch location ----
         t_impl = cfg.impl("temporal_attn_impl", x, train)
-        xt = self.temporal_norm1(x, dtype)
-        if t_impl == "fused_qkv_fold" and not train:
-            qkv = linear(xt, self.temporal_attn.qkv, dtype)       # (B, T, N, 3D)
+        tn, tqkv = self.temporal_norm1, self.temporal_attn.qkv
+        if t_impl == "fused_block":
+            x = fused_temporal_block(x, tn.weight, tn.bias, tqkv.weight.to(dtype),
+                                     tqkv.bias.to(dtype), *self._folded_temporal_proj(dtype), H,
+                                     eps=eps)
+        elif t_impl in ("fused_qkv_fold", "fused_ln_qkv"):
+            if t_impl == "fused_ln_qkv":
+                qkv = ln_matmul(x, tn.weight, tn.bias, tqkv.weight.to(dtype),
+                                tqkv.bias.to(dtype), eps=eps)
+            else:
+                qkv = linear(tn(x, dtype), tqkv, dtype)          # (B, T, N, 3D)
             t_att = temporal_attention_qkv(qkv, H)
-            # (a·Wp + bp)·Wt + bt = a·(Wp Wt) + (bp Wt + bt), torch layout
-            wt = self.temporal_fc.weight.to(dtype)
-            w_eff = wt @ self.temporal_attn.proj.weight.to(dtype)
-            b_eff = torch.nn.functional.linear(
-                self.temporal_attn.proj.bias.to(dtype), wt,
-                self.temporal_fc.bias.to(dtype),
-            )
-            x = x + torch.nn.functional.linear(t_att, w_eff, b_eff).to(x.dtype)
+            x = x + torch.nn.functional.linear(
+                t_att, *self._folded_temporal_proj(dtype)).to(x.dtype)
         else:
-            if t_impl == "fused_qkv_fold":  # training: the kernel, unfolded projections
-                t_att = temporal_attention_qkv(linear(xt, self.temporal_attn.qkv, dtype), H)
+            xt = tn(x, dtype)
+            if t_impl == "fused_qkv":  # the kernel, unfolded projections
+                t_att = temporal_attention_qkv(linear(xt, tqkv, dtype), H)
                 t_out = linear(t_att, self.temporal_attn.proj, dtype)
             else:
                 xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
@@ -237,14 +277,23 @@ class DividedSTBlock(nn.Module):
 
         # ---- spatial attention over [cls; N patches] per frame ----
         cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
-        xs = torch.cat([cls_rep, x], dim=2)                       # (B, T, 1+N, D)
-        xs = self.norm1(xs, dtype).reshape(B * T, 1 + N, D)
+        xs = torch.cat([cls_rep, x], dim=2).reshape(B * T, 1 + N, D)
         s_impl = cfg.impl("attn_impl", x, train)
-        if s_impl == "fused_qkv":
-            s_att = spatial_attention_qkv(linear(xs, self.attn.qkv, dtype), H)
-            s_out = linear(s_att, self.attn.proj, dtype)
+        n1, sqkv = self.norm1, self.attn.qkv
+        if s_impl == "fused_block":
+            s_out = fused_spatial_block(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
+                                        sqkv.bias.to(dtype), self.attn.proj.weight.to(dtype),
+                                        self.attn.proj.bias.to(dtype), H, eps=eps)
+        elif s_impl in ("fused_qkv", "fused_ln_qkv"):
+            if s_impl == "fused_ln_qkv":
+                qkv = ln_matmul(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
+                                sqkv.bias.to(dtype), eps=eps)
+            else:
+                qkv = linear(n1(xs, dtype), sqkv, dtype)
+            s_out = linear(spatial_attention_qkv(qkv, H), self.attn.proj, dtype)
         else:
-            s_out = self.attn.plain(xs, H, dtype, "pallas" if s_impl == "pallas" else "xla",
+            s_out = self.attn.plain(n1(xs, dtype), H, dtype,
+                                    "pallas" if s_impl == "pallas" else "xla",
                                     cfg.attn_drop_rate, generator, train)
         s_out = dropout(s_out, cfg.drop_rate, generator, train).reshape(B, T, 1 + N, D)
         s_out = drop_path(s_out, dp_rate, (B, T, 1, 1), generator, train)
@@ -335,6 +384,10 @@ class TimeSformer(nn.Module):
             )
         B, T, H, W, C = pixels.shape
         hp, wp = H // p, W // p
+        if pixels.dtype == torch.uint8 and cfg.fused_patchify == "on":
+            pe = self.patch_embed
+            return (patchify_embed(pixels, pe.kernel.to(dt), pe.bias.to(dt), cfg.pixel_mean,
+                                   cfg.pixel_std), hp, wp)
         uint8_fold = pixels.dtype == torch.uint8 and fold
         if pixels.dtype == torch.uint8 and not fold:
             pixels = (pixels.float() / 255.0 - mean) / std

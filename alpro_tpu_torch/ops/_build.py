@@ -64,6 +64,19 @@ _SIGNATURES = {
     "alpro_masked_attn": ([_P] * 6 + [_I] * 5 + [_F, _I, _I, _P], _I),
     # is_bf16, hd, device
     "alpro_masked_attn_max_seq": ([_I, _I, _I], _I),
+    # x, ln_scale, ln_bias, w, b, out, R, D, F, eps, is_bf16, device, stream
+    "alpro_ln_matmul": ([_P] * 6 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    # raw, kernel, bias, out, frames, H, W, p, D, mean (3), std (3), is_bf16,
+    # device, stream
+    "alpro_patchify_embed": ([_P] * 4 + [_I] * 5 + [_F] * 6 + [_I, _I, _P], _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, out, M, S, H,
+    # q_split, scale, eps, residual, is_bf16, device, stream
+    "alpro_fused_spatial_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _I, _P], _I),
+    # is_bf16, device
+    "alpro_fused_spatial_max_seq": ([_I, _I], _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, w_eff, b_eff, heads, out, B, T, N, H,
+    # scale, eps, is_bf16, device, stream
+    "alpro_fused_temporal_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,207 @@
+"""Whole attention chains of the divided space-time block, LN → qkv →
+attention → projection, with the packed qkv never written to device memory.
+
+Counterpart of ``alpro_tpu/ops/pallas_fused_block.py``:
+
+* ``fused_spatial_block`` ← ``fused_spatial_block`` (kernel
+  ``csrc/fused_block.cu``, twin ``fused_spatial_block_plain`` =
+  ``_spatial_block_xla_reference``): ``[x +] proj(softmax(q kᵀ·hd^-½) v)``
+  with q, k, v = LN(x)·Wqkvᵀ + b, per cell (M, S, D);
+* ``fused_temporal_block`` ← ``fused_temporal_block`` (same source, twin
+  ``fused_temporal_block_plain`` = ``_temporal_block_xla_reference``):
+  ``x + attn_T(qkv(LN(x)))·w_effᵀ + b_eff`` on (B, T, N, D), attention over
+  T at each (b, n) and head, w_eff the folded proj·temporal_fc.
+
+Weights are in torch Linear layout (out, in): wqkv (3D, D) with ``[q|k|v]``
+rows, each head-major; wproj and w_eff (D, D). Rounding points: the LN output
+rounds to the weights' dtype and the products accumulate in fp32; the twins
+keep q, k, v, scores and p in fp32, as the XLA references do. The spatial
+kernel does too (its TPU kernel keeps q, k, v in fp32); the temporal kernel
+stages q, k, v in x's dtype after their fp32 bias, as its TPU kernel does, so
+in bf16 it is held to the twin with the tolerance of the kernels that round
+where their twins do not. The per-head output rounds to the projection
+weight's dtype, and the projection sums the heads in fp32, + bias (+ the fp32
+residual).
+
+A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it launches
+the kernel or raises. ``spatial_launches`` and ``temporal_launches`` count
+kernel launches (one per call; each chain is two CUDA launches). Neither
+kernel has a backward (the JAX model reaches them only at serving): a
+wrapper raises when grad mode is on and an input requires grad.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from alpro_tpu_torch.ops import _build
+from alpro_tpu_torch.ops.kernel_math import ln_rows_f32
+from alpro_tpu_torch.ops.ln_mlp import _WIDTHS  # the D values row_tile.cuh's kernels take
+
+spatial_launches = 0
+temporal_launches = 0
+
+_DTYPES = (torch.bfloat16, torch.float32)
+_HEAD_DIM = 64  # csrc/fused_block.cu kHD
+_QUERY_TILE = 64  # csrc/fused_block.cu kQT
+_MAX_T = 32  # csrc/fused_block.cu: the temporal softmax holds one score per lane
+_MAX_GRID_YZ = 65535
+
+
+def _lin_f32(x, w, b) -> torch.Tensor:
+    """x·Wᵀ + b on x rounded to the weight's dtype, fp32 products and sums."""
+    return x.to(w.dtype).float() @ w.float().t() + b.float()
+
+
+def _qkv_f32(x, ln_s, ln_b, wqkv, bqkv, num_heads, eps):
+    """q (pre-scaled), k, v in fp32, each (..., H, hd)."""
+    D = x.shape[-1]
+    hd = D // num_heads
+    qkv = _lin_f32(ln_rows_f32(x, ln_s, ln_b, eps), wqkv, bqkv)
+    shape = x.shape[:-1] + (num_heads, hd)
+    return (qkv[..., :D].reshape(shape) * hd ** -0.5, qkv[..., D:2 * D].reshape(shape),
+            qkv[..., 2 * D:].reshape(shape))
+
+
+def fused_spatial_block_plain(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, num_heads: int,
+                              eps: float, residual: bool = False) -> torch.Tensor:
+    """Plain twin (``_spatial_block_xla_reference``): q, k, v, scores,
+    softmax and PV in fp32; the attention output rounds to wproj's dtype;
+    fp32 projection, bias and residual; output in x.dtype."""
+    M, S, D = x.shape
+    q, k, v = _qkv_f32(x, ln_s, ln_b, wqkv, bqkv, num_heads, eps)
+    p = torch.softmax(torch.einsum("mqhd,mkhd->mhqk", q, k), dim=-1)
+    o = torch.einsum("mhqk,mkhd->mqhd", p, v).reshape(M, S, D)
+    y = _lin_f32(o, wproj, bproj)
+    if residual:
+        y = y + x.float()
+    return y.to(x.dtype)
+
+
+def fused_temporal_block_plain(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, num_heads: int,
+                               eps: float) -> torch.Tensor:
+    """Plain twin (``_temporal_block_xla_reference``): q, k, v, scores,
+    softmax and PV in fp32; the attention output rounds to w_eff's dtype;
+    fp32 projection, bias and residual; output in x.dtype."""
+    B, T, N, D = x.shape
+    q, k, v = _qkv_f32(x, ln_s, ln_b, wqkv, bqkv, num_heads, eps)
+    p = torch.softmax(torch.einsum("btnhd,bsnhd->bnhts", q, k), dim=-1)
+    o = torch.einsum("bnhts,bsnhd->btnhd", p, v).reshape(B, T, N, D)
+    return (_lin_f32(o, w_eff, b_eff) + x.float()).to(x.dtype)
+
+
+def _check_args(name, x, wqkv, bqkv, wo, bo, ln_s, ln_b, num_heads) -> int:
+    D = x.shape[-1]
+    if D % num_heads:
+        raise ValueError(f"{name}: D={D} is not a multiple of num_heads={num_heads}")
+    if (tuple(wqkv.shape) != (3 * D, D) or bqkv.shape != (3 * D,)
+            or tuple(wo.shape) != (D, D) or bo.shape != (D,)
+            or ln_s.shape != (D,) or ln_b.shape != (D,)):
+        raise ValueError(
+            f"{name}: shape mismatch: x {tuple(x.shape)}, wqkv {tuple(wqkv.shape)}, "
+            f"bqkv {tuple(bqkv.shape)}, w {tuple(wo.shape)}, b {tuple(bo.shape)}"
+        )
+    _build.refuse_grad(name, x, wqkv, bqkv, wo, bo, ln_s, ln_b)
+    return D // num_heads
+
+
+def _cuda_operands(name, x, wqkv, wo, hd, **vecs) -> list:
+    """Check the CUDA operands; the vectors as contiguous fp32."""
+    D = x.shape[-1]
+    _build.check_cuda_operand(x, f"{name} x", _DTYPES)
+    for key, w in (("wqkv", wqkv), ("w", wo)):
+        _build.check_cuda_operand(w, f"{name} {key}", (x.dtype,))
+    if hd != _HEAD_DIM or D not in _WIDTHS:
+        raise ValueError(
+            f"{name} kernel needs head_dim {_HEAD_DIM} and D in {_WIDTHS}; got head_dim={hd}, "
+            f"D={D}"
+        )
+    out = []
+    for key, v in vecs.items():
+        v = v.float().contiguous()
+        _build.check_cuda_operand(v, f"{name} {key}", (torch.float32,), align=4)
+        out.append(v)
+    return out
+
+
+def spatial_max_seq_len(dtype: torch.dtype, device) -> int:
+    """The largest S the spatial kernel takes for ``dtype`` on ``device``
+    (fp32 K and V of one head for the whole sequence and the full score rows
+    live in shared memory)."""
+    dev = torch.device(device).index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    return _build.lib().alpro_fused_spatial_max_seq(int(dtype == torch.bfloat16), dev)
+
+
+def fused_spatial_block(x: torch.Tensor, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
+                        num_heads: int, *, eps: float, residual: bool = False) -> torch.Tensor:
+    """``[x +] proj(attn(qkv(LN(x))))`` per cell of x (M, S, D). The kernel
+    takes x and the weights contiguous in one dtype (bf16 or fp32), head_dim
+    64, D in (256, 512, 768, 1024) and S up to ``spatial_max_seq_len``; it
+    raises on anything else."""
+    global spatial_launches
+    if x.dim() != 3:
+        raise ValueError(f"expected (M, S, D) x, got shape {tuple(x.shape)}")
+    hd = _check_args("fused_spatial_block", x, wqkv, bqkv, wproj, bproj, ln_s, ln_b, num_heads)
+    if x.device.type == "cpu":
+        return fused_spatial_block_plain(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
+                                         eps, residual)
+    vs, vb, vq, vp = _cuda_operands("fused_spatial_block", x, wqkv, wproj, hd, ln_s=ln_s,
+                                    ln_b=ln_b, bqkv=bqkv, bproj=bproj)
+    M, S, _ = x.shape
+    limit = spatial_max_seq_len(x.dtype, x.device)
+    if S > limit or M > _MAX_GRID_YZ:
+        raise ValueError(
+            f"fused_spatial_block kernel takes S <= {limit} for {x.dtype} on this device and "
+            f"M <= {_MAX_GRID_YZ}; got S={S}, M={M}"
+        )
+    heads = torch.empty_like(x)
+    out = torch.empty_like(x)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    q_split = min(max(1, -(-sms // (M * num_heads))), -(-S // _QUERY_TILE))
+    dev, stream = _build.stream_args(x)
+    err = _build.lib().alpro_fused_spatial_block(
+        x.data_ptr(), vs.data_ptr(), vb.data_ptr(), wqkv.data_ptr(), vq.data_ptr(),
+        wproj.data_ptr(), vp.data_ptr(), heads.data_ptr(), out.data_ptr(), M, S, num_heads,
+        q_split, float(hd ** -0.5), float(eps), int(residual), int(x.dtype == torch.bfloat16),
+        dev, stream,
+    )
+    _build.check(err, "fused_spatial_block")
+    spatial_launches += 1
+    return out
+
+
+def fused_temporal_block(x: torch.Tensor, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff,
+                         num_heads: int, *, eps: float) -> torch.Tensor:
+    """``x + attn_T(qkv(LN(x)))·w_effᵀ + b_eff`` on x (B, T, N, D). The
+    kernel takes x and the weights contiguous in one dtype (bf16 or fp32),
+    head_dim 64, D in (256, 512, 768, 1024) and 1 <= T <= 32; it raises on
+    anything else."""
+    global temporal_launches
+    if x.dim() != 4:
+        raise ValueError(f"expected (B, T, N, D) x, got shape {tuple(x.shape)}")
+    hd = _check_args("fused_temporal_block", x, wqkv, bqkv, w_eff, b_eff, ln_s, ln_b,
+                     num_heads)
+    if x.device.type == "cpu":
+        return fused_temporal_block_plain(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, num_heads,
+                                          eps)
+    vs, vb, vq, ve = _cuda_operands("fused_temporal_block", x, wqkv, w_eff, hd, ln_s=ln_s,
+                                    ln_b=ln_b, bqkv=bqkv, b_eff=b_eff)
+    B, T, N, _ = x.shape
+    if not 1 <= T <= _MAX_T or B > _MAX_GRID_YZ:
+        raise ValueError(
+            f"fused_temporal_block kernel needs 1 <= T <= {_MAX_T} and B <= {_MAX_GRID_YZ};"
+            f" got T={T}, B={B}"
+        )
+    heads = torch.empty_like(x)
+    out = torch.empty_like(x)
+    dev, stream = _build.stream_args(x)
+    err = _build.lib().alpro_fused_temporal_block(
+        x.data_ptr(), vs.data_ptr(), vb.data_ptr(), wqkv.data_ptr(), vq.data_ptr(),
+        w_eff.data_ptr(), ve.data_ptr(), heads.data_ptr(), out.data_ptr(), B, T, N, num_heads,
+        float(hd ** -0.5), float(eps), int(x.dtype == torch.bfloat16), dev, stream,
+    )
+    _build.check(err, "fused_temporal_block")
+    temporal_launches += 1
+    return out

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
-retrieval and the video QA serving paths and their finetuning steps at full
-ALPRO-base width.
+retrieval and the video QA serving paths, their finetuning steps and the
+fused video ingest at full ALPRO-base width.
 
     python3 chip_smoke.py
 
@@ -38,7 +38,14 @@ line):
    parameter changed, temp clamped; then pallas vs xla loss, whole gradient
    and each parameter's gradient with dropout off; then two MSRVTT-QA steps (T=16, B=4) with
    their launch counts. Step ms, train clips/s and peak device memory for
-   both paths.
+   both paths;
+7. fused ingest — phase 4's model and clips under path (a) (raw-frame patch
+   embed, whole spatial and temporal attention chains, ``FUSED_INGEST``) and
+   path (b) (LN→qkv in front of the spatial and temporal kernels): two
+   ``add_videos`` calls each with their exact launch counts, VTC features
+   and P(match) against phase 4's plain path, clips/s beside phase 4's; then
+   phase 5's QA ``encode_video`` under path (a), its counts, and the answers
+   from its tokens against phase 5's plain path.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -76,9 +83,22 @@ CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
 # kernel q, k, v, p and the per-head output (its TPU kernel's rounding points);
 # the masked-attention kernel rounds p where its twin does, so only the
 # summation order and exp differ
+# the fused ingest's kernels round where their twins do (the LN output, the
+# per-head output, the outputs), except the temporal chain, which stages q,
+# k, v in bf16 as its TPU kernel does where its twin keeps fp32
 KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2,
               "bert_attn": 3e-2, "bert_mlp": 2e-2, "masked_attn_bshd": 2e-2,
-              "masked_attn_bhsd": 2e-2}
+              "masked_attn_bhsd": 2e-2, "ln_matmul": 2e-2, "patchify_embed": 2e-2,
+              "fused_spatial_block": 2e-2, "fused_temporal_block": 3e-2}
+# the fused video ingest (phase 7): path (a), the raw-frame patch embed and
+# both whole attention chains in one kernel each, and path (b), LN→qkv in one
+# kernel in front of the spatial and temporal attention kernels
+FUSED_INGEST = {
+    "a": dict(fused_patchify="on", attn_impl="fused_block", temporal_attn_impl="fused_block",
+              mlp_impl="fused"),
+    "b": dict(attn_impl="fused_ln_qkv", temporal_attn_impl="fused_ln_qkv", mlp_impl="fused"),
+}
+FUSED_KERNELS = ("ln_matmul", "patchify_embed", "fused_spatial_block", "fused_temporal_block")
 # masked attention's gradient (the Function's fp32 recompute, cast to bf16)
 # against autograd through the bf16 twin, which backpropagates through p
 # rounded to bf16: max |difference| <= this share of max |twin gradient|
@@ -277,7 +297,58 @@ def phase_kernels(card: str) -> dict:
             lambda: bert_block.bert_mlp_block_plain(xr, *w, *ln, 1e-12),
             card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
     _masked_attn_kernels(res, randn, card)
+    _fused_ingest_kernels(res, randn, ln, card)
     return res
+
+
+def _fused_ingest_kernels(res, randn, ln, card) -> None:
+    """B11, B15, B10 and B9 at the shapes of one add_videos call of
+    CLIPS_PER_CALL clips (main) and of the QA encode (2 clips, T=16); B10
+    also at T=32 (``configs/msrvtt_ret_longT.json``), B11 at the temporal
+    rows too. No single PyTorch call computes any of the four."""
+    from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+    from alpro_tpu_torch.ops import fused_block, ln_matmul, preprocess
+
+    H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
+    D, S = H * hd, 1 + PATCHES
+    wqkv, bqkv = randn(3 * D, D, std=D ** -0.5), randn(3 * D, std=0.02)
+    wo, bo = randn(D, D, std=D ** -0.5), randn(D, std=0.02)
+    w_bytes = 4 * D * D * 2 + 4 * D * 4
+    for R, main in ((B * T * S, True), (B * T * N, False), (2 * 16 * S, False)):
+        xr = randn(R, D, std=2.0)
+        res["ln_matmul"].append(_compare(
+            "ln_matmul", (R, D), lambda: ln_matmul.ln_matmul(xr, *ln, wqkv, bqkv, eps=1e-6),
+            lambda: ln_matmul.ln_matmul_plain(xr, *ln, wqkv, bqkv, 1e-6), card, main,
+            work=(2 * R * D * 3 * D, R * D * 2 + R * 3 * D * 2 + 3 * D * D * 2 + 5 * D * 4)))
+    mean, std = TimeSformerConfig.pixel_mean, TimeSformerConfig.pixel_std
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    kern, kbias = randn(768, D, std=768 ** -0.5), randn(D, std=0.02)
+    for b, t, main in ((B, T, True), (2, 16, False)):
+        raw = torch.randint(0, 256, (b, t, 224, 224, 3), generator=g, device="cuda",
+                            dtype=torch.uint8)
+        R = b * t * N
+        res["patchify_embed"].append(_compare(
+            "patchify_embed", raw.shape,
+            lambda: preprocess.patchify_embed(raw, kern, kbias, mean, std),
+            lambda: preprocess.patchify_embed_plain(raw, kern, kbias, mean, std), card, main,
+            work=(2 * R * 768 * D, raw.numel() + 768 * D * 2 + D * 4 + R * D * 2)))
+    for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False)):
+        xt = randn(b, t, N, D)
+        R = b * t * N
+        res["fused_temporal_block"].append(_compare(
+            "fused_temporal_block", xt.shape,
+            lambda: fused_block.fused_temporal_block(xt, *ln, wqkv, bqkv, wo, bo, H, eps=1e-6),
+            lambda: fused_block.fused_temporal_block_plain(xt, *ln, wqkv, bqkv, wo, bo, H, 1e-6),
+            card, main,
+            work=(2 * R * D * 4 * D + 4 * b * N * H * t * t * hd, 2 * xt.numel() * 2 + w_bytes)))
+    for M, main in ((B * T, True), (2 * 16, False)):
+        xs = randn(M, S, D)
+        res["fused_spatial_block"].append(_compare(
+            "fused_spatial_block", xs.shape,
+            lambda: fused_block.fused_spatial_block(xs, *ln, wqkv, bqkv, wo, bo, H, eps=1e-6),
+            lambda: fused_block.fused_spatial_block_plain(xs, *ln, wqkv, bqkv, wo, bo, H, 1e-6),
+            card, main,
+            work=(2 * M * S * D * 4 * D + 4 * M * H * S * S * hd, 2 * xs.numel() * 2 + w_bytes)))
 
 
 def _masked_grad_check(name, shape, fn, twin, inputs) -> None:
@@ -388,30 +459,47 @@ def _build_model(build, vis_json: str, frames: int, **kwargs):
 
 
 def _counts():
-    from alpro_tpu_torch.ops import bert_block, ln_mlp, masked_attn, qkv_attn
+    from alpro_tpu_torch.ops import (bert_block, fused_block, ln_matmul, ln_mlp, masked_attn,
+                                     preprocess, qkv_attn)
 
     return {"spatial_attn": qkv_attn.spatial_launches,
             "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches,
             "bert_attn": bert_block.attn_launches, "bert_mlp": bert_block.mlp_launches,
             "masked_attn_bshd": masked_attn.bshd_launches,
-            "masked_attn_bhsd": masked_attn.bhsd_launches}
+            "masked_attn_bhsd": masked_attn.bhsd_launches, "ln_matmul": ln_matmul.launches,
+            "patchify_embed": preprocess.launches,
+            "fused_spatial_block": fused_block.spatial_launches,
+            "fused_temporal_block": fused_block.temporal_launches}
 
 
 def _reset_counts():
-    from alpro_tpu_torch.ops import bert_block, ln_mlp, masked_attn, qkv_attn
+    from alpro_tpu_torch.ops import (bert_block, fused_block, ln_matmul, ln_mlp, masked_attn,
+                                     preprocess, qkv_attn)
 
     qkv_attn.spatial_launches = qkv_attn.temporal_launches = ln_mlp.launches = 0
     bert_block.attn_launches = bert_block.mlp_launches = 0
     masked_attn.bshd_launches = masked_attn.bhsd_launches = 0
+    ln_matmul.launches = preprocess.launches = 0
+    fused_block.spatial_launches = fused_block.temporal_launches = 0
 
 
-def _launches(video_calls: int = 0, text_calls: int = 0, masked: int = 0) -> dict:
+def _launches(video_calls: int = 0, text_calls: int = 0, masked: int = 0,
+              ingest: str = "") -> dict:
     """Serving: launches per video tower call (12 blocks) and per text +
-    fusion call (6 + 6 BERT layers). Finetuning under attn_impl='pallas':
-    ``masked`` launches of the masked-attention kernel, no other."""
-    return {"spatial_attn": 12 * video_calls, "temporal_attn": 12 * video_calls,
-            "ln_mlp": 24 * video_calls, "bert_attn": 12 * text_calls,
-            "bert_mlp": 12 * text_calls, "masked_attn_bshd": masked, "masked_attn_bhsd": 0}
+    fusion call (6 + 6 BERT layers); the video tower on the default kernel
+    path, or on the fused ingest's path ``ingest`` ('a' or 'b',
+    ``FUSED_INGEST``). Finetuning under attn_impl='pallas': ``masked``
+    launches of the masked-attention kernel, no other."""
+    per_block = {"": ("spatial_attn", "temporal_attn"),
+                 "a": ("fused_spatial_block", "fused_temporal_block"),
+                 "b": ("spatial_attn", "temporal_attn", "ln_matmul", "ln_matmul")}[ingest]
+    want = {k: 0 for k in KERNEL_TOL}
+    for name in per_block:
+        want[name] += 12 * video_calls
+    want["ln_mlp"] = 24 * video_calls
+    want["patchify_embed"] = video_calls if ingest == "a" else 0
+    want.update(bert_attn=12 * text_calls, bert_mlp=12 * text_calls, masked_attn_bshd=masked)
+    return want
 
 
 def _set_path(model, vis_cfg, bert_cfg) -> None:
@@ -542,7 +630,9 @@ def phase_slice(card: str) -> dict:
           f"query p50 {statistics.median(query_ms):.2f} ms with the BERT kernels, "
           f"{statistics.median(bert_plain_ms):.2f} ms with plain BERT layers, over "
           f"{len(query_ms)} each (topk 16, gallery {N_CLIPS}) [{card}]", flush=True)
-    return launches
+    return launches, dict(model=model, tok=tok, clips=clips, ids=ids, kernel_cfgs=kernel_cfgs,
+                          plain_feats=pfeats, plain_full=plain_full,
+                          clips_per_s={"default kernels": clips_per_s, "plain": plain_clips_per_s})
 
 
 def _answer_dists(answers, labels) -> tuple:
@@ -661,6 +751,83 @@ def phase_qa(card: str) -> dict:
           f"{med(predict_ms):.2f} ms with kernels, {med(plain_predict_ms):.2f} ms plain; "
           f"predict_batch ({len(QUESTIONS)} questions) {med(batch_ms):.2f} ms [{card}]",
           flush=True)
+    return dict(model=model, qa=qa, clips=clips, kernel_cfgs=kernel_cfgs, plain_feats=pfeats,
+                plain=plain, labels=labels, encode_ms={"default kernels": med(encode_ms), "plain": med(plain_encode_ms)})
+
+
+def phase_ingest(card: str, ret: dict, qa: dict) -> dict:
+    """The fused video ingest on phase 4's retrieval model and clips: under
+    path (a) and then (b) (``FUSED_INGEST``), a fresh ``RetrievalIndex``
+    embeds the 16 clips in two ``add_videos`` calls, each with its exact
+    launch counts, and answers the 4 texts over the whole gallery; VTC
+    features and P(match) are held against phase 4's plain path within its
+    tolerances, and clips/s is printed beside phase 4's. Then phase 5's QA
+    ``encode_video`` under path (a), with its counts, against phase 5's plain
+    path. Returns the launch counts summed over the counted calls."""
+    from alpro_tpu_torch.serving.retrieval import RetrievalIndex
+
+    model, tok, clips, ids = ret["model"], ret["tok"], ret["clips"], ret["ids"]
+    vis, bert = ret["kernel_cfgs"]
+    total = {k: 0 for k in KERNEL_TOL}
+
+    def counted(fn, want: dict, what: str):
+        _reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = _counts()
+        fail_if(got != want, f"{what}: launch counts {got} != {want}")
+        for k, v in got.items():
+            total[k] += v
+        return out
+
+    rates = dict(ret["clips_per_s"])
+    for path, impls in FUSED_INGEST.items():
+        cfgs = (dataclasses.replace(vis, **impls), bert)
+        _warm(model, cfgs, tok, clips)
+        index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
+        want = _launches(video_calls=1, ingest=path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for lo in range(0, N_CLIPS, CLIPS_PER_CALL):
+            counted(lambda: index.add_videos(clips[lo:lo + CLIPS_PER_CALL],
+                                             ids[lo:lo + CLIPS_PER_CALL]),
+                    want, f"path ({path}) add_videos")
+        rates[f"path ({path})"] = N_CLIPS / (time.perf_counter() - t0)
+        full = [index.query(t, topk=N_CLIPS) for t in TEXTS]
+        _set_path(model, vis, bert)
+        feats, _ = index._banks()
+        fail_if(not bool(torch.isfinite(feats).all()), f"path ({path}): non-finite features")
+        feat_err = float((feats - ret["plain_feats"]).abs().max())
+        prob_err = max(abs(dict((r[0], r[1]) for r in a)[v] - p)
+                       for a, b in zip(full, ret["plain_full"]) for v, p, _ in b)
+        print(f"[ingest] path ({path}) {impls}: launches per add_videos call {want}; vs the "
+              f"plain path: VTC feature max_abs {feat_err:.3e} (tol {PLAIN_FEAT_TOL}), P(match) "
+              f"max_abs {prob_err:.3e} (tol {PLAIN_PROB_TOL})", flush=True)
+        fail_if(feat_err > PLAIN_FEAT_TOL, f"path ({path}): VTC features differ by {feat_err}")
+        fail_if(prob_err > PLAIN_PROB_TOL, f"path ({path}): P(match) differs by {prob_err}")
+    print("[ingest] add_videos clips/s: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+          + f" ({N_CLIPS} clips, {CLIPS_PER_CALL} per call) [{card}]", flush=True)
+
+    qa_model, predictor, vis_qa = qa["model"], qa["qa"], qa["kernel_cfgs"][0]
+    _set_path(qa_model, dataclasses.replace(vis_qa, **FUSED_INGEST["a"]), qa["kernel_cfgs"][1])
+    for _ in range(2):
+        predictor.encode_video(qa["clips"])
+    feats = counted(lambda: predictor.encode_video(qa["clips"]),
+                    _launches(video_calls=1, ingest="a"), "QA encode_video, path (a)")
+    encode_ms = statistics.median(_host_ms(lambda: predictor.encode_video(qa["clips"]), 5))
+    _set_path(qa_model, *qa["kernel_cfgs"])
+    fail_if(tuple(feats.shape) != (QA_CLIPS, 1 + PATCHES, 768)
+            or not bool(torch.isfinite(feats.float()).all()), "path (a): bad QA video tokens")
+    tok_err = float((feats.float() - qa["plain_feats"].float()).abs().max())
+    print(f"[ingest] QA encode_video path (a): video token max_abs {tok_err:.3e} vs the plain "
+          f"path; {encode_ms:.2f} ms, "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in qa["encode_ms"].items()) + f" [{card}]",
+          flush=True)
+    L = len(qa["labels"])
+    _check_answers([_answer_dists(predictor.predict(feats, q, topk=L), qa["labels"])
+                    for q in QUESTIONS], qa["plain"], QA_PLAIN_TOL,
+                   "path (a) tokens vs plain path")
+    return total
 
 
 def _train_model(build, vis_json: str, frames: int, attn_impl: str, **kwargs):
@@ -895,10 +1062,14 @@ def main() -> int:
     card = phase_device()
     phase_build()
     res = phase_kernels(card)
-    launches = phase_slice(card)
-    phase_qa(card)
+    launches, ret = phase_slice(card)
+    qa = phase_qa(card)
     # the finetuning path's own counts (the masked attention is on no serving path)
     launches.update(phase_finetune(card))
+    # the fused ingest's own counts (its kernels are on neither default path)
+    ingest = phase_ingest(card, ret, qa)
+    launches.update({k: ingest[k] for k in FUSED_KERNELS})
+    del ret, qa
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -913,6 +1084,13 @@ def main() -> int:
                              "alpro_tpu/ops/pallas_attn.py:203"),
         "masked_attn_bhsd": ("alpro_tpu_torch/csrc/masked_attn.cu",
                              "alpro_tpu/ops/pallas_attn.py:78"),
+        "ln_matmul": ("alpro_tpu_torch/csrc/ln_matmul.cu", "alpro_tpu/ops/pallas_ln_mlp.py:193"),
+        "patchify_embed": ("alpro_tpu_torch/csrc/patchify_embed.cu",
+                           "alpro_tpu/ops/pallas_preprocess.py:63"),
+        "fused_spatial_block": ("alpro_tpu_torch/csrc/fused_block.cu",
+                                "alpro_tpu/ops/pallas_fused_block.py:136"),
+        "fused_temporal_block": ("alpro_tpu_torch/csrc/fused_block.cu",
+                                 "alpro_tpu/ops/pallas_fused_block.py:369"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -10,7 +10,8 @@ the plain path (every ``*_impl='plain'``), each warmed through the same call
 first:
 
 * retrieval: ``add_videos`` of 8 clips (8 × 224², T=8), one ``query``
-  (topk 16 of a 16-clip gallery);
+  (topk 16 of a 16-clip gallery); ``add_videos`` also on the fused video
+  ingest's paths (a) and (b) (``chip_smoke.FUSED_INGEST``);
 * QA: ``encode_video`` of 2 clips (16 × 224²), one cached ``predict``, one
   ``predict_batch`` of 4 questions.
 
@@ -24,6 +25,7 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -97,6 +99,9 @@ def main() -> int:
              "plain": smoke._plain_cfgs(model)}
     tok = smoke.HashTokenizer(model.cfg.bert.vocab_size)
     clips = rng.randint(0, 256, (smoke.N_CLIPS, smoke.FRAMES, 224, 224, 3), dtype=np.uint8)
+    vis, bert = paths["kernels"]
+    for name, impls in smoke.FUSED_INGEST.items():
+        paths[f"fused ingest ({name})"] = (dataclasses.replace(vis, **impls), bert)
     for path, cfgs in paths.items():
         smoke._set_path(model, *cfgs)
         index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
@@ -104,7 +109,9 @@ def main() -> int:
         batch = clips[:smoke.CLIPS_PER_CALL]
         _profile(f"retrieval add_videos x{smoke.CLIPS_PER_CALL} clips, {path}",
                  lambda: index._embed_video(torch.as_tensor(batch).cuda()), iters, card)
-        _profile(f"retrieval query, {path}", lambda: index.query(smoke.TEXTS[0]), iters, card)
+        if not path.startswith("fused"):  # the fused ingest changes no text path
+            _profile(f"retrieval query, {path}", lambda: index.query(smoke.TEXTS[0]), iters,
+                     card)
     del model, index
 
     qa_model = smoke._build_model(build_qa_model, "timesformer_divst_8x32_224_k600_gc.json",

@@ -7,8 +7,9 @@ Tolerances: bf16 outputs within a few bf16 ulps of the twin (the spatial
 kernel rounds p to bf16 before PV, and the BERT attention kernel q, k, v and
 p as its TPU kernel does, where the twins keep fp32; the masked-attention
 kernel rounds where its twin does, so only summation order and exp differ);
-fp32 within summation-order noise. Gradients: K1/K2 and the masked attention
-through their autograd Functions against autograd through the twins; K3-K5
+fp32 within summation-order noise. Gradients: K1/K2, the masked attention
+and the raw-frame patch embed (B15) through their autograd Functions against
+autograd through the twins; K3-K5 and the fused ingest's B9, B10 and B11
 refuse grad.
 """
 
@@ -309,3 +310,137 @@ def test_serving_kernels_refuse_grad(cuda):
         bert_block.bert_attention_block(xa.requires_grad_(True), mask, *ws, *ln, 12, eps=1e-12)
     with torch.no_grad():
         assert ln_mlp.ln_mlp(x, s, b, w1, b1, w2, b2, eps=1e-6).shape == (40, D)
+
+
+# ---- the fused video ingest: B11, B15, B10, B9 -------------------------------
+
+
+def _block_weights(cuda, dtype, seed=0, D=768):
+    """ln scale, ln bias (fp32), wqkv (3D, D), bqkv, w (D, D), b."""
+    return (1 + _randn((D,), seed, cuda, torch.float32, 0.1),
+            _randn((D,), seed + 1, cuda, torch.float32, 0.1),
+            _randn((3 * D, D), seed + 2, cuda, dtype, D ** -0.5),
+            _randn((3 * D,), seed + 3, cuda, dtype, 0.02),
+            _randn((D, D), seed + 4, cuda, dtype, D ** -0.5),
+            _randn((D,), seed + 5, cuda, dtype, 0.02))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R", [12608, 12544, 45])
+def test_ln_matmul_kernel_matches_twin(cuda, R, dtype):
+    from alpro_tpu_torch.ops import ln_matmul
+
+    s, b, w, bw, _, _ = _block_weights(cuda, dtype, seed=R)
+    x = _randn((R, 768), R, cuda, dtype, 2.0)
+    n = ln_matmul.launches
+    got = ln_matmul.ln_matmul(x, s, b, w, bw, eps=1e-6)
+    torch.cuda.synchronize()
+    assert ln_matmul.launches == n + 1 and got.shape == (R, 2304)
+    want = ln_matmul.ln_matmul_plain(x, s, b, w, bw, 1e-6)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+_MEAN, _STD = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
+
+
+def _frames(shape, seed, cuda):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 256, shape, generator=g, dtype=torch.uint8).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(8, 8, 224, 224, 3), (2, 16, 224, 224, 3),
+                                   (1, 2, 232, 216, 3)])
+def test_patchify_embed_kernel_matches_twin(cuda, shape, dtype):
+    from alpro_tpu_torch.ops import preprocess
+
+    raw = _frames(shape, 0, cuda)
+    kernel = _randn((768, 768), 1, cuda, dtype, 768 ** -0.5)
+    bias = _randn((768,), 2, cuda, dtype, 0.02)
+    n = preprocess.launches
+    got = preprocess.patchify_embed(raw, kernel, bias, _MEAN, _STD)
+    torch.cuda.synchronize()
+    assert preprocess.launches == n + 1
+    assert got.shape == shape[:2] + ((shape[2] // 16) * (shape[3] // 16), 768)
+    want = preprocess.patchify_embed_plain(raw, kernel, bias, _MEAN, _STD)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_patchify_embed_gradient_matches_twin_autograd(cuda):
+    """fp32: the Function's backward (the JAX recompute from fp32 patches)
+    against autograd through the twin, to summation order."""
+    from alpro_tpu_torch.ops import preprocess
+
+    raw = _frames((2, 8, 224, 224, 3), 3, cuda)
+    k0 = _randn((768, 768), 4, cuda, torch.float32, 768 ** -0.5)
+    b0 = _randn((768,), 5, cuda, torch.float32, 0.02)
+    g = _randn((2, 8, 196, 768), 6, cuda, torch.float32)
+    grads = []
+    for fn in (preprocess.patchify_embed, preprocess.patchify_embed_plain):
+        k, b = k0.clone().requires_grad_(True), b0.clone().requires_grad_(True)
+        grads.append(torch.autograd.grad(fn(raw, k, b, _MEAN, _STD), (k, b), g))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(8, 8), (2, 16), (1, 32), (3, 5)])
+def test_fused_temporal_block_kernel_matches_twin(cuda, B, T, dtype):
+    from alpro_tpu_torch.ops import fused_block
+
+    ws = _block_weights(cuda, dtype, seed=T)
+    x = _randn((B, T, 196, 768), B + T, cuda, dtype)
+    n = fused_block.temporal_launches
+    got = fused_block.fused_temporal_block(x, *ws, 12, eps=1e-6)
+    torch.cuda.synchronize()
+    assert fused_block.temporal_launches == n + 1
+    want = fused_block.fused_temporal_block_plain(x, *ws, 12, 1e-6)
+    # bf16: the kernel stages q, k, v in bf16 (its TPU kernel's rounding
+    # point), the twin keeps them in fp32
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,S,residual", [(64, 197, False), (32, 197, True), (3, 17, False),
+                                          (2, 256, True)])
+def test_fused_spatial_block_kernel_matches_twin(cuda, M, S, residual, dtype):
+    from alpro_tpu_torch.ops import fused_block
+
+    ws = _block_weights(cuda, dtype, seed=S)
+    x = _randn((M, S, 768), M + S, cuda, dtype)
+    n = fused_block.spatial_launches
+    got = fused_block.fused_spatial_block(x, *ws, 12, eps=1e-6, residual=residual)
+    torch.cuda.synchronize()
+    assert fused_block.spatial_launches == n + 1
+    want = fused_block.fused_spatial_block_plain(x, *ws, 12, 1e-6, residual)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_fused_ingest_kernels_refuse_grad_and_limits(cuda):
+    """B9, B10 and B11 have no backward: under grad with an input that
+    requires grad they raise; past their limits (S, T) they raise naming
+    them."""
+    from alpro_tpu_torch.ops import fused_block, ln_matmul
+
+    ws = _block_weights(cuda, torch.float32)
+    x = _randn((2, 4, 196, 768), 0, cuda, torch.float32).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_block.fused_temporal_block(x, *ws, 12, eps=1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_block.fused_spatial_block(x[0], *ws, 12, eps=1e-6)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ln_matmul.ln_matmul(x, *ws[:4], eps=1e-6)
+    with torch.no_grad():
+        assert fused_block.fused_spatial_block(x[0], *ws, 12, eps=1e-6).shape == (4, 196, 768)
+        limit = fused_block.spatial_max_seq_len(torch.float32, cuda)
+        assert limit >= 197
+        with pytest.raises(ValueError, match=f"S <= {limit}"):
+            fused_block.fused_spatial_block(torch.zeros(1, limit + 1, 768, device=cuda), *ws, 12,
+                                            eps=1e-6)
+        with pytest.raises(ValueError, match="T <= 32"):
+            fused_block.fused_temporal_block(torch.zeros(1, 33, 2, 768, device=cuda), *ws, 12,
+                                             eps=1e-6)

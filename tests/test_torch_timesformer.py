@@ -124,6 +124,16 @@ def test_bf16_fold_matches_jax():
     np.testing.assert_allclose(got, want, atol=6e-2, rtol=0)
 
 
+def test_temporal_fused_qkv_matches_jax():
+    """temporal_attn_impl='fused_qkv' (JAX TemporalNativeLayoutAttention: the
+    temporal kernel between the unfolded proj and temporal_fc) loads from
+    the JAX config's values and matches JAX in eval."""
+    impls = dict(attn_impl="fused_qkv", temporal_attn_impl="fused_qkv", mlp_impl="xla")
+    jm, params, port = _pair(3, impls)
+    got, want = _run(jm, params, port, _clips(2, 3, seed=11, form="raw_uint8"))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
 def test_config_rejects_unknown_impl():
     with pytest.raises(ValueError):
         TimeSformerConfig(attn_impl="cls_sideband")

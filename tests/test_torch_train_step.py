@@ -155,7 +155,7 @@ def test_retrieval_step_with_explicit_kernel_impls_matches_jax():
     x = torch.zeros(1, 2, 4, 32)
     cfg = port.visual_encoder.model.cfg
     assert [cfg.impl(f, x, True) for f in ("attn_impl", "temporal_attn_impl", "mlp_impl")] == [
-        "fused_qkv", "fused_qkv_fold", "plain"]
+        "fused_qkv", "fused_qkv", "plain"]
     assert [cfg.impl(f, x, False) for f in ("attn_impl", "temporal_attn_impl", "mlp_impl")] == [
         "fused_qkv", "fused_qkv_fold", "fused"]
     auto = TimeSformerConfig(**VIS)
