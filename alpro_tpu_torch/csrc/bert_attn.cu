@@ -70,16 +70,9 @@ template <typename T> size_t attn_smem(int SP, int ldkv) {
   return 2 * size_t(SP) * ldkv * sizeof(T) + fixed_bytes<T>();
 }
 
-int max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
-    return 0;
-  return v;
-}
-
 // the largest S whose K and V fit (unpadded rows)
 template <typename T> int max_seq(int device) {
-  const long room = long(max_smem(device)) - long(fixed_bytes<T>());
+  const long room = long(alpro::max_smem_optin(device)) - long(fixed_bytes<T>());
   if (room <= 0) return 0;
   return int(room / (2L * kHD * sizeof(T))) / 16 * 16;
 }
@@ -328,7 +321,7 @@ int launch(const void* x, const void* mask, const void* wq, const void* bq, cons
            const void* ln_s, const void* ln_b, void* heads, void* out, int M, int S, int H,
            int q_split, float scale, float eps, int device, cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
-  const int limit = max_smem(device);
+  const int limit = alpro::max_smem_optin(device);
   int ldkv = kHD + pad<T>();  // padded rows against bank conflicts, where they fit
   if (attn_smem<T>(SP, ldkv) > size_t(limit)) ldkv = kHD;
   const size_t smem = attn_smem<T>(SP, ldkv);

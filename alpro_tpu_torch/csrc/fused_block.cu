@@ -44,31 +44,24 @@
 //        score u;
 //   2. a projection launch (proj_rows): the row-tile GEMM of row_tile.cuh,
 //      heads . W^T + bias (+ residual).
+#include "attn_f32.cuh"
 #include "row_tile.cuh"
 
 namespace {
 
 using alpro::WarpTile;
-
-constexpr int kHD = 64;   // head dim
+using alpro::f32attn::kHD;   // head dim
+using alpro::f32attn::kLdF;  // fp32 q/k/v rows (spatial)
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kKC = 64;   // depth chunk of the projections
 constexpr int kRC = 64;   // rows per projection step, 16 per warp
 constexpr int kQT = 64;   // spatial query rows per tile
-constexpr int kLdF = kHD + 4;  // fp32 q/k/v rows (spatial)
 
 template <typename T> __host__ __device__ constexpr int pad() { return 16 / int(sizeof(T)); }
 template <typename T> __host__ __device__ constexpr int ldc() { return kKC + pad<T>(); }
 template <typename T> __host__ __device__ constexpr size_t staging_bytes(int nw) {
   return size_t(kRC + nw * kHD) * ldc<T>() * sizeof(T);
-}
-
-int max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) != cudaSuccess)
-    return 0;
-  return v;
 }
 
 // ---- shared pieces of the heads launches ----
@@ -198,17 +191,14 @@ __device__ __forceinline__ void store_biased(WarpTile<T> (&acc)[kHD / 16], float
 
 // ---- spatial (B9) ----
 
-// per warp: 16 fp32 score rows (leading dimension SP + 4), a 16 x 16 scratch
-// and the 16 row sums
-__host__ __device__ constexpr int spatial_warp_floats(int SP) { return 16 * (SP + 4) + 256 + 16; }
 template <typename T> size_t spatial_smem(int SP) {
   return 2 * size_t(SP) * kLdF * 4 + size_t(kQT) * kLdF * 4 + 2 * size_t(SP) * 4 +
-         std::max(staging_bytes<T>(2), size_t(kWarps) * spatial_warp_floats(SP) * 4);
+         std::max(staging_bytes<T>(2), size_t(kWarps) * alpro::f32attn::warp_floats(SP) * 4);
 }
 
 // the largest S whose fp32 K, V and score rows fit
 template <typename T> int spatial_max_seq(int device) {
-  const size_t limit = size_t(max_smem(device));
+  const size_t limit = size_t(alpro::max_smem_optin(device));
   int s = 0;
   while (spatial_smem<T>(s + 16) <= limit) s += 16;
   return s;
@@ -222,7 +212,7 @@ spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
                     float scale, float eps) {
   const int h = blockIdx.y, m = blockIdx.z;
   const int D = H * kHD;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   const int ldsc = SP + 4;
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -232,9 +222,8 @@ spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
   float* mean = Qs + kQT * kLdF;
   float* rstd = mean + SP;
   T* stage = reinterpret_cast<T*>(rstd + SP);
-  float* sc = reinterpret_cast<float*>(stage) + warp * spatial_warp_floats(SP);
+  float* sc = reinterpret_cast<float*>(stage) + warp * alpro::f32attn::warp_floats(SP);
   float* scr = sc + 16 * ldsc;  // 16 x 16 scratch, 32-byte aligned
-  float* lrow = scr + 256;
 
   const T* xm = x + long(m) * S * D;
   auto row_ptr = [&](int r) -> const T* { return r < S ? xm + long(r) * D : nullptr; };
@@ -262,53 +251,9 @@ spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
     if (!active) continue;  // no block sync follows before the next project
     float* qs = Qs + warp * 16 * kLdF;
     store_biased<float>(qa[0], scr, bqkv + h * kHD, qs, kLdF, scale);  // q * hd^-1/2
-    // ---- scores: (16 x 64) . (64 x SP), fp32 ----
-    for (int j = 0; j < SP / 16; ++j) {
-      WarpTile<float> acc;
-      acc.zero();
-#pragma unroll
-      for (int kk = 0; kk < kHD; kk += 16)
-        acc.template mma<true>(qs + kk, kLdF, Ks + j * 16 * kLdF + kk, kLdF);
-      acc.store(sc + j * 16, ldsc);
-    }
-    __syncwarp();
-    // ---- softmax per row: fp32 max, then p = exp(s - max) in place, l ----
-    for (int r = 0; r < 16; ++r) {
-      float* srow = sc + r * ldsc;
-      float mx = -INFINITY;
-      for (int c = lane; c < S; c += 32) mx = fmaxf(mx, srow[c]);
-      mx = alpro::warp_max(mx);
-      float l = 0.0f;
-      for (int c = lane; c < SP; c += 32) {
-        const float p = c < S ? expf(srow[c] - mx) : 0.0f;
-        srow[c] = p;
-        l += p;
-      }
-      l = alpro::warp_sum(l);
-      if (lane == 0) lrow[r] = l;
-    }
-    __syncwarp();
-    // ---- o = p . V: (16 x SP) . (SP x 64), fp32; o / l into the heads ----
-    WarpTile<float> o[kHD / 16];
-#pragma unroll
-    for (int n = 0; n < kHD / 16; ++n) o[n].zero();
-    for (int j = 0; j < SP / 16; ++j)
-#pragma unroll
-      for (int n = 0; n < kHD / 16; ++n)
-        o[n].template mma<false>(sc + j * 16, ldsc, Vs + j * 16 * kLdF + n * 16, kLdF);
-#pragma unroll
-    for (int n = 0; n < kHD / 16; ++n) {
-      o[n].store(scr, 16);
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = lane * 8 + i, r = e / 16, c = e % 16, row = q0 + warp * 16 + r;
-        if (row < S)
-          heads[(long(m) * S + row) * D + h * kHD + n * 16 + c] =
-              alpro::from_f32<T>(scr[e] / lrow[r]);
-      }
-      __syncwarp();
-    }
+    alpro::f32attn::attend16<T>(qs, Ks, Vs, S, SP, sc,
+                                heads + (long(m) * S + q0 + warp * 16) * D + h * kHD, D,
+                                S - q0 - warp * 16);
   }
 }
 
@@ -391,71 +336,6 @@ temporal_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
-// ---- the projection launch: out = heads . W^T + bias (+ residual) ----
-
-// (row_tile.cuh's names are qualified here: this file's kWarps and kThreads
-// are the 4-warp heads launches')
-namespace rows = alpro::rows;
-
-template <typename T, int NG>
-__global__ void __launch_bounds__(rows::kThreads, 1)
-proj_rows(const T* __restrict__ heads, const T* __restrict__ w, const float* __restrict__ bias,
-          const T* __restrict__ residual, T* __restrict__ out, int R) {
-  constexpr int D = NG * rows::kTile, ldo = D + rows::vec<T>();
-  const int r0 = blockIdx.x * rows::kTM;
-  const int warp = threadIdx.x >> 5;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* ot = reinterpret_cast<T*>(smem);
-  T* wt = ot + rows::kTM * ldo;
-  float* stage =
-      reinterpret_cast<float*>(wt + rows::kTile * (rows::kTile + rows::vec<T>())) + warp * 256;
-
-  constexpr int vpr = D / rows::vec<T>();
-  for (int i = threadIdx.x; i < rows::kTM * vpr; i += rows::kThreads) {
-    const int r = i / vpr, c = i % vpr;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < R) v = reinterpret_cast<const uint4*>(heads + long(r0 + r) * D)[c];
-    reinterpret_cast<uint4*>(ot + r * ldo)[c] = v;
-  }
-  WarpTile<T> acc[NG];
-#pragma unroll
-  for (int g = 0; g < NG; ++g) acc[g].zero();
-  rows::gemm<T, NG, true>(acc, ot, ldo, w, D, NG, wt);  // begins with a block sync
-  rows::store_rows<T, NG>(acc, stage, bias, residual, out, D, 0, r0, R);
-}
-
-template <typename T, int NG>
-int launch_proj(const void* heads, const void* w, const void* bias, const void* residual,
-                void* out, int R, cudaStream_t stream) {
-  constexpr int D = NG * rows::kTile;
-  const size_t smem = size_t(rows::kTM) * (D + rows::vec<T>()) * sizeof(T) +
-                      size_t(rows::kTile) * (rows::kTile + rows::vec<T>()) * sizeof(T) +
-                      size_t(rows::kWarps) * 256 * 4;
-  cudaError_t err = cudaFuncSetAttribute(proj_rows<T, NG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return int(err);
-  proj_rows<T, NG><<<(R + rows::kTM - 1) / rows::kTM, rows::kThreads, smem, stream>>>(
-      static_cast<const T*>(heads), static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<const T*>(residual), static_cast<T*>(out), R);
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch_proj(int D, const void* heads, const void* w, const void* bias, const void* residual,
-                  void* out, int R, cudaStream_t st) {
-  switch (D) {
-#define ALPRO_PROJ_CASE(NG) \
-  case NG * alpro::rows::kTile: return launch_proj<T, NG>(heads, w, bias, residual, out, R, st);
-    ALPRO_PROJ_CASE(2)
-    ALPRO_PROJ_CASE(4)
-    ALPRO_PROJ_CASE(6)
-    ALPRO_PROJ_CASE(8)
-#undef ALPRO_PROJ_CASE
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
 template <typename T>
 int spatial(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
             const void* bqkv, const void* wproj, const void* bproj, void* heads, void* out,
@@ -463,7 +343,7 @@ int spatial(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
             cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
   const size_t smem = spatial_smem<T>(SP);
-  if (smem > size_t(max_smem(device))) return int(cudaErrorInvalidValue);
+  if (smem > size_t(alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(spatial_block_heads<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
@@ -474,8 +354,8 @@ int spatial(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
       SP, H, scale, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return dispatch_proj<T>(H * kHD, heads, wproj, bproj, residual ? x : nullptr, out, M * S,
-                          stream);
+  return alpro::rows::dispatch_proj<T>(H * kHD, heads, wproj, bproj, residual ? x : nullptr,
+                                       out, M * S, stream);
 }
 
 template <typename T>
@@ -494,7 +374,8 @@ int temporal(const void* x, const void* ln_s, const void* ln_b, const void* wqkv
       N, NT, H, scale, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return dispatch_proj<T>(H * kHD, heads, w_eff, b_eff, x, out, B * Tn * N, stream);
+  return alpro::rows::dispatch_proj<T>(H * kHD, heads, w_eff, b_eff, x, out, B * Tn * N,
+                                       stream);
 }
 
 }  // namespace

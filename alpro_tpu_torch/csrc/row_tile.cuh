@@ -1,6 +1,7 @@
 // Shared pieces of the row-tile kernels (ln_mlp.cu, bert_attn.cu's
-// projection + LN pass, ln_matmul.cu, patchify_embed.cu, fused_block.cu's
-// projection pass): a block of kWarps warps owns kTM whole rows across
+// projection + LN pass, ln_matmul.cu, patchify_embed.cu, the projection
+// launch proj_rows of fused_block.cu and qkv_proj.cu, qkv_proj.cu's
+// temporal chain): a block of kWarps warps owns kTM whole rows across
 // all D output columns, with one fp32 16x16 accumulator tile per warp in
 // every 128-column group held in registers; weight tiles of 128 x 128 are
 // read from device memory with coalesced 16-byte loads into registers,
@@ -166,6 +167,68 @@ __device__ __forceinline__ void post_ln_epilogue(WarpTile<T> (&acc)[NG], float* 
       orow[c] = from_f32<T>((yr[c] - mean) * rstd * ln_s[c] + ln_b[c]);
   }
   __syncthreads();
+}
+
+// ---- the projection launch of the two-launch chains (fused_block.cu,
+//      qkv_proj.cu): out = heads . W^T + bias (+ residual), heads (R, D)
+//      in T, W in torch Linear layout (D, D), bias fp32 ----
+
+template <typename T, int NG>
+__global__ void __launch_bounds__(kThreads, 1)
+proj_rows(const T* __restrict__ heads, const T* __restrict__ w, const float* __restrict__ bias,
+          const T* __restrict__ residual, T* __restrict__ out, int R) {
+  constexpr int D = NG * kTile, ldo = D + vec<T>();
+  const int r0 = blockIdx.x * kTM;
+  const int warp = threadIdx.x >> 5;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ot = reinterpret_cast<T*>(smem);
+  T* wt = ot + kTM * ldo;
+  float* stage = reinterpret_cast<float*>(wt + kTile * (kTile + vec<T>())) + warp * 256;
+
+  constexpr int vpr = D / vec<T>();
+  for (int i = threadIdx.x; i < kTM * vpr; i += kThreads) {
+    const int r = i / vpr, c = i % vpr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < R) v = reinterpret_cast<const uint4*>(heads + long(r0 + r) * D)[c];
+    reinterpret_cast<uint4*>(ot + r * ldo)[c] = v;
+  }
+  WarpTile<T> acc[NG];
+#pragma unroll
+  for (int g = 0; g < NG; ++g) acc[g].zero();
+  gemm<T, NG, true>(acc, ot, ldo, w, D, NG, wt);  // begins with a block sync
+  store_rows<T, NG>(acc, stage, bias, residual, out, D, 0, r0, R);
+}
+
+template <typename T, int NG>
+int launch_proj(const void* heads, const void* w, const void* bias, const void* residual,
+                void* out, int R, cudaStream_t stream) {
+  constexpr int D = NG * kTile;
+  const size_t smem = size_t(kTM) * (D + vec<T>()) * sizeof(T) +
+                      size_t(kTile) * (kTile + vec<T>()) * sizeof(T) + size_t(kWarps) * 256 * 4;
+  cudaError_t err = cudaFuncSetAttribute(proj_rows<T, NG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return int(err);
+  proj_rows<T, NG><<<(R + kTM - 1) / kTM, kThreads, smem, stream>>>(
+      static_cast<const T*>(heads), static_cast<const T*>(w), static_cast<const float*>(bias),
+      static_cast<const T*>(residual), static_cast<T*>(out), R);
+  return int(cudaGetLastError());
+}
+
+// the projection launch for D in (256, 512, 768, 1024)
+template <typename T>
+int dispatch_proj(int D, const void* heads, const void* w, const void* bias, const void* residual,
+                  void* out, int R, cudaStream_t st) {
+  switch (D) {
+#define ALPRO_PROJ_CASE(NG) \
+  case NG * kTile: return launch_proj<T, NG>(heads, w, bias, residual, out, R, st);
+    ALPRO_PROJ_CASE(2)
+    ALPRO_PROJ_CASE(4)
+    ALPRO_PROJ_CASE(6)
+    ALPRO_PROJ_CASE(8)
+#undef ALPRO_PROJ_CASE
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace rows

@@ -24,18 +24,26 @@ by the JAX package's rules in both modes:
   (``ops/ln_matmul.py``); ``fused_block`` — LN, qkv, the attention, the
   folded projection and the residual in one kernel
   (``ops/fused_block.py``); ``fused_qkv`` — in eval LN, qkv matmul, the
-  temporal kernel, then proj and temporal_fc unfolded. In training all four
-  are the temporal kernel with its backward between the unfolded
-  projections; ``plain`` — relayout to (B·N, T, D), plain attention, proj,
-  temporal_fc;
+  temporal kernel, then proj and temporal_fc unfolded; ``fused_qkv_proj``
+  — in eval LN, qkv matmul, then the attention and the folded projection
+  in one kernel (``ops/qkv_attn.py``), the residual added after. In
+  training all five are the temporal kernel with its backward between the
+  unfolded projections; ``plain`` — relayout to (B·N, T, D), plain
+  attention, proj, temporal_fc;
 * ``attn_impl``: ``fused_qkv`` — the spatial kernel over the packed qkv of
   [cls_rep; x] per frame, in both modes (with its backward in training;
   attention dropout in training takes the plain path, as in JAX);
   ``fused_ln_qkv`` — in eval the LN→qkv kernel, the spatial kernel, then
   proj; ``fused_block`` — in eval LN, qkv, attention and proj in one kernel;
-  in training both are ``fused_qkv``; ``pallas`` — the masked-attention
-  kernel (``ops/masked_attn.py``) on views of the packed qkv, in both modes;
-  ``plain`` — plain attention;
+  ``fused_qkv_proj`` — in eval LN, the qkv matmul, then the attention and
+  proj in one kernel (``ops/qkv_attn.py``); in training these three are
+  ``fused_qkv``; ``cls_sideband`` — in eval LN of the patches and of the
+  CLS separately, the CLS qkv once per sample, the sideband kernel
+  (``ops/qkv_attn.py``: no [cls; x] concat), proj per frame for the
+  patches and once on the fp32 frame mean of the CLS outputs, then
+  straight to the MLP tail; in training ``auto`` (plain), as in JAX;
+  ``pallas`` — the masked-attention kernel (``ops/masked_attn.py``) on
+  views of the packed qkv, in both modes; ``plain`` — plain attention;
 * ``mlp_impl``: ``fused`` — in eval the LN→MLP→residual kernel
   (``ops/ln_mlp.py``), called on the patch rows and on the B cls rows; in
   training the plain path; ``plain`` — LN, fc1, exact GELU, fc2, residual.
@@ -75,13 +83,18 @@ from alpro_tpu_torch.ops.ln_mlp import ln_mlp
 from alpro_tpu_torch.ops.preprocess import patchify_embed
 from alpro_tpu_torch.ops.qkv_attn import (
     spatial_attention_qkv,
+    spatial_attention_qkv_cls,
+    spatial_attention_qkv_proj,
     temporal_attention_qkv,
+    temporal_attention_qkv_proj,
 )
 
 # field → the values naming a kernel (the first is what 'auto' gives in eval)
 _KERNEL_IMPL = {
-    "attn_impl": ("fused_qkv", "pallas", "fused_ln_qkv", "fused_block"),
-    "temporal_attn_impl": ("fused_qkv_fold", "fused_qkv", "fused_ln_qkv", "fused_block"),
+    "attn_impl": ("fused_qkv", "pallas", "fused_ln_qkv", "fused_block", "fused_qkv_proj",
+                  "cls_sideband"),
+    "temporal_attn_impl": ("fused_qkv_fold", "fused_qkv", "fused_ln_qkv", "fused_block",
+                           "fused_qkv_proj"),
     "mlp_impl": ("fused",),
 }
 
@@ -153,10 +166,11 @@ class TimeSformerConfig:
         """What ``field`` resolves to for activations ``x``: a kernel name
         from ``_KERNEL_IMPL`` or ``plain``. ``auto`` gives the first kernel
         only in eval on a CUDA tensor. In training (the JAX rules): explicit
-        ``fused`` (MLP tail) is plain; the spatial ``fused_qkv``,
-        ``fused_ln_qkv`` and ``fused_block`` are ``fused_qkv``, or plain when
-        attention dropout is on (JAX ``VitAttention``); every temporal
-        kernel value is ``fused_qkv`` (the kernel, unfolded projections)."""
+        ``fused`` (MLP tail) is plain; ``cls_sideband`` is ``auto``, so
+        plain; the other spatial kernel values but ``pallas`` are
+        ``fused_qkv``, or plain when attention dropout is on (JAX
+        ``VitAttention``); every temporal kernel value is ``fused_qkv`` (the
+        kernel, unfolded projections)."""
         value = getattr(self, field)
         if value == "auto":
             value = _KERNEL_IMPL[field][0] if (x.device.type == "cuda" and not training) else "plain"
@@ -166,7 +180,7 @@ class TimeSformerConfig:
             return value
         if field == "temporal_attn_impl":
             return "fused_qkv"
-        if field == "attn_impl" and self.attn_drop_rate == 0:
+        if field == "attn_impl" and value != "cls_sideband" and self.attn_drop_rate == 0:
             return "fused_qkv"
         return "plain"
 
@@ -252,6 +266,10 @@ class DividedSTBlock(nn.Module):
             x = fused_temporal_block(x, tn.weight, tn.bias, tqkv.weight.to(dtype),
                                      tqkv.bias.to(dtype), *self._folded_temporal_proj(dtype), H,
                                      eps=eps)
+        elif t_impl == "fused_qkv_proj":
+            qkv = linear(tn(x, dtype), tqkv, dtype)              # (B, T, N, 3D)
+            y = temporal_attention_qkv_proj(qkv, *self._folded_temporal_proj(dtype), H)
+            x = x + y.to(x.dtype)
         elif t_impl in ("fused_qkv_fold", "fused_ln_qkv"):
             if t_impl == "fused_ln_qkv":
                 qkv = ln_matmul(x, tn.weight, tn.bias, tqkv.weight.to(dtype),
@@ -276,21 +294,33 @@ class DividedSTBlock(nn.Module):
             x = x + linear(t_out, self.temporal_fc, dtype)
 
         # ---- spatial attention over [cls; N patches] per frame ----
+        s_impl = cfg.impl("attn_impl", x, train)
+        n1, sqkv, proj = self.norm1, self.attn.qkv, self.attn.proj
+        if s_impl == "cls_sideband":  # eval only: no concat, CLS qkv once per sample
+            qkv_x = linear(n1(x, dtype), sqkv, dtype).reshape(B * T, N, 3 * D)
+            qkv_c = linear(n1(cls, dtype), sqkv, dtype)             # (B, 1, 3D)
+            att_x, att_c = spatial_attention_qkv_cls(qkv_x, qkv_c, H, T)
+            x = x + linear(att_x, proj, dtype).to(x.dtype).reshape(B, T, N, D)
+            # the frame mean of the CLS outputs in fp32, then one projection
+            c_mean = att_c.reshape(B, T, D).float().mean(dim=1, keepdim=True).to(dtype)
+            cls = cls + linear(c_mean, proj, dtype).to(cls.dtype)
+            return self._mlp_tail(cls, x, cfg, dtype, dp_rate, generator)
         cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
         xs = torch.cat([cls_rep, x], dim=2).reshape(B * T, 1 + N, D)
-        s_impl = cfg.impl("attn_impl", x, train)
-        n1, sqkv = self.norm1, self.attn.qkv
-        if s_impl == "fused_block":
+        if s_impl == "fused_qkv_proj":
+            qkv = linear(n1(xs, dtype), sqkv, dtype)
+            s_out = spatial_attention_qkv_proj(qkv, proj.weight.to(dtype), proj.bias.to(dtype), H)
+        elif s_impl == "fused_block":
             s_out = fused_spatial_block(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
-                                        sqkv.bias.to(dtype), self.attn.proj.weight.to(dtype),
-                                        self.attn.proj.bias.to(dtype), H, eps=eps)
+                                        sqkv.bias.to(dtype), proj.weight.to(dtype),
+                                        proj.bias.to(dtype), H, eps=eps)
         elif s_impl in ("fused_qkv", "fused_ln_qkv"):
             if s_impl == "fused_ln_qkv":
                 qkv = ln_matmul(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
                                 sqkv.bias.to(dtype), eps=eps)
             else:
                 qkv = linear(n1(xs, dtype), sqkv, dtype)
-            s_out = linear(spatial_attention_qkv(qkv, H), self.attn.proj, dtype)
+            s_out = linear(spatial_attention_qkv(qkv, H), proj, dtype)
         else:
             s_out = self.attn.plain(n1(xs, dtype), H, dtype,
                                     "pallas" if s_impl == "pallas" else "xla",
@@ -299,8 +329,13 @@ class DividedSTBlock(nn.Module):
         s_out = drop_path(s_out, dp_rate, (B, T, 1, 1), generator, train)
         cls = cls + s_out[:, :, 0, :].mean(dim=1, keepdim=True)
         x = x + s_out[:, :, 1:, :]
+        return self._mlp_tail(cls, x, cfg, dtype, dp_rate, generator)
 
-        # ---- MLP tail ----
+    def _mlp_tail(self, cls, x, cfg: TimeSformerConfig, dtype, dp_rate: float, generator):
+        """LN → MLP → residual on the patches and the CLS, one per-sample
+        drop-path mask for both."""
+        B, T, N, D = x.shape
+        train = self.training
         if cfg.impl("mlp_impl", x, train) == "fused":
             args = (
                 self.norm2.weight, self.norm2.bias,

@@ -77,6 +77,17 @@ _SIGNATURES = {
     # x, ln_scale, ln_bias, wqkv, bqkv, w_eff, b_eff, heads, out, B, T, N, H,
     # scale, eps, is_bf16, device, stream
     "alpro_fused_temporal_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # qkv_x, qkv_c, out_x, out_c, M, N, T, H, hd, scale, is_bf16, device, stream
+    "alpro_spatial_cls_attn": ([_P] * 4 + [_I] * 5 + [_F, _I, _I, _P], _I),
+    # qkv, wproj, bproj, heads, out, M, S, H, q_split, scale, is_bf16, device,
+    # stream
+    "alpro_spatial_qkv_proj": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # device
+    "alpro_spatial_qkv_proj_max_seq": ([_I], _I),
+    # qkv, w_eff, b_eff, out, B, T, N, H, scale, is_bf16, device, stream
+    "alpro_temporal_qkv_proj": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # x, scale, bias, out, R, D, eps, in_bf16, out_bf16, device, stream
+    "alpro_layernorm": ([_P] * 4 + [_I, _I, _F, _I, _I, _I, _P], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 

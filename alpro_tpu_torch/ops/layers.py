@@ -4,7 +4,9 @@ encoders (counterpart of ``alpro_tpu/ops/layers.py``).
 LayerNorm statistics are one-pass fp32 (E[x²]−E[x]², clamped at 0) whatever
 the compute dtype. That is not the algorithm of ``torch.nn.functional
 .layer_norm`` (Welford), so it is written out here; the JAX package, the
-fused kernels and this module all share it.
+fused kernels and this module all share it. ``LayerNorm(impl='pallas')`` runs
+it as the CUDA kernel of ``ops/layernorm.py``, as the JAX module's
+``impl='pallas'`` runs its Pallas kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch.utils.checkpoint
 from torch import nn
 
 from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
+from alpro_tpu_torch.ops.layernorm import layernorm
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -31,15 +34,25 @@ def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics; parameters named ``weight``/``bias``
-    as in the ALPRO state dict. Output dtype is the caller's compute dtype."""
+    as in the ALPRO state dict. Output dtype is the caller's compute dtype.
 
-    def __init__(self, dim: int, eps: float):
+    impl (the JAX module's): 'auto' (the plain math, as JAX's 'auto' is XLA),
+    'xla' or 'plain', or 'pallas' (the kernel of ``ops/layernorm.py``, with
+    its analytic backward). No model config sets it."""
+
+    def __init__(self, dim: int, eps: float, impl: str = "auto"):
         super().__init__()
+        if impl not in ("auto", "xla", "plain", "pallas"):
+            raise ValueError(f"LayerNorm impl={impl!r}: expected 'auto', 'xla', 'plain' or "
+                             "'pallas'")
         self.eps = float(eps)
+        self.impl = impl
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        if self.impl == "pallas":
+            return layernorm(x, self.weight, self.bias, eps=self.eps, out_dtype=out_dtype)
         return layernorm_apply(x, self.weight, self.bias, self.eps, out_dtype)
 
 

@@ -8,17 +8,30 @@ Counterpart of ``alpro_tpu/ops/pallas_qkv_attn.py``:
   ``_spatial_xla_reference``);
 * ``temporal_attention_qkv`` ← ``fused_temporal_attention_qkv`` (kernel
   ``csrc/temporal_attn.cu``, twin ``temporal_attention_plain`` =
-  ``_temporal_xla_reference``).
+  ``_temporal_xla_reference``);
+* ``spatial_attention_qkv_cls`` ← ``fused_attention_qkv_cls`` (the CLS-
+  sideband variant of ``csrc/spatial_attn.cu``, twin
+  ``spatial_attention_qkv_cls_plain`` = ``_spatial_cls_xla_reference``):
+  per frame over [CLS | N patches], the CLS row one per sample;
+* ``spatial_attention_qkv_proj`` ← ``fused_attention_qkv_proj`` and
+  ``temporal_attention_qkv_proj`` ← ``fused_temporal_attention_qkv_proj``
+  (kernels ``csrc/qkv_proj.cu``, twins ``*_qkv_proj_plain`` =
+  ``_spatial_qkv_proj_xla_reference`` / ``_temporal_qkv_proj_xla_reference``):
+  the attention then the output projection, the per-head output rounded to
+  the weight's dtype and the heads summed in fp32.
 
 Channel layout is the fused qkv projection's: ``[q | k | v]``, each (H, hd)
-head-major. A wrapper runs the twin only for a CPU tensor; for a CUDA tensor
-it launches the kernel or raises. ``spatial_launches`` and
-``temporal_launches`` count kernel launches.
+head-major; projection weights in torch Linear layout (out, in). A wrapper
+runs the twin only for a CPU tensor; for a CUDA tensor it launches the kernel
+or raises. ``*_launches`` count kernel launches (one per call).
 
 Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), the
-kernel call is a ``torch.autograd.Function`` whose backward is the vjp of the
-plain twin, recomputed from the saved packed qkv. On a CPU tensor the twin is
-differentiated directly, which is the same vjp.
+K1/K2 kernel call is a ``torch.autograd.Function`` whose backward is the vjp
+of the plain twin, recomputed from the saved packed qkv. On a CPU tensor the
+twin is differentiated directly, which is the same vjp. The CLS-sideband and
+projection kernels have no backward (the JAX model reaches them only at
+serving): their wrappers raise when grad mode is on and an input requires
+grad.
 """
 
 from __future__ import annotations
@@ -28,12 +41,19 @@ from typing import Optional
 import torch
 
 from alpro_tpu_torch.ops import _build
+from alpro_tpu_torch.ops.ln_mlp import _WIDTHS  # the D values row_tile.cuh's kernels take
 
 spatial_launches = 0
 temporal_launches = 0
+spatial_cls_launches = 0
+spatial_proj_launches = 0
+temporal_proj_launches = 0
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_YZ = 65535
+_PROJ_HEAD_DIM = 64  # csrc/qkv_proj.cu (attn_f32.cuh kHD)
+_PROJ_QUERY_TILE = 64  # csrc/qkv_proj.cu kQT
+_MAX_T = 32  # csrc/qkv_proj.cu: T x 32/T locations per 32-row tile
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -171,4 +191,162 @@ def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     )
     _build.check(err, "temporal_attention_qkv")
     temporal_launches += 1
+    return out
+
+
+# ---- CLS sideband (B6) ----------------------------------------------------
+
+
+def spatial_attention_qkv_cls_plain(qkv_x: torch.Tensor, qkv_c: torch.Tensor, num_heads: int,
+                                    scale: float, T: int):
+    """Plain twin (``_spatial_cls_xla_reference``): the CLS row broadcast to
+    each of its sample's T frames, concatenated before the patches, the plain
+    spatial attention, split back into (patch out, cls out)."""
+    M, N, threeD = qkv_x.shape
+    c_rep = qkv_c[:, None].expand(M // T, T, 1, threeD).reshape(M, 1, threeD)
+    out = spatial_attention_plain(torch.cat([c_rep, qkv_x], dim=1), num_heads, scale)
+    return out[:, 1:], out[:, :1]
+
+
+def spatial_attention_qkv_cls(qkv_x: torch.Tensor, qkv_c: torch.Tensor, num_heads: int, T: int,
+                              *, scale: Optional[float] = None):
+    """Per-frame attention over [cls | N patches] with no concat: qkv_x
+    (B·T, N, 3D) the patch projections, qkv_c (B, 1, 3D) the sample-shared
+    CLS projection. Returns (patch out (B·T, N, D), cls out (B·T, 1, D))."""
+    global spatial_cls_launches
+    if qkv_x.dim() != 3 or qkv_c.dim() != 3:
+        raise ValueError(f"expected (B·T, N, 3D) and (B, 1, 3D) qkv, got shapes "
+                         f"{tuple(qkv_x.shape)}, {tuple(qkv_c.shape)}")
+    M, N, threeD = qkv_x.shape
+    if M % T:
+        raise ValueError(f"leading dim {M} not divisible by T={T}")
+    if tuple(qkv_c.shape) != (M // T, 1, threeD):
+        raise ValueError(f"cls qkv shape {tuple(qkv_c.shape)} != {(M // T, 1, threeD)}")
+    hd = _head_dim(qkv_x, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if qkv_x.device.type == "cpu":
+        return spatial_attention_qkv_cls_plain(qkv_x, qkv_c, num_heads, scale, T)
+    _build.refuse_grad("spatial_attention_qkv_cls", qkv_x, qkv_c)
+    _build.check_cuda_operand(qkv_x, "spatial_attention_qkv_cls", _DTYPES)
+    _build.check_cuda_operand(qkv_c, "spatial_attention_qkv_cls cls", (qkv_x.dtype,))
+    if hd % 16 or M > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ:
+        raise ValueError(
+            f"spatial kernel needs head_dim % 16 == 0 and M, H <= {_MAX_GRID_YZ};"
+            f" got head_dim={hd}, M={M}, H={num_heads}"
+        )
+    out_x = qkv_x.new_empty((M, N, threeD // 3))
+    out_c = qkv_x.new_empty((M, 1, threeD // 3))
+    dev, stream = _build.stream_args(qkv_x)
+    err = _build.lib().alpro_spatial_cls_attn(
+        qkv_x.data_ptr(), qkv_c.data_ptr(), out_x.data_ptr(), out_c.data_ptr(), M, N, T,
+        num_heads, hd, scale, int(qkv_x.dtype == torch.bfloat16), dev, stream,
+    )
+    _build.check(err, "spatial_attention_qkv_cls")
+    spatial_cls_launches += 1
+    return out_x, out_c
+
+
+# ---- attention + output projection (B7, B8) --------------------------------
+
+
+def _proj_f32(o: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dtype) -> torch.Tensor:
+    """o rounded to w's dtype, ·wᵀ with fp32 products and sums, + fp32 b, in
+    ``dtype``."""
+    return (o.to(w.dtype).float() @ w.float().t() + b.float()).to(dtype)
+
+
+def spatial_attention_qkv_proj_plain(qkv, wproj, bproj, num_heads: int,
+                                     scale: float) -> torch.Tensor:
+    """Plain twin (``_spatial_qkv_proj_xla_reference``)."""
+    return _proj_f32(spatial_attention_plain(qkv, num_heads, scale), wproj, bproj, qkv.dtype)
+
+
+def temporal_attention_qkv_proj_plain(qkv, w_eff, b_eff, num_heads: int,
+                                      scale: float) -> torch.Tensor:
+    """Plain twin (``_temporal_qkv_proj_xla_reference``)."""
+    return _proj_f32(temporal_attention_plain(qkv, num_heads, scale), w_eff, b_eff, qkv.dtype)
+
+
+def _proj_operands(name, qkv, w, b, num_heads):
+    """Check the shapes (and on CUDA the operands); returns (hd, fp32 bias)."""
+    D = qkv.shape[-1] // 3
+    hd = _head_dim(qkv, num_heads)
+    if tuple(w.shape) != (D, D) or tuple(b.shape) != (D,):
+        raise ValueError(f"{name}: projection shapes {tuple(w.shape)}, {tuple(b.shape)} for D={D}")
+    if qkv.device.type == "cpu":
+        return hd, b
+    _build.refuse_grad(name, qkv, w, b)
+    _build.check_cuda_operand(qkv, name, _DTYPES)
+    _build.check_cuda_operand(w, f"{name} w", (qkv.dtype,))
+    if hd != _PROJ_HEAD_DIM or D not in _WIDTHS:
+        raise ValueError(f"{name} kernel needs head_dim {_PROJ_HEAD_DIM} and D in {_WIDTHS}; "
+                         f"got head_dim={hd}, D={D}")
+    b = b.float().contiguous()
+    _build.check_cuda_operand(b, f"{name} b", (torch.float32,), align=4)
+    return hd, b
+
+
+def spatial_max_seq_len(device) -> int:
+    """The largest S the spatial projection kernel takes on ``device`` (the
+    cell's fp32 K and V and the score rows live in shared memory)."""
+    dev = torch.device(device).index
+    return _build.lib().alpro_spatial_qkv_proj_max_seq(
+        torch.cuda.current_device() if dev is None else dev)
+
+
+def spatial_attention_qkv_proj(qkv: torch.Tensor, wproj: torch.Tensor, bproj: torch.Tensor,
+                               num_heads: int, *, scale: Optional[float] = None) -> torch.Tensor:
+    """``attn(qkv)·wprojᵀ + bproj`` over packed qkv (M, S, 3D) → (M, S, D);
+    wproj (D, D) in qkv's dtype. The kernel takes head_dim 64, D in (256,
+    512, 768, 1024) and S up to ``spatial_max_seq_len``."""
+    global spatial_proj_launches
+    if qkv.dim() != 3:
+        raise ValueError(f"expected (M, S, 3D) qkv, got shape {tuple(qkv.shape)}")
+    hd, b = _proj_operands("spatial_attention_qkv_proj", qkv, wproj, bproj, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if qkv.device.type == "cpu":
+        return spatial_attention_qkv_proj_plain(qkv, wproj, b, num_heads, scale)
+    M, S, threeD = qkv.shape
+    limit = spatial_max_seq_len(qkv.device)
+    if S > limit or M > _MAX_GRID_YZ:
+        raise ValueError(f"spatial_attention_qkv_proj kernel takes S <= {limit} on this device "
+                         f"and M <= {_MAX_GRID_YZ}; got S={S}, M={M}")
+    heads = qkv.new_empty((M, S, threeD // 3))
+    out = torch.empty_like(heads)
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    q_split = min(max(1, -(-sms // (M * num_heads))), -(-S // _PROJ_QUERY_TILE))
+    dev, stream = _build.stream_args(qkv)
+    err = _build.lib().alpro_spatial_qkv_proj(
+        qkv.data_ptr(), wproj.data_ptr(), b.data_ptr(), heads.data_ptr(), out.data_ptr(), M, S,
+        num_heads, q_split, scale, int(qkv.dtype == torch.bfloat16), dev, stream,
+    )
+    _build.check(err, "spatial_attention_qkv_proj")
+    spatial_proj_launches += 1
+    return out
+
+
+def temporal_attention_qkv_proj(qkv: torch.Tensor, w_eff: torch.Tensor, b_eff: torch.Tensor,
+                                num_heads: int, *, scale: Optional[float] = None) -> torch.Tensor:
+    """``attn_T(qkv)·w_effᵀ + b_eff`` over packed qkv (B, T, N, 3D) → (B, T,
+    N, D), attention over T at each (b, n); w_eff (D, D) in qkv's dtype. The
+    kernel takes head_dim 64, D in (256, 512, 768, 1024) and 1 <= T <= 32."""
+    global temporal_proj_launches
+    if qkv.dim() != 4:
+        raise ValueError(f"expected (B, T, N, 3D) qkv, got shape {tuple(qkv.shape)}")
+    hd, b = _proj_operands("temporal_attention_qkv_proj", qkv, w_eff, b_eff, num_heads)
+    scale = hd ** -0.5 if scale is None else float(scale)
+    if qkv.device.type == "cpu":
+        return temporal_attention_qkv_proj_plain(qkv, w_eff, b, num_heads, scale)
+    B, T, N, threeD = qkv.shape
+    if not 1 <= T <= _MAX_T or B > _MAX_GRID_YZ:
+        raise ValueError(f"temporal_attention_qkv_proj kernel needs 1 <= T <= {_MAX_T} and "
+                         f"B <= {_MAX_GRID_YZ}; got T={T}, B={B}")
+    out = qkv.new_empty((B, T, N, threeD // 3))
+    dev, stream = _build.stream_args(qkv)
+    err = _build.lib().alpro_temporal_qkv_proj(
+        qkv.data_ptr(), w_eff.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, N, num_heads,
+        scale, int(qkv.dtype == torch.bfloat16), dev, stream,
+    )
+    _build.check(err, "temporal_attention_qkv_proj")
+    temporal_proj_launches += 1
     return out

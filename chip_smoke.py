@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
-retrieval and the video QA serving paths, their finetuning steps and the
-fused video ingest at full ALPRO-base width.
+retrieval and the video QA serving paths, their finetuning steps, the video
+tower's opt-in serving forms and ``LayerNorm(impl='pallas')`` at full
+ALPRO-base width.
 
     python3 chip_smoke.py
 
@@ -13,9 +14,10 @@ line):
 2. build — compiles ``alpro_tpu_torch/csrc/*.cu`` with nvcc for sm_90a;
 3. kernels — each CUDA kernel against its plain PyTorch twin on the same
    bf16 inputs at the shapes of the main paths, with the tolerance stated
-   beside it (the masked attention's gradient too); the median time of both, of one PyTorch library call that
-   computes the same function where there is one, and the least time the
-   card could take at the main shape (``bound_ms``);
+   beside it (the masked attention's and the LayerNorm's gradients too); the
+   median time of both, of one PyTorch library call that computes the same
+   function where there is one, and the least time the card could take at
+   the main shape (``bound_ms``);
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -39,13 +41,19 @@ line):
    and each parameter's gradient with dropout off; then two MSRVTT-QA steps (T=16, B=4) with
    their launch counts. Step ms, train clips/s and peak device memory for
    both paths;
-7. fused ingest — phase 4's model and clips under path (a) (raw-frame patch
-   embed, whole spatial and temporal attention chains, ``FUSED_INGEST``) and
-   path (b) (LN→qkv in front of the spatial and temporal kernels): two
-   ``add_videos`` calls each with their exact launch counts, VTC features
-   and P(match) against phase 4's plain path, clips/s beside phase 4's; then
-   phase 5's QA ``encode_video`` under path (a), its counts, and the answers
-   from its tokens against phase 5's plain path.
+7. opt-in video paths — phase 4's model and clips under the video tower's
+   opt-in serving forms (``OPT_IN_PATHS``): path (a) (raw-frame patch embed,
+   whole spatial and temporal attention chains), path (b) (LN→qkv in front
+   of the spatial and temporal kernels), path (c) (the CLS-sideband spatial
+   attention) and path (d) (attention + projection in one kernel on both
+   axes): two ``add_videos`` calls each with their exact launch counts, VTC
+   features and P(match) against phase 4's plain path, clips/s beside phase
+   4's; then phase 5's QA ``encode_video`` under paths (a) and (d), their
+   counts, and the answers from their tokens against phase 5's plain path;
+8. LayerNorm — ``LayerNorm(impl='pallas')``, the LayerNorm kernel's only
+   entry (no model config sets it, as in JAX), forward and backward over the
+   rows of one ``add_videos`` call's spatial input, with its launch count,
+   against autograd through the twin.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -85,24 +93,40 @@ CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
 # summation order and exp differ
 # the fused ingest's kernels round where their twins do (the LN output, the
 # per-head output, the outputs), except the temporal chain, which stages q,
-# k, v in bf16 as its TPU kernel does where its twin keeps fp32
+# k, v in bf16 as its TPU kernel does where its twin keeps fp32; the
+# CLS-sideband attention rounds p like the spatial kernel (but the CLS
+# column's); the attention + projection kernels and the LayerNorm round
+# where their twins do
 KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2,
               "bert_attn": 3e-2, "bert_mlp": 2e-2, "masked_attn_bshd": 2e-2,
               "masked_attn_bhsd": 2e-2, "ln_matmul": 2e-2, "patchify_embed": 2e-2,
-              "fused_spatial_block": 2e-2, "fused_temporal_block": 3e-2}
-# the fused video ingest (phase 7): path (a), the raw-frame patch embed and
-# both whole attention chains in one kernel each, and path (b), LN→qkv in one
-# kernel in front of the spatial and temporal attention kernels
-FUSED_INGEST = {
+              "fused_spatial_block": 2e-2, "fused_temporal_block": 3e-2,
+              "spatial_cls_attn": 3e-2, "spatial_qkv_proj": 2e-2, "temporal_qkv_proj": 2e-2,
+              "layernorm": 2e-2}
+# the video tower's opt-in serving forms (phase 7; 'auto' picks none): path
+# (a), the raw-frame patch embed and both whole attention chains in one kernel
+# each; path (b), LN→qkv in one kernel in front of the spatial and temporal
+# attention kernels; path (c), the CLS-sideband spatial attention (no [cls; x]
+# concat) with the default temporal kernel; path (d), attention + projection
+# in one kernel on both axes
+OPT_IN_PATHS = {
     "a": dict(fused_patchify="on", attn_impl="fused_block", temporal_attn_impl="fused_block",
               mlp_impl="fused"),
     "b": dict(attn_impl="fused_ln_qkv", temporal_attn_impl="fused_ln_qkv", mlp_impl="fused"),
+    "c": dict(attn_impl="cls_sideband", temporal_attn_impl="fused_qkv_fold", mlp_impl="fused"),
+    "d": dict(attn_impl="fused_qkv_proj", temporal_attn_impl="fused_qkv_proj", mlp_impl="fused"),
 }
-FUSED_KERNELS = ("ln_matmul", "patchify_embed", "fused_spatial_block", "fused_temporal_block")
+# the kernels that only the opt-in paths launch
+OPT_IN_KERNELS = ("ln_matmul", "patchify_embed", "fused_spatial_block", "fused_temporal_block",
+                  "spatial_cls_attn", "spatial_qkv_proj", "temporal_qkv_proj")
 # masked attention's gradient (the Function's fp32 recompute, cast to bf16)
 # against autograd through the bf16 twin, which backpropagates through p
 # rounded to bf16: max |difference| <= this share of max |twin gradient|
 MASKED_GRAD_TOL = 3e-2
+# the LayerNorm's gradient (the Function's fp32 analytic backward) against
+# autograd through the twin, bf16: the same math in another order; max
+# |difference| <= this share of max |twin gradient|
+LN_GRAD_TOL = 2e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # query vs query_batch: the same bf16 towers at batch 1 and 4
@@ -194,7 +218,7 @@ def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
     path gives the kernel (the JSON line reports that one), with ``work`` =
     (FLOP, bytes) of the function there and ``library`` one PyTorch call
     that computes it, where one exists."""
-    got, want = kernel(), twin()
+    got, want = _flat(kernel()), _flat(twin())
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     tol = KERNEL_TOL[name]
@@ -218,6 +242,13 @@ def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
     fail_if(not bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
     fail_if(bad > 0, f"{name} {shape}: {bad} elements outside tolerance {tol}")
     return res
+
+
+def _flat(out) -> torch.Tensor:
+    """A kernel's output, or its outputs flattened into one, in fp32."""
+    if isinstance(out, tuple):
+        return torch.cat([t.float().flatten() for t in out])
+    return out.float()
 
 
 def _sdpa(q, k, v):
@@ -298,7 +329,63 @@ def phase_kernels(card: str) -> dict:
             card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
     _masked_attn_kernels(res, randn, card)
     _fused_ingest_kernels(res, randn, ln, card)
+    _opt_in_kernels(res, randn, card)
     return res
+
+
+def _opt_in_kernels(res, randn, card) -> None:
+    """B6, B7 and B8 at the shapes of one add_videos call of CLIPS_PER_CALL
+    clips (main) and of the QA encode (2 clips, T=16); B8 also at T=32. B14
+    at the rows of one add_videos call's spatial input, bf16 → bf16 (main)
+    and fp32 → bf16. Library calls: SDPA over the pre-concatenated [cls; x]
+    packed qkv for B6 (the concat not timed), one ``layer_norm`` for B14;
+    none computes B7 or B8."""
+    from alpro_tpu_torch.ops import layernorm, qkv_attn
+
+    H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
+    D, S = H * hd, 1 + PATCHES
+    for b, t, main in ((B, T, True), (2, 16, False)):
+        qx, qc = randn(b * t, N, 3 * D), randn(b, 1, 3 * D)
+        full = torch.cat([qc[:, None].expand(b, t, 1, 3 * D).reshape(b * t, 1, 3 * D), qx], 1)
+        heads = [full[..., i * D:(i + 1) * D].unflatten(-1, (H, hd)).transpose(1, 2)
+                 for i in range(3)]
+        M = b * t
+        res["spatial_cls_attn"].append(_compare(
+            "spatial_cls_attn", (M, N, 3 * D),
+            lambda: qkv_attn.spatial_attention_qkv_cls(qx, qc, H, t),
+            lambda: qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, t), card,
+            main, library=lambda: _sdpa(*heads),
+            work=(4 * M * H * S * S * hd, 2 * (qx.numel() + qc.numel()) + 2 * M * S * D)))
+    wp, bp = randn(D, D, std=D ** -0.5), randn(D, std=0.02).float()
+    w_bytes = D * D * 2 + D * 4
+    for M, main in ((B * T, True), (2 * 16, False)):
+        x = randn(M, S, 3 * D)
+        res["spatial_qkv_proj"].append(_compare(
+            "spatial_qkv_proj", x.shape, lambda: qkv_attn.spatial_attention_qkv_proj(x, wp, bp, H),
+            lambda: qkv_attn.spatial_attention_qkv_proj_plain(x, wp, bp, H, hd ** -0.5), card,
+            main, work=(4 * M * H * S * S * hd + 2 * M * S * D * D,
+                        2 * x.numel() + 2 * M * S * D + w_bytes)))
+    for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False)):
+        xt = randn(b, t, N, 3 * D)
+        R = b * t * N
+        res["temporal_qkv_proj"].append(_compare(
+            "temporal_qkv_proj", xt.shape,
+            lambda: qkv_attn.temporal_attention_qkv_proj(xt, wp, bp, H),
+            lambda: qkv_attn.temporal_attention_qkv_proj_plain(xt, wp, bp, H, hd ** -0.5), card,
+            main, work=(4 * b * N * H * t * t * hd + 2 * R * D * D,
+                        2 * xt.numel() + 2 * R * D + w_bytes)))
+    R = B * T * S
+    s, sb = 1 + randn(D, std=0.1).float(), randn(D, std=0.1).float()
+    lib_w = (s.to(torch.bfloat16), sb.to(torch.bfloat16))
+    for in_dtype, main in ((torch.bfloat16, True), (torch.float32, False)):
+        xr = (randn(R, D, std=2.0) + 1).to(in_dtype)
+        res["layernorm"].append(_compare(
+            "layernorm", (R, D),
+            lambda: layernorm.layernorm(xr, s, sb, eps=1e-6, out_dtype=torch.bfloat16),
+            lambda: layernorm.layernorm_plain(xr, s, sb, 1e-6, torch.bfloat16), card, main,
+            library=(lambda: torch.nn.functional.layer_norm(xr, (D,), *lib_w, 1e-6))
+            if in_dtype == torch.bfloat16 else None,
+            work=(8 * R * D, R * D * (xr.element_size() + 2) + 2 * D * 4)))
 
 
 def _fused_ingest_kernels(res, randn, ln, card) -> None:
@@ -459,8 +546,8 @@ def _build_model(build, vis_json: str, frames: int, **kwargs):
 
 
 def _counts():
-    from alpro_tpu_torch.ops import (bert_block, fused_block, ln_matmul, ln_mlp, masked_attn,
-                                     preprocess, qkv_attn)
+    from alpro_tpu_torch.ops import (bert_block, fused_block, layernorm, ln_matmul, ln_mlp,
+                                     masked_attn, preprocess, qkv_attn)
 
     return {"spatial_attn": qkv_attn.spatial_launches,
             "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches,
@@ -469,35 +556,43 @@ def _counts():
             "masked_attn_bhsd": masked_attn.bhsd_launches, "ln_matmul": ln_matmul.launches,
             "patchify_embed": preprocess.launches,
             "fused_spatial_block": fused_block.spatial_launches,
-            "fused_temporal_block": fused_block.temporal_launches}
+            "fused_temporal_block": fused_block.temporal_launches,
+            "spatial_cls_attn": qkv_attn.spatial_cls_launches,
+            "spatial_qkv_proj": qkv_attn.spatial_proj_launches,
+            "temporal_qkv_proj": qkv_attn.temporal_proj_launches,
+            "layernorm": layernorm.launches}
 
 
 def _reset_counts():
-    from alpro_tpu_torch.ops import (bert_block, fused_block, ln_matmul, ln_mlp, masked_attn,
-                                     preprocess, qkv_attn)
+    from alpro_tpu_torch.ops import (bert_block, fused_block, layernorm, ln_matmul, ln_mlp,
+                                     masked_attn, preprocess, qkv_attn)
 
     qkv_attn.spatial_launches = qkv_attn.temporal_launches = ln_mlp.launches = 0
     bert_block.attn_launches = bert_block.mlp_launches = 0
     masked_attn.bshd_launches = masked_attn.bhsd_launches = 0
     ln_matmul.launches = preprocess.launches = 0
     fused_block.spatial_launches = fused_block.temporal_launches = 0
+    qkv_attn.spatial_cls_launches = qkv_attn.spatial_proj_launches = 0
+    qkv_attn.temporal_proj_launches = layernorm.launches = 0
 
 
 def _launches(video_calls: int = 0, text_calls: int = 0, masked: int = 0,
-              ingest: str = "") -> dict:
+              path: str = "") -> dict:
     """Serving: launches per video tower call (12 blocks) and per text +
     fusion call (6 + 6 BERT layers); the video tower on the default kernel
-    path, or on the fused ingest's path ``ingest`` ('a' or 'b',
-    ``FUSED_INGEST``). Finetuning under attn_impl='pallas': ``masked``
-    launches of the masked-attention kernel, no other."""
+    path, or on the opt-in path ``path`` ('a'-'d', ``OPT_IN_PATHS``).
+    Finetuning under attn_impl='pallas': ``masked`` launches of the
+    masked-attention kernel, no other."""
     per_block = {"": ("spatial_attn", "temporal_attn"),
                  "a": ("fused_spatial_block", "fused_temporal_block"),
-                 "b": ("spatial_attn", "temporal_attn", "ln_matmul", "ln_matmul")}[ingest]
+                 "b": ("spatial_attn", "temporal_attn", "ln_matmul", "ln_matmul"),
+                 "c": ("spatial_cls_attn", "temporal_attn"),
+                 "d": ("spatial_qkv_proj", "temporal_qkv_proj")}[path]
     want = {k: 0 for k in KERNEL_TOL}
     for name in per_block:
         want[name] += 12 * video_calls
     want["ln_mlp"] = 24 * video_calls
-    want["patchify_embed"] = video_calls if ingest == "a" else 0
+    want["patchify_embed"] = video_calls if path == "a" else 0
     want.update(bert_attn=12 * text_calls, bert_mlp=12 * text_calls, masked_attn_bshd=masked)
     return want
 
@@ -755,15 +850,16 @@ def phase_qa(card: str) -> dict:
                 plain=plain, labels=labels, encode_ms={"default kernels": med(encode_ms), "plain": med(plain_encode_ms)})
 
 
-def phase_ingest(card: str, ret: dict, qa: dict) -> dict:
-    """The fused video ingest on phase 4's retrieval model and clips: under
-    path (a) and then (b) (``FUSED_INGEST``), a fresh ``RetrievalIndex``
-    embeds the 16 clips in two ``add_videos`` calls, each with its exact
-    launch counts, and answers the 4 texts over the whole gallery; VTC
-    features and P(match) are held against phase 4's plain path within its
-    tolerances, and clips/s is printed beside phase 4's. Then phase 5's QA
-    ``encode_video`` under path (a), with its counts, against phase 5's plain
-    path. Returns the launch counts summed over the counted calls."""
+def phase_opt_in(card: str, ret: dict, qa: dict) -> dict:
+    """The video tower's opt-in serving forms on phase 4's retrieval model
+    and clips: under each path of ``OPT_IN_PATHS`` a fresh
+    ``RetrievalIndex`` embeds the 16 clips in two ``add_videos`` calls, each
+    with its exact launch counts, and answers the 4 texts over the whole
+    gallery; VTC features and P(match) are held against phase 4's plain path
+    within its tolerances, and clips/s is printed beside phase 4's. Then
+    phase 5's QA ``encode_video`` under paths (a) and (d), with their counts,
+    against phase 5's plain path. Returns the launch counts summed over the
+    counted calls."""
     from alpro_tpu_torch.serving.retrieval import RetrievalIndex
 
     model, tok, clips, ids = ret["model"], ret["tok"], ret["clips"], ret["ids"]
@@ -781,11 +877,11 @@ def phase_ingest(card: str, ret: dict, qa: dict) -> dict:
         return out
 
     rates = dict(ret["clips_per_s"])
-    for path, impls in FUSED_INGEST.items():
+    for path, impls in OPT_IN_PATHS.items():
         cfgs = (dataclasses.replace(vis, **impls), bert)
         _warm(model, cfgs, tok, clips)
         index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
-        want = _launches(video_calls=1, ingest=path)
+        want = _launches(video_calls=1, path=path)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for lo in range(0, N_CLIPS, CLIPS_PER_CALL):
@@ -800,34 +896,84 @@ def phase_ingest(card: str, ret: dict, qa: dict) -> dict:
         feat_err = float((feats - ret["plain_feats"]).abs().max())
         prob_err = max(abs(dict((r[0], r[1]) for r in a)[v] - p)
                        for a, b in zip(full, ret["plain_full"]) for v, p, _ in b)
-        print(f"[ingest] path ({path}) {impls}: launches per add_videos call {want}; vs the "
+        print(f"[opt-in] path ({path}) {impls}: launches per add_videos call {want}; vs the "
               f"plain path: VTC feature max_abs {feat_err:.3e} (tol {PLAIN_FEAT_TOL}), P(match) "
               f"max_abs {prob_err:.3e} (tol {PLAIN_PROB_TOL})", flush=True)
         fail_if(feat_err > PLAIN_FEAT_TOL, f"path ({path}): VTC features differ by {feat_err}")
         fail_if(prob_err > PLAIN_PROB_TOL, f"path ({path}): P(match) differs by {prob_err}")
-    print("[ingest] add_videos clips/s: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+    print("[opt-in] add_videos clips/s: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
           + f" ({N_CLIPS} clips, {CLIPS_PER_CALL} per call) [{card}]", flush=True)
 
     qa_model, predictor, vis_qa = qa["model"], qa["qa"], qa["kernel_cfgs"][0]
-    _set_path(qa_model, dataclasses.replace(vis_qa, **FUSED_INGEST["a"]), qa["kernel_cfgs"][1])
-    for _ in range(2):
-        predictor.encode_video(qa["clips"])
-    feats = counted(lambda: predictor.encode_video(qa["clips"]),
-                    _launches(video_calls=1, ingest="a"), "QA encode_video, path (a)")
-    encode_ms = statistics.median(_host_ms(lambda: predictor.encode_video(qa["clips"]), 5))
-    _set_path(qa_model, *qa["kernel_cfgs"])
-    fail_if(tuple(feats.shape) != (QA_CLIPS, 1 + PATCHES, 768)
-            or not bool(torch.isfinite(feats.float()).all()), "path (a): bad QA video tokens")
-    tok_err = float((feats.float() - qa["plain_feats"].float()).abs().max())
-    print(f"[ingest] QA encode_video path (a): video token max_abs {tok_err:.3e} vs the plain "
-          f"path; {encode_ms:.2f} ms, "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in qa["encode_ms"].items()) + f" [{card}]",
-          flush=True)
     L = len(qa["labels"])
-    _check_answers([_answer_dists(predictor.predict(feats, q, topk=L), qa["labels"])
-                    for q in QUESTIONS], qa["plain"], QA_PLAIN_TOL,
-                   "path (a) tokens vs plain path")
+    for path in ("a", "d"):
+        _set_path(qa_model, dataclasses.replace(vis_qa, **OPT_IN_PATHS[path]),
+                  qa["kernel_cfgs"][1])
+        for _ in range(2):
+            predictor.encode_video(qa["clips"])
+        feats = counted(lambda: predictor.encode_video(qa["clips"]),
+                        _launches(video_calls=1, path=path), f"QA encode_video, path ({path})")
+        encode_ms = statistics.median(_host_ms(lambda: predictor.encode_video(qa["clips"]), 5))
+        _set_path(qa_model, *qa["kernel_cfgs"])
+        fail_if(tuple(feats.shape) != (QA_CLIPS, 1 + PATCHES, 768)
+                or not bool(torch.isfinite(feats.float()).all()),
+                f"path ({path}): bad QA video tokens")
+        tok_err = float((feats.float() - qa["plain_feats"].float()).abs().max())
+        print(f"[opt-in] QA encode_video path ({path}): video token max_abs {tok_err:.3e} vs the "
+              f"plain path; {encode_ms:.2f} ms, "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in qa["encode_ms"].items()) + f" [{card}]",
+              flush=True)
+        _check_answers([_answer_dists(predictor.predict(feats, q, topk=L), qa["labels"])
+                        for q in QUESTIONS], qa["plain"], QA_PLAIN_TOL,
+                       f"path ({path}) tokens vs plain path")
     return total
+
+
+def phase_layernorm(card: str) -> int:
+    """``LayerNorm(impl='pallas')``, the LayerNorm kernel's only entry (no
+    model config sets it, as in JAX): a pre-LN over the rows of one
+    add_videos call's spatial input (B·T·(1+N), 768) in bf16, forward and
+    backward, with the launch counts set to 0 just before and read just
+    after (one launch: the backward is plain torch); the output and the
+    gradients of x, weight and bias against autograd through the twin.
+    Returns the kernel's launches."""
+    from alpro_tpu_torch.ops import layernorm
+    from alpro_tpu_torch.ops.layers import LayerNorm
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    bf, R, D = torch.bfloat16, CLIPS_PER_CALL * FRAMES * (1 + PATCHES), 768
+    mod = LayerNorm(D, 1e-6, impl="pallas").cuda()
+    with torch.no_grad():
+        mod.weight.add_(0.1 * torch.randn(D, generator=g, device="cuda"))
+        mod.bias.add_(0.1 * torch.randn(D, generator=g, device="cuda"))
+    x = (2 * torch.randn((R, D), generator=g, device="cuda") + 1).to(bf).requires_grad_(True)
+    cot = torch.randn((R, D), generator=g, device="cuda").to(bf)
+    params = (x, mod.weight, mod.bias)
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = mod(x, bf)
+    got = torch.autograd.grad(out, params, cot)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {k: 0 for k in KERNEL_TOL}
+    want["layernorm"] = 1
+    fail_if(counts != want, f"LayerNorm(impl='pallas'): launch counts {counts} != {want}")
+    refs = [t.detach().clone().requires_grad_(True) for t in params]
+    ref_out = layernorm.layernorm_plain(*refs, 1e-6, bf)
+    wants = torch.autograd.grad(ref_out, refs, cot)
+    tol = KERNEL_TOL["layernorm"]
+    fwd = (out.detach().float() - ref_out.detach().float()).abs()
+    bad = int((fwd > tol + tol * ref_out.float().abs()).sum())
+    errs = [float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in zip(got, wants)]
+    print(f"[layernorm] LayerNorm(impl='pallas') on ({R}, {D}) bf16: 1 launch forward + "
+          f"backward; output max_abs {float(fwd.max()):.3e} (tol atol=rtol={tol}, {bad} outside);"
+          f" dx, dweight, dbias max_abs / max|twin| "
+          + ", ".join(f"{e:.3e}" for e in errs) + f" (tol {LN_GRAD_TOL}) [{card}]", flush=True)
+    fail_if(bad > 0, f"LayerNorm(impl='pallas'): {bad} outputs outside tolerance {tol}")
+    fail_if(not all(bool(torch.isfinite(t).all()) for t in got), "LayerNorm: non-finite gradient")
+    fail_if(max(errs) > LN_GRAD_TOL, f"LayerNorm(impl='pallas'): gradient differs by {errs}")
+    return counts["layernorm"]
 
 
 def _train_model(build, vis_json: str, frames: int, attn_impl: str, **kwargs):
@@ -1066,10 +1212,11 @@ def main() -> int:
     qa = phase_qa(card)
     # the finetuning path's own counts (the masked attention is on no serving path)
     launches.update(phase_finetune(card))
-    # the fused ingest's own counts (its kernels are on neither default path)
-    ingest = phase_ingest(card, ret, qa)
-    launches.update({k: ingest[k] for k in FUSED_KERNELS})
+    # the opt-in paths' own counts (their kernels are on neither default path)
+    opt_in = phase_opt_in(card, ret, qa)
+    launches.update({k: opt_in[k] for k in OPT_IN_KERNELS})
     del ret, qa
+    launches["layernorm"] = phase_layernorm(card)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -1091,6 +1238,14 @@ def main() -> int:
                                 "alpro_tpu/ops/pallas_fused_block.py:136"),
         "fused_temporal_block": ("alpro_tpu_torch/csrc/fused_block.cu",
                                  "alpro_tpu/ops/pallas_fused_block.py:369"),
+        "spatial_cls_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
+                             "alpro_tpu/ops/pallas_qkv_attn.py:246"),
+        "spatial_qkv_proj": ("alpro_tpu_torch/csrc/qkv_proj.cu",
+                             "alpro_tpu/ops/pallas_qkv_attn.py:678"),
+        "temporal_qkv_proj": ("alpro_tpu_torch/csrc/qkv_proj.cu",
+                              "alpro_tpu/ops/pallas_qkv_attn.py:813"),
+        "layernorm": ("alpro_tpu_torch/csrc/layernorm.cu",
+                      "alpro_tpu/ops/pallas_layernorm.py:53"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -10,10 +10,13 @@ the plain path (every ``*_impl='plain'``), each warmed through the same call
 first:
 
 * retrieval: ``add_videos`` of 8 clips (8 × 224², T=8), one ``query``
-  (topk 16 of a 16-clip gallery); ``add_videos`` also on the fused video
-  ingest's paths (a) and (b) (``chip_smoke.FUSED_INGEST``);
+  (topk 16 of a 16-clip gallery); ``add_videos`` also on the video tower's
+  opt-in paths (a)-(d) (``chip_smoke.OPT_IN_PATHS``);
 * QA: ``encode_video`` of 2 clips (16 × 224²), one cached ``predict``, one
-  ``predict_batch`` of 4 questions.
+  ``predict_batch`` of 4 questions;
+* ``LayerNorm(impl='pallas')`` (the LayerNorm kernel's only entry) and the
+  plain ``LayerNorm`` over the rows of one ``add_videos`` call's spatial
+  input (8 · 8 · 197, 768) in bf16, under ``no_grad``.
 
 For each it prints one line: host ms per call (synchronised), device kernel
 ms per call (the sum of kernel times), device busy ms (the union of kernel
@@ -100,8 +103,8 @@ def main() -> int:
     tok = smoke.HashTokenizer(model.cfg.bert.vocab_size)
     clips = rng.randint(0, 256, (smoke.N_CLIPS, smoke.FRAMES, 224, 224, 3), dtype=np.uint8)
     vis, bert = paths["kernels"]
-    for name, impls in smoke.FUSED_INGEST.items():
-        paths[f"fused ingest ({name})"] = (dataclasses.replace(vis, **impls), bert)
+    for name, impls in smoke.OPT_IN_PATHS.items():
+        paths[f"opt-in ({name})"] = (dataclasses.replace(vis, **impls), bert)
     for path, cfgs in paths.items():
         smoke._set_path(model, *cfgs)
         index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
@@ -109,7 +112,7 @@ def main() -> int:
         batch = clips[:smoke.CLIPS_PER_CALL]
         _profile(f"retrieval add_videos x{smoke.CLIPS_PER_CALL} clips, {path}",
                  lambda: index._embed_video(torch.as_tensor(batch).cuda()), iters, card)
-        if not path.startswith("fused"):  # the fused ingest changes no text path
+        if not path.startswith("opt-in"):  # the opt-in paths change no text path
             _profile(f"retrieval query, {path}", lambda: index.query(smoke.TEXTS[0]), iters,
                      card)
     del model, index
@@ -131,6 +134,19 @@ def main() -> int:
                  lambda: qa.predict(feats, smoke.QUESTIONS[0]), iters, card)
         _profile(f"qa predict_batch x{len(smoke.QUESTIONS)} (cached), {path}",
                  lambda: qa.predict_batch(feats, smoke.QUESTIONS), iters, card)
+    del qa_model, qa
+
+    from alpro_tpu_torch.ops.layers import LayerNorm
+
+    rows = smoke.CLIPS_PER_CALL * smoke.FRAMES * (1 + smoke.PATCHES)
+    x = torch.randn((rows, 768), device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        for impl in ("pallas", "plain"):
+            ln = LayerNorm(768, 1e-6, impl=impl).cuda()
+            # 10x the calls: one launch is ~10 µs, too short for the profiler to
+            # catch every launch of a 5-call window
+            _profile(f"LayerNorm(impl='{impl}') ({rows}, 768) bf16", lambda: ln(x, torch.bfloat16),
+                     10 * iters, card)
     return 0
 
 

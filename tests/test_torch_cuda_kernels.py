@@ -7,10 +7,13 @@ Tolerances: bf16 outputs within a few bf16 ulps of the twin (the spatial
 kernel rounds p to bf16 before PV, and the BERT attention kernel q, k, v and
 p as its TPU kernel does, where the twins keep fp32; the masked-attention
 kernel rounds where its twin does, so only summation order and exp differ);
-fp32 within summation-order noise. Gradients: K1/K2, the masked attention
-and the raw-frame patch embed (B15) through their autograd Functions against
-autograd through the twins; K3-K5 and the fused ingest's B9, B10 and B11
-refuse grad.
+fp32 within summation-order noise. Gradients: K1/K2, the masked attention,
+the raw-frame patch embed (B15) and the LayerNorm kernel (B14) through their
+autograd Functions against autograd through the twins; K3-K5, the fused
+ingest's B9, B10 and B11 and the opt-in serving kernels B6, B7 and B8 refuse
+grad. The CLS-sideband attention (B6) rounds p like K1 except the CLS
+column's, so bf16 takes K1's tolerance; B7, B8 and B14 round where their
+twins do.
 """
 
 import pytest
@@ -444,3 +447,128 @@ def test_fused_ingest_kernels_refuse_grad_and_limits(cuda):
         with pytest.raises(ValueError, match="T <= 32"):
             fused_block.fused_temporal_block(torch.zeros(1, 33, 2, 768, device=cuda), *ws, 12,
                                              eps=1e-6)
+
+
+# ---- the opt-in serving forms B6, B7, B8 and the LayerNorm kernel B14 ------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T,N", [(8, 8, 196), (2, 16, 196), (1, 3, 17)])
+def test_spatial_cls_kernel_matches_twin(cuda, B, T, N, dtype):
+    H, hd = 12, 64
+    qx = _randn((B * T, N, 3 * H * hd), N + T, cuda, dtype)
+    qc = _randn((B, 1, 3 * H * hd), B, cuda, dtype)
+    n = qkv_attn.spatial_cls_launches
+    got = qkv_attn.spatial_attention_qkv_cls(qx, qc, H, T)
+    torch.cuda.synchronize()
+    assert qkv_attn.spatial_cls_launches == n + 1
+    want = qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, T)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+def _proj_weights(D, cuda, dtype, seed):
+    return (_randn((D, D), seed, cuda, dtype, D ** -0.5),
+            _randn((D,), seed + 1, cuda, torch.float32, 0.02))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,S", [(64, 197), (32, 197), (3, 17), (2, 256)])
+def test_spatial_qkv_proj_kernel_matches_twin(cuda, M, S, dtype):
+    x = _randn((M, S, 3 * 768), S + M, cuda, dtype)
+    w, b = _proj_weights(768, cuda, dtype, S)
+    n = qkv_attn.spatial_proj_launches
+    got = qkv_attn.spatial_attention_qkv_proj(x, w, b, 12)
+    torch.cuda.synchronize()
+    assert qkv_attn.spatial_proj_launches == n + 1
+    want = qkv_attn.spatial_attention_qkv_proj_plain(x, w, b, 12, 0.125)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(8, 8), (2, 16), (1, 32), (3, 5)])
+def test_temporal_qkv_proj_kernel_matches_twin(cuda, B, T, dtype):
+    x = _randn((B, T, 196, 3 * 768), B + T, cuda, dtype)
+    w, b = _proj_weights(768, cuda, dtype, T)
+    n = qkv_attn.temporal_proj_launches
+    got = qkv_attn.temporal_attention_qkv_proj(x, w, b, 12)
+    torch.cuda.synchronize()
+    assert qkv_attn.temporal_proj_launches == n + 1
+    want = qkv_attn.temporal_attention_qkv_proj_plain(x, w, b, 12, 0.125)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_opt_in_serving_kernels_refuse_grad_and_limits(cuda):
+    """B6, B7 and B8 have no backward: under grad with an input that
+    requires grad they raise; under no_grad they run; past their limits (S,
+    T) they raise naming them."""
+    x = _randn((4, 17, 3 * 768), 0, cuda, torch.float32).requires_grad_(True)
+    c = _randn((2, 1, 3 * 768), 1, cuda, torch.float32)
+    w, b = _proj_weights(768, cuda, torch.float32, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qkv_attn.spatial_attention_qkv_cls(x, c, 12, 2)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qkv_attn.spatial_attention_qkv_proj(x, w, b, 12)
+    with pytest.raises(RuntimeError, match="no backward"):
+        qkv_attn.temporal_attention_qkv_proj(x[None], w, b, 12)
+    with torch.no_grad():
+        assert qkv_attn.spatial_attention_qkv_cls(x, c, 12, 2)[1].shape == (4, 1, 768)
+        limit = qkv_attn.spatial_max_seq_len(cuda)
+        assert limit >= 197
+        with pytest.raises(ValueError, match=f"S <= {limit}"):
+            qkv_attn.spatial_attention_qkv_proj(torch.zeros(1, limit + 1, 3 * 768, device=cuda),
+                                                w, b, 12)
+        with pytest.raises(ValueError, match="T <= 32"):
+            qkv_attn.temporal_attention_qkv_proj(torch.zeros(1, 33, 2, 3 * 768, device=cuda),
+                                                 w, b, 12)
+
+
+@pytest.mark.parametrize("in_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
+                                                (torch.float32, torch.bfloat16),
+                                                (torch.bfloat16, torch.float32),
+                                                (torch.float32, torch.float32)])
+@pytest.mark.parametrize("R,D", [(12608, 768), (5, 32), (7, 2048), (3, 1000)])
+def test_layernorm_kernel_matches_twin(cuda, R, D, in_dtype, out_dtype):
+    from alpro_tpu_torch.ops import layernorm
+
+    x = _randn((R, D), R, cuda, in_dtype, 2.0) + 1
+    s, b = 1 + _randn((D,), 1, cuda, torch.float32, 0.1), _randn((D,), 2, cuda, torch.float32, 0.1)
+    n = layernorm.launches
+    got = layernorm.layernorm(x, s, b, eps=1e-6, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert layernorm.launches == n + 1 and got.dtype == out_dtype
+    want = layernorm.layernorm_plain(x, s, b, 1e-6, out_dtype)
+    tol = 2e-2 if out_dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_layernorm_gradient_matches_twin_autograd(cuda):
+    """``LayerNorm(impl='pallas')``: the kernel forward (one launch) and the
+    Function's backward (JAX's analytic _bwd) against autograd through the
+    twin, fp32 to rounding; bf16 in, bf16 out runs and is finite."""
+    from alpro_tpu_torch.ops import layernorm
+    from alpro_tpu_torch.ops.layers import LayerNorm
+
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, None)):
+        mod = LayerNorm(768, 1e-6, impl="pallas").to(cuda)
+        x = _randn((3, 40, 768), 3, cuda, dtype, 2.0).requires_grad_(True)
+        n = layernorm.launches
+        out = mod(x, dtype)
+        g = _randn(out.shape, 4, cuda, dtype)
+        got = torch.autograd.grad(out, (x, mod.weight, mod.bias), g)
+        assert layernorm.launches == n + 1
+        assert all(bool(torch.isfinite(t).all()) for t in got)
+        if tol is None:
+            continue
+        ref = x.detach().clone().requires_grad_(True)
+        s, b = (p.detach().clone().requires_grad_(True) for p in (mod.weight, mod.bias))
+        want = torch.autograd.grad(layernorm.layernorm_plain(ref, s, b, 1e-6, dtype), (ref, s, b),
+                                   g)
+        for a, w in zip(got, want):
+            torch.testing.assert_close(a, w, atol=tol, rtol=tol)
+    with pytest.raises(ValueError, match="D <= 2048"):
+        layernorm.layernorm(torch.zeros(2, 2056, device=cuda), torch.ones(2056, device=cuda),
+                            torch.zeros(2056, device=cuda), eps=1e-6)

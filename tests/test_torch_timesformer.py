@@ -135,5 +135,12 @@ def test_temporal_fused_qkv_matches_jax():
 
 
 def test_config_rejects_unknown_impl():
+    """A value no package accepts raises; JAX's opt-in serving forms
+    ``cls_sideband`` and ``fused_qkv_proj`` are taken."""
+    for field in ("attn_impl", "temporal_attn_impl", "mlp_impl"):
+        with pytest.raises(ValueError):
+            TimeSformerConfig(**{field: "bogus"})
     with pytest.raises(ValueError):
-        TimeSformerConfig(attn_impl="cls_sideband")
+        TimeSformerConfig(temporal_attn_impl="cls_sideband")
+    TimeSformerConfig(attn_impl="cls_sideband")
+    TimeSformerConfig(attn_impl="fused_qkv_proj", temporal_attn_impl="fused_qkv_proj")

@@ -164,6 +164,19 @@ def test_retrieval_step_with_explicit_kernel_impls_matches_jax():
     assert port.text_encoder.bert.cfg.use_fused(x, training=False)
 
 
+@pytest.mark.parametrize("attn_impl", ["fused_qkv_proj", "cls_sideband"])
+def test_retrieval_step_with_serving_only_impls_matches_jax(attn_impl):
+    """In training, JAX's serving-only forms map as JAX maps them:
+    ``fused_qkv_proj`` on both axes is ``fused_qkv`` (K1/K2 with their
+    backward), ``cls_sideband`` defers to ``auto`` (the plain path) — on
+    both sides (the JAX kernels in interpret mode)."""
+    t_impl = attn_impl if attn_impl == "fused_qkv_proj" else "auto"
+    jm, params, port = _models("xla", vis_impls=dict(attn_impl=attn_impl,
+                                                     temporal_attn_impl=t_impl))
+    _check(*_run_both(jm, params, port, lambda m, tx: jax_step.make_retrieval_train_step(m, tx),
+                      make_retrieval_train_step, _batch(2, seed=2)))
+
+
 @pytest.mark.parametrize("n_clips,n_options", [(1, 1), (2, 1), (1, 2)])
 def test_qa_step_matches_jax(n_clips, n_options):
     num_labels = 1 if n_options > 1 else 5
