@@ -30,9 +30,9 @@
 //   1. a heads launch, one block of 4 warps per (head, group of rows): the
 //      rows' LN statistics first (one warp per row), then their q, k, v
 //      projections with the LN applied while x is staged through shared
-//      memory in 64 x 64 chunks beside the head's weight chunks (WMMA bf16 /
-//      fp32 CUDA cores, one warp per 16 rows), the attention, and the rounded
-//      per-head output written into an (rows, D) scratch;
+//      memory in 64 x 64 chunks beside the head's weight chunks (head_proj.cuh:
+//      WMMA bf16 / fp32 CUDA cores, one warp per 16 rows), the attention, and
+//      the rounded per-head output written into an (rows, D) scratch;
 //        spatial (spatial_block_heads): per (query-tile group, head, cell),
 //        fp32 K and V of the whole cell in shared memory, then per 64-row
 //        query tile fp32 Q, full fp32 score rows per warp (16 x S), softmax,
@@ -45,24 +45,23 @@
 //   2. a projection launch (proj_rows): the row-tile GEMM of row_tile.cuh,
 //      heads . W^T + bias (+ residual).
 #include "attn_f32.cuh"
+#include "head_proj.cuh"
 #include "row_tile.cuh"
 
 namespace {
 
 using alpro::WarpTile;
-using alpro::f32attn::kHD;   // head dim
 using alpro::f32attn::kLdF;  // fp32 q/k/v rows (spatial)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kKC = 64;   // depth chunk of the projections
-constexpr int kRC = 64;   // rows per projection step, 16 per warp
+using alpro::heads::kHD;     // head dim
+using alpro::heads::kRC;     // rows per projection step
+using alpro::heads::kThreads;
+using alpro::heads::kWarps;
+using alpro::heads::pad;
+using alpro::heads::project;
+using alpro::heads::staging_bytes;
+using alpro::heads::store_biased;
 constexpr int kQT = 64;   // spatial query rows per tile
-
-template <typename T> __host__ __device__ constexpr int pad() { return 16 / int(sizeof(T)); }
-template <typename T> __host__ __device__ constexpr int ldc() { return kKC + pad<T>(); }
-template <typename T> __host__ __device__ constexpr size_t staging_bytes(int nw) {
-  return size_t(kRC + nw * kHD) * ldc<T>() * sizeof(T);
-}
+static_assert(alpro::f32attn::kHD == kHD, "one head dim");
 
 // ---- shared pieces of the heads launches ----
 
@@ -98,94 +97,6 @@ __device__ __forceinline__ void ln_stats(RowFn row_ptr, int rows, int D, float e
       mean[r] = mu;
       rstd[r] = rs;
     }
-  }
-}
-
-// Project kRC rows (g0..; a null row pointer is a zero row) through NW
-// 64-row weight slices w[i] (torch layout, row stride D): the LN is applied
-// while each 64 x 64 chunk of x is staged. Warp w accumulates rows 16w..
-// into acc[i][0..4) when active. Every load of a chunk is a 16-byte vector,
-// and a thread issues all of its x loads before it uses any, so a chunk
-// costs about one trip to L2. Begins and ends with a block sync.
-template <typename T, int NW, typename RowFn>
-__device__ __forceinline__ void project(RowFn row_ptr, int g0, const float* mean,
-                                        const float* rstd, const float* __restrict__ ln_s,
-                                        const float* __restrict__ ln_b, int D,
-                                        const T* const (&w)[NW], T* stage,
-                                        WarpTile<T> (&acc)[NW][kHD / 16], bool active) {
-  constexpr int ld = ldc<T>(), vx = 16 / int(sizeof(T)), vpr = kKC / vx;
-  constexpr int x_vecs = kRC * vpr / kThreads, w_vecs = kHD * vpr / kThreads;
-  const int warp = threadIdx.x >> 5;
-  T* xs = stage;
-  T* ws = xs + kRC * ld;
-#pragma unroll
-  for (int i = 0; i < NW; ++i)
-#pragma unroll
-    for (int n = 0; n < kHD / 16; ++n) acc[i][n].zero();
-  for (int kc = 0; kc < D; kc += kKC) {
-    __syncthreads();  // every warp is done with the previous chunk (and the statistics)
-    uint4 xv[x_vecs];
-#pragma unroll
-    for (int i = 0; i < x_vecs; ++i) {
-      const int e = threadIdx.x + i * kThreads;
-      const T* src = row_ptr(g0 + e / vpr);
-      xv[i] = src != nullptr ? reinterpret_cast<const uint4*>(src + kc)[e % vpr]
-                             : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < NW; ++i)
-#pragma unroll
-      for (int j = 0; j < w_vecs; ++j) {
-        const int e = threadIdx.x + j * kThreads, r = e / vpr, c = e % vpr;
-        reinterpret_cast<uint4*>(ws + (i * kHD + r) * ld)[c] =
-            reinterpret_cast<const uint4*>(w[i] + long(r) * D + kc)[c];
-      }
-#pragma unroll
-    for (int i = 0; i < x_vecs; ++i) {
-      const int e = threadIdx.x + i * kThreads, r = e / vpr, c = (e % vpr) * vx;
-      const bool valid = row_ptr(g0 + r) != nullptr;
-      const T* v = reinterpret_cast<const T*>(&xv[i]);
-      alignas(16) T out[vx];
-#pragma unroll
-      for (int q = 0; q < vx; ++q) {
-        const int col = kc + c + q;
-        out[q] = alpro::from_f32<T>(
-            valid ? (alpro::to_f32(v[q]) - mean[g0 + r]) * rstd[g0 + r] * ln_s[col] + ln_b[col]
-                  : 0.0f);
-      }
-      *reinterpret_cast<uint4*>(xs + r * ld + c) = *reinterpret_cast<const uint4*>(out);
-    }
-    __syncthreads();
-    if (!active) continue;
-#pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16)
-#pragma unroll
-      for (int i = 0; i < NW; ++i)
-#pragma unroll
-        for (int n = 0; n < kHD / 16; ++n)
-          acc[i][n].template mma<true>(xs + warp * 16 * ld + kk, ld,
-                                       ws + (i * kHD + n * 16) * ld + kk, ld);
-  }
-  __syncthreads();  // the staging buffer is free again
-}
-
-// (acc + bias[0..64)) * mul in fp32 into 16 rows of dst (leading dimension
-// ldd), converted to Out, through the warp's 256-float scratch
-template <typename Out, typename T>
-__device__ __forceinline__ void store_biased(WarpTile<T> (&acc)[kHD / 16], float* scr,
-                                             const float* __restrict__ bias, Out* dst, int ldd,
-                                             float mul) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int n = 0; n < kHD / 16; ++n) {
-    acc[n].store(scr, 16);
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = lane * 8 + j, r = e / 16, c = e % 16;
-      dst[r * ldd + n * 16 + c] = alpro::from_f32<Out>((scr[e] + bias[n * 16 + c]) * mul);
-    }
-    __syncwarp();
   }
 }
 
@@ -234,7 +145,7 @@ spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
   WarpTile<T> kv[2][kHD / 16];
   for (int g0 = 0; g0 < SP; g0 += kRC) {
     const bool active = g0 + warp * 16 < SP;
-    project<T, 2>(row_ptr, g0, mean, rstd, ln_s, ln_b, D, wkv, stage, kv, active);
+    project<T, 2, true>(row_ptr, g0, mean, rstd, ln_s, ln_b, D, wkv, stage, kv, active);
     if (active) {
       store_biased<float>(kv[0], scr, bqkv + D + h * kHD, Ks + (g0 + warp * 16) * kLdF, kLdF,
                           1.0f);
@@ -247,7 +158,7 @@ spatial_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
   for (int q0 = blockIdx.x * kQT; q0 < S; q0 += gridDim.x * kQT) {
     const bool active = q0 + warp * 16 < S;
     WarpTile<T> qa[1][kHD / 16];
-    project<T, 1>(row_ptr, q0, mean, rstd, ln_s, ln_b, D, wq, stage, qa, active);
+    project<T, 1, true>(row_ptr, q0, mean, rstd, ln_s, ln_b, D, wq, stage, qa, active);
     if (!active) continue;  // no block sync follows before the next project
     float* qs = Qs + warp * 16 * kLdF;
     store_biased<float>(qa[0], scr, bqkv + h * kHD, qs, kLdF, scale);  // q * hd^-1/2
@@ -296,7 +207,7 @@ temporal_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
                    wqkv + long(2 * D + h * kHD) * D};
   WarpTile<T> acc[3][kHD / 16];
   const bool active = warp * 16 < Tn * NT;
-  project<T, 3>(row_ptr, 0, mean, rstd, ln_s, ln_b, D, w, stage, acc, active);
+  project<T, 3, true>(row_ptr, 0, mean, rstd, ln_s, ln_b, D, w, stage, acc, active);
   if (active) {
     const int r0 = warp * 16;
     store_biased<T>(acc[0], scr, bqkv + h * kHD, Qs + r0 * lq, lq, 1.0f);

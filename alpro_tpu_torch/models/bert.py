@@ -19,13 +19,14 @@ attention chain and the post-LN MLP chain (``ops/bert_block.py``), reading
 the same parameters as the plain layer — in eval only: in training it gives
 the plain layer, whose kernels have no backward; ``plain`` runs the plain
 layer (``xla``, as a JAX config names it, means the same); ``auto`` (the
-default) resolves to ``fused`` in eval on a CUDA tensor and to ``plain``
-otherwise. ``attn_impl`` picks the attention of the plain layer:
-``auto``/``xla``/``plain`` the plain attention, ``pallas`` the
-masked-attention kernel (``ops/masked_attn.py``) with its gradient. The TPU
-package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried over: the
-kernels take every S the model gives, up to a limit they raise on
-(``bert_block.max_seq_len``).
+default) resolves to ``fused`` in eval on a CUDA tensor whose (M, S, D) both
+kernels take (``BertConfig.use_fused``) and to ``plain`` otherwise.
+``attn_impl`` picks the attention of the plain layer: ``auto``/``xla``/
+``plain`` the plain attention, ``pallas`` the masked-attention kernel
+(``ops/masked_attn.py``) with its gradient. The TPU
+package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried over:
+``auto`` stays inside the kernels' own limits (S <= ``bert_block.max_seq``,
+752 in bf16 on an H100), and an explicit ``fused`` raises past them.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ import torch
 from torch import nn
 
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
-from alpro_tpu_torch.ops.bert_block import bert_attention_block, bert_mlp_block
+from alpro_tpu_torch.ops import _build
+from alpro_tpu_torch.ops.bert_block import attention_fits, bert_attention_block, bert_mlp_block
+from alpro_tpu_torch.ops.ln_mlp import ln_mlp_fits
 from alpro_tpu_torch.ops.layers import LayerNorm, checkpoint, dropout, gelu_exact, linear
 
 
@@ -72,12 +75,20 @@ class BertConfig:
             )
 
     def use_fused(self, x: torch.Tensor, training: bool = False) -> bool:
-        """Whether the layers run the fused kernels for activations ``x``:
-        never in training (JAX: ``fused`` only when deterministic)."""
+        """Whether the layers run the fused kernels for activations ``x``
+        (M, S, D) in the compute dtype: never in training (JAX: ``fused``
+        only when deterministic); ``auto`` only on a CUDA tensor that both
+        kernels take (their limit predicates in ``ops/``, given the card's
+        opt-in shared memory)."""
         if training:
             return False
         if self.block_impl == "auto":
-            return x.device.type == "cuda"
+            if x.device.type != "cuda":
+                return False
+            M, S, D = x.shape
+            return (attention_fits(M, S, D, self.num_attention_heads, x.dtype,
+                                   _build.smem_optin(x.device))
+                    and ln_mlp_fits(D, self.intermediate_size, x.dtype))
         return self.block_impl == "fused"
 
     @classmethod

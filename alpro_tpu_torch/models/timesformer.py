@@ -28,8 +28,11 @@ by the JAX package's rules in both modes:
   — in eval LN, qkv matmul, then the attention and the folded projection
   in one kernel (``ops/qkv_attn.py``), the residual added after. In
   training all five are the temporal kernel with its backward between the
-  unfolded projections; ``plain`` — relayout to (B·N, T, D), plain
-  attention, proj, temporal_fc;
+  unfolded projections; ``packed`` and ``circulant`` — LN, qkv matmul,
+  the plain-torch packed or circulant temporal attention
+  (``ops/temporal_attn.py``, no kernel), proj and temporal_fc, in both
+  modes; ``plain`` — relayout to (B·N, T, D), plain attention, proj,
+  temporal_fc;
 * ``attn_impl``: ``fused_qkv`` — the spatial kernel over the packed qkv of
   [cls_rep; x] per frame, in both modes (with its backward in training;
   attention dropout in training takes the plain path, as in JAX);
@@ -49,10 +52,13 @@ by the JAX package's rules in both modes:
   training the plain path; ``plain`` — LN, fc1, exact GELU, fc2, residual.
 
 ``auto`` resolves to a kernel (``fused_qkv`` for the spatial attention,
-``fused_qkv_fold`` for the temporal) only in eval and only for a CUDA
-tensor; ``xla`` (a JAX config's name for the plain path) means ``plain``.
-The TPU package's measured gates (``_on_tpu()``, temporal only at T <= 8,
-D % 128) are not carried over: they are to be re-decided on the H100.
+``fused_qkv_fold`` for the temporal, ``fused`` for the MLP tail) only in
+eval, only for a CUDA tensor and only where that kernel takes the call
+site's shape and dtype (``TimeSformerConfig.kernel_fits``: the kernel's own
+limit predicate in ``ops/``), else ``plain``; ``xla`` (a JAX config's name
+for the plain path) means ``plain``. The TPU package's measured gates
+(``_on_tpu()``, temporal only at T <= 8, S <= 640, D % 128) are not carried
+over: they are to be re-decided on the H100.
 
 ``fused_patchify='on'`` sends raw uint8 frames (B, T, H, W, 3) through the
 normalize → patchify → embed kernel (``ops/preprocess.py``) in both modes;
@@ -77,17 +83,21 @@ from alpro_tpu_torch.ops.layers import (
     gelu_exact,
     linear,
 )
+from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.fused_block import fused_spatial_block, fused_temporal_block
 from alpro_tpu_torch.ops.ln_matmul import ln_matmul
-from alpro_tpu_torch.ops.ln_mlp import ln_mlp
+from alpro_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_fits
 from alpro_tpu_torch.ops.preprocess import patchify_embed
 from alpro_tpu_torch.ops.qkv_attn import (
     spatial_attention_qkv,
     spatial_attention_qkv_cls,
     spatial_attention_qkv_proj,
+    spatial_fits,
     temporal_attention_qkv,
     temporal_attention_qkv_proj,
+    temporal_fits,
 )
+from alpro_tpu_torch.ops.temporal_attn import temporal_attention_circulant, temporal_attention_packed
 
 # field → the values naming a kernel (the first is what 'auto' gives in eval)
 _KERNEL_IMPL = {
@@ -97,6 +107,10 @@ _KERNEL_IMPL = {
                            "fused_qkv_proj"),
     "mlp_impl": ("fused",),
 }
+# field → plain-torch forms other than 'plain' (no kernel; 'auto' never picks them)
+_PLAIN_FORMS = {"temporal_attn_impl": ("packed", "circulant")}
+_TEMPORAL_FORMS = {"fused_qkv": temporal_attention_qkv, "packed": temporal_attention_packed,
+                   "circulant": temporal_attention_circulant}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,11 +146,10 @@ class TimeSformerConfig:
     def __post_init__(self):
         for field, kernels in _KERNEL_IMPL.items():
             value = getattr(self, field)
-            if value not in ("auto", "plain", "xla", *kernels):
+            allowed = ("auto", "plain", "xla", *kernels, *_PLAIN_FORMS.get(field, ()))
+            if value not in allowed:
                 raise ValueError(
-                    f"{field}={value!r}: expected one of 'auto', 'plain', 'xla', "
-                    + ", ".join(map(repr, kernels))
-                )
+                    f"{field}={value!r}: expected one of " + ", ".join(map(repr, allowed)))
         for field in ("fold_uint8_norm", "fused_patchify"):
             if getattr(self, field) not in ("auto", "on", "off"):
                 raise ValueError(f"{field}={getattr(self, field)!r}")
@@ -162,18 +175,41 @@ class TimeSformerConfig:
                    gradient_checkpointing=bool(video_enc_cfg.get("gradient_checkpointing", False)),
                    **kw)
 
-    def impl(self, field: str, x: torch.Tensor, training: bool) -> str:
-        """What ``field`` resolves to for activations ``x``: a kernel name
-        from ``_KERNEL_IMPL`` or ``plain``. ``auto`` gives the first kernel
-        only in eval on a CUDA tensor. In training (the JAX rules): explicit
-        ``fused`` (MLP tail) is plain; ``cls_sideband`` is ``auto``, so
-        plain; the other spatial kernel values but ``pallas`` are
+    def kernel_fits(self, field: str, shape, dtype: torch.dtype, smem: int) -> bool:
+        """Whether the kernel ``auto`` gives for ``field`` takes the block's
+        tokens of ``shape`` (B, T, N, D) with compute dtype ``dtype`` on a
+        device with ``smem`` bytes of opt-in shared memory per block: the
+        kernel's own limit predicate at that call site (K2 on the packed
+        temporal qkv, K1 on the per-frame [cls; x] qkv, K3 on the rows)."""
+        B, T, N, D = shape
+        H = self.num_heads
+        if field == "mlp_impl":
+            return ln_mlp_fits(D, int(D * self.mlp_ratio), dtype)
+        if D % H:
+            return False
+        if field == "temporal_attn_impl":
+            return temporal_fits(T, D // H, dtype, smem)
+        return spatial_fits(B * T, 1 + N, H, D // H, dtype, smem)
+
+    def impl(self, field: str, x: torch.Tensor, training: bool, dtype=None) -> str:
+        """What ``field`` resolves to for the block's tokens ``x`` (B, T, N,
+        D) at compute dtype ``dtype`` (default x's): a kernel name from
+        ``_KERNEL_IMPL``, a plain form from ``_PLAIN_FORMS`` or ``plain``.
+        ``auto`` gives the first kernel only in eval on a CUDA tensor and only
+        where ``kernel_fits`` holds, else plain. In training (the JAX rules):
+        explicit ``fused`` (MLP tail) is plain; ``cls_sideband`` is ``auto``,
+        so plain; the other spatial kernel values but ``pallas`` are
         ``fused_qkv``, or plain when attention dropout is on (JAX
         ``VitAttention``); every temporal kernel value is ``fused_qkv`` (the
-        kernel, unfolded projections)."""
+        kernel, unfolded projections); ``packed`` and ``circulant`` stay."""
         value = getattr(self, field)
         if value == "auto":
-            value = _KERNEL_IMPL[field][0] if (x.device.type == "cuda" and not training) else "plain"
+            use = x.device.type == "cuda" and not training and self.kernel_fits(
+                field, tuple(x.shape), x.dtype if dtype is None else dtype,
+                _build.smem_optin(x.device))
+            value = _KERNEL_IMPL[field][0] if use else "plain"
+        if value in _PLAIN_FORMS.get(field, ()):
+            return value
         if value not in _KERNEL_IMPL[field]:
             return "plain"
         if not training or value == "pallas":
@@ -260,7 +296,7 @@ class DividedSTBlock(nn.Module):
         eps = cfg.ln_eps
 
         # ---- temporal attention over T at each patch location ----
-        t_impl = cfg.impl("temporal_attn_impl", x, train)
+        t_impl = cfg.impl("temporal_attn_impl", x, train, dtype)
         tn, tqkv = self.temporal_norm1, self.temporal_attn.qkv
         if t_impl == "fused_block":
             x = fused_temporal_block(x, tn.weight, tn.bias, tqkv.weight.to(dtype),
@@ -281,8 +317,8 @@ class DividedSTBlock(nn.Module):
                 t_att, *self._folded_temporal_proj(dtype)).to(x.dtype)
         else:
             xt = tn(x, dtype)
-            if t_impl == "fused_qkv":  # the kernel, unfolded projections
-                t_att = temporal_attention_qkv(linear(xt, tqkv, dtype), H)
+            if t_impl in _TEMPORAL_FORMS:  # the kernel or a plain form, unfolded projections
+                t_att = _TEMPORAL_FORMS[t_impl](linear(xt, tqkv, dtype), H)
                 t_out = linear(t_att, self.temporal_attn.proj, dtype)
             else:
                 xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
@@ -294,7 +330,7 @@ class DividedSTBlock(nn.Module):
             x = x + linear(t_out, self.temporal_fc, dtype)
 
         # ---- spatial attention over [cls; N patches] per frame ----
-        s_impl = cfg.impl("attn_impl", x, train)
+        s_impl = cfg.impl("attn_impl", x, train, dtype)
         n1, sqkv, proj = self.norm1, self.attn.qkv, self.attn.proj
         if s_impl == "cls_sideband":  # eval only: no concat, CLS qkv once per sample
             qkv_x = linear(n1(x, dtype), sqkv, dtype).reshape(B * T, N, 3 * D)
@@ -336,7 +372,7 @@ class DividedSTBlock(nn.Module):
         drop-path mask for both."""
         B, T, N, D = x.shape
         train = self.training
-        if cfg.impl("mlp_impl", x, train) == "fused":
+        if cfg.impl("mlp_impl", x, train, dtype) == "fused":
             args = (
                 self.norm2.weight, self.norm2.bias,
                 self.mlp.fc1.weight.to(dtype), self.mlp.fc1.bias.to(dtype),

@@ -88,6 +88,11 @@ _SIGNATURES = {
     "alpro_temporal_qkv_proj": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # x, scale, bias, out, R, D, eps, in_bf16, out_bf16, device, stream
     "alpro_layernorm": ([_P] * 4 + [_I, _I, _F, _I, _I, _I, _P], _I),
+    # x, wqkv, bqkv, wproj, bproj, key_bias, heads, out, B, S, H, q_split,
+    # scale, is_bf16, device, stream
+    "alpro_block_attn": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # is_bf16, device
+    "alpro_block_attn_max_seq": ([_I, _I], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -187,6 +192,14 @@ def check_cuda_operand(t, name: str, dtypes, align: int = 16) -> None:
         raise ValueError(f"{name}: tensor must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
+
+
+def smem_optin(device) -> int:
+    """The shared memory (bytes) a block may opt in to on CUDA ``device``:
+    the figure the kernels' limit predicates take (232,448 on an H100)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
 def stream_args(t) -> tuple:

@@ -25,7 +25,7 @@ import torch
 
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
-from alpro_tpu_torch.ops.ln_mlp import _HIDDEN_CHUNK, _WIDTHS, hidden_split
+from alpro_tpu_torch.ops.ln_mlp import _HIDDEN_CHUNK, _WIDTHS, hidden_split, ln_mlp_fits
 
 attn_launches = 0
 mlp_launches = 0
@@ -33,6 +33,7 @@ mlp_launches = 0
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIM = 64  # csrc/bert_attn.cu kHD
 _QUERY_TILE = 64  # csrc/bert_attn.cu kQT
+_CHUNK = 64  # csrc/bert_attn.cu kKC = kRC: projection depth and rows, softmax key chunk
 _MAX_GRID_Z = 65535
 
 
@@ -78,14 +79,30 @@ def _f32_vectors(name: str, **vecs) -> list:
     return out
 
 
+def max_seq(dtype: torch.dtype, smem: int) -> int:
+    """The largest S the attention kernel takes for ``dtype`` given ``smem``
+    bytes of opt-in shared memory per block (``csrc/bert_attn.cu`` max_seq:
+    K and V of one head for the whole sequence beside a fixed query tile and
+    staging area; 752 in bf16 on an H100)."""
+    es = dtype.itemsize
+    pad = 16 // es
+    ldc, ld_sc = _CHUNK + pad, _CHUNK + 4
+    staging = (_CHUNK + 2 * _HEAD_DIM) * ldc * es
+    warp_bufs = 4 * (16 * ld_sc * 4 + 16 * ldc * es)
+    room = smem - (_QUERY_TILE * (_HEAD_DIM + pad) * es + max(staging, warp_bufs))
+    return max(room, 0) // (2 * _HEAD_DIM * es) // 16 * 16
+
+
 def max_seq_len(dtype: torch.dtype, device) -> int:
-    """The largest S the attention kernel takes for ``dtype`` on
-    ``device`` (K and V of one head for the whole sequence live in shared
-    memory)."""
-    dev = torch.device(device).index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    return _build.lib().alpro_bert_attn_max_seq(int(dtype == torch.bfloat16), dev)
+    """``max_seq`` on ``device``."""
+    return max_seq(dtype, _build.smem_optin(device))
+
+
+def attention_fits(M: int, S: int, D: int, num_heads: int, dtype: torch.dtype,
+                   smem: int) -> bool:
+    """Whether K4 takes (M, S, D) rows in ``dtype``."""
+    return (dtype in _DTYPES and D % num_heads == 0 and D // num_heads == _HEAD_DIM
+            and D in _WIDTHS and 1 <= M <= _MAX_GRID_Z and 1 <= S <= max_seq(dtype, smem))
 
 
 def bert_attention_block(x: torch.Tensor, attention_mask: torch.Tensor,
@@ -115,16 +132,12 @@ def bert_attention_block(x: torch.Tensor, attention_mask: torch.Tensor,
     for name, w in (("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
         _build.check_cuda_operand(w, f"bert_attention_block {name}", (x.dtype,))
     hd = D // num_heads
-    if hd != _HEAD_DIM or D not in _WIDTHS or M > _MAX_GRID_Z:
+    smem = _build.smem_optin(x.device)
+    if not attention_fits(M, S, D, num_heads, x.dtype, smem):
         raise ValueError(
-            f"bert_attn kernel needs head_dim {_HEAD_DIM}, D in {_WIDTHS} and M <= "
-            f"{_MAX_GRID_Z}; got head_dim={hd}, D={D}, M={M}"
-        )
-    limit = max_seq_len(x.dtype, x.device)
-    if S > limit:
-        raise ValueError(
-            f"bert_attn kernel takes S <= {limit} for {x.dtype} on this device (K and V "
-            f"of a head in shared memory); got S={S}"
+            f"bert_attn kernel needs head_dim {_HEAD_DIM}, D in {_WIDTHS}, M <= {_MAX_GRID_Z} "
+            f"and S <= {max_seq(x.dtype, smem)} for {x.dtype} on this device (K and V of a "
+            f"head in shared memory); got head_dim={hd}, D={D}, M={M}, S={S}"
         )
     mask = attention_mask.to(torch.float32).contiguous()
     _build.check_cuda_operand(mask, "bert_attention_block mask", (torch.float32,), align=4)
@@ -170,7 +183,7 @@ def bert_mlp_block(x: torch.Tensor, w1, b1, w2, b2, ln_s, ln_b, *,
     for name, w in (("w1", w1), ("w2", w2)):
         _build.check_cuda_operand(w, f"bert_mlp_block {name}", (x.dtype,))
     R = x.numel() // D
-    if D not in _WIDTHS or Dh % _HIDDEN_CHUNK or R < 1:
+    if not ln_mlp_fits(D, Dh, x.dtype) or R < 1:
         raise ValueError(
             f"bert_mlp kernel needs D in {_WIDTHS} and Dh % {_HIDDEN_CHUNK} == 0;"
             f" got R={R}, D={D}, Dh={Dh}"

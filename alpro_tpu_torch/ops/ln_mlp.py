@@ -27,6 +27,13 @@ _ROW_TILE = 32  # csrc/ln_mlp.cu kTM
 _WIDTHS = (256, 512, 768, 1024)  # D values csrc/ln_mlp.cu is instantiated for
 
 
+def ln_mlp_fits(D: int, Dh: int, dtype: torch.dtype) -> bool:
+    """Whether the row-tile MLP kernels (K3 here, K5 in ``ops/bert_block.py``)
+    take width D and hidden width Dh in ``dtype``; their shared memory is
+    fixed by D and lies well inside an H100's for every D they take."""
+    return dtype in _DTYPES and D in _WIDTHS and Dh >= _HIDDEN_CHUNK and Dh % _HIDDEN_CHUNK == 0
+
+
 def hidden_split(R: int, Dh: int, num_sms: int) -> int:
     """Hidden columns per block: all of Dh when the row tiles fill the SMs,
     else Dh cut into equal whole chunks over ~num_sms // row_tiles blocks
@@ -78,7 +85,7 @@ def ln_mlp(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     _build.check_cuda_operand(x, "ln_mlp x", _DTYPES)
     for name, w in (("w1", w1), ("w2", w2)):
         _build.check_cuda_operand(w, f"ln_mlp {name}", (x.dtype,))
-    if D not in _WIDTHS or Dh % _HIDDEN_CHUNK or R < 1:
+    if not ln_mlp_fits(D, Dh, x.dtype) or R < 1:
         raise ValueError(
             f"ln_mlp kernel needs D in {_WIDTHS} and Dh % {_HIDDEN_CHUNK} == 0;"
             f" got R={R}, D={D}, Dh={Dh}"

@@ -23,7 +23,12 @@ Counterpart of ``alpro_tpu/ops/pallas_qkv_attn.py``:
 Channel layout is the fused qkv projection's: ``[q | k | v]``, each (H, hd)
 head-major; projection weights in torch Linear layout (out, in). A wrapper
 runs the twin only for a CPU tensor; for a CUDA tensor it launches the kernel
-or raises. ``*_launches`` count kernel launches (one per call).
+or raises. ``*_launches`` count kernel launches (one per call). K1 and K2
+each have one limit predicate (``spatial_fits``: head_dim % 16, S up to
+``spatial_max_seq``, 224 in bf16 at head_dim 64 on an H100;
+``temporal_fits``: head_dim a multiple of 8 up to 128, T up to 128), which
+their wrappers' checks and the model's ``auto`` read. The temporal kernel
+also carries B16 (``ops/temporal_attn.py``).
 
 Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), the
 K1/K2 kernel call is a ``torch.autograd.Function`` whose backward is the vjp
@@ -54,6 +59,46 @@ _MAX_GRID_YZ = 65535
 _PROJ_HEAD_DIM = 64  # csrc/qkv_proj.cu (attn_f32.cuh kHD)
 _PROJ_QUERY_TILE = 64  # csrc/qkv_proj.cu kQT
 _MAX_T = 32  # csrc/qkv_proj.cu: T x 32/T locations per 32-row tile
+_TEMPORAL_MAX_T = 128  # csrc/temporal_attn.cu kMaxT
+_TEMPORAL_MAX_HD = 128  # csrc/temporal_attn.cu: up to 4 channels per lane
+
+
+# ---- the limits of K1 and K2: one predicate each, read by the wrappers and
+#      by 'auto' (models/timesformer.py); smem is the device's opt-in shared
+#      memory per block (_build.smem_optin) ----
+
+
+def spatial_smem_bytes(S: int, hd: int, dtype: torch.dtype) -> int:
+    """Shared memory of one K1 block (``csrc/spatial_attn.cu`` smem_bytes):
+    K and V of the frame, the query tile, its fp32 scores and output."""
+    es = dtype.itemsize
+    qt = 128 if es == 2 else 64
+    sp = -(-S // 16) * 16
+    return 2 * sp * hd * es + qt * hd * es + qt * sp * 4 + qt * hd * 4 + 2 * qt * 4
+
+
+def spatial_max_seq(hd: int, dtype: torch.dtype, smem: int) -> int:
+    """The largest S K1 takes at head_dim ``hd`` in ``dtype`` (224 in bf16
+    at head_dim 64 on an H100)."""
+    s = 0
+    while spatial_smem_bytes(s + 16, hd, dtype) <= smem:
+        s += 16
+    return s
+
+
+def spatial_fits(M: int, S: int, num_heads: int, hd: int, dtype: torch.dtype,
+                 smem: int) -> bool:
+    """Whether K1 takes (M, S, 3·H·hd) qkv in ``dtype``."""
+    return (dtype in _DTYPES and hd % 16 == 0 and 1 <= S and M <= _MAX_GRID_YZ
+            and num_heads <= _MAX_GRID_YZ and spatial_smem_bytes(S, hd, dtype) <= smem)
+
+
+def temporal_fits(T: int, hd: int, dtype: torch.dtype, smem: int) -> bool:
+    """Whether K2 (and B16) takes T frames at head_dim ``hd`` in ``dtype``:
+    hd a multiple of 8 up to 128, 1 <= T <= 128, one warp's fp32 K and V in
+    shared memory."""
+    return (dtype in _DTYPES and hd % 8 == 0 and 8 <= hd <= _TEMPORAL_MAX_HD
+            and 1 <= T <= _TEMPORAL_MAX_T and 2 * T * hd * 4 <= smem)
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -140,10 +185,13 @@ def _spatial_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Te
     hd = _head_dim(qkv, num_heads)
     _build.check_cuda_operand(qkv, "spatial_attention_qkv", _DTYPES)
     M, S, _ = qkv.shape
-    if hd % 16 or M > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ or S < 1:
+    smem = _build.smem_optin(qkv.device)
+    if not spatial_fits(M, S, num_heads, hd, qkv.dtype, smem):
         raise ValueError(
-            f"spatial kernel needs head_dim % 16 == 0 and M, H <= {_MAX_GRID_YZ};"
-            f" got head_dim={hd}, M={M}, H={num_heads}, S={S}"
+            f"spatial kernel needs head_dim % 16 == 0, M, H <= {_MAX_GRID_YZ} and "
+            f"1 <= S <= {spatial_max_seq(hd, qkv.dtype, smem)} for {qkv.dtype} on this device "
+            f"(K, V and the fp32 score rows in shared memory); got head_dim={hd}, M={M}, "
+            f"H={num_heads}, S={S}"
         )
     out = torch.empty((M, S, num_heads * hd), dtype=qkv.dtype, device=qkv.device)
     dev, stream = _build.stream_args(qkv)
@@ -173,15 +221,17 @@ def temporal_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
                                   temporal_attention_plain)
 
 
-def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
-    global temporal_launches
+def temporal_kernel(qkv: torch.Tensor, num_heads: int, scale: float,
+                    name: str = "temporal_attention_qkv") -> torch.Tensor:
+    """One launch of ``csrc/temporal_attn.cu`` on CUDA qkv (B, T, N, 3D),
+    uncounted (the callers count: K2 here, B16 in ``ops/temporal_attn.py``)."""
     hd = _head_dim(qkv, num_heads)
-    _build.check_cuda_operand(qkv, "temporal_attention_qkv", _DTYPES)
+    _build.check_cuda_operand(qkv, name, _DTYPES)
     B, T, N, _ = qkv.shape
-    if hd not in (32, 64, 96, 128) or not 1 <= T <= 32:
+    if not temporal_fits(T, hd, qkv.dtype, _build.smem_optin(qkv.device)):
         raise ValueError(
-            f"temporal kernel needs head_dim in (32, 64, 96, 128) and 1 <= T <= 32;"
-            f" got head_dim={hd}, T={T}"
+            f"{name}: the temporal kernel needs head_dim a multiple of 8 up to "
+            f"{_TEMPORAL_MAX_HD} and 1 <= T <= {_TEMPORAL_MAX_T}; got head_dim={hd}, T={T}"
         )
     out = torch.empty((B, T, N, num_heads * hd), dtype=qkv.dtype, device=qkv.device)
     dev, stream = _build.stream_args(qkv)
@@ -189,7 +239,13 @@ def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
         qkv.data_ptr(), out.data_ptr(), B, T, N, num_heads, hd, float(scale),
         int(qkv.dtype == torch.bfloat16), dev, stream,
     )
-    _build.check(err, "temporal_attention_qkv")
+    _build.check(err, name)
+    return out
+
+
+def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
+    global temporal_launches
+    out = temporal_kernel(qkv, num_heads, scale)
     temporal_launches += 1
     return out
 

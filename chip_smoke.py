@@ -53,7 +53,22 @@ line):
 8. LayerNorm — ``LayerNorm(impl='pallas')``, the LayerNorm kernel's only
    entry (no model config sets it, as in JAX), forward and backward over the
    rows of one ``add_videos`` call's spatial input, with its launch count,
-   against autograd through the twin.
+   against autograd through the twin;
+9. the last two TPU kernels and ``auto``'s limits — ``temporal_attention_roll``
+   (B16) and ``fused_attention_block`` (B17), which no model path reaches
+   (as in JAX), each forward and backward once through its public entry at
+   the shapes of one ``add_videos`` call (the temporal attention and the
+   spatial attention sublayer) with the counts set to 0 just before and read
+   just after; each against its twin at those and other shapes (B16 over
+   its envelope: T = 48, head_dim 16 and 40, fp32; B17 with a key mask, at
+   the QA shape, fp32), gradients against autograd through the twins, B17
+   against the port's ``Attention`` module on the same weights; phase 4's
+   video tower under ``temporal_attn_impl='packed'`` and ``'circulant'``
+   against phase 4's plain path; then eval forwards under ``auto`` one past
+   a kernel's limit (T = 129 frames, BERT S = 800 in bf16, 256² frames,
+   and D = 384 for the MLP tail, at narrow widths): each equals the forward
+   with that call site set to ``plain`` and launches none of the kernel
+   concerned, while the same model at the limit launches it.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -102,7 +117,9 @@ KERNEL_TOL = {"spatial_attn": 3e-2, "temporal_attn": 1e-2, "ln_mlp": 2e-2,
               "masked_attn_bhsd": 2e-2, "ln_matmul": 2e-2, "patchify_embed": 2e-2,
               "fused_spatial_block": 2e-2, "fused_temporal_block": 3e-2,
               "spatial_cls_attn": 3e-2, "spatial_qkv_proj": 2e-2, "temporal_qkv_proj": 2e-2,
-              "layernorm": 2e-2}
+              "layernorm": 2e-2, "temporal_roll": 1e-2, "block_attn": 2e-2}
+# B16 is K2's kernel (K2's tolerance); B17 keeps q, k and v in fp32 where its
+# twin rounds them to bf16 (its TPU kernel's rounding points)
 # the video tower's opt-in serving forms (phase 7; 'auto' picks none): path
 # (a), the raw-frame patch embed and both whole attention chains in one kernel
 # each; path (b), LN→qkv in one kernel in front of the spatial and temporal
@@ -127,6 +144,10 @@ MASKED_GRAD_TOL = 3e-2
 # autograd through the twin, bf16: the same math in another order; max
 # |difference| <= this share of max |twin gradient|
 LN_GRAD_TOL = 2e-2
+# B16's and B17's gradients (their Functions' backward is the twin's vjp,
+# recomputed) against autograd through the twins: max |difference| <= this
+# share of max |twin gradient|
+LAST_GRAD_TOL = 3e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # query vs query_batch: the same bf16 towers at batch 1 and 4
@@ -546,8 +567,8 @@ def _build_model(build, vis_json: str, frames: int, **kwargs):
 
 
 def _counts():
-    from alpro_tpu_torch.ops import (bert_block, fused_block, layernorm, ln_matmul, ln_mlp,
-                                     masked_attn, preprocess, qkv_attn)
+    from alpro_tpu_torch.ops import (bert_block, block_attn, fused_block, layernorm, ln_matmul,
+                                     ln_mlp, masked_attn, preprocess, qkv_attn, temporal_attn)
 
     return {"spatial_attn": qkv_attn.spatial_launches,
             "temporal_attn": qkv_attn.temporal_launches, "ln_mlp": ln_mlp.launches,
@@ -560,12 +581,13 @@ def _counts():
             "spatial_cls_attn": qkv_attn.spatial_cls_launches,
             "spatial_qkv_proj": qkv_attn.spatial_proj_launches,
             "temporal_qkv_proj": qkv_attn.temporal_proj_launches,
-            "layernorm": layernorm.launches}
+            "layernorm": layernorm.launches, "temporal_roll": temporal_attn.roll_launches,
+            "block_attn": block_attn.launches}
 
 
 def _reset_counts():
-    from alpro_tpu_torch.ops import (bert_block, fused_block, layernorm, ln_matmul, ln_mlp,
-                                     masked_attn, preprocess, qkv_attn)
+    from alpro_tpu_torch.ops import (bert_block, block_attn, fused_block, layernorm, ln_matmul,
+                                     ln_mlp, masked_attn, preprocess, qkv_attn, temporal_attn)
 
     qkv_attn.spatial_launches = qkv_attn.temporal_launches = ln_mlp.launches = 0
     bert_block.attn_launches = bert_block.mlp_launches = 0
@@ -574,6 +596,7 @@ def _reset_counts():
     fused_block.spatial_launches = fused_block.temporal_launches = 0
     qkv_attn.spatial_cls_launches = qkv_attn.spatial_proj_launches = 0
     qkv_attn.temporal_proj_launches = layernorm.launches = 0
+    temporal_attn.roll_launches = block_attn.launches = 0
 
 
 def _launches(video_calls: int = 0, text_calls: int = 0, masked: int = 0,
@@ -976,6 +999,238 @@ def phase_layernorm(card: str) -> int:
     return counts["layernorm"]
 
 
+def _grad_gap(name, shape, fn, twin, inputs, seed) -> float:
+    """d(inputs) of ``fn`` (a kernel's autograd Function) against autograd
+    through ``twin`` on the same inputs and cotangent: the largest max
+    |difference| / max |twin gradient| over the inputs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ts = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*ts)
+    cot = torch.randn(out.shape, generator=g, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, ts, cot)
+    refs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(twin(*refs), refs, cot)
+    fail_if(not all(bool(torch.isfinite(a).all()) for a in got), f"{name}: non-finite gradient")
+    err = max(float((a.float() - b.float()).abs().max() / b.float().abs().max())
+              for a, b in zip(got, want))
+    print(f"[last] {name} {tuple(shape)} backward: max_abs / max|twin| over the {len(ts)} "
+          f"inputs {err:.3e} (tol {LAST_GRAD_TOL})", flush=True)
+    fail_if(err > LAST_GRAD_TOL, f"{name} {shape}: gradient differs from the twin's by {err}")
+    return err
+
+
+def _seeded_(module, seed: int):
+    """Seeded N(0, 0.02) weights, LayerNorm scales 1 and biases 0, in place
+    (the narrow models of the limit checks)."""
+    from alpro_tpu_torch.ops.layers import LayerNorm
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    norms = {id(q) for m in module.modules() if isinstance(m, LayerNorm) for q in m.parameters()}
+    with torch.no_grad():
+        for name, q in module.named_parameters():
+            if id(q) in norms:
+                q.fill_(1.0 if name.endswith("weight") else 0.0)
+            else:
+                q.normal_(0.0, 0.02, generator=g)
+    return module
+
+
+def _auto_limit(what, model, cfg, past, at, field, kernels, forward, at_model=None) -> None:
+    """``model`` under ``auto`` (config ``cfg``) on inputs ``past``, one past
+    the limit of the kernels ``kernels`` at call site ``field``: none of them
+    launches and the output equals the forward with ``field`` set to
+    'plain'; on inputs ``at`` (through ``at_model`` where the limit is a
+    width), at the limit, they launch."""
+    with torch.no_grad():
+        model.cfg = cfg
+        _reset_counts()
+        out = forward(model, past)
+        torch.cuda.synchronize()
+        n_past = _counts()
+        model.cfg = dataclasses.replace(cfg, **{field: "plain"})
+        ref = forward(model, past)
+        model.cfg = cfg
+        _reset_counts()
+        forward(at_model or model, at)
+        torch.cuda.synchronize()
+        n_at = _counts()
+    diff = float((out.float() - ref.float()).abs().max())
+    print(f"[last] auto at {what}: launches past the limit "
+          f"{ {k: n_past[k] for k in kernels} }, at the limit { {k: n_at[k] for k in kernels} }; "
+          f"vs {field}='plain' max_abs {diff:.3e} (must be 0)", flush=True)
+    fail_if(not bool(torch.isfinite(out.float()).all()), f"auto at {what}: non-finite output")
+    fail_if(any(n_past[k] for k in kernels), f"auto at {what}: launched {n_past} past the limit")
+    fail_if(not all(n_at[k] for k in kernels), f"auto at {what}: no launch at the limit: {n_at}")
+    fail_if(diff != 0.0, f"auto at {what}: differs from {field}='plain' by {diff}")
+
+
+def phase_last(card: str, res: dict, ret: dict) -> dict:
+    """Phase 9: B16 and B17 through their public entries (the main path,
+    counted), against their twins, their gradients, B17 against the port's
+    ``Attention``, the packed and circulant temporal forms on phase 4's
+    video tower, and ``auto`` one past each kernel's limit. Fills
+    ``res['temporal_roll']`` and ``res['block_attn']``; returns their launch
+    counts from the main path's run."""
+    from alpro_tpu_torch.models.bert import BertConfig, BertModel
+    from alpro_tpu_torch.models.timesformer import Attention, TimeSformer, TimeSformerConfig
+    from alpro_tpu_torch.ops import _build, bert_block, block_attn, qkv_attn, temporal_attn
+    from alpro_tpu_torch.serving.retrieval import RetrievalIndex
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    bf = torch.bfloat16
+
+    def randn(*shape, std=1.0, dtype=bf):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
+    D, S = H * hd, 1 + PATCHES
+    # ---- the main path: one add_videos call's temporal attention (B16) and
+    #      spatial attention sublayer (B17), forward and backward ----
+    xt = randn(B, T, N, 3 * D)
+    xs = randn(B * T, S, D)
+    w = (randn(3 * D, D, std=D ** -0.5), randn(3 * D, std=0.02, dtype=torch.float32),
+         randn(D, D, std=D ** -0.5), randn(D, std=0.02, dtype=torch.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (xt, xs, *w)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    roll = temporal_attn.temporal_attention_roll(leaves[0], H)
+    blk = block_attn.fused_attention_block(leaves[1], *leaves[2:], H)
+    grads = torch.autograd.grad([roll.float().square().mean(), blk.float().square().mean()],
+                                leaves)
+    torch.cuda.synchronize()
+    counts = _counts()
+    want = {k: 0 for k in KERNEL_TOL}
+    want.update(temporal_roll=1, block_attn=1)
+    print(f"[last] main path: temporal_attention_roll {tuple(xt.shape)} and "
+          f"fused_attention_block {tuple(xs.shape)} forward + backward: launches "
+          f"{ {k: counts[k] for k in ('temporal_roll', 'block_attn')} }", flush=True)
+    fail_if(counts != want, f"phase 9 main path: launch counts {counts} != {want}")
+    fail_if(not all(bool(torch.isfinite(t.float()).all()) for t in (roll, blk, *grads)),
+            "phase 9 main path: non-finite output or gradient")
+    del roll, blk, grads, leaves
+
+    # ---- B16 against its twin over its envelope ----
+    print(f"[last] temporal kernel takes T <= {qkv_attn._TEMPORAL_MAX_T}, head_dim a multiple "
+          f"of 8 up to {qkv_attn._TEMPORAL_MAX_HD}", flush=True)
+    for shape, heads, dtype, main in (((B, T, N, 3 * D), H, bf, True),
+                                      ((2, 16, N, 3 * D), H, bf, False),
+                                      ((1, 48, N, 3 * D), H, bf, False),
+                                      ((2, 8, 9, 3 * 4 * 16), 4, bf, False),
+                                      ((2, 8, 9, 3 * 2 * 40), 2, bf, False),
+                                      ((2, T, N, 3 * D), H, torch.float32, False)):
+        x = xt if main else randn(*shape, dtype=dtype)
+        b_, t_, n_ = shape[:3]
+        d_ = shape[3] // 3
+        q, k, v = (x[..., i * d_:(i + 1) * d_].unflatten(-1, (heads, d_ // heads))
+                   .permute(0, 2, 3, 1, 4) for i in range(3))
+        res["temporal_roll"].append(_compare(
+            "temporal_roll", shape, lambda: temporal_attn.temporal_attention_roll(x, heads),
+            lambda: temporal_attn.temporal_attention_roll_plain(x, heads), card, main,
+            library=lambda: _sdpa(q, k, v),
+            work=(4 * b_ * n_ * heads * t_ * t_ * (d_ // heads),
+                  x.numel() * x.element_size() * 4 // 3)))
+    small = randn(2, 12, 9, 3 * 2 * 40, dtype=torch.float32)
+    _grad_gap("temporal_roll", small.shape, lambda a: temporal_attn.temporal_attention_roll(a, 2),
+              lambda a: temporal_attn.temporal_attention_roll_plain(a, 2), [small], SEED + 7)
+
+    # ---- B17 against its twin, the library call, Attention, gradients ----
+    mask = torch.ones(B * T, S, device="cuda")
+    for m in range(B * T):  # random lengths
+        mask[m, int(torch.randint(1, S + 1, (1,), generator=g, device="cuda")):] = 0.0
+    smem = _build.smem_optin("cuda")
+    print(f"[last] fused_attention_block takes S <= {block_attn.max_seq(bf, smem)} in bf16, <= "
+          f"{block_attn.max_seq(torch.float32, smem)} in fp32", flush=True)
+    mha = torch.nn.MultiheadAttention(D, H, batch_first=True, device="cuda", dtype=bf).eval()
+    with torch.no_grad():
+        mha.in_proj_weight.copy_(w[0])
+        mha.in_proj_bias.copy_(w[1])
+        mha.out_proj.weight.copy_(w[2])
+        mha.out_proj.bias.copy_(w[3])
+    w_bytes = 4 * D * D * 2 + 4 * D * 4
+    for M, seq, key_mask, dtype, main in ((B * T, S, None, bf, True), (B * T, S, mask, bf, False),
+                                          (2 * 16, S, None, bf, False),
+                                          (4, 150, None, torch.float32, False)):
+        x = xs if main else (xs[:M] if dtype == bf and seq == S else randn(M, seq, D, dtype=dtype))
+        ws = w if dtype == bf else tuple(t.float() for t in w)
+        kpm = None if key_mask is None else block_attn.key_bias(key_mask).to(bf)
+        res["block_attn"].append(_compare(
+            "block_attn", (M, seq, D) + (("masked",) if key_mask is not None else ()),
+            lambda: block_attn.fused_attention_block(x, *ws, H, key_mask),
+            lambda: block_attn.fused_attention_block_plain(x, *ws, H, key_mask), card, main,
+            library=(lambda: mha(x, x, x, key_padding_mask=kpm, need_weights=False)[0])
+            if dtype == bf else None,
+            work=(2 * M * seq * D * 4 * D + 4 * M * H * seq * seq * hd,
+                  2 * M * seq * D * x.element_size() + w_bytes)))
+    attn = Attention(D).to(device="cuda", dtype=bf).eval()
+    with torch.no_grad():
+        for lin, (wt, bs) in ((attn.qkv, w[:2]), (attn.proj, w[2:])):
+            lin.weight.copy_(wt)
+            lin.bias.copy_(bs)
+        module = attn.plain(xs, H, bf)
+        got = block_attn.fused_attention_block(xs, attn.qkv.weight, attn.qkv.bias,
+                                               attn.proj.weight, attn.proj.bias, H)
+    tol = KERNEL_TOL["block_attn"]
+    diff = (got.float() - module.float()).abs()
+    bad = int((diff > tol + tol * module.float().abs()).sum())
+    print(f"[last] fused_attention_block vs Attention.plain (the port's module, same weights) "
+          f"{tuple(xs.shape)}: max_abs {float(diff.max()):.3e} (tol atol=rtol={tol}, {bad} "
+          f"outside)", flush=True)
+    fail_if(bad > 0, f"B17 vs Attention: {bad} elements outside tolerance {tol}")
+    _grad_gap("block_attn", xs.shape,
+              lambda *a: block_attn.fused_attention_block(*a, H, mask),
+              lambda *a: block_attn.fused_attention_block_plain(*a, H, mask), [xs, *w], SEED + 8)
+
+    # ---- the packed and circulant temporal forms on phase 4's video tower ----
+    model, tok, clips, ids = ret["model"], ret["tok"], ret["clips"], ret["ids"]
+    vis, bert = ret["kernel_cfgs"]
+    for form in ("packed", "circulant"):
+        cfgs = (dataclasses.replace(vis, temporal_attn_impl=form), bert)
+        _set_path(model, *cfgs)
+        index = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=16)
+        rate = _fill(index, clips, ids)
+        _set_path(model, vis, bert)
+        feats, _ = index._banks()
+        fail_if(not bool(torch.isfinite(feats).all()), f"{form}: non-finite features")
+        feat_err = float((feats - ret["plain_feats"]).abs().max())
+        print(f"[last] temporal_attn_impl={form!r}: VTC feature max_abs {feat_err:.3e} vs the "
+              f"plain path (tol {PLAIN_FEAT_TOL}); add_videos {rate:.2f} clips/s on first use "
+              f"({N_CLIPS} clips) [{card}]", flush=True)
+        fail_if(feat_err > PLAIN_FEAT_TOL, f"{form}: VTC features differ by {feat_err}")
+
+    # ---- auto one past each kernel's limit (narrow widths, 2 blocks) ----
+    tmax = qkv_attn._TEMPORAL_MAX_T
+    narrow = TimeSformerConfig(img_size=32, patch_size=16, num_frames=tmax + 1, embed_dim=256,
+                               depth=2, num_heads=4)
+
+    def frames(t, side):
+        return torch.randint(0, 256, (1, t, side, side, 3), generator=g, device="cuda",
+                             dtype=torch.uint8)
+
+    def video(m, x):
+        return m(x)
+
+    def tower(cfg, seed):
+        return _seeded_(TimeSformer(cfg, dtype=bf).cuda(), seed)
+
+    _auto_limit(f"T = {tmax + 1} frames", tower(narrow, SEED + 9), narrow, frames(tmax + 1, 32),
+                frames(tmax, 32), "temporal_attn_impl", ("temporal_attn",), video)
+    big = dataclasses.replace(narrow, img_size=256, num_frames=2)
+    _auto_limit("256² frames (S = 257; 224² at the limit)", tower(big, SEED + 10), big,
+                frames(2, 256), frames(2, 224), "attn_impl", ("spatial_attn",), video)
+    wide = dataclasses.replace(narrow, embed_dim=384, num_heads=6, num_frames=2)
+    _auto_limit("D = 384 (MLP tail; D = 256 at the limit)", tower(wide, SEED + 11), wide,
+                frames(2, 32), frames(2, 32), "mlp_impl", ("ln_mlp",), video,
+                at_model=tower(dataclasses.replace(wide, embed_dim=256, num_heads=4), SEED + 11))
+    bcfg = BertConfig(hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
+                      intermediate_size=1024)
+    limit = bert_block.max_seq(bf, smem)
+    _auto_limit(f"BERT S = 800 in bf16 (S = {limit} at the limit)",
+                _seeded_(BertModel(bcfg, dtype=bf).cuda(), SEED + 12), bcfg,
+                randn(1, 800, 256), randn(1, limit, 256), "block_impl", ("bert_attn", "bert_mlp"),
+                lambda m, x: m(encoder_embeds=x, mode="multi_modal"))
+    return {k: counts[k] for k in ("temporal_roll", "block_attn")}
+
+
 def _train_model(build, vis_json: str, frames: int, attn_impl: str, **kwargs):
     """fp32 parameters (seeded random) with bf16 compute, dropout and
     drop-path at the configs' rates, built on the card."""
@@ -1215,8 +1470,10 @@ def main() -> int:
     # the opt-in paths' own counts (their kernels are on neither default path)
     opt_in = phase_opt_in(card, ret, qa)
     launches.update({k: opt_in[k] for k in OPT_IN_KERNELS})
-    del ret, qa
     launches["layernorm"] = phase_layernorm(card)
+    # the last two kernels' own counts (no model path reaches them)
+    launches.update(phase_last(card, res, ret))
+    del ret, qa
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -1246,6 +1503,10 @@ def main() -> int:
                               "alpro_tpu/ops/pallas_qkv_attn.py:813"),
         "layernorm": ("alpro_tpu_torch/csrc/layernorm.cu",
                       "alpro_tpu/ops/pallas_layernorm.py:53"),
+        "temporal_roll": ("alpro_tpu_torch/csrc/temporal_attn.cu",
+                          "alpro_tpu/ops/pallas_temporal_attn.py:95"),
+        "block_attn": ("alpro_tpu_torch/csrc/block_attn.cu",
+                       "alpro_tpu/ops/pallas_block_attn.py:117"),
     }
     kernels = []
     for name, (src, replaces) in sources.items():

@@ -13,13 +13,18 @@ autograd Functions against autograd through the twins; K3-K5, the fused
 ingest's B9, B10 and B11 and the opt-in serving kernels B6, B7 and B8 refuse
 grad. The CLS-sideband attention (B6) rounds p like K1 except the CLS
 column's, so bf16 takes K1's tolerance; B7, B8 and B14 round where their
-twins do.
+twins do. B16 is K2's kernel over its whole envelope (head_dim a multiple of
+8 up to 128, T up to 128): K2's tolerance. B17 keeps q, k, v in fp32 where
+its twin rounds them (its TPU kernel's rounding points): bf16 within 2e-2.
+The limit predicates that ``auto`` reads agree with what the kernels take:
+S at the Python limit launches, one past it raises ``ValueError``, and
+where the C side reports a limit the two are equal.
 """
 
 import pytest
 import torch
 
-from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
+from alpro_tpu_torch.ops import _build, block_attn, bert_block, ln_mlp, qkv_attn, temporal_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -95,8 +100,10 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         qkv_attn.temporal_attention_qkv(torch.zeros(1, 2, 3, 192, device=cuda,
                                                     dtype=torch.float16), 1)
-    with pytest.raises(ValueError, match="T <= 32"):
-        qkv_attn.temporal_attention_qkv(torch.zeros(1, 33, 1, 192, device=cuda), 1)
+    with pytest.raises(ValueError, match="T <= 128"):
+        qkv_attn.temporal_attention_qkv(torch.zeros(1, 129, 1, 192, device=cuda), 1)
+    with pytest.raises(ValueError, match="head_dim a multiple of 8"):
+        qkv_attn.temporal_attention_qkv(torch.zeros(1, 4, 1, 3 * 36, device=cuda), 1)
     x = torch.zeros(2, 768, device=cuda, dtype=torch.bfloat16)
     w = torch.zeros(3072, 768, device=cuda)  # fp32 weights for bf16 rows
     v = torch.zeros(768, device=cuda)
@@ -572,3 +579,118 @@ def test_layernorm_gradient_matches_twin_autograd(cuda):
     with pytest.raises(ValueError, match="D <= 2048"):
         layernorm.layernorm(torch.zeros(2, 2056, device=cuda), torch.ones(2056, device=cuda),
                             torch.zeros(2056, device=cuda), eps=1e-6)
+
+
+# ---- B16: the temporal kernel's whole envelope; K1's S limit ----
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,T", [(8, 3), (16, 4), (40, 7), (24, 100), (64, 48), (64, 128),
+                                  (96, 33), (128, 64), (64, 8)])
+def test_temporal_roll_kernel_envelope_matches_twin(cuda, hd, T, dtype):
+    B, N, H = 2, 9, 3
+    x = _randn((B, T, N, 3 * H * hd), T + hd, cuda, dtype)
+    n = temporal_attn.roll_launches
+    got = temporal_attn.temporal_attention_roll(x, H)
+    torch.cuda.synchronize()
+    assert temporal_attn.roll_launches == n + 1
+    want = temporal_attn.temporal_attention_roll_plain(x, H)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_temporal_roll_gradient_matches_twin_autograd(cuda):
+    x = _randn((2, 40, 5, 3 * 2 * 40), 7, cuda, torch.float32)
+    cot = _randn((2, 40, 5, 2 * 40), 8, cuda, torch.float32)
+    a = x.clone().requires_grad_(True)
+    (got,) = torch.autograd.grad(temporal_attn.temporal_attention_roll(a, 2), a, cot)
+    b = x.clone().requires_grad_(True)
+    (want,) = torch.autograd.grad(temporal_attn.temporal_attention_roll_plain(b, 2), b, cot)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_spatial_kernel_raises_past_its_seq_limit(cuda):
+    """K1 at S = 224 (the limit in bf16 at head_dim 64 on an H100) launches;
+    at S = 257 (256² frames) it raises ValueError before the launch."""
+    limit = qkv_attn.spatial_max_seq(64, torch.bfloat16, _build.smem_optin(cuda))
+    x = _randn((2, limit, 3 * 768), 1, cuda, torch.bfloat16)
+    torch.testing.assert_close(qkv_attn.spatial_attention_qkv(x, 12).float(),
+                               qkv_attn.spatial_attention_plain(x, 12, 0.125).float(),
+                               atol=3e-2, rtol=3e-2)
+    with pytest.raises(ValueError, match=f"S <= {limit}"):
+        qkv_attn.spatial_attention_qkv(torch.zeros(2, 257, 3 * 768, device=cuda,
+                                                   dtype=torch.bfloat16), 12)
+
+
+def test_python_limits_equal_the_kernels(cuda):
+    smem = _build.smem_optin(cuda)
+    lib, dev = _build.lib(), torch.cuda.current_device()
+    for dtype in (torch.bfloat16, torch.float32):
+        bf = int(dtype == torch.bfloat16)
+        assert bert_block.max_seq(dtype, smem) == lib.alpro_bert_attn_max_seq(bf, dev)
+        assert block_attn.max_seq(dtype, smem) == lib.alpro_block_attn_max_seq(bf, dev)
+
+
+# ---- B17: the whole attention sublayer ----
+
+
+def _block_args(B, S, D, cuda, dtype, seed=0):
+    return (_randn((B, S, D), seed, cuda, dtype),
+            _randn((3 * D, D), seed + 1, cuda, dtype, D ** -0.5),
+            _randn((3 * D,), seed + 2, cuda, torch.float32, 0.1),
+            _randn((D, D), seed + 3, cuda, dtype, D ** -0.5),
+            _randn((D,), seed + 4, cuda, torch.float32, 0.1))
+
+
+def _lengths_mask(B, S, cuda):
+    mask = torch.ones(B, S, device=cuda)
+    for b in range(B):
+        mask[b, 1 + (37 * b) % S:] = 0.0
+    return mask
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,D,masked", [(4, 197, 768, False), (4, 197, 768, True),
+                                          (3, 17, 256, True), (2, 150, 1024, False)])
+def test_block_attn_kernel_matches_twin(cuda, B, S, D, masked, dtype):
+    if dtype == torch.float32 and S > block_attn.max_seq(dtype, _build.smem_optin(cuda)):
+        S = block_attn.max_seq(dtype, _build.smem_optin(cuda))
+    args = _block_args(B, S, D, cuda, dtype, seed=S)
+    mask = _lengths_mask(B, S, cuda) if masked else None
+    H = D // 64
+    n = block_attn.launches
+    got = block_attn.fused_attention_block(*args, H, mask)
+    torch.cuda.synchronize()
+    assert block_attn.launches == n + 1
+    want = block_attn.fused_attention_block_plain(*args, H, mask)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_block_attn_gradients_match_twin_autograd(cuda):
+    """The Function's backward is the twin's vjp: all five gradients equal
+    autograd through the twin on the same inputs (fp32, up to the
+    recompute's summation order)."""
+    args = _block_args(2, 33, 256, cuda, torch.float32, seed=5)
+    mask = _lengths_mask(2, 33, cuda)
+    cot = _randn((2, 33, 256), 11, cuda, torch.float32)
+    a = [t.clone().requires_grad_(True) for t in args]
+    got = torch.autograd.grad(block_attn.fused_attention_block(*a, 4, mask), a, cot)
+    b = [t.clone().requires_grad_(True) for t in args]
+    want = torch.autograd.grad(block_attn.fused_attention_block_plain(*b, 4, mask), b, cot)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=1e-4)
+
+
+def test_block_attn_raises_past_its_limits(cuda):
+    limit = block_attn.max_seq(torch.bfloat16, _build.smem_optin(cuda))
+    args = _block_args(1, limit, 768, cuda, torch.bfloat16)
+    got = block_attn.fused_attention_block(*args, 12)
+    torch.testing.assert_close(got.float(),
+                               block_attn.fused_attention_block_plain(*args, 12).float(),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match=f"S <= {limit}"):
+        block_attn.fused_attention_block(*_block_args(1, limit + 1, 768, cuda, torch.bfloat16),
+                                         12)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        block_attn.fused_attention_block(*_block_args(1, 9, 768, cuda, torch.bfloat16), 16)

@@ -111,13 +111,18 @@ def test_fused_ingest_bf16_matches_jax():
     np.testing.assert_allclose(got, want, atol=6e-2, rtol=0)
 
 
-def test_auto_never_picks_the_fused_ingest():
-    """'auto' resolves to the first kernel value in eval on a CUDA tensor and
-    to plain otherwise — never to fused_ln_qkv or fused_block — and the
-    fused patch embed is off unless set."""
+def test_auto_never_picks_the_fused_ingest(monkeypatch):
+    """'auto' resolves to the first kernel value in eval on a CUDA tensor
+    inside the kernels' limits and to plain otherwise — never to
+    fused_ln_qkv or fused_block — and the fused patch embed is off unless
+    set."""
     cfg = TimeSformerConfig(**_toy(2))
     cpu = torch.zeros(1, 2, 4, 32)
-    cuda = types.SimpleNamespace(device=torch.device("cuda"))  # impl() reads the device only
+    # a CUDA stand-in: impl() reads the device, the shape (D = 4 heads of 64,
+    # which the kernels take), the dtype and the device's opt-in shared memory
+    monkeypatch.setattr(fused_block._build, "smem_optin", lambda device: 232448)
+    cuda = types.SimpleNamespace(device=torch.device("cuda"), shape=(1, 2, 4, 256),
+                                 dtype=torch.bfloat16)
     for field, first in (("attn_impl", "fused_qkv"), ("temporal_attn_impl", "fused_qkv_fold")):
         assert cfg.impl(field, cuda, False) == first
         for x, training in ((cuda, True), (cpu, False), (cpu, True)):

@@ -53,7 +53,7 @@ import alpro_tpu_torch.evals.qa
 import alpro_tpu_torch.ops.qkv_attn, alpro_tpu_torch.ops.ln_mlp, alpro_tpu_torch.ops.bert_block
 import alpro_tpu_torch.ops.masked_attn, alpro_tpu_torch.ops.attention, alpro_tpu_torch.ops.layers
 import alpro_tpu_torch.ops.ln_matmul, alpro_tpu_torch.ops.preprocess, alpro_tpu_torch.ops.fused_block
-import alpro_tpu_torch.ops.layernorm
+import alpro_tpu_torch.ops.layernorm, alpro_tpu_torch.ops.temporal_attn, alpro_tpu_torch.ops.block_attn
 import alpro_tpu_torch.objectives.vtc, alpro_tpu_torch.objectives.vtm
 import alpro_tpu_torch.train.optimizer, alpro_tpu_torch.train.state, alpro_tpu_torch.train.step
 heavy = sorted({m.split('.')[0] for m in sys.modules}

@@ -129,13 +129,17 @@ def test_model_path_d_bf16_matches_jax():
     np.testing.assert_allclose(got, want, atol=6e-2, rtol=0)
 
 
-def test_training_mapping_follows_jax():
+def test_training_mapping_follows_jax(monkeypatch):
     """In training (JAX ``deterministic=False``): ``cls_sideband`` defers to
     ``auto`` (plain in training), ``fused_qkv_proj`` is ``fused_qkv`` on both
     axes (plain spatial with attention dropout on); in eval each names its
     kernel, on a CPU tensor too; ``auto`` never picks either."""
     cpu = torch.zeros(1, 2, 4, 32)
-    cuda = types.SimpleNamespace(device=torch.device("cuda"))  # impl() reads the device only
+    # a CUDA stand-in: impl() reads the device, the shape (D = 4 heads of 64,
+    # which the kernels take), the dtype and the device's opt-in shared memory
+    monkeypatch.setattr(qkv_attn._build, "smem_optin", lambda device: 232448)
+    cuda = types.SimpleNamespace(device=torch.device("cuda"), shape=(1, 2, 4, 256),
+                                 dtype=torch.bfloat16)
     fields = ("attn_impl", "temporal_attn_impl", "mlp_impl")
     c, d = TimeSformerConfig(**_toy(2), **PATH_C), TimeSformerConfig(**_toy(2), **PATH_D)
     assert [c.impl(f, cpu, False) for f in fields] == ["cls_sideband", "fused_qkv_fold", "fused"]
