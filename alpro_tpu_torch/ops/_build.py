@@ -40,6 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # qkv, out, M, S, H, hd, scale, is_bf16, device, stream
     "alpro_spatial_attn": ([_P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # S, hd, is_bf16, device
+    "alpro_spatial_attn_smem": ([_I, _I, _I, _I], _I),
     # qkv, out, B, T, N, H, hd, scale, is_bf16, device, stream
     "alpro_temporal_attn": ([_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, out, partial, R, D, Dh, h_split,

@@ -23,9 +23,9 @@ Counterpart of ``alpro_tpu/ops/pallas_qkv_attn.py``:
 Channel layout is the fused qkv projection's: ``[q | k | v]``, each (H, hd)
 head-major; projection weights in torch Linear layout (out, in). A wrapper
 runs the twin only for a CPU tensor; for a CUDA tensor it launches the kernel
-or raises. ``*_launches`` count kernel launches (one per call). K1 and K2
-each have one limit predicate (``spatial_fits``: head_dim % 16, S up to
-``spatial_max_seq``, 224 in bf16 at head_dim 64 on an H100;
+or raises. ``*_launches`` count kernel launches (one per call). K1 (with
+B6) and K2 each have one limit predicate (``spatial_fits``: head_dim 32,
+64 or 128 and a launch that fits shared memory, any S;
 ``temporal_fits``: head_dim a multiple of 8 up to 128, T up to 128), which
 their wrappers' checks and the model's ``auto`` read. The temporal kernel
 also carries B16 (``ops/temporal_attn.py``).
@@ -68,29 +68,58 @@ _TEMPORAL_MAX_HD = 128  # csrc/temporal_attn.cu: up to 4 channels per lane
 #      memory per block (_build.smem_optin) ----
 
 
-def spatial_smem_bytes(S: int, hd: int, dtype: torch.dtype) -> int:
-    """Shared memory of one K1 block (``csrc/spatial_attn.cu`` smem_bytes):
-    K and V of the frame, the query tile, its fp32 scores and output."""
-    es = dtype.itemsize
-    qt = 128 if es == 2 else 64
-    sp = -(-S // 16) * 16
-    return 2 * sp * hd * es + qt * hd * es + qt * sp * 4 + qt * hd * 4 + 2 * qt * 4
+_SPATIAL_HEAD_DIMS = (32, 64, 128)  # csrc/spatial_attn.cu Cfg / dispatch
+_SPATIAL_MAX_SLOTS = 30  # csrc/spatial_attn.cu kMaxSlots
 
 
-def spatial_max_seq(hd: int, dtype: torch.dtype, smem: int) -> int:
-    """The largest S K1 takes at head_dim ``hd`` in ``dtype`` (224 in bf16
-    at head_dim 64 on an H100)."""
-    s = 0
-    while spatial_smem_bytes(s + 16, hd, dtype) <= smem:
-        s += 16
-    return s
+def spatial_smem_bytes(S: int, hd: int, dtype: torch.dtype, smem: int) -> int:
+    """Dynamic shared memory of a K1 launch at S keys (``csrc/spatial_attn.cu``
+    ``alpro_spatial_attn_smem``) on a device with ``smem`` bytes of opt-in
+    shared memory per block, or 0 where no launch fits. bf16: two 64-row
+    query tiles and the CLS key block, plus K and V in chunks of up to 256
+    keys (128 at head_dim 128) — all of them where they fit, else a ring of
+    at least two; fp32: a 64-row query tile, K, V and o chunks and the score
+    chunk, whatever S. A B6 launch at S = N + 1 needs no more."""
+    if S < 1 or hd not in _SPATIAL_HEAD_DIMS:
+        return 0
+    if dtype == torch.float32:
+        need = (4 * 64 * hd + 64 * 64 + 2 * 64) * 4
+        return need if need <= smem else 0
+    max_n = 128 if hd == 128 else 256
+    if S <= max_n:
+        n, rows = 1, -(-S // 64) * 64
+    else:
+        n, rows = -(-S // max_n), max_n
+    fixed = 2048 + 2 * 64 * hd * 2 + -(-8 * hd * 2 // 1024) * 1024
+    slot = 2 * rows * hd * 2
+    slots = min(n, _SPATIAL_MAX_SLOTS, max(0, (smem - fixed) // slot))
+    return fixed + slots * slot if slots >= (2 if n > 1 else 1) else 0
 
 
 def spatial_fits(M: int, S: int, num_heads: int, hd: int, dtype: torch.dtype,
                  smem: int) -> bool:
-    """Whether K1 takes (M, S, 3·H·hd) qkv in ``dtype``."""
-    return (dtype in _DTYPES and hd % 16 == 0 and 1 <= S and M <= _MAX_GRID_YZ
-            and num_heads <= _MAX_GRID_YZ and spatial_smem_bytes(S, hd, dtype) <= smem)
+    """Whether K1 takes (M, S, 3·H·hd) qkv in ``dtype`` (and B6 its N = S - 1
+    patches): head_dim 32, 64 or 128, M and H within the grid, and a launch
+    that fits the device's shared memory. S has no upper limit: past one
+    chunk of keys the kernel walks them twice and streams K and V."""
+    return (dtype in _DTYPES and 1 <= S and M <= _MAX_GRID_YZ and num_heads <= _MAX_GRID_YZ
+            and spatial_smem_bytes(S, hd, dtype, smem) > 0)
+
+
+def spatial_launch_smem(S: int, hd: int, dtype: torch.dtype, device) -> int:
+    """The CUDA side's figure for ``spatial_smem_bytes`` on ``device``."""
+    dev = torch.device(device).index
+    return _build.lib().alpro_spatial_attn_smem(
+        S, hd, int(dtype == torch.bfloat16), torch.cuda.current_device() if dev is None else dev)
+
+
+def _spatial_check(name: str, M: int, S: int, num_heads: int, hd: int, dtype, device) -> None:
+    if not spatial_fits(M, S, num_heads, hd, dtype, _build.smem_optin(device)):
+        raise ValueError(
+            f"{name}: the spatial kernel needs head_dim in {_SPATIAL_HEAD_DIMS}, M, H <= "
+            f"{_MAX_GRID_YZ}, S >= 1 and a launch that fits shared memory; got head_dim={hd}, "
+            f"M={M}, H={num_heads}, S={S}"
+        )
 
 
 def temporal_fits(T: int, hd: int, dtype: torch.dtype, smem: int) -> bool:
@@ -185,14 +214,7 @@ def _spatial_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Te
     hd = _head_dim(qkv, num_heads)
     _build.check_cuda_operand(qkv, "spatial_attention_qkv", _DTYPES)
     M, S, _ = qkv.shape
-    smem = _build.smem_optin(qkv.device)
-    if not spatial_fits(M, S, num_heads, hd, qkv.dtype, smem):
-        raise ValueError(
-            f"spatial kernel needs head_dim % 16 == 0, M, H <= {_MAX_GRID_YZ} and "
-            f"1 <= S <= {spatial_max_seq(hd, qkv.dtype, smem)} for {qkv.dtype} on this device "
-            f"(K, V and the fp32 score rows in shared memory); got head_dim={hd}, M={M}, "
-            f"H={num_heads}, S={S}"
-        )
+    _spatial_check("spatial_attention_qkv", M, S, num_heads, hd, qkv.dtype, qkv.device)
     out = torch.empty((M, S, num_heads * hd), dtype=qkv.dtype, device=qkv.device)
     dev, stream = _build.stream_args(qkv)
     err = _build.lib().alpro_spatial_attn(
@@ -285,11 +307,8 @@ def spatial_attention_qkv_cls(qkv_x: torch.Tensor, qkv_c: torch.Tensor, num_head
     _build.refuse_grad("spatial_attention_qkv_cls", qkv_x, qkv_c)
     _build.check_cuda_operand(qkv_x, "spatial_attention_qkv_cls", _DTYPES)
     _build.check_cuda_operand(qkv_c, "spatial_attention_qkv_cls cls", (qkv_x.dtype,))
-    if hd % 16 or M > _MAX_GRID_YZ or num_heads > _MAX_GRID_YZ:
-        raise ValueError(
-            f"spatial kernel needs head_dim % 16 == 0 and M, H <= {_MAX_GRID_YZ};"
-            f" got head_dim={hd}, M={M}, H={num_heads}"
-        )
+    _spatial_check("spatial_attention_qkv_cls", M, N + 1, num_heads, hd, qkv_x.dtype,
+                   qkv_x.device)
     out_x = qkv_x.new_empty((M, N, threeD // 3))
     out_c = qkv_x.new_empty((M, 1, threeD // 3))
     dev, stream = _build.stream_args(qkv_x)

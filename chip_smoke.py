@@ -64,10 +64,13 @@ line):
    the QA shape, fp32), gradients against autograd through the twins, B17
    against the port's ``Attention`` module on the same weights; phase 4's
    video tower under ``temporal_attn_impl='packed'`` and ``'circulant'``
-   against phase 4's plain path; then eval forwards under ``auto`` one past
-   a kernel's limit (T = 129 frames, BERT S = 800 in bf16, 256² frames,
-   and D = 384 for the MLP tail, at narrow widths): each equals the forward
-   with that call site set to ``plain`` and launches none of the kernel
+   against phase 4's plain path; the spatial kernels at 256² frames (S =
+   257, past one key chunk: ``auto`` launches K1 and ``cls_sideband`` B6,
+   each within TOWER_TOL of the forward with ``attn_impl='plain'``); then
+   eval forwards under ``auto`` one past a kernel's limit (T = 129 frames,
+   BERT S = 800 in bf16, head_dim 48 for K1, which has no S limit, and D =
+   384 for the MLP tail, at narrow widths): each equals the forward with
+   that call site set to ``plain`` and launches none of the kernel
    concerned, while the same model at the limit launches it.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
@@ -148,6 +151,11 @@ LN_GRAD_TOL = 2e-2
 # recomputed) against autograd through the twins: max |difference| <= this
 # share of max |twin gradient|
 LAST_GRAD_TOL = 3e-2
+# a narrow bf16 video tower (2 blocks) with the spatial kernel vs with the
+# plain spatial attention: the kernel rounds p to bf16 where the plain path
+# keeps fp32 (KERNEL_TOL's 3e-2 on the attention output); the outputs may
+# differ by this share of their largest entry
+TOWER_TOL = 3e-2
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # query vs query_batch: the same bf16 towers at batch 1 and 4
@@ -293,11 +301,12 @@ def phase_kernels(card: str) -> dict:
     H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
     D, Dh = H * hd, 3072
     res = {k: [] for k in KERNEL_TOL}
-    for M, main in ((2 * T, False), (B * T, True)):
-        x = randn(M, 1 + N, 3 * D)
+    # K1 also at 256² and 384² frames (S = 257, 577: two and three key chunks)
+    for M, S, main in ((2 * T, 1 + N, False), (B * T, 1 + N, True), (B * T, 257, False),
+                       (B * T, 577, False)):
+        x = randn(M, S, 3 * D)
         q, k, v = (x[..., i * D:(i + 1) * D].unflatten(-1, (H, hd)).transpose(1, 2)
                    for i in range(3))
-        S = 1 + N
         res["spatial_attn"].append(_compare(
             "spatial_attn", x.shape, lambda: qkv_attn.spatial_attention_qkv(x, H),
             lambda: qkv_attn.spatial_attention_plain(x, H, hd ** -0.5), card, main,
@@ -356,7 +365,8 @@ def phase_kernels(card: str) -> dict:
 
 def _opt_in_kernels(res, randn, card) -> None:
     """B6, B7 and B8 at the shapes of one add_videos call of CLIPS_PER_CALL
-    clips (main) and of the QA encode (2 clips, T=16); B8 also at T=32. B14
+    clips (main) and of the QA encode (2 clips, T=16); B6 also at 256² and
+    384² frames (N = 256, 576), B8 at T=32. B14
     at the rows of one add_videos call's spatial input, bf16 → bf16 (main)
     and fp32 → bf16. Library calls: SDPA over the pre-concatenated [cls; x]
     packed qkv for B6 (the concat not timed), one ``layer_norm`` for B14;
@@ -365,18 +375,19 @@ def _opt_in_kernels(res, randn, card) -> None:
 
     H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
     D, S = H * hd, 1 + PATCHES
-    for b, t, main in ((B, T, True), (2, 16, False)):
-        qx, qc = randn(b * t, N, 3 * D), randn(b, 1, 3 * D)
+    for b, t, n, main in ((B, T, N, True), (2, 16, N, False), (B, T, 256, False),
+                          (B, T, 576, False)):
+        qx, qc = randn(b * t, n, 3 * D), randn(b, 1, 3 * D)
         full = torch.cat([qc[:, None].expand(b, t, 1, 3 * D).reshape(b * t, 1, 3 * D), qx], 1)
         heads = [full[..., i * D:(i + 1) * D].unflatten(-1, (H, hd)).transpose(1, 2)
                  for i in range(3)]
-        M = b * t
+        M, Sn = b * t, 1 + n
         res["spatial_cls_attn"].append(_compare(
-            "spatial_cls_attn", (M, N, 3 * D),
+            "spatial_cls_attn", (M, n, 3 * D),
             lambda: qkv_attn.spatial_attention_qkv_cls(qx, qc, H, t),
             lambda: qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, t), card,
             main, library=lambda: _sdpa(*heads),
-            work=(4 * M * H * S * S * hd, 2 * (qx.numel() + qc.numel()) + 2 * M * S * D)))
+            work=(4 * M * H * Sn * Sn * hd, 2 * (qx.numel() + qc.numel()) + 2 * M * Sn * D)))
     wp, bp = randn(D, D, std=D ** -0.5), randn(D, std=0.02).float()
     w_bytes = D * D * 2 + D * 4
     for M, main in ((B * T, True), (2 * 16, False)):
@@ -1064,6 +1075,28 @@ def _auto_limit(what, model, cfg, past, at, field, kernels, forward, at_model=No
     fail_if(diff != 0.0, f"auto at {what}: differs from {field}='plain' by {diff}")
 
 
+def _kernel_vs_plain(what, model, cfg, x, field, kernel, forward) -> None:
+    """``model`` under config ``cfg`` on ``x`` launches ``kernel`` and
+    matches the forward with ``field`` set to 'plain' within TOWER_TOL of its
+    largest entry."""
+    with torch.no_grad():
+        model.cfg = cfg
+        _reset_counts()
+        out = forward(model, x)
+        torch.cuda.synchronize()
+        n = _counts()[kernel]
+        model.cfg = dataclasses.replace(cfg, **{field: "plain"})
+        ref = forward(model, x)
+        model.cfg = cfg
+    diff = float((out.float() - ref.float()).abs().max())
+    scale = float(ref.float().abs().max())
+    print(f"[last] {what}: {kernel} launches {n}; vs {field}='plain' max_abs {diff:.3e} "
+          f"(max |plain| {scale:.3e}, tol {TOWER_TOL} of it)", flush=True)
+    fail_if(not bool(torch.isfinite(out.float()).all()), f"{what}: non-finite output")
+    fail_if(n == 0, f"{what}: {kernel} did not launch")
+    fail_if(diff > TOWER_TOL * scale, f"{what}: differs from {field}='plain' by {diff}")
+
+
 def phase_last(card: str, res: dict, ret: dict) -> dict:
     """Phase 9: B16 and B17 through their public entries (the main path,
     counted), against their twins, their gradients, B17 against the port's
@@ -1214,9 +1247,19 @@ def phase_last(card: str, res: dict, ret: dict) -> dict:
 
     _auto_limit(f"T = {tmax + 1} frames", tower(narrow, SEED + 9), narrow, frames(tmax + 1, 32),
                 frames(tmax, 32), "temporal_attn_impl", ("temporal_attn",), video)
+    # K1 and B6 take any S: at 256² frames (S = 257, two key chunks) 'auto'
+    # and 'cls_sideband' launch them and match 'plain'; their limit is the
+    # head_dim, so 'auto' one past it (48) is 'plain' bit for bit
     big = dataclasses.replace(narrow, img_size=256, num_frames=2)
-    _auto_limit("256² frames (S = 257; 224² at the limit)", tower(big, SEED + 10), big,
-                frames(2, 256), frames(2, 224), "attn_impl", ("spatial_attn",), video)
+    big_tower = tower(big, SEED + 10)
+    for impl, kernel in (("auto", "spatial_attn"), ("cls_sideband", "spatial_cls_attn")):
+        _kernel_vs_plain(f"attn_impl={impl!r} at 256² frames (S = 257)", big_tower,
+                         dataclasses.replace(big, attn_impl=impl), frames(2, 256), "attn_impl",
+                         kernel, video)
+    odd = dataclasses.replace(narrow, embed_dim=192, num_heads=4, num_frames=2)
+    _auto_limit("head_dim 48 (K1 takes 32, 64, 128; 64 at the limit)", tower(odd, SEED + 13),
+                odd, frames(2, 32), frames(2, 32), "attn_impl", ("spatial_attn",), video,
+                at_model=tower(dataclasses.replace(narrow, num_frames=2), SEED + 13))
     wide = dataclasses.replace(narrow, embed_dim=384, num_heads=6, num_frames=2)
     _auto_limit("D = 384 (MLP tail; D = 256 at the limit)", tower(wide, SEED + 11), wide,
                 frames(2, 32), frames(2, 32), "mlp_impl", ("ln_mlp",), video,

@@ -1,7 +1,7 @@
 """``auto`` stays inside each kernel's limits, on the CPU with the limits
 passed in.
 
-Each of K1-K5 has one limit predicate in its ``ops`` module — the code the
+Each of K1-K5 (K1 with B6) has one limit predicate in its ``ops`` module — the code the
 wrapper's check calls — taking the device's opt-in shared memory per block
 as a number. ``TimeSformerConfig.impl`` and ``BertConfig.use_fused`` resolve
 ``auto`` to a kernel only where that predicate holds for the call site's
@@ -39,13 +39,23 @@ def h100(monkeypatch):
 
 
 def test_predicates_at_their_edges():
-    # K1: S up to 224 in bf16 and 256 in fp32 at head_dim 64 (img 224 gives 197)
-    assert qkv_attn.spatial_max_seq(64, BF16, H100_SMEM) == 224
-    assert qkv_attn.spatial_max_seq(64, F32, H100_SMEM) == 256
-    assert qkv_attn.spatial_fits(64, 224, 12, 64, BF16, H100_SMEM)
-    assert not qkv_attn.spatial_fits(64, 225, 12, 64, BF16, H100_SMEM)
-    assert not qkv_attn.spatial_fits(8, 257, 12, 64, BF16, H100_SMEM)  # img 256
+    # K1 (and B6 at S = N + 1): head_dim 32, 64 or 128 and any S — past one
+    # chunk of keys it walks them twice (img 224 gives 197, 256 gives 257,
+    # 384 gives 577, 400 gives 626); the launch's shared memory at the
+    # main shape, at 256² and past what stays resident (streamed K and V)
+    assert qkv_attn.spatial_smem_bytes(197, 64, BF16, H100_SMEM) == 84992
+    assert qkv_attn.spatial_smem_bytes(257, 64, BF16, H100_SMEM) == 150528
+    assert qkv_attn.spatial_smem_bytes(1000, 64, BF16, H100_SMEM) == 216064
+    assert qkv_attn.spatial_smem_bytes(257, 64, F32, H100_SMEM) == 82432
+    for S in (197, 224, 225, 257, 577, 626, 640, 4096):
+        assert qkv_attn.spatial_fits(64, S, 12, 64, BF16, H100_SMEM)
+        assert qkv_attn.spatial_fits(64, S, 12, 64, F32, H100_SMEM)
+    assert qkv_attn.spatial_fits(8, 640, 12, 128, BF16, H100_SMEM)
+    assert qkv_attn.spatial_fits(8, 640, 24, 32, F32, H100_SMEM)
+    assert not qkv_attn.spatial_fits(8, 0, 12, 64, BF16, H100_SMEM)
     assert not qkv_attn.spatial_fits(8, 197, 12, 40, BF16, H100_SMEM)  # head_dim % 16
+    assert not qkv_attn.spatial_fits(8, 197, 16, 48, BF16, H100_SMEM)  # no panel width
+    assert not qkv_attn.spatial_fits(8, 197, 12, 256, F32, H100_SMEM)
     assert not qkv_attn.spatial_fits(70000, 197, 12, 64, BF16, H100_SMEM)  # grid z
     # K2 / B16: T up to 128, head_dim a multiple of 8 up to 128
     assert qkv_attn.temporal_fits(128, 64, BF16, H100_SMEM)
@@ -61,7 +71,9 @@ def test_predicates_at_their_edges():
     assert ln_mlp.ln_mlp_fits(768, 3072, BF16)
     assert not ln_mlp.ln_mlp_fits(384, 1536, BF16)
     # the predicates read the figure they are given
-    assert qkv_attn.spatial_max_seq(64, BF16, 160_000) < 197
+    assert not qkv_attn.spatial_fits(8, 197, 12, 64, BF16, 80_000)  # 84,992 at S = 197
+    assert qkv_attn.spatial_fits(8, 197, 12, 64, BF16, 84_992)
+    assert not qkv_attn.spatial_fits(8, 257, 12, 64, BF16, 150_000)  # two 64 KB slots
     assert bert_block.max_seq(BF16, 160_000) < 752
 
 
@@ -78,10 +90,17 @@ def test_timesformer_auto_stays_inside(h100):
     assert cfg.impl("temporal_attn_impl", h100((1, 128, 4, 768)), False) == "fused_qkv_fold"
     long_t = h100((1, 129, 4, 768))
     assert [cfg.impl(f, long_t, False) for f in fields] == ["fused_qkv", "plain", "fused"]
-    big_img = h100((8, 8, 256, 768))  # 256² frames: S = 257 per frame
-    assert [cfg.impl(f, big_img, False) for f in fields] == ["plain", "fused_qkv_fold", "fused"]
-    assert cfg.impl("attn_impl", big_img, False, dtype=F32) == "plain"  # 257 > 256 in fp32
-    assert cfg.impl("attn_impl", h100((8, 8, 255, 768)), False, dtype=F32) == "fused_qkv"
+    big_img = h100((8, 8, 256, 768))  # 256² frames: S = 257 per frame, two key chunks
+    assert [cfg.impl(f, big_img, False) for f in fields] == ["fused_qkv", "fused_qkv_fold",
+                                                             "fused"]
+    assert cfg.impl("attn_impl", big_img, False, dtype=F32) == "fused_qkv"
+    assert cfg.impl("attn_impl", h100((8, 8, 625, 768)), False) == "fused_qkv"  # 400² frames
+    # B6's predicate is K1's at S = N + 1 (explicit 'cls_sideband'; auto never picks it)
+    sideband = TimeSformerConfig(attn_impl="cls_sideband")
+    assert sideband.kernel_fits("attn_impl", (8, 8, 256, 768), BF16, H100_SMEM)
+    assert sideband.impl("attn_impl", big_img, False) == "cls_sideband"
+    assert not TimeSformerConfig(embed_dim=768, num_heads=16).kernel_fits(
+        "attn_impl", (8, 8, 256, 768), BF16, H100_SMEM)  # head_dim 48
     narrow = TimeSformerConfig(embed_dim=384, num_heads=6)  # K3 takes no D = 384
     assert [narrow.impl(f, h100((2, 8, 196, 384)), False) for f in fields] == [
         "fused_qkv", "fused_qkv_fold", "plain"]
@@ -92,6 +111,8 @@ def test_timesformer_auto_stays_inside(h100):
     explicit = TimeSformerConfig(attn_impl="fused_qkv", temporal_attn_impl="fused_qkv_fold")
     assert explicit.impl("temporal_attn_impl", long_t, False) == "fused_qkv_fold"
     assert explicit.impl("attn_impl", big_img, False) == "fused_qkv"
+    odd48 = TimeSformerConfig(embed_dim=768, num_heads=16, attn_impl="fused_qkv")
+    assert odd48.impl("attn_impl", flagship, False) == "fused_qkv"  # raises at launch
 
 
 def test_bert_auto_stays_inside(h100):

@@ -57,6 +57,48 @@ def test_spatial_kernel_matches_twin(cuda, M, S, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# K1's and B6's envelope: S across the query-tile (64) and key-chunk edges
+# (256, 128 at head_dim 128), the two-pass lengths of 256², 384² and 400²
+# frames (257, 577, 640) and lengths whose K and V no longer all fit in
+# shared memory (1000 at head_dim 64 and 128, 2000 at 32: streamed through
+# the TMA ring); M·H = 276 blocks, above two per SM on 132 SMs
+_SPATIAL_SEQS = [1, 15, 16, 17, 65, 196, 197, 257, 577, 640, 1000, 2000]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", _SPATIAL_SEQS)
+def test_spatial_kernel_envelope_matches_twin(cuda, S, hd, dtype):
+    M, H = 23, 12
+    x = _randn((M, S, 3 * H * hd), S + hd, cuda, dtype)
+    n = qkv_attn.spatial_launches
+    got = qkv_attn.spatial_attention_qkv(x, H)
+    torch.cuda.synchronize()
+    assert qkv_attn.spatial_launches == n + 1
+    want = qkv_attn.spatial_attention_plain(x, H, hd ** -0.5)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("S", _SPATIAL_SEQS)
+def test_spatial_cls_kernel_envelope_matches_twin(cuda, S, hd, dtype):
+    """B6 at N = S - 1 patches (S = 1: the CLS row alone is not a frame, so
+    N = 1 there); T = 8 frames per sample, M = 24 frames."""
+    B, T, H, N = 3, 8, 12, max(S - 1, 1)
+    qx = _randn((B * T, N, 3 * H * hd), N + hd, cuda, dtype)
+    qc = _randn((B, 1, 3 * H * hd), hd, cuda, dtype)
+    n = qkv_attn.spatial_cls_launches
+    got = qkv_attn.spatial_attention_qkv_cls(qx, qc, H, T)
+    torch.cuda.synchronize()
+    assert qkv_attn.spatial_cls_launches == n + 1
+    want = qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, T)
+    tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T", [1, 8, 16])
 def test_temporal_kernel_matches_twin(cuda, T, dtype):
@@ -610,16 +652,22 @@ def test_temporal_roll_gradient_matches_twin_autograd(cuda):
 
 
 def test_spatial_kernel_raises_past_its_seq_limit(cuda):
-    """K1 at S = 224 (the limit in bf16 at head_dim 64 on an H100) launches;
-    at S = 257 (256² frames) it raises ValueError before the launch."""
-    limit = qkv_attn.spatial_max_seq(64, torch.bfloat16, _build.smem_optin(cuda))
-    x = _randn((2, limit, 3 * 768), 1, cuda, torch.bfloat16)
-    torch.testing.assert_close(qkv_attn.spatial_attention_qkv(x, 12).float(),
-                               qkv_attn.spatial_attention_plain(x, 12, 0.125).float(),
-                               atol=3e-2, rtol=3e-2)
-    with pytest.raises(ValueError, match=f"S <= {limit}"):
-        qkv_attn.spatial_attention_qkv(torch.zeros(2, 257, 3 * 768, device=cuda,
-                                                   dtype=torch.bfloat16), 12)
+    """K1 has no limit on S since it walks long rows in key chunks: S = 257
+    (256² frames, past the former limit of 224) and 640 launch and match the twin. Its
+    limit is the head_dim: one past the envelope (48, a multiple of 16 but
+    no kernel's panel width) K1 and B6 raise ValueError before a launch."""
+    for S in (257, 640):
+        x = _randn((2, S, 3 * 768), S, cuda, torch.bfloat16)
+        torch.testing.assert_close(qkv_attn.spatial_attention_qkv(x, 12).float(),
+                                   qkv_attn.spatial_attention_plain(x, 12, 0.125).float(),
+                                   atol=3e-2, rtol=3e-2)
+    n, nc = qkv_attn.spatial_launches, qkv_attn.spatial_cls_launches
+    x = torch.zeros(2, 197, 3 * 16 * 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim in"):
+        qkv_attn.spatial_attention_qkv(x, 16)
+    with pytest.raises(ValueError, match="head_dim in"):
+        qkv_attn.spatial_attention_qkv_cls(x[:, :196].contiguous(), x[:1, :1].contiguous(), 16, 2)
+    assert (qkv_attn.spatial_launches, qkv_attn.spatial_cls_launches) == (n, nc)
 
 
 def test_python_limits_equal_the_kernels(cuda):
@@ -629,6 +677,10 @@ def test_python_limits_equal_the_kernels(cuda):
         bf = int(dtype == torch.bfloat16)
         assert bert_block.max_seq(dtype, smem) == lib.alpro_bert_attn_max_seq(bf, dev)
         assert block_attn.max_seq(dtype, smem) == lib.alpro_block_attn_max_seq(bf, dev)
+        for hd in (16, 32, 48, 64, 128):
+            for S in (1, 64, 65, 197, 256, 257, 577, 640, 769, 1000, 4000):
+                assert qkv_attn.spatial_smem_bytes(S, hd, dtype, smem) == \
+                    qkv_attn.spatial_launch_smem(S, hd, dtype, cuda), (S, hd, dtype)
 
 
 # ---- B17: the whole attention sublayer ----

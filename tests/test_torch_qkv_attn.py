@@ -31,7 +31,10 @@ def _qkv(shape, seed, dtype="float32"):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,S,H,hd", [(3, 17, 4, 8), (4, 5, 2, 16)])
+# S = 257 and 577: 256² and 384² frames, the lengths past one key chunk that
+# the kernel walks twice
+@pytest.mark.parametrize("M,S,H,hd", [(3, 17, 4, 8), (4, 5, 2, 16), (2, 257, 2, 8),
+                                      (1, 577, 2, 8)])
 def test_spatial_twin_matches_jax_kernel(M, S, H, hd, dtype):
     _, xj, xt = _qkv((M, S, 3 * H * hd), seed=S, dtype=dtype)
     want = np.asarray(fused_attention_qkv(xj, H), np.float32)

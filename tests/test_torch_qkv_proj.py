@@ -39,7 +39,8 @@ def _arrays(rng, *shapes, std=1.0):
     return [(std * rng.randn(*s)).astype(np.float32) for s in shapes]
 
 
-@pytest.mark.parametrize("B,T,N,H,hd", [(2, 3, 10, 2, 8), (1, 4, 5, 3, 16)])
+@pytest.mark.parametrize("B,T,N,H,hd", [(2, 3, 10, 2, 8), (1, 4, 5, 3, 16), (1, 2, 256, 2, 8),
+                                         (1, 2, 576, 2, 8)])
 def test_cls_twin_matches_jax_kernel(B, T, N, H, hd):
     D = H * hd
     qx, qc = _arrays(np.random.RandomState(T), (B * T, N, 3 * D), (B, 1, 3 * D))
