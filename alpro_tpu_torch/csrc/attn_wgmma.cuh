@@ -1,0 +1,540 @@
+// The bf16 attention body on Hopper, shared by K1 and B6 (csrc/spatial_attn.cu)
+// and B12/B13 (csrc/masked_attn.cu).
+//
+// Contract (all four TPU kernels'): scores are q·kᵀ on the stored bf16
+// operands with fp32 accumulation; the scale is applied to the fp32 scores,
+// then (kBias) the key's fp32 additive bias; the exact fp32 row max over every
+// key is known before any p is rounded; p = exp(s - max) in fp32 and the row
+// sum l from the fp32 p; p rounded to bf16 for P·V with fp32 accumulation;
+// o / l written in bf16 last. This is not an online (flash) softmax, so the
+// result does not depend on how the keys are chunked.
+//
+// What bounds it on an H100: two Sq x Sk x hd products per (sequence, head)
+// over (Sq + 2 Sk)·hd operands; at the model's shapes (S = 197 and 237, hd =
+// 64) the bytes set the least time (3.35 TB/s) well above the tensor cores'
+// (989 TFLOP/s). So each byte of q, k and v is read once and everything else
+// stays on chip. One CTA of one warpgroup per (head, sequence):
+//   * q, k and v each come through a 4-D TMA map {hd, S, H, B} built from the
+//     operand's own strides, box (P, 16, 1, 1), 128- or 64-byte swizzled:
+//     views of a packed [q | k | v] projection, separate (B, S, H·hd) tensors
+//     and contiguous (B, H, S, hd) are one form. S is a dimension of each
+//     map, so TMA zero-fills rows past Sq and Sk (keys past Sk are masked by
+//     select besides);
+//   * the head's K and V are staged once for every 64-row query tile of the
+//     CTA, the query tiles double-buffered, all completing on mbarriers;
+//   * QKᵀ and P·V run on wgmma (m64, A from registers: Q by ldmatrix, then P
+//     converted in place from the score accumulators; B from shared memory:
+//     K K-major, V MN-major through the transposed-B descriptor);
+//   * the 64 x (up to 256) fp32 score rows stay in registers; the row max and
+//     sum reduce over the four lanes that share a row;
+//   * up to 256 keys (128 at hd = 128) the softmax is one pass; longer rows
+//     walk the keys in chunks twice (first the exact row max, then exp, sum
+//     and P·V), K and V resident in shared memory where they fit (hd = 64: S
+//     <= 768) and streamed through a ring of TMA slots past that;
+//   * kBias: the CTA stages its sequence's key bias (1 - mask)·-10000 (Sk
+//     fp32, from the key mask) in shared memory once; right after QKᵀ each
+//     thread turns the scores it holds into s·scale + bias in place (one FMA
+//     each), so the max, p = 2^(x·log2e - max·log2e) and the masking of keys
+//     past Sk are those of the unbiased body;
+//   * where B·H CTAs would leave resident slots of the card idle (the longest
+//     fusion sequence: 1 x 12 heads), the query tiles are split over grid z;
+//     each such CTA stages K and V itself and L2 serves the repeats.
+#pragma once
+
+#include "hopper.cuh"
+#include "warp_tile.cuh"
+
+// Each translation unit that includes this gets its own kernels (an unnamed
+// namespace): K1's and the masked attention's instantiations never share a
+// symbol between two modules.
+namespace alpro {
+namespace attn {
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace hp = alpro::hopper;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSlots = 30;  // K/V slots: barriers fit the first 256 bytes
+
+template <int HD> struct Cfg {
+  static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim");
+  static constexpr int P = HD < 64 ? HD : 64;  // panel width (elements)
+  static constexpr int NP = HD / P;            // panels per row
+  static constexpr int SW = P * 2;             // swizzle span (bytes)
+  static constexpr int kMaxN = HD == 128 ? 128 : 256;  // keys per chunk
+  static constexpr int NB = kMaxN / 64;                // 64-key score blocks
+  static constexpr int kQBytes = 64 * HD * 2;          // one query tile
+  static constexpr int kClsBytes = (8 * HD * 2 + 1023) / 1024 * 1024;
+  // 1024 alignment slack + barriers and v_cls + two query tiles + CLS key block
+  static constexpr int kFixed = 1024 + 1024 + 2 * kQBytes + kClsBytes;
+};
+
+// the staged bias row: n chunks of R keys in fp32, padded to 1024 bytes so
+// the K/V slots after it stay aligned for the swizzle
+__host__ __device__ inline long bias_bytes(int n, int R) {
+  return (long(n) * R * 4 + 1023) / 1024 * 1024;
+}
+
+struct Plan {
+  int n = 0;        // key chunks
+  int R = 0;        // rows per chunk in shared memory (multiple of 64)
+  int nslots = 0;   // K/V slots (n: resident)
+  int smem = 0;     // dynamic shared memory, 0: no launch fits
+};
+
+// bias: whether the launch stages a key-bias row
+template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias) {
+  using C = Cfg<HD>;
+  Plan p;
+  if (keys <= C::kMaxN) {
+    p.n = 1;
+    p.R = (keys + 63) / 64 * 64;
+  } else {
+    p.n = (keys + C::kMaxN - 1) / C::kMaxN;
+    p.R = C::kMaxN;
+  }
+  const long fixed = C::kFixed + (bias ? bias_bytes(p.n, p.R) : 0);
+  const long slot = 2L * p.R * HD * 2;
+  long fit = (long(smem_optin) - fixed) / slot;
+  if (fit > kMaxSlots) fit = kMaxSlots;
+  p.nslots = int(fit < p.n ? fit : p.n);
+  if (p.nslots < (p.n > 1 ? 2 : 1)) return Plan{};
+  p.smem = int(fixed + p.nslots * slot);
+  return p;
+}
+
+// The two products of a chunk of NBL 64-key blocks, each one wgmma pipeline
+// stage of straight-line code (a branch between a stage's wgmmas would make
+// ptxas serialize them). s: this thread's NBL x 32 fp32 accumulators; K and
+// V: R-row panels at kb and vb.
+template <int HD, int NBL>
+__device__ __forceinline__ void qk_stage(float (&s)[NBL * 32],
+                                         const uint32_t (&qf)[HD / 16][4],
+                                         const unsigned char* kb, int R) {
+  using C = Cfg<HD>;
+  hp::wgmma_fence();
+#pragma unroll
+  for (int b = 0; b < NBL; ++b) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const unsigned char* p =
+          kb + (kk * 16 / C::P) * R * C::SW + b * 64 * C::SW + (kk * 16 % C::P) * 2;
+      const uint64_t desc = hp::smem_desc<C::SW>(p, 16, 8 * C::SW);
+      if (kk == 0) hp::WgmmaRS<64>::run_zero<0>(s + b * 32, qf[kk], desc);
+      else hp::WgmmaRS<64>::run<0>(s + b * 32, qf[kk], desc, 1);
+    }
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < NBL * 32; ++i) hp::pin(s[i]);
+}
+
+template <int HD, int NBL>
+__device__ __forceinline__ void pv_stage(float (&o)[HD / 2], const uint32_t (&pf)[4 * NBL][4],
+                                         const unsigned char* vb, int R) {
+  using C = Cfg<HD>;
+  hp::wgmma_fence();
+#pragma unroll
+  for (int g = 0; g < 4 * NBL; ++g)
+    hp::WgmmaRS<HD>::template run<1>(
+        o, pf[g], hp::smem_desc<C::SW>(vb + g * 16 * C::SW, R * C::SW, 8 * C::SW), 1);
+  hp::wgmma_commit();
+  hp::wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) hp::pin(o[i]);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// rows r = lane / 4 and r + 8 of this warp's 16 query rows: the running max
+// of the scaled scores and the partial sums of p over this thread's columns
+struct Rows {
+  float mx0, mx1, l0, l1;
+  __device__ __forceinline__ void quad_max() {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+  }
+};
+
+// One chunk of NBL 64-key blocks with `valid` keys, all of it straight-line
+// code (a branch per key group would keep one group's ex2 from overlapping
+// the last one's sums). Pass 1 (pass2 false): the row max only. Pass 2: the
+// max too when the chunk is the row's only one, then p = exp(s - max) in fp32
+// (as 2^(s·scale·log2e - max·log2e): one FMA and ex2), its partial sums, and
+// p rounded to bf16 . V into o. Columns past `valid` (in the last block) are
+// -inf for the max and 0 for p. kBias: cb is the chunk's bias row, added to
+// the scaled scores in place first.
+template <int HD, int NBL, bool kBias>
+__device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, float scale,
+                                           int quad, const uint32_t (&qf)[HD / 16][4],
+                                           const unsigned char* kb, const unsigned char* vb,
+                                           int R, const float* cb, Rows& st,
+                                           float (&o)[HD / 2]) {
+  float s[NBL * 32];
+  qk_stage<HD, NBL>(s, qf, kb, R);
+  // register 4 j + e of block b holds column 64 b + 8 j + 2 quad + (e & 1)
+  float sc = scale;
+  if constexpr (kBias) {
+#pragma unroll
+    for (int b = 0; b < NBL; ++b) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 kbias = *reinterpret_cast<const float2*>(cb + 64 * b + 8 * j + 2 * quad);
+        float* r = s + 32 * b + 4 * j;
+        r[0] = fmaf(r[0], scale, kbias.x);
+        r[1] = fmaf(r[1], scale, kbias.y);
+        r[2] = fmaf(r[2], scale, kbias.x);
+        r[3] = fmaf(r[3], scale, kbias.y);
+      }
+    }
+    sc = 1.0f;  // s holds the biased, scaled scores now
+  }
+  const int lim = valid - 64 * (NBL - 1) - 2 * quad;
+  auto masked = [&](int i) {
+    return i >= 32 * (NBL - 1) && 8 * ((i >> 2) & 7) + (i & 1) >= lim;
+  };
+  if (!pass2 || single) {
+#pragma unroll
+    for (int i = 0; i < NBL * 32; ++i) {
+      const float v = masked(i) ? -INFINITY : s[i] * sc;
+      if (i & 2) st.mx1 = fmaxf(st.mx1, v);
+      else st.mx0 = fmaxf(st.mx0, v);
+    }
+    if (!pass2) return;
+    st.quad_max();
+  }
+  const float sl2 = sc * kLog2e, ml0 = st.mx0 * kLog2e, ml1 = st.mx1 * kLog2e;
+  uint32_t pf[4 * NBL][4];
+#pragma unroll
+  for (int g = 0; g < 4 * NBL; ++g) {
+    float p[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = 8 * g + e;
+      p[e] = masked(i) ? 0.0f : ex2(fmaf(s[i], sl2, (i & 2) ? -ml1 : -ml0));
+    }
+    st.l0 += (p[0] + p[1]) + (p[4] + p[5]);
+    st.l1 += (p[2] + p[3]) + (p[6] + p[7]);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) pf[g][f] = hp::pack_bf16(p[2 * f], p[2 * f + 1]);
+  }
+  pv_stage<HD, NBL>(o, pf, vb, R);
+}
+
+// chunk_step for nbl (1..NB) blocks
+template <int HD, bool kBias, int NBL = 1>
+__device__ __forceinline__ void chunk(int nbl, bool pass2, bool single, int valid, float scale,
+                                      int quad, const uint32_t (&qf)[HD / 16][4],
+                                      const unsigned char* kb, const unsigned char* vb, int R,
+                                      const float* cb, Rows& st, float (&o)[HD / 2]) {
+  if constexpr (NBL <= Cfg<HD>::NB) {
+    if (nbl == NBL)
+      chunk_step<HD, NBL, kBias>(pass2, single, valid, scale, quad, qf, kb, vb, R, cb, st, o);
+    else
+      chunk<HD, kBias, NBL + 1>(nbl, pass2, single, valid, scale, quad, qf, kb, vb, R, cb, st,
+                                o);
+  }
+}
+
+// rows [row0, row0 + rows) of head h, sequence b through an operand's 4-D
+// map {hd, S, H, B}: boxes of (P, 16, 1, 1), one panel of R rows per P columns
+template <int HD> __device__ __forceinline__ void load_rows(
+    unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row0, int rows, int h,
+    int b) {
+  using C = Cfg<HD>;
+  for (int p = 0; p < C::NP; ++p)
+    for (int blk = 0; blk < rows / 16; ++blk)
+      hp::tma_load_4d(dst + p * rows * C::SW + blk * 16 * C::SW, map, bar, p * C::P,
+                      row0 + blk * 16, h, b);
+}
+
+// element strides of the output's (batch, sequence, head) axes
+struct Strides {
+  long long b, s, h;
+};
+
+// CTA (head blockIdx.x, sequence m = blockIdx.y) over query tiles
+// [blockIdx.z·tpc, +tpc) of 64 rows. nkeys: the keys in the k and v maps;
+// nq: the query rows (kCls: N + 1, the CLS query last and not in the q map).
+// kCls: qkv_c holds the CLS rows (one per sample of Tn frames), out_c gets the
+// CLS query's output (one row per frame). kBias: mask holds one fp32 key-mask
+// row of nkeys per sequence (1: a valid key).
+template <int HD, bool kCls, bool kBias>
+__global__ void __launch_bounds__(128, 1)
+attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+           const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out, Strides so,
+           const float* __restrict__ mask, const bf16* __restrict__ qkv_c,
+           bf16* __restrict__ out_c, int nkeys, int nq, int H, float scale, int Tn, int n, int R,
+           int nslots, int tpc) {
+  static_assert(!(kCls && kBias), "the CLS sideband takes no key bias");
+  using C = Cfg<HD>;
+  constexpr int SW = C::SW, P = C::P;
+  const int h = blockIdx.x, m = blockIdx.y, D = H * HD;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const int t0 = blockIdx.z * tpc;
+  const int ntiles = min(tpc, (nq + 63) / 64 - t0);
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(base);  // two query buffers
+  uint64_t* bar_kv = bar_q + 2;                           // nslots
+  float* vcls = reinterpret_cast<float*>(base + 512);     // kCls: the CLS value, fp32
+  unsigned char* qbuf = base + 1024;
+  unsigned char* kcls = qbuf + 2 * C::kQBytes;  // kCls: 8-row K block, row 0 the CLS key
+  float* bsm = reinterpret_cast<float*>(kcls + C::kClsBytes);  // kBias: n·R bias row
+  unsigned char* slots =                                        // nslots x (K, V), R rows
+      kcls + C::kClsBytes + (kBias ? bias_bytes(n, R) : 0);
+  const int half = R * HD * 2;
+
+  const bool resident = n <= nslots;
+  const int tile_steps = n > 1 ? 2 * n : 1;  // pass 1 (max), pass 2 (exp, sum, PV)
+  const int total_steps = ntiles * tile_steps;
+
+  auto load_q = [&](int t) {
+    uint64_t* bar = &bar_q[t & 1];
+    hp::mbar_expect_tx(bar, C::kQBytes);
+    load_rows<HD>(qbuf + (t & 1) * C::kQBytes, &mq, bar, (t0 + t) * 64, 64, h, m);
+  };
+  // chunk c of K (and V) into slot
+  auto load_kv = [&](int slot, int c, bool with_v) {
+    uint64_t* bar = &bar_kv[slot];
+    unsigned char* dst = slots + slot * 2 * half;
+    hp::mbar_expect_tx(bar, (with_v ? 2 : 1) * half);
+    load_rows<HD>(dst, &mk, bar, c * R, R, h, m);
+    if (with_v) load_rows<HD>(dst + half, &mv, bar, c * R, R, h, m);
+  };
+  // streamed step j: (pass, chunk) and its load
+  auto load_step = [&](int j) {
+    const int jj = j % tile_steps;
+    const bool pass2 = n == 1 || jj >= n;
+    load_kv(j % nslots, n == 1 ? 0 : jj % n, pass2);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 2 + nslots; ++i) hp::mbar_init(&bar_q[i], 1);
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    load_q(0);
+    if (ntiles > 1) load_q(1);
+    if (resident)
+      for (int c = 0; c < n; ++c) load_kv(c, c, true);
+    else
+      for (int j = 0; j < nslots && j < total_steps; ++j) load_step(j);
+  }
+  const bf16* crow = kCls ? qkv_c + long(m / Tn) * 3 * D : nullptr;
+  if constexpr (kCls) {
+    // the CLS key as row 0 of an 8-row K-major block (row 0 is unswizzled)
+    constexpr int kPanelChunks = 8 * SW / 16;
+    for (int i = tid; i < C::kClsBytes / 16; i += 128) {
+      const int p = i / kPanelChunks, off = i % kPanelChunks;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (p < C::NP && off < SW / 16)
+        v = *reinterpret_cast<const uint4*>(crow + D + h * HD + p * P + off * 8);
+      *reinterpret_cast<uint4*>(kcls + i * 16) = v;
+    }
+    for (int i = tid; i < HD; i += 128) vcls[i] = __bfloat162float(crow[2 * D + h * HD + i]);
+    hp::fence_proxy_async();
+  }
+  if constexpr (kBias) {  // the twin's key_bias, in the same two fp32 steps
+    const float* mrow = mask + long(m) * nkeys;
+    for (int i = tid; i < n * R; i += 128) bsm[i] = i < nkeys ? (1.0f - mrow[i]) * -10000.0f : 0.0f;
+  }
+  __syncthreads();
+
+  int step = 0;
+  // acquire the slot of the current step (waits for its TMA)
+  auto acquire = [&](int c) -> const unsigned char* {
+    const int slot = resident ? c : step % nslots;
+    hp::mbar_wait(&bar_kv[slot], resident ? 0 : (step / nslots) & 1);
+    return slots + slot * 2 * half;
+  };
+  // release it: every warp's wgmma reads are done; refill it when streaming
+  auto release = [&]() {
+    if (!resident) {
+      __syncthreads();
+      if (tid == 0 && step + nslots < total_steps) load_step(step + nslots);
+    }
+    ++step;
+  };
+
+  for (int t = 0; t < ntiles; ++t) {
+    unsigned char* qb = qbuf + (t & 1) * C::kQBytes;
+    hp::mbar_wait(&bar_q[t & 1], (t >> 1) & 1);
+    if (kCls && t0 + t == (nq - 1) / 64) {  // the CLS query is row nq - 1
+      const int r = (nq - 1) & 63;
+      if (tid < HD / 8) {
+        const int p = tid / (P / 8), c = tid % (P / 8);
+        *reinterpret_cast<uint4*>(qb + p * 64 * SW + hp::swizzled<SW>(r, c)) =
+            *reinterpret_cast<const uint4*>(crow + h * HD + tid * 8);
+        hp::fence_proxy_async();
+      }
+      __syncthreads();
+    }
+    // this warp's 16 query rows as wgmma A fragments
+    uint32_t qf[HD / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+      const int c = (kk * 16 % P) / 8 + (lane >> 4);
+      hp::ldmatrix_x4(qf[kk], qb + (kk * 16 / P) * 64 * SW + hp::swizzled<SW>(row, c));
+    }
+    __syncthreads();  // the buffer is free for tile t + 2
+    if (tid == 0 && t + 2 < ntiles) load_q(t + 2);
+
+    Rows st{-INFINITY, -INFINITY, 0.0f, 0.0f};
+    float sc[4];  // kCls: the CLS key's score (column 0, held by quad 0)
+    if constexpr (kCls) {
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const unsigned char* p = kcls + (kk * 16 / P) * 8 * SW + (kk * 16 % P) * 2;
+        const uint64_t desc = hp::smem_desc<SW>(p, 16, 8 * SW);
+        if (kk == 0) hp::WgmmaRS<8>::run_zero<0>(sc, qf[kk], desc);
+        else hp::WgmmaRS<8>::run<0>(sc, qf[kk], desc, 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait_all();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) hp::pin(sc[i]);
+      if (quad == 0) {
+        st.mx0 = sc[0] * scale;
+        st.mx1 = sc[2] * scale;
+      }
+    }
+
+    float o[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+    // pass 1 (several chunks): the exact row max over every key; pass 2
+    // (with the max, when the chunk is the only one): p, l and P.V
+    for (int pass = n > 1 ? 0 : 1; pass < 2; ++pass) {
+      for (int c = 0; c < n; ++c) {
+        const int valid = min(R, nkeys - c * R);
+        const unsigned char* kv = acquire(c);
+        chunk<HD, kBias>((valid + 63) / 64, pass == 1, n == 1, valid, scale, quad, qf, kv,
+                         kv + half, R, bsm + c * R, st, o);
+        release();
+      }
+      if (pass == 0) st.quad_max();
+    }
+
+    // the CLS key's p stays fp32: in l here and as p_cls * v_cls below
+    float pc0 = 0.0f, pc1 = 0.0f;
+    if constexpr (kCls) {
+      if (quad == 0) {
+        pc0 = ex2(fmaf(sc[0], scale * kLog2e, -st.mx0 * kLog2e));
+        pc1 = ex2(fmaf(sc[2], scale * kLog2e, -st.mx1 * kLog2e));
+        st.l0 += pc0;
+        st.l1 += pc1;
+      }
+      pc0 = __shfl_sync(0xffffffffu, pc0, lane & ~3);
+      pc1 = __shfl_sync(0xffffffffu, pc1, lane & ~3);
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      st.l0 += __shfl_xor_sync(0xffffffffu, st.l0, off);
+      st.l1 += __shfl_xor_sync(0xffffffffu, st.l1, off);
+    }
+
+    // o / l in bf16: rows r0 and r0 + 8, columns 8j + 2 quad (+1)
+    const int r0 = (t0 + t) * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    auto out_row = [&](int r) -> bf16* {
+      if (kCls && r == nq - 1) return out_c + long(m) * D + h * HD;
+      return out + m * so.b + r * so.s + h * so.h;
+    };
+    bf16* o0 = r0 < nq ? out_row(r0) : nullptr;
+    bf16* o1 = r1 < nq ? out_row(r1) : nullptr;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * quad;
+      float a = o[4 * j], b = o[4 * j + 1], c = o[4 * j + 2], d = o[4 * j + 3];
+      if constexpr (kCls) {
+        a += pc0 * vcls[col];
+        b += pc0 * vcls[col + 1];
+        c += pc1 * vcls[col];
+        d += pc1 * vcls[col + 1];
+      }
+      if (o0) *reinterpret_cast<uint32_t*>(o0 + col) = hp::pack_bf16(a / st.l0, b / st.l0);
+      if (o1) *reinterpret_cast<uint32_t*>(o1 + col) = hp::pack_bf16(c / st.l1, d / st.l1);
+    }
+  }
+}
+
+// a bf16 operand: its base and the byte strides of its (sequence, head,
+// batch) axes; head_dim is contiguous
+struct Operand {
+  const void* p;
+  long long s, h, b;
+};
+
+// the operand's 4-D map {HD, rows, H, B}, box (P, 16, 1, 1)
+template <int HD>
+bool encode_operand(CUtensorMap* map, const Operand& x, int rows, int H, int B) {
+  using C = Cfg<HD>;
+  const cuuint64_t dims[4] = {cuuint64_t(HD), cuuint64_t(rows), cuuint64_t(H), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(x.s), cuuint64_t(x.h), cuuint64_t(x.b)};
+  const cuuint32_t box[4] = {cuuint32_t(C::P), 16, 1, 1}, elem[4] = {1, 1, 1, 1};
+  return hp::encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x.p),
+                               dims, strides, box, elem,
+                               C::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                            : CU_TENSOR_MAP_SWIZZLE_64B) == CUDA_SUCCESS;
+}
+
+// One launch of attn_wgmma over B sequences of H heads: nq query rows (the
+// q map holds nkeys of them when kCls), nkeys keys; out through so (elements).
+// A map that does not encode or a plan that does not fit returns
+// cudaErrorInvalidValue.
+template <int HD, bool kCls, bool kBias>
+int launch(const Operand& q, const Operand& k, const Operand& v, void* out, Strides so,
+           const float* mask, const void* qkv_c, void* out_c, int B, int H, int nq, int nkeys,
+           float scale, int Tn, int device, cudaStream_t stream) {
+  const Plan p = plan_bf16<HD>(nkeys, alpro::max_smem_optin(device), kBias);
+  if (!p.smem) return int(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  if (!encode_operand<HD>(&mq, q, kCls ? nkeys : nq, H, B) ||
+      !encode_operand<HD>(&mk, k, nkeys, H, B) || !encode_operand<HD>(&mv, v, nkeys, H, B))
+    return int(cudaErrorInvalidValue);
+  auto kernel = attn_wgmma<HD, kCls, kBias>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return int(err);
+  // query tiles per CTA: all of them, unless B·H CTAs leave the card's
+  // resident slots idle; then the query tiles spread over about as many CTAs
+  // as the card holds at once. (Rounding up to one whole wave of longer tile
+  // ranges instead measured slower on an H100: (2, 1000) 0.074 -> 0.100 ms,
+  // (8, 257) 0.054 -> 0.064 ms per call.)
+  const long ntiles = (nq + 63) / 64, ctas = long(B) * H;
+  long tpc = ntiles;
+  if (ntiles > 1) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 128, p.smem);
+    if (err != cudaSuccess) return int(err);
+    const long resident = long(sms) * (per_sm > 0 ? per_sm : 1);
+    tpc = (ntiles * ctas + resident - 1) / resident;
+    tpc = tpc < 1 ? 1 : tpc > ntiles ? ntiles : tpc;
+  }
+  const int splits = int((ntiles + tpc - 1) / tpc);
+  tpc = (ntiles + splits - 1) / splits;  // the same splits, balanced
+  kernel<<<dim3(H, B, splits), 128, p.smem, stream>>>(
+      mq, mk, mv, static_cast<bf16*>(out), so, mask, static_cast<const bf16*>(qkv_c),
+      static_cast<bf16*>(out_c), nkeys, nq, H, scale, Tn, p.n, p.R, p.nslots, int(tpc));
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace attn
+}  // namespace alpro

@@ -18,6 +18,7 @@ report it).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -61,11 +62,12 @@ _SIGNATURES = {
     ),
     # is_bf16, device
     "alpro_bert_attn_max_seq": ([_I, _I], _I),
-    # q, k, v, bias, out, strides (12 int64: batch, sequence, head of q, k, v,
-    # out), B, H, Sq, Sk, hd, scale, is_bf16, device, stream
+    # q, k, v, bias, out, strides (12 int64: the byte strides of the sequence,
+    # head and batch axes of q, k, v, out), B, H, Sq, Sk, hd, scale, is_bf16,
+    # device, stream
     "alpro_masked_attn": ([_P] * 6 + [_I] * 5 + [_F, _I, _I, _P], _I),
-    # is_bf16, hd, device
-    "alpro_masked_attn_max_seq": ([_I, _I, _I], _I),
+    # Sk, hd, is_bf16, device
+    "alpro_masked_attn_smem": ([_I, _I, _I, _I], _I),
     # x, ln_scale, ln_bias, w, b, out, R, D, F, eps, is_bf16, device, stream
     "alpro_ln_matmul": ([_P] * 6 + [_I, _I, _I, _F, _I, _I, _P], _I),
     # raw, kernel, bias, out, frames, H, W, p, D, mean (3), std (3), is_bf16,
@@ -196,9 +198,11 @@ def check_cuda_operand(t, name: str, dtypes, align: int = 16) -> None:
         raise ValueError(f"{name}: data pointer not {align}-byte aligned")
 
 
+@functools.lru_cache(maxsize=None)
 def smem_optin(device) -> int:
     """The shared memory (bytes) a block may opt in to on CUDA ``device``:
-    the figure the kernels' limit predicates take (232,448 on an H100)."""
+    the figure the kernels' limit predicates take (232,448 on an H100).
+    Cached: a wrapper reads it on every call."""
     import torch
 
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin

@@ -10,16 +10,23 @@ Counterpart of ``alpro_tpu/ops/pallas_attn.py``:
 
 Both launch ``csrc/masked_attn.cu``, which reads q, k and v in place through
 their strides (the channel axis contiguous), so views of a packed qkv
-projection go in without a copy. The twin ``attention_plain`` copies the
+projection go in without a copy. In bf16 it is K1's Hopper body
+(``csrc/attn_wgmma.cuh``: TMA and ``wgmma``, the score rows and the key bias
+in registers), reaching each operand through a 4-D tensor map whose
+geometry ``map_geometry`` computes here; its plan's shared memory
+(``smem_bytes``) bounds only the bias row. fp32 keeps a CUDA-core body whose
+K and V of one head bound Sk. The twin ``attention_plain`` copies the
 TPU kernel's contract step by step: q·kᵀ on the operands upcast to fp32, times
 the scale, plus the fp32 bias ``(1-mask)·-10000``; fp32 row max and exp; the
 unnormalised p rounded to v's dtype for P·V in fp32; division by the fp32 row
 sum last; output in q's dtype.
 
-The gradient is ``_fused_attention_bwd`` / ``_fab_bwd``: a plain fp32
-recompute of p, then dv, dp, ds, dq and dk, each cast to its input's dtype
-(the JAX package's custom_vjp backward is XLA einsums, not a kernel). The key
-mask takes no gradient.
+The kernel takes the key mask and computes the bias ``(1-mask)·-10000`` as
+``key_bias`` does, so a call launches nothing else. The gradient is
+``_fused_attention_bwd`` / ``_fab_bwd``: a plain fp32 recompute of p, then
+dv, dp, ds, dq and dk, each cast to its input's dtype (the JAX package's
+custom_vjp backward is XLA einsums, not a kernel). The key mask takes no
+gradient; where no input needs one, the call skips the autograd Function.
 
 A wrapper runs the twin only for CPU tensors; for CUDA tensors it launches
 the kernel or raises. ``bshd_launches`` and ``bhsd_launches`` count kernel
@@ -35,6 +42,7 @@ from typing import Optional
 import torch
 
 from alpro_tpu_torch.ops import _build
+from alpro_tpu_torch.ops.qkv_attn import attn_wgmma_smem
 
 bshd_launches = 0
 bhsd_launches = 0
@@ -42,6 +50,7 @@ bhsd_launches = 0
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (32, 64, 128)  # csrc/masked_attn.cu instantiations
 _MAX_GRID_YZ = 65535
+_MAX_KEYS = 1 << 24  # the search bound of max_keys
 
 
 def key_bias(key_mask: Optional[torch.Tensor], B: int, Sk: int, device) -> torch.Tensor:
@@ -75,59 +84,109 @@ def attention_grads(q, k, v, bias, g, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def smem_bytes(Sk: int, hd: int, dtype: torch.dtype, smem: int) -> int:
+    """Dynamic shared memory of a launch at Sk keys and head_dim ``hd``
+    (``csrc/masked_attn.cu`` ``alpro_masked_attn_smem``) on a device with
+    ``smem`` bytes of opt-in shared memory per block, or 0 where none fits.
+    bf16: the attention body's plan with the key-bias row
+    (``qkv_attn.attn_wgmma_smem``); fp32: the smallest launch (one warp),
+    K and V of the head and the bias row, padded to 16 keys, and one warp's
+    Q tile, score and p chunks."""
+    if Sk < 1 or hd not in _HEAD_DIMS:
+        return 0
+    if dtype == torch.bfloat16:
+        return attn_wgmma_smem(Sk, hd, smem, bias=True)
+    skp = -(-Sk // 16) * 16
+    need = 4 * (2 * skp * hd + 16 * hd + skp + 16 * (max(64, hd) + 4) + 16 * 72)
+    return need if need <= smem else 0
+
+
+def max_keys(dtype: torch.dtype, head_dim: int, smem: int) -> int:
+    """The largest Sk for which ``smem_bytes`` fits ``smem`` (0 if none)."""
+    lo, hi = 0, _MAX_KEYS
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_bytes(mid, head_dim, dtype, smem):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
 def max_seq_len(dtype: torch.dtype, head_dim: int, device) -> int:
     """The largest Sk the kernel takes for ``dtype`` and ``head_dim`` on
-    ``device`` (K and V of one head live in shared memory)."""
-    dev = torch.device(device).index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    n = _build.lib().alpro_masked_attn_max_seq(int(dtype == torch.bfloat16), head_dim, dev)
-    if n < 0:
-        _build.check(-n, "masked_attn max_seq_len")
-    return n
+    ``device``: in bf16 the plan's limit (the key-bias row in shared memory;
+    K and V stream past what fits), in fp32 K and V of one head in shared
+    memory."""
+    return max_keys(dtype, head_dim, _build.smem_optin(device))
 
 
-def _check_operand(t: torch.Tensor, name: str, dtype) -> None:
-    """A (B, H, S, hd) CUDA view the kernel can read in place: head_dim
-    contiguous, 16-byte aligned rows."""
+def map_geometry(t: torch.Tensor, num_heads: Optional[int] = None,
+                 name: str = "operand") -> tuple:
+    """The 4-D tensor map through which the kernel reads an operand
+    (``csrc/attn_wgmma.cuh`` ``encode_operand``; the fp32 body takes the same
+    strides): a (B, H, S, hd) view, or with ``num_heads`` a (B, S, H·hd) one,
+    gives ``(dims, strides)``, dims (hd, S, H, B) and the byte strides of the
+    S, H and B axes. head_dim must be contiguous and the data pointer and
+    every stride 16-byte aligned, as TMA demands. An axis of extent 1 is never
+    stepped, so its stride is replaced by the view's byte span rounded up to
+    16 (any stride its view may carry, 0 included, then encodes)."""
+    if num_heads is None:
+        B, H, S, hd = t.shape
+        sb, sh, ss, sd = t.stride()
+    else:
+        (B, S, D), H = t.shape, num_heads
+        hd = D // H
+        sb, ss, sd = t.stride()
+        sh = hd * sd
+    es = t.element_size()
+    strides = (ss * es, sh * es, sb * es)
+    if 1 in (S, H, B):
+        span = es * (1 + (B - 1) * abs(sb) + (H - 1) * abs(sh) + (S - 1) * abs(ss)
+                     + (hd - 1) * abs(sd))
+        span = -(-span // 16) * 16
+        strides = tuple(st if n > 1 else span for st, n in zip(strides, (S, H, B)))
+    if sd != 1 or t.data_ptr() % 16 or any(st % 16 or st <= 0 for st in strides):
+        raise ValueError(
+            f"masked_attn {name}: head_dim must be contiguous and every row 16-byte aligned; got "
+            f"strides {t.stride()} of {es}-byte elements, data pointer {t.data_ptr() % 16} "
+            f"mod 16"
+        )
+    return (hd, S, H, B), strides
+
+
+def _check_operand(t: torch.Tensor, name: str, dtype, num_heads: Optional[int]) -> tuple:
+    """An operand the kernel can read in place: its ``map_geometry``."""
     if t.device.type != "cuda":
         raise ValueError(f"masked_attn {name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"masked_attn {name}: dtype {t.dtype}, expected {dtype} (one of {_DTYPES})")
-    vec = 16 // t.element_size()
-    if (t.stride(-1) != 1 or t.data_ptr() % 16
-            or any(t.stride(i) % vec for i in range(3) if t.shape[i] > 1)):
-        raise ValueError(
-            f"masked_attn {name}: head_dim must be contiguous and every row 16-byte "
-            f"aligned; got strides {t.stride()}, data pointer {t.data_ptr() % 16} mod 16"
-        )
+    return map_geometry(t, num_heads, name)
 
 
-def _launch(q, k, v, bias, out, scale: float) -> None:
-    """q, k, v, out: (B, H, S, hd) CUDA views; bias (B, Sk) fp32."""
-    B, H, Sq, hd = q.shape
-    Sk = k.shape[2]
+def _launch(q, k, v, mask, out, scale: float, num_heads: Optional[int]) -> None:
+    """q, k, v, out: CUDA tensors, (B, S, H·hd) given ``num_heads``, else (B,
+    H, S, hd); mask: the (B, Sk) fp32 key mask on q's device, or None."""
     if q.dtype not in _DTYPES:
         raise ValueError(f"masked_attn: dtype {q.dtype} not in {_DTYPES}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
-        _check_operand(t, name, q.dtype)
+    geo = [_check_operand(t, name, q.dtype, num_heads)
+           for name, t in (("q", q), ("k", k), ("v", v), ("out", out))]
+    (hd, Sq, H, B), Sk = geo[0][0], geo[1][0][1]
     if hd not in _HEAD_DIMS or B > _MAX_GRID_YZ or H > _MAX_GRID_YZ or Sq < 1 or Sk < 1:
         raise ValueError(
             f"masked_attn kernel needs head_dim in {_HEAD_DIMS}, B and H <= {_MAX_GRID_YZ} "
             f"and Sq, Sk >= 1; got head_dim={hd}, B={B}, H={H}, Sq={Sq}, Sk={Sk}"
         )
-    limit = max_seq_len(q.dtype, hd, q.device)
-    if Sk > limit:
+    if not smem_bytes(Sk, hd, q.dtype, _build.smem_optin(q.device)):
         raise ValueError(
-            f"masked_attn kernel takes Sk <= {limit} for {q.dtype} at head_dim {hd} on this "
-            f"device (K and V of a head in shared memory); got Sk={Sk}"
+            f"masked_attn kernel takes Sk <= {max_seq_len(q.dtype, hd, q.device)} for "
+            f"{q.dtype} at head_dim {hd} on this device; got Sk={Sk}"
         )
-    bias = bias.to(device=q.device, dtype=torch.float32).contiguous()
-    strides = (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, out) for i in (0, 2, 1)))
+    strides = (ctypes.c_longlong * 12)(*(st for _, sts in geo for st in sts))
     dev, stream = _build.stream_args(q)
     err = _build.lib().alpro_masked_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), B, H, Sq, Sk, hd, float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if mask is None else mask.data_ptr(),
+        out.data_ptr(), ctypes.addressof(strides), B, H, Sq, Sk, hd, float(scale),
         int(q.dtype == torch.bfloat16), dev, stream,
     )
     _build.check(err, "masked_attn")
@@ -138,16 +197,17 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.unflatten(-1, (num_heads, x.shape[-1] // num_heads)).transpose(1, 2)
 
 
-def _forward(q, k, v, bias, scale: float, num_heads: Optional[int]) -> torch.Tensor:
-    """num_heads given: the (B, S, H·hd) layout; None: (B, H, S, hd)."""
+def _forward(q, k, v, mask, scale: float, num_heads: Optional[int]) -> torch.Tensor:
+    """num_heads given: the (B, S, H·hd) layout; None: (B, H, S, hd). mask:
+    the (B, Sk) fp32 key mask or None."""
     global bshd_launches, bhsd_launches
     bshd = num_heads is not None
-    qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v)) if bshd else (q, k, v)
     if q.device.type == "cpu":
-        o = attention_plain(qh, kh, vh, bias, scale)
+        qh, kh, vh = (_heads(t, num_heads) for t in (q, k, v)) if bshd else (q, k, v)
+        o = attention_plain(qh, kh, vh, key_bias(mask, kh.shape[0], kh.shape[2], q.device), scale)
         return o.transpose(1, 2).flatten(2) if bshd else o
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(qh, kh, vh, bias, _heads(out, num_heads) if bshd else out, scale)
+    _launch(q, k, v, mask, out, scale, num_heads)
     if bshd:
         bshd_launches += 1
     else:
@@ -157,21 +217,32 @@ def _forward(q, k, v, bias, scale: float, num_heads: Optional[int]) -> torch.Ten
 
 class _MaskedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, scale, num_heads):
-        ctx.save_for_backward(q, k, v, bias)
+    def forward(ctx, q, k, v, mask, scale, num_heads):
+        ctx.save_for_backward(q, k, v, mask)
         ctx.scale, ctx.num_heads = scale, num_heads
-        return _forward(q, k, v, bias, scale, num_heads)
+        return _forward(q, k, v, mask, scale, num_heads)
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, bias = ctx.saved_tensors
+        q, k, v, mask = ctx.saved_tensors
         H = ctx.num_heads
-        if H is None:
-            dq, dk, dv = attention_grads(q, k, v, bias, g, ctx.scale)
-        else:
-            dq, dk, dv = (d.transpose(1, 2).flatten(2) for d in attention_grads(
-                _heads(q, H), _heads(k, H), _heads(v, H), bias, _heads(g, H), ctx.scale))
-        return dq, dk, dv, None, None, None
+        if H is not None:
+            q, k, v, g = (_heads(t, H) for t in (q, k, v, g))
+        bias = key_bias(mask, k.shape[0], k.shape[2], k.device)
+        grads = attention_grads(q, k, v, bias, g, ctx.scale)
+        if H is not None:
+            grads = (d.transpose(1, 2).flatten(2) for d in grads)
+        return (*grads, None, None, None)
+
+
+def _attend(q, k, v, key_mask, scale: float, num_heads: Optional[int]) -> torch.Tensor:
+    """The forward, through the autograd Function only where a gradient is
+    wanted (its bookkeeping is a good share of a call's host time)."""
+    mask = None if key_mask is None else \
+        key_mask.to(device=q.device, dtype=torch.float32).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _MaskedAttention.apply(q, k, v, mask, scale, num_heads)
+    return _forward(q, k, v, mask, scale, num_heads)
 
 
 def _check_shapes(q, k, v, key_mask, seq_axis: int) -> None:
@@ -194,8 +265,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v, key_mask, 2)
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    bias = key_bias(key_mask, k.shape[0], k.shape[2], q.device)
-    return _MaskedAttention.apply(q, k, v, bias, float(scale), None)
+    return _attend(q, k, v, key_mask, float(scale), None)
 
 
 def fused_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
@@ -209,5 +279,4 @@ def fused_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_
     _check_shapes(q, k, v, key_mask, 1)
     if scale is None:
         scale = (q.shape[-1] // num_heads) ** -0.5
-    bias = key_bias(key_mask, k.shape[0], k.shape[1], q.device)
-    return _MaskedAttention.apply(q, k, v, bias, float(scale), int(num_heads))
+    return _attend(q, k, v, key_mask, float(scale), int(num_heads))

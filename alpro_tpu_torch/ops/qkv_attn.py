@@ -68,32 +68,45 @@ _TEMPORAL_MAX_HD = 128  # csrc/temporal_attn.cu: up to 4 channels per lane
 #      memory per block (_build.smem_optin) ----
 
 
-_SPATIAL_HEAD_DIMS = (32, 64, 128)  # csrc/spatial_attn.cu Cfg / dispatch
-_SPATIAL_MAX_SLOTS = 30  # csrc/spatial_attn.cu kMaxSlots
+_SPATIAL_HEAD_DIMS = (32, 64, 128)  # csrc/attn_wgmma.cuh Cfg, csrc/spatial_attn.cu dispatch
+_SPATIAL_MAX_SLOTS = 30  # csrc/attn_wgmma.cuh kMaxSlots
+
+
+def attn_wgmma_smem(keys: int, hd: int, smem: int, bias: bool = False) -> int:
+    """Dynamic shared memory of a launch of the bf16 attention body
+    (``csrc/attn_wgmma.cuh`` ``plan_bf16``) at ``keys`` keys on a device with
+    ``smem`` bytes of opt-in shared memory per block, or 0 where no launch
+    fits: two 64-row query tiles and the CLS key block, the key-bias row
+    (B12/B13, ``bias``), and K and V in chunks of up to 256 keys (128 at
+    head_dim 128) — all of them where they fit, else a ring of at least two."""
+    if keys < 1 or hd not in _SPATIAL_HEAD_DIMS:
+        return 0
+    max_n = 128 if hd == 128 else 256
+    if keys <= max_n:
+        n, rows = 1, -(-keys // 64) * 64
+    else:
+        n, rows = -(-keys // max_n), max_n
+    fixed = 2048 + 2 * 64 * hd * 2 + -(-8 * hd * 2 // 1024) * 1024
+    if bias:
+        fixed += -(-n * rows * 4 // 1024) * 1024
+    slot = 2 * rows * hd * 2
+    slots = min(n, _SPATIAL_MAX_SLOTS, max(0, (smem - fixed) // slot))
+    return fixed + slots * slot if slots >= (2 if n > 1 else 1) else 0
 
 
 def spatial_smem_bytes(S: int, hd: int, dtype: torch.dtype, smem: int) -> int:
     """Dynamic shared memory of a K1 launch at S keys (``csrc/spatial_attn.cu``
     ``alpro_spatial_attn_smem``) on a device with ``smem`` bytes of opt-in
-    shared memory per block, or 0 where no launch fits. bf16: two 64-row
-    query tiles and the CLS key block, plus K and V in chunks of up to 256
-    keys (128 at head_dim 128) — all of them where they fit, else a ring of
-    at least two; fp32: a 64-row query tile, K, V and o chunks and the score
-    chunk, whatever S. A B6 launch at S = N + 1 needs no more."""
+    shared memory per block, or 0 where no launch fits. bf16: the attention
+    body's plan (``attn_wgmma_smem``); fp32: a 64-row query tile, K, V and o
+    chunks and the score chunk, whatever S. A B6 launch at S = N + 1 needs no
+    more."""
     if S < 1 or hd not in _SPATIAL_HEAD_DIMS:
         return 0
     if dtype == torch.float32:
         need = (4 * 64 * hd + 64 * 64 + 2 * 64) * 4
         return need if need <= smem else 0
-    max_n = 128 if hd == 128 else 256
-    if S <= max_n:
-        n, rows = 1, -(-S // 64) * 64
-    else:
-        n, rows = -(-S // max_n), max_n
-    fixed = 2048 + 2 * 64 * hd * 2 + -(-8 * hd * 2 // 1024) * 1024
-    slot = 2 * rows * hd * 2
-    slots = min(n, _SPATIAL_MAX_SLOTS, max(0, (smem - fixed) // slot))
-    return fixed + slots * slot if slots >= (2 if n > 1 else 1) else 0
+    return attn_wgmma_smem(S, hd, smem)
 
 
 def spatial_fits(M: int, S: int, num_heads: int, hd: int, dtype: torch.dtype,

@@ -493,8 +493,10 @@ def _masked_attn_kernels(res, randn, card) -> None:
     finetuning path's shapes: spatial attention on views of the packed qkv of
     one 8-clip batch (64 frames, main), the text half (8, 40) and the fusion
     of the 3B-row VTM batch (24, 237), and the longest fusion sequence (512
-    text + 197 video tokens). The library call is SDPA with the float key
-    bias on views of the same tensors."""
+    text + 197 video tokens); then past the one-pass chunk of 256 keys (257:
+    two passes) and past what stays resident (1000 keys: K and V streamed).
+    The library call is SDPA with the float key bias on views of the same
+    tensors."""
     from alpro_tpu_torch.ops import masked_attn
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -504,7 +506,8 @@ def _masked_attn_kernels(res, randn, card) -> None:
           f"<= {masked_attn.max_seq_len(torch.float32, hd, 'cuda')} in fp32 at head_dim {hd}",
           flush=True)
     for Bn, S, packed, main in ((B * T, 1 + N, True, True), (8, 40, False, False),
-                                (24, 40 + 1 + N, False, False), (1, 512 + 1 + N, False, False)):
+                                (24, 40 + 1 + N, False, False), (1, 512 + 1 + N, False, False),
+                                (8, 257, False, False), (2, 1000, False, False)):
         if packed:
             x = randn(Bn, S, 3 * D)
             q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]

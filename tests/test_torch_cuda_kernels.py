@@ -24,7 +24,8 @@ where the C side reports a limit the two are equal.
 import pytest
 import torch
 
-from alpro_tpu_torch.ops import _build, block_attn, bert_block, ln_mlp, qkv_attn, temporal_attn
+from alpro_tpu_torch.ops import (_build, block_attn, bert_block, ln_mlp, masked_attn, qkv_attn,
+                                 temporal_attn)
 
 pytestmark = pytest.mark.cuda
 
@@ -233,54 +234,81 @@ def test_bert_kernels_reject_what_they_do_not_take(cuda):
 # ---- masked attention (B12 / B13) and the kernels' gradients ----------------
 
 
-def _attn_inputs(layout, Bn, S, cuda, dtype, seed=0, packed=False):
-    """q, k, v (bshd: (B, S, 768) — views of one packed (B, S, 2304)
-    projection when ``packed``; bhsd: (B, 12, S, 64)) and a key mask with
-    padded tails of different lengths."""
-    H, hd = 12, 64
-    D = H * hd
-    if layout == "bshd":
-        if packed:
-            x = _randn((Bn, S, 3 * D), seed, cuda, dtype)
-            q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]
-        else:
-            q, k, v = (_randn((Bn, S, D), seed + i, cuda, dtype) for i in range(3))
+def _attn_inputs(layout, Bn, S, cuda, dtype, seed=0, form="separate", hd=64, Sq=None,
+                 dead=False):
+    """q, k, v over 12 heads of ``hd`` and a key mask with padded tails of
+    different lengths (``dead``: the first sequence's keys all masked). bshd:
+    (B, S, 12·hd) — views of one packed (B, S, 3D) projection when ``form``
+    is 'packed', slices of (B, S, 4D) buffers (rows neither D nor 3D apart)
+    when 'wide'; bhsd: (B, 12, S, hd). Sq (default S) query rows."""
+    H = 12
+    D, Sq = H * hd, S if Sq is None else Sq
+    if layout == "bshd" and form == "packed":
+        x = _randn((Bn, S, 3 * D), seed, cuda, dtype)
+        q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]
+    elif layout == "bshd" and form == "wide":
+        xq, xkv = _randn((Bn, Sq, 4 * D), seed, cuda, dtype), _randn((Bn, S, 4 * D), seed + 1,
+                                                                       cuda, dtype)
+        q, k, v = xq[..., D:2 * D], xkv[..., 3 * D:], xkv[..., :D]
+    elif layout == "bshd":
+        q, k, v = (_randn((Bn, s, D), seed + i, cuda, dtype) for i, s in enumerate((Sq, S, S)))
     else:
-        q, k, v = (_randn((Bn, H, S, hd), seed + i, cuda, dtype) for i in range(3))
+        q, k, v = (_randn((Bn, H, s, hd), seed + i, cuda, dtype)
+                   for i, s in enumerate((Sq, S, S)))
     mask = torch.ones(Bn, S, device=cuda)
     for b in range(Bn):
         mask[b, max(1, S - (b * 11) % max(S // 2, 1)):] = 0.0
+    if dead:
+        mask[0] = 0.0
     return q, k, v, mask
 
 
 def _attn(layout, q, k, v, mask):
-    from alpro_tpu_torch.ops import masked_attn
-
     if layout == "bshd":
         return masked_attn.fused_attention_bshd(q, k, v, 12, key_mask=mask)
     return masked_attn.fused_attention(q, k, v, key_mask=mask)
 
 
 def _attn_twin(layout, q, k, v, mask):
-    from alpro_tpu_torch.ops import masked_attn
-
+    hd = q.shape[-1] // 12 if layout == "bshd" else q.shape[-1]
     bias = masked_attn.key_bias(mask, q.shape[0], mask.shape[1], q.device)
     if layout == "bshd":
-        heads = [t.unflatten(-1, (12, 64)).transpose(1, 2) for t in (q, k, v)]
-        return masked_attn.attention_plain(*heads, bias, 0.125).transpose(1, 2).flatten(2)
-    return masked_attn.attention_plain(q, k, v, bias, 0.125)
+        heads = [t.unflatten(-1, (12, hd)).transpose(1, 2) for t in (q, k, v)]
+        return masked_attn.attention_plain(*heads, bias, hd ** -0.5).transpose(1, 2).flatten(2)
+    return masked_attn.attention_plain(q, k, v, bias, hd ** -0.5)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("Bn,S", [(8, 40), (64, 197), (24, 237), (1, 709)])
-@pytest.mark.parametrize("layout", ["bshd", "bhsd"])
-def test_masked_attn_kernel_matches_twin(cuda, layout, Bn, S, dtype):
-    from alpro_tpu_torch.ops import masked_attn
+# (layout, Bn, Sq, Sk, hd, form, dead, dtype): the finetuning path's shapes
+# (text (8, 40), spatial (64, 197) on views of the packed qkv, fusion (24,
+# 237), the longest fusion sequence (1, 709): 12 CTAs, so its query tiles
+# split over the grid) in both dtypes; in bf16 the key counts about the
+# one-pass chunk (255, 256, 257; 128 at head_dim 128), two and four chunks
+# (513, 1000: streamed past what stays resident) at every head_dim, Sq != Sk
+# both ways, a sequence whose keys are all masked, and bshd slices of wider
+# buffers
+_BF, _F32 = torch.bfloat16, torch.float32
+_MASKED_CASES = (
+    [(layout, Bn, S, S, 64, "packed" if S == 197 else "separate", False, dtype)
+     for dtype in (_BF, _F32) for Bn, S in ((8, 40), (64, 197), (24, 237), (1, 709))
+     for layout in ("bshd", "bhsd")]
+    + [(layout, 3, S, S, hd, "separate", False, _BF) for layout in ("bshd", "bhsd")
+       for hd in (32, 64, 128) for S in (255, 256, 257, 513, 1000)]
+    + [("bhsd", 24, 40, 237, 64, "separate", False, _BF),
+       ("bshd", 2, 700, 60, 64, "separate", False, _BF),
+       ("bshd", 8, 40, 40, 64, "separate", True, _BF),
+       ("bhsd", 2, 300, 300, 128, "separate", True, _BF),
+       ("bshd", 8, 197, 197, 64, "wide", False, _BF),
+       ("bshd", 2, 40, 300, 32, "wide", True, _BF)]
+)
 
-    if dtype == torch.float32 and S > masked_attn.max_seq_len(dtype, 64, cuda):
-        pytest.skip(f"fp32 takes S <= {masked_attn.max_seq_len(dtype, 64, cuda)}; the raise "
+
+@pytest.mark.parametrize("layout,Bn,Sq,Sk,hd,form,dead,dtype", _MASKED_CASES)
+def test_masked_attn_kernel_matches_twin(cuda, layout, Bn, Sq, Sk, hd, form, dead, dtype):
+    if dtype == torch.float32 and Sk > masked_attn.max_seq_len(dtype, hd, cuda):
+        pytest.skip(f"fp32 takes S <= {masked_attn.max_seq_len(dtype, hd, cuda)}; the raise "
                     "is tested below")
-    q, k, v, mask = _attn_inputs(layout, Bn, S, cuda, dtype, packed=(S == 197))
+    q, k, v, mask = _attn_inputs(layout, Bn, Sk, cuda, dtype, form=form, hd=hd, Sq=Sq,
+                                 dead=dead)
     n = (masked_attn.bshd_launches, masked_attn.bhsd_launches)
     got = _attn(layout, q, k, v, mask)
     torch.cuda.synchronize()
@@ -311,8 +339,6 @@ def test_masked_attn_backward_matches_twin_autograd(cuda, layout):
 
 
 def test_masked_attn_raises_past_its_limit(cuda):
-    from alpro_tpu_torch.ops import masked_attn
-
     limit = masked_attn.max_seq_len(torch.float32, 64, cuda)
     assert masked_attn.max_seq_len(torch.bfloat16, 64, cuda) >= 709
     q, k, v, mask = _attn_inputs("bshd", 1, limit + 1, cuda, torch.float32)
@@ -678,9 +704,11 @@ def test_python_limits_equal_the_kernels(cuda):
         assert bert_block.max_seq(dtype, smem) == lib.alpro_bert_attn_max_seq(bf, dev)
         assert block_attn.max_seq(dtype, smem) == lib.alpro_block_attn_max_seq(bf, dev)
         for hd in (16, 32, 48, 64, 128):
-            for S in (1, 64, 65, 197, 256, 257, 577, 640, 769, 1000, 4000):
+            for S in (1, 64, 65, 197, 256, 257, 577, 640, 709, 769, 1000, 4000, 20480, 20481):
                 assert qkv_attn.spatial_smem_bytes(S, hd, dtype, smem) == \
                     qkv_attn.spatial_launch_smem(S, hd, dtype, cuda), (S, hd, dtype)
+                assert masked_attn.smem_bytes(S, hd, dtype, smem) == \
+                    lib.alpro_masked_attn_smem(S, hd, bf, dev), ("masked", S, hd, dtype)
 
 
 # ---- B17: the whole attention sublayer ----

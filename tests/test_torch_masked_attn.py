@@ -160,3 +160,23 @@ def test_packed_qkv_views_read_in_place():
     with pytest.raises(ValueError, match="key_mask"):
         masked_attn.fused_attention_bshd(x[..., :D], x[..., D:2 * D], x[..., 2 * D:], H,
                                          key_mask=torch.ones(B, SQ + 1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_twin_matches_jax_kernel_past_a_chunk(layout, dtype):
+    """Sq 40, Sk 300: past the kernel's one-pass chunk of 256 keys, with a
+    masked tail and a fully masked sequence (every key's bias -10000), so the
+    twin that holds the card's kernel is pinned where the kernel walks its
+    keys twice."""
+    rng = np.random.RandomState(7)
+    sq, sk = 40, 300
+    shape = {"bhsd": lambda s: (B, H, s, HD), "bshd": lambda s: (B, s, H * HD)}[layout]
+    q, k, v = (rng.randn(*shape(s)).astype(np.float32) for s in (sq, sk, sk))
+    mask = np.ones((B, sk), np.int32)
+    mask[0, 263:] = 0
+    mask[1, :] = 0
+    want = np.asarray(_jax(layout, q, k, v, mask, getattr(jnp, dtype)).astype(jnp.float32))
+    got = _port(layout, q, k, v, mask, getattr(torch, dtype))
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.float().numpy(), want, atol=TOL[dtype], rtol=0)
