@@ -38,7 +38,22 @@
 //     past Sk are those of the unbiased body;
 //   * where B·H CTAs would leave resident slots of the card idle (the longest
 //     fusion sequence: 1 x 12 heads), the query tiles are split over grid z;
-//     each such CTA stages K and V itself and L2 serves the repeats.
+//     each such CTA stages K and V itself and L2 serves the repeats;
+//   * kSplit (B17, csrc/block_attn.cu): q and k come as bf16 pairs hi + lo
+//     of fp32 values (|y - hi - lo| <= ~2^-16 |y|), and the scores are
+//     q_hi·k_hiᵀ + q_hi·k_loᵀ + q_lo·k_hiᵀ, three wgmma chains into the same
+//     fp32 accumulators in one stage (q_lo·k_loᵀ, ~2^-16 of |q||k|, is
+//     dropped): fp32 q·kᵀ to ~2^-16, where the others take the stored bf16
+//     q and k. q_hi is in registers as above; q_lo stays in shared memory
+//     beside it and is read by descriptor (the shared-A wgmma), so the score
+//     stage needs no more registers. A K slot holds k_hi, v and k_lo. To
+//     keep two CTAs on an SM at the ViT's 197 keys, the one query buffer
+//     (q_hi and q_lo) is refilled after its tile's last product, and a
+//     single chunk's slot holds its keys rounded up to 16 rows, not 64: the
+//     last 64-key block's wgmmas read past a panel into the next one (k_hi
+//     into v, v into k_lo, k_lo into a pad after the slots), rows whose
+//     scores are masked and whose p are 0 (v's over-read rows are k_lo's,
+//     finite).
 #pragma once
 
 #include "hopper.cuh"
@@ -56,6 +71,11 @@ namespace hp = alpro::hopper;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSlots = 30;  // K/V slots: barriers fit the first 256 bytes
+
+template <bool kSplit> struct LoMaps {  // kSplit: the maps of q_lo and k_lo
+  CUtensorMap q, k;
+};
+template <> struct LoMaps<false> {};
 
 template <int HD> struct Cfg {
   static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim");
@@ -78,24 +98,28 @@ __host__ __device__ inline long bias_bytes(int n, int R) {
 
 struct Plan {
   int n = 0;        // key chunks
-  int R = 0;        // rows per chunk in shared memory (multiple of 64)
+  int R = 0;        // rows per chunk in shared memory (multiple of 64; kSplit 16)
   int nslots = 0;   // K/V slots (n: resident)
   int smem = 0;     // dynamic shared memory, 0: no launch fits
 };
 
-// bias: whether the launch stages a key-bias row
-template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias) {
+// bias: whether the launch stages a key-bias row; split: kSplit's layout
+// (one query buffer of q_hi and q_lo where the others have two of q; K
+// slots of k_hi, v and k_lo; one chunk's rows rounded to 16, with a pad for
+// the last panel's over-read)
+template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias, bool split = false) {
   using C = Cfg<HD>;
   Plan p;
   if (keys <= C::kMaxN) {
     p.n = 1;
-    p.R = (keys + 63) / 64 * 64;
+    p.R = split ? (keys + 15) / 16 * 16 : (keys + 63) / 64 * 64;
   } else {
     p.n = (keys + C::kMaxN - 1) / C::kMaxN;
     p.R = C::kMaxN;
   }
-  const long fixed = C::kFixed + (bias ? bias_bytes(p.n, p.R) : 0);
-  const long slot = 2L * p.R * HD * 2;
+  const long fixed = C::kFixed + (bias ? bias_bytes(p.n, p.R) : 0) +
+                     long((p.R + 63) / 64 * 64 - p.R) * C::SW;  // the pad
+  const long slot = (split ? 3L : 2L) * p.R * HD * 2;
   long fit = (long(smem_optin) - fixed) / slot;
   if (fit > kMaxSlots) fit = kMaxSlots;
   p.nslots = int(fit < p.n ? fit : p.n);
@@ -107,11 +131,13 @@ template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias) {
 // The two products of a chunk of NBL 64-key blocks, each one wgmma pipeline
 // stage of straight-line code (a branch between a stage's wgmmas would make
 // ptxas serialize them). s: this thread's NBL x 32 fp32 accumulators; K and
-// V: R-row panels at kb and vb.
-template <int HD, int NBL>
+// V: R-row panels at kb and vb. kSplit: kb holds k_hi, kl k_lo and ql the
+// 64-row q_lo tile; the two cross products follow q_hi·k_hiᵀ in the stage.
+template <int HD, int NBL, bool kSplit>
 __device__ __forceinline__ void qk_stage(float (&s)[NBL * 32],
                                          const uint32_t (&qf)[HD / 16][4],
-                                         const unsigned char* kb, int R) {
+                                         const unsigned char* kb, const unsigned char* kl,
+                                         const unsigned char* ql, int R) {
   using C = Cfg<HD>;
   hp::wgmma_fence();
 #pragma unroll
@@ -123,6 +149,20 @@ __device__ __forceinline__ void qk_stage(float (&s)[NBL * 32],
       const uint64_t desc = hp::smem_desc<C::SW>(p, 16, 8 * C::SW);
       if (kk == 0) hp::WgmmaRS<64>::run_zero<0>(s + b * 32, qf[kk], desc);
       else hp::WgmmaRS<64>::run<0>(s + b * 32, qf[kk], desc, 1);
+    }
+  }
+  if constexpr (kSplit) {
+#pragma unroll
+    for (int b = 0; b < NBL; ++b) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk * 16 / C::P) * R * C::SW + b * 64 * C::SW + (kk * 16 % C::P) * 2;
+        hp::WgmmaRS<64>::run<0>(s + b * 32, qf[kk],
+                                hp::smem_desc<C::SW>(kl + off, 16, 8 * C::SW), 1);
+        const unsigned char* a = ql + (kk * 16 / C::P) * 64 * C::SW + (kk * 16 % C::P) * 2;
+        hp::WgmmaSS<64>::run<0>(s + b * 32, hp::smem_desc<C::SW>(a, 16, 8 * C::SW),
+                                hp::smem_desc<C::SW>(kb + off, 16, 8 * C::SW), 1);
+      }
     }
   }
   hp::wgmma_commit();
@@ -173,14 +213,15 @@ struct Rows {
 // p rounded to bf16 . V into o. Columns past `valid` (in the last block) are
 // -inf for the max and 0 for p. kBias: cb is the chunk's bias row, added to
 // the scaled scores in place first.
-template <int HD, int NBL, bool kBias>
+template <int HD, int NBL, bool kBias, bool kSplit>
 __device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, float scale,
                                            int quad, const uint32_t (&qf)[HD / 16][4],
                                            const unsigned char* kb, const unsigned char* vb,
+                                           const unsigned char* kl, const unsigned char* ql,
                                            int R, const float* cb, Rows& st,
                                            float (&o)[HD / 2]) {
   float s[NBL * 32];
-  qk_stage<HD, NBL>(s, qf, kb, R);
+  qk_stage<HD, NBL, kSplit>(s, qf, kb, kl, ql, R);
   // register 4 j + e of block b holds column 64 b + 8 j + 2 quad + (e & 1)
   float sc = scale;
   if constexpr (kBias) {
@@ -231,17 +272,19 @@ __device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, f
 }
 
 // chunk_step for nbl (1..NB) blocks
-template <int HD, bool kBias, int NBL = 1>
+template <int HD, bool kBias, bool kSplit, int NBL = 1>
 __device__ __forceinline__ void chunk(int nbl, bool pass2, bool single, int valid, float scale,
                                       int quad, const uint32_t (&qf)[HD / 16][4],
-                                      const unsigned char* kb, const unsigned char* vb, int R,
+                                      const unsigned char* kb, const unsigned char* vb,
+                                      const unsigned char* kl, const unsigned char* ql, int R,
                                       const float* cb, Rows& st, float (&o)[HD / 2]) {
   if constexpr (NBL <= Cfg<HD>::NB) {
     if (nbl == NBL)
-      chunk_step<HD, NBL, kBias>(pass2, single, valid, scale, quad, qf, kb, vb, R, cb, st, o);
+      chunk_step<HD, NBL, kBias, kSplit>(pass2, single, valid, scale, quad, qf, kb, vb, kl, ql,
+                                         R, cb, st, o);
     else
-      chunk<HD, kBias, NBL + 1>(nbl, pass2, single, valid, scale, quad, qf, kb, vb, R, cb, st,
-                                o);
+      chunk<HD, kBias, kSplit, NBL + 1>(nbl, pass2, single, valid, scale, quad, qf, kb, vb, kl,
+                                        ql, R, cb, st, o);
   }
 }
 
@@ -267,16 +310,20 @@ struct Strides {
 // nq: the query rows (kCls: N + 1, the CLS query last and not in the q map).
 // kCls: qkv_c holds the CLS rows (one per sample of Tn frames), out_c gets the
 // CLS query's output (one row per frame). kBias: mask holds one fp32 key-mask
-// row of nkeys per sequence (1: a valid key).
-template <int HD, bool kCls, bool kBias>
+// row of nkeys per sequence (1: a valid key). kSplit: mq and mk are the
+// maps of q_hi and k_hi, lo those of q_lo and k_lo.
+template <int HD, bool kCls, bool kBias, bool kSplit = false>
 __global__ void __launch_bounds__(128, 1)
 attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out, Strides so,
            const float* __restrict__ mask, const bf16* __restrict__ qkv_c,
            bf16* __restrict__ out_c, int nkeys, int nq, int H, float scale, int Tn, int n, int R,
-           int nslots, int tpc) {
+           int nslots, int tpc, const __grid_constant__ LoMaps<kSplit> lo) {
   static_assert(!(kCls && kBias), "the CLS sideband takes no key bias");
+  static_assert(!(kCls && kSplit), "the CLS sideband takes no split operands");
   using C = Cfg<HD>;
+  constexpr int QB = (kSplit ? 2 : 1) * C::kQBytes;  // one query buffer (kSplit: hi, lo)
+  constexpr int NQB = kSplit ? 1 : 2;                 // query buffers
   constexpr int SW = C::SW, P = C::P;
   const int h = blockIdx.x, m = blockIdx.y, D = H * HD;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, quad = lane & 3;
@@ -290,28 +337,33 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   uint64_t* bar_kv = bar_q + 2;                           // nslots
   float* vcls = reinterpret_cast<float*>(base + 512);     // kCls: the CLS value, fp32
   unsigned char* qbuf = base + 1024;
-  unsigned char* kcls = qbuf + 2 * C::kQBytes;  // kCls: 8-row K block, row 0 the CLS key
+  unsigned char* kcls = qbuf + NQB * QB;  // kCls: 8-row K block, row 0 the CLS key
   float* bsm = reinterpret_cast<float*>(kcls + C::kClsBytes);  // kBias: n·R bias row
   unsigned char* slots =                                        // nslots x (K, V), R rows
       kcls + C::kClsBytes + (kBias ? bias_bytes(n, R) : 0);
   const int half = R * HD * 2;
+  const int slot_bytes = (kSplit ? 3 : 2) * half;  // K (k_hi), V (and k_lo)
 
   const bool resident = n <= nslots;
   const int tile_steps = n > 1 ? 2 * n : 1;  // pass 1 (max), pass 2 (exp, sum, PV)
   const int total_steps = ntiles * tile_steps;
 
   auto load_q = [&](int t) {
-    uint64_t* bar = &bar_q[t & 1];
-    hp::mbar_expect_tx(bar, C::kQBytes);
-    load_rows<HD>(qbuf + (t & 1) * C::kQBytes, &mq, bar, (t0 + t) * 64, 64, h, m);
+    const int b = kSplit ? 0 : (t & 1);
+    uint64_t* bar = &bar_q[b];
+    hp::mbar_expect_tx(bar, QB);
+    load_rows<HD>(qbuf + b * QB, &mq, bar, (t0 + t) * 64, 64, h, m);
+    if constexpr (kSplit)
+      load_rows<HD>(qbuf + b * QB + C::kQBytes, &lo.q, bar, (t0 + t) * 64, 64, h, m);
   };
   // chunk c of K (and V) into slot
   auto load_kv = [&](int slot, int c, bool with_v) {
     uint64_t* bar = &bar_kv[slot];
-    unsigned char* dst = slots + slot * 2 * half;
-    hp::mbar_expect_tx(bar, (with_v ? 2 : 1) * half);
+    unsigned char* dst = slots + slot * slot_bytes;
+    hp::mbar_expect_tx(bar, ((with_v ? 2 : 1) + (kSplit ? 1 : 0)) * half);
     load_rows<HD>(dst, &mk, bar, c * R, R, h, m);
     if (with_v) load_rows<HD>(dst + half, &mv, bar, c * R, R, h, m);
+    if constexpr (kSplit) load_rows<HD>(dst + 2 * half, &lo.k, bar, c * R, R, h, m);
   };
   // streamed step j: (pass, chunk) and its load
   auto load_step = [&](int j) {
@@ -327,7 +379,7 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   __syncthreads();
   if (tid == 0) {
     load_q(0);
-    if (ntiles > 1) load_q(1);
+    if (NQB > 1 && ntiles > 1) load_q(1);
     if (resident)
       for (int c = 0; c < n; ++c) load_kv(c, c, true);
     else
@@ -358,7 +410,7 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   auto acquire = [&](int c) -> const unsigned char* {
     const int slot = resident ? c : step % nslots;
     hp::mbar_wait(&bar_kv[slot], resident ? 0 : (step / nslots) & 1);
-    return slots + slot * 2 * half;
+    return slots + slot * slot_bytes;
   };
   // release it: every warp's wgmma reads are done; refill it when streaming
   auto release = [&]() {
@@ -370,8 +422,8 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   };
 
   for (int t = 0; t < ntiles; ++t) {
-    unsigned char* qb = qbuf + (t & 1) * C::kQBytes;
-    hp::mbar_wait(&bar_q[t & 1], (t >> 1) & 1);
+    unsigned char* qb = qbuf + (kSplit ? 0 : (t & 1)) * QB;
+    hp::mbar_wait(&bar_q[kSplit ? 0 : (t & 1)], kSplit ? (t & 1) : ((t >> 1) & 1));
     if (kCls && t0 + t == (nq - 1) / 64) {  // the CLS query is row nq - 1
       const int r = (nq - 1) & 63;
       if (tid < HD / 8) {
@@ -390,8 +442,8 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
       const int c = (kk * 16 % P) / 8 + (lane >> 4);
       hp::ldmatrix_x4(qf[kk], qb + (kk * 16 / P) * 64 * SW + hp::swizzled<SW>(row, c));
     }
-    __syncthreads();  // the buffer is free for tile t + 2
-    if (tid == 0 && t + 2 < ntiles) load_q(t + 2);
+    __syncthreads();  // the buffer is free for tile t + 2 (kSplit: after the tile)
+    if (!kSplit && tid == 0 && t + 2 < ntiles) load_q(t + 2);
 
     Rows st{-INFINITY, -INFINITY, 0.0f, 0.0f};
     float sc[4];  // kCls: the CLS key's score (column 0, held by quad 0)
@@ -423,8 +475,9 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
       for (int c = 0; c < n; ++c) {
         const int valid = min(R, nkeys - c * R);
         const unsigned char* kv = acquire(c);
-        chunk<HD, kBias>((valid + 63) / 64, pass == 1, n == 1, valid, scale, quad, qf, kv,
-                         kv + half, R, bsm + c * R, st, o);
+        chunk<HD, kBias, kSplit>((valid + 63) / 64, pass == 1, n == 1, valid, scale, quad, qf,
+                                 kv, kv + half, kv + 2 * half, qb + C::kQBytes, R, bsm + c * R,
+                                 st, o);
         release();
       }
       if (pass == 0) st.quad_max();
@@ -469,6 +522,10 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
       if (o0) *reinterpret_cast<uint32_t*>(o0 + col) = hp::pack_bf16(a / st.l0, b / st.l0);
       if (o1) *reinterpret_cast<uint32_t*>(o1 + col) = hp::pack_bf16(c / st.l1, d / st.l1);
     }
+    if constexpr (kSplit) {  // every product of tile t has read its q_lo
+      __syncthreads();
+      if (tid == 0 && t + 1 < ntiles) load_q(t + 1);
+    }
   }
 }
 
@@ -494,19 +551,27 @@ bool encode_operand(CUtensorMap* map, const Operand& x, int rows, int H, int B) 
 
 // One launch of attn_wgmma over B sequences of H heads: nq query rows (the
 // q map holds nkeys of them when kCls), nkeys keys; out through so (elements).
+// kSplit: q and k are q_hi and k_hi, split[0] and split[1] q_lo and k_lo.
 // A map that does not encode or a plan that does not fit returns
 // cudaErrorInvalidValue.
-template <int HD, bool kCls, bool kBias>
+template <int HD, bool kCls, bool kBias, bool kSplit = false>
 int launch(const Operand& q, const Operand& k, const Operand& v, void* out, Strides so,
            const float* mask, const void* qkv_c, void* out_c, int B, int H, int nq, int nkeys,
-           float scale, int Tn, int device, cudaStream_t stream) {
-  const Plan p = plan_bf16<HD>(nkeys, alpro::max_smem_optin(device), kBias);
+           float scale, int Tn, int device, cudaStream_t stream,
+           const Operand* split = nullptr) {
+  const Plan p = plan_bf16<HD>(nkeys, alpro::max_smem_optin(device), kBias, kSplit);
   if (!p.smem) return int(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   if (!encode_operand<HD>(&mq, q, kCls ? nkeys : nq, H, B) ||
       !encode_operand<HD>(&mk, k, nkeys, H, B) || !encode_operand<HD>(&mv, v, nkeys, H, B))
     return int(cudaErrorInvalidValue);
-  auto kernel = attn_wgmma<HD, kCls, kBias>;
+  LoMaps<kSplit> lo;
+  if constexpr (kSplit) {
+    if (!split || !encode_operand<HD>(&lo.q, split[0], nq, H, B) ||
+        !encode_operand<HD>(&lo.k, split[1], nkeys, H, B))
+      return int(cudaErrorInvalidValue);
+  }
+  auto kernel = attn_wgmma<HD, kCls, kBias, kSplit>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return int(err);
@@ -531,7 +596,7 @@ int launch(const Operand& q, const Operand& k, const Operand& v, void* out, Stri
   tpc = (ntiles + splits - 1) / splits;  // the same splits, balanced
   kernel<<<dim3(H, B, splits), 128, p.smem, stream>>>(
       mq, mk, mv, static_cast<bf16*>(out), so, mask, static_cast<const bf16*>(qkv_c),
-      static_cast<bf16*>(out_c), nkeys, nq, H, scale, Tn, p.n, p.R, p.nslots, int(tpc));
+      static_cast<bf16*>(out_c), nkeys, nq, H, scale, Tn, p.n, p.R, p.nslots, int(tpc), lo);
   return int(cudaGetLastError());
 }
 

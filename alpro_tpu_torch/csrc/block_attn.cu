@@ -20,22 +20,39 @@
 // What bounds it on an H100: at one add_videos call's spatial sublayer (64
 // frames of 197 tokens, D = 768, 12 heads) it is 44.6 GFLOP of q/k/v
 // projection, 7.6 of attention and 14.9 of output projection against ~44 MB
-// in and out, so it is bound by operations. A Hopper block cannot carry the
-// projection's cross-head sum from one grid step to the next as the TPU grid
-// does, so it runs as two launches, as qkv_proj.cu's B7 does:
+// in and out, so it is bound by operations (0.068 ms at 989 TFLOP/s). A
+// Hopper CTA per (sample, head) that projected its own q, k and v would
+// re-read x and the head's weights from L2 per row tile (~0.9 GB at that
+// shape) or hold more fp32 accumulators than an SM has registers, and a
+// CTA cannot carry the projection's cross-head sum from one grid step to the
+// next as the TPU grid does. So bf16 runs as three launches, every product
+// on wgmma:
+//   1. gemm_wgmma.cuh: [q | k | v] = x · wqkvᵀ + bqkv over the B·S rows
+//      (TMA ring, two consumer warpgroups), written as five (B, S, D) bf16
+//      scratch tensors: q and k as hi + lo pairs (fp32 to ~2^-16: q and k
+//      are never rounded at the contract's 2^-8), v rounded;
+//   2. attn_wgmma.cuh under kSplit (K1's body, one CTA per (head, sample)):
+//      s = q_hi·k_hiᵀ + q_hi·k_loᵀ + q_lo·k_hiᵀ in fp32, times the scale,
+//      plus the key bias staged from the key mask (kBias), the exact row max
+//      in registers, p rounded for P·V, o / l rounded into a (B, S, D)
+//      heads scratch;
+//   3. gemm_wgmma.cuh again: heads · wprojᵀ + bproj, fp32 over all D
+//      columns (the contract's head sum in another order), rounded once.
+// The round trip through the scratch writes 6 · B·S·D bf16 and reads it
+// back (~116 MB each way at the main shape, ~0.07 ms at 3.35 TB/s). The
+// attention's plan (a ring of two slots of three K panels past 256 keys, and
+// the key-bias row) bounds S: alpro_block_attn_max_seq.
+//
+// fp32 keeps a CUDA-core body (no tensor-core product keeps fp32 operands):
 //   1. block_attn_heads, one block of 4 warps per (query-tile group, head,
-//      sample): the sample's k (fp32) and v (rounded) for the head projected
-//      into shared memory (head_proj.cuh: 64 x 64 chunks of x and of the
-//      head's weight rows, WMMA bf16 / fp32 CUDA-core tiles), then per 64-row
-//      query tile the fp32 q projected the same way, a full fp32 score row
-//      per query (one warp per 16 rows; the fp32 q . k^T on the CUDA cores),
-//      the softmax, p rounded into a per-warp tile, p . v on the tensor cores
-//      in bf16 (CUDA cores in fp32), and o / l rounded into an (B, S, D)
-//      scratch;
-//   2. proj_rows (row_tile.cuh): heads . Wp^T + b_proj over the rows, fp32
-//      accumulators, rounded once.
-// S is bounded by shared memory (fp32 K, rounded V and the score rows):
-// alpro_block_attn_max_seq reports it.
+//      sample): the sample's fp32 k and v for the head projected into shared
+//      memory (head_proj.cuh), then per 64-row query tile the fp32 q, a full
+//      fp32 score row per query (one warp per 16 rows), the softmax, p . v,
+//      and o / l into an (B, S, D) scratch;
+//   2. proj_rows (row_tile.cuh): heads . Wp^T + b_proj over the rows.
+// S is bounded by shared memory (fp32 K, V and the score rows).
+#include "attn_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 #include "head_proj.cuh"
 #include "row_tile.cuh"
 
@@ -145,7 +162,7 @@ __device__ __forceinline__ void attend(const float* qs, const float* Ks, const T
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 block_attn_heads(const T* __restrict__ x, const T* __restrict__ wqkv,
-                 const float* __restrict__ bqkv, const float* __restrict__ key_bias,
+                 const float* __restrict__ bqkv, const float* __restrict__ mask,
                  T* __restrict__ heads, int S, int SP, int H, float scale) {
   const int h = blockIdx.y, b = blockIdx.z;
   const int D = H * kHD;
@@ -162,8 +179,8 @@ block_attn_heads(const T* __restrict__ x, const T* __restrict__ wqkv,
   unsigned char* wbuf = rest + warp * warp_bytes<T>(SP);
   float* scr = reinterpret_cast<float*>(wbuf) + 16 * (SP + 4);
 
-  for (int c = threadIdx.x; c < SP; c += kThreads)
-    kb[c] = (c < S && key_bias != nullptr) ? key_bias[long(b) * S + c] : 0.0f;
+  for (int c = threadIdx.x; c < SP; c += kThreads)  // the twin's key_bias, in its fp32 steps
+    kb[c] = (c < S && mask != nullptr) ? (1.0f - mask[long(b) * S + c]) * -10000.0f : 0.0f;
 
   const T* xb = x + long(b) * S * D;
   auto row_ptr = [&](int r) -> const T* { return r < S ? xb + long(r) * D : nullptr; };
@@ -196,45 +213,107 @@ block_attn_heads(const T* __restrict__ x, const T* __restrict__ wqkv,
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
-           const void* bproj, const void* key_bias, void* heads, void* out, int B, int S, int H,
-           int q_split, float scale, int device, cudaStream_t stream) {
+constexpr int kHeadsBf16 = 64;  // head_dim of the bf16 route
+
+// the bf16 route's attention plan at S keys (with the key-bias row)
+int plan_smem(int S, int smem_optin) {
+  return alpro::attn::plan_bf16<kHeadsBf16>(S, smem_optin, true, true).smem;
+}
+
+int launch_f32(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
+               const float* bproj, const float* mask, float* heads, float* out, int B, int S,
+               int H, int q_split, float scale, int device, cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
-  const size_t smem = smem_bytes<T>(SP);
+  const size_t smem = smem_bytes<float>(SP);
   if (smem > size_t(alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(block_attn_heads<T>,
+  cudaError_t err = cudaFuncSetAttribute(block_attn_heads<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid(std::min(q_split, (S + kQT - 1) / kQT), H, B);
-  block_attn_heads<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wqkv), static_cast<const float*>(bqkv),
-      static_cast<const float*>(key_bias), static_cast<T*>(heads), S, SP, H, scale);
+  block_attn_heads<float><<<grid, kThreads, smem, stream>>>(x, wqkv, bqkv, mask, heads, S, SP,
+                                                            H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return alpro::rows::dispatch_proj<T>(H * kHD, heads, wproj, bproj, nullptr, out, B * S, stream);
+  return alpro::rows::dispatch_proj<float>(H * kHD, heads, wproj, bproj, nullptr, out, B * S,
+                                           stream);
+}
+
+// scratch: six (B, S, D) bf16 tensors, q_hi, q_lo, k_hi, k_lo, v, heads
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* wqkv, const float* bqkv,
+                const __nv_bfloat16* wproj, const float* bproj, const float* mask,
+                __nv_bfloat16* scratch, __nv_bfloat16* out, int B, int S, int H, float scale,
+                int device, cudaStream_t stream) {
+  using alpro::attn::Operand;
+  const int D = H * kHeadsBf16, M = B * S;
+  if (!plan_smem(S, alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
+  __nv_bfloat16* part[6];
+  for (int i = 0; i < 6; ++i) part[i] = scratch + long(i) * M * D;
+  const alpro::gemm::Epilogue qkv{{part[0], part[1], part[2], part[3], part[4]}, bqkv, D};
+  int err = alpro::gemm::launch(x, wqkv, qkv, M, 3 * D, D, stream);
+  if (err) return err;
+  // each operand (B, S, H, 64): byte strides of the sequence, head and batch
+  auto operand = [&](int i) {
+    return Operand{part[i], 2LL * D, 2LL * kHeadsBf16, 2LL * S * D};
+  };
+  const Operand q = operand(0), k = operand(2), v = operand(4), lo[2] = {operand(1), operand(3)};
+  const alpro::attn::Strides so{static_cast<long long>(S) * D, D, kHeadsBf16};
+  err = mask ? alpro::attn::launch<kHeadsBf16, false, true, true>(
+                   q, k, v, part[5], so, mask, nullptr, nullptr, B, H, S, S, scale, 1, device,
+                   stream, lo)
+             : alpro::attn::launch<kHeadsBf16, false, false, true>(
+                   q, k, v, part[5], so, nullptr, nullptr, nullptr, B, H, S, S, scale, 1, device,
+                   stream, lo);
+  if (err) return err;
+  const alpro::gemm::Epilogue proj{{out}, bproj, 0};
+  return alpro::gemm::launch(part[5], wproj, proj, M, D, D, stream);
 }
 
 }  // namespace
 
 // The largest S the kernel takes for this dtype on this device.
 extern "C" int alpro_block_attn_max_seq(int is_bf16, int device) {
-  return is_bf16 ? max_seq<__nv_bfloat16>(device) : max_seq<float>(device);
+  if (!is_bf16) return max_seq<float>(device);
+  const int optin = alpro::max_smem_optin(device);
+  int s = 0;
+  while (plan_smem(s + 1, optin)) ++s;
+  return s;
 }
 
-// x, heads (scratch), out: (B, S, H * 64) in one dtype; wqkv (3D, D) and
-// wproj (D, D) in it; bqkv, bproj fp32; key_bias fp32 (B, S) or null. Blocks
-// per (head, sample): q_split (at most the number of 64-row query tiles).
+// x, out: (B, S, H * 64) in one dtype; wqkv (3D, D) and wproj (D, D) in it;
+// bqkv, bproj fp32; mask fp32 (B, S) key mask (1: a valid key) or null.
+// scratch: bf16 six (B, S, D) tensors, fp32 one. q_split: fp32 blocks per
+// (head, sample) (at most the number of 64-row query tiles).
 extern "C" int alpro_block_attn(const void* x, const void* wqkv, const void* bqkv,
-                                const void* wproj, const void* bproj, const void* key_bias,
-                                void* heads, void* out, int B, int S, int H, int q_split,
+                                const void* wproj, const void* bproj, const void* mask,
+                                void* scratch, void* out, int B, int S, int H, int q_split,
                                 float scale, int is_bf16, int device, void* stream) {
   if (B < 1 || S < 1 || H < 1 || q_split < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, wqkv, bqkv, wproj, bproj, key_bias, heads, out, B,
-                                         S, H, q_split, scale, device, st)
-                 : launch<float>(x, wqkv, bqkv, wproj, bproj, key_bias, heads, out, B, S, H,
-                                 q_split, scale, device, st);
+  const float* m = static_cast<const float*>(mask);
+  if (is_bf16)
+    return launch_bf16(static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(wqkv), static_cast<const float*>(bqkv),
+                       static_cast<const __nv_bfloat16*>(wproj),
+                       static_cast<const float*>(bproj), m,
+                       static_cast<__nv_bfloat16*>(scratch), static_cast<__nv_bfloat16*>(out),
+                       B, S, H, scale, device, st);
+  return launch_f32(static_cast<const float*>(x), static_cast<const float*>(wqkv),
+                    static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
+                    static_cast<const float*>(bproj), m, static_cast<float*>(scratch),
+                    static_cast<float*>(out), B, S, H, q_split, scale, device, st);
+}
+
+// y = a (M, K) · w (N, K)ᵀ + bias (N, fp32), bf16 a, w and outputs. split 0:
+// out[0] (M, N); split D (N = 3D): out[0..4] q_hi, q_lo, k_hi, k_lo, v, each
+// (M, D). N and D multiples of 128, K of 64. B17's GEMM alone.
+extern "C" int alpro_gemm_bf16(const void* a, const void* w, const void* bias,
+                               void* const* out, int M, int N, int K, int split, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  alpro::gemm::Epilogue ep{{}, static_cast<const float*>(bias), split};
+  for (int i = 0; i < (split ? 5 : 1); ++i) ep.out[i] = static_cast<__nv_bfloat16*>(out[i]);
+  return alpro::gemm::launch(a, w, ep, M, N, K, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,196 @@
+// A bf16 GEMM on Hopper: y = a · wᵀ + bias, fp32 accumulation, for B17's
+// two projections (csrc/block_attn.cu).
+//
+// a (M, K) and w (N, K) are row-major bf16 (w in torch Linear layout, so
+// both are K-major, as wgmma takes them from shared memory); bias (N) fp32.
+// The epilogue adds the bias to the fp32 sums and either rounds y to bf16
+// into one (M, N) output, or (split D, N = 3D: a packed [q | k | v]
+// projection) writes five (M, D) bf16 outputs: q and k as a pair hi =
+// bf16(y), lo = bf16(y - hi), so hi + lo keeps y to about 2^-16 of |y|, and
+// v rounded once.
+//
+// What bounds it on an H100: at B17's shapes (M = 12608 rows, K = 768, N =
+// 2304 or 768) 2·M·N·K operations over (M + N)·K inputs and M·N outputs,
+// ~295 operations per byte at 989 TFLOP/s and 3.35 TB/s: the tensor cores
+// bound the qkv product, and the split outputs (5 · M · D bf16) come close.
+// Design: one CTA per kBM x kBN output tile, in a 1-D grid with the column
+// tiles fastest, so the CTAs in flight share their rows of a in L2 (w stays
+// there whole). One producer warp keeps kStages 64-wide K-chunks of a and w
+// in flight by TMA (128-byte swizzle, one mbarrier per stage for "full" and
+// one for "empty"); two consumer warpgroups each take 64 rows of the tile
+// and run m64 x kBN x 16 wgmma with A and B from shared memory into fp32
+// registers, one stage's products in flight behind the next's. The
+// epilogue stages the bf16 tile (and lo) in the freed stage memory and
+// writes it out in coalesced 16-byte chunks. kMinBlocks CTAs share an SM, so
+// one CTA's epilogue overlaps another's products. Rows past M are
+// zero-filled by TMA and not stored.
+#pragma once
+
+#include "hopper.cuh"
+
+namespace alpro {
+namespace gemm {
+namespace {
+
+using bf16 = __nv_bfloat16;
+namespace hp = alpro::hopper;
+
+constexpr int kBM = 128;                   // rows of a tile: two warpgroups of 64
+constexpr int kBN = 128;                   // columns of a tile
+constexpr int kBK = 64;                    // K per stage: one 128-byte panel row
+constexpr int kStages = 3;
+constexpr int kMinBlocks = 2;              // CTAs an SM holds at once
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and the producer warp
+constexpr int kABytes = kBM * kBK * 2;
+constexpr int kBBytes = kBN * kBK * 2;
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kOutBytes = kBM * kBN * 2;   // one bf16 output tile, staged
+static_assert(2 * kOutBytes <= kStages * kStageBytes, "hi and lo tiles fit the stages");
+// 1024 alignment slack, the stages, the 2 x kStages barriers
+constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+
+// Where y goes. split == 0: out[0] is (M, N). split == D: N = 3D, out[0..4]
+// are q_hi, q_lo, k_hi, k_lo, v, each (M, D).
+struct Epilogue {
+  bf16* out[5];
+  const float* bias;
+  int split;
+};
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
+           const __grid_constant__ Epilogue ep, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int ntn = N / kBN;
+  const int n0 = (blockIdx.x % ntn) * kBN, m0 = (blockIdx.x / ntn) * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int kt = K / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    hp::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer
+    if (lane == 0) {
+      for (int k = 0; k < kt; ++k) {
+        const int s = k % kStages;
+        if (k >= kStages) hp::mbar_wait(&empty[s], ((k / kStages) - 1) & 1);
+        unsigned char* st = base + s * kStageBytes;
+        hp::mbar_expect_tx(&full[s], kStageBytes);
+        hp::tma_load_2d(st, &ma, &full[s], k * kBK, m0);
+        hp::tma_load_2d(st + kABytes, &mw, &full[s], k * kBK, n0);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows 64 wg .. + 63 of the tile. One stage's
+  // products stay in flight while the next stage's are issued; a stage is
+  // released once its own products have completed.
+  const int wg = warp >> 2;
+  float acc[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.0f;
+  for (int k = 0; k < kt; ++k) {
+    const int s = k % kStages;
+    hp::mbar_wait(&full[s], (k / kStages) & 1);
+    const unsigned char* a = base + s * kStageBytes + wg * 64 * 128;
+    const unsigned char* w = base + s * kStageBytes + kABytes;
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hp::WgmmaSS<kBN>::run<0>(acc, hp::smem_desc<128>(a + kk * 32, 16, 1024),
+                                hp::smem_desc<128>(w + kk * 32, 16, 1024), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();
+    if (k > 0 && lane == 0) hp::mbar_arrive(&empty[(k - 1) % kStages]);
+  }
+  hp::wgmma_wait_all();
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) hp::pin(acc[i]);
+
+  // The epilogue: y + bias rounded (and lo = y - hi) into the stage memory,
+  // now free, as 64-column panels of 128-byte swizzled rows (each thread's
+  // 4-byte writes conflict-free), then copied out in 16-byte chunks, a row's
+  // chunks on neighbouring threads. Register 4 j + e holds tile row r (+ 8
+  // for e & 2), column 8 j + 2 quad + (e & 1).
+  const int D = ep.split;
+  const int part = D ? n0 / D : 0;  // 0 q, 1 k, 2 v (split)
+  const int ld = D ? D : N, c0 = n0 - part * D;
+  const bool with_lo = D && part < 2;
+  unsigned char* hi_tile = base;
+  unsigned char* lo_tile = base + kOutBytes;
+  hp::named_barrier(1, kConsumers);  // every warpgroup's products are done
+  const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2), quad = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int c = 8 * j + 2 * quad;
+    const float b0 = ep.bias[n0 + c], b1 = ep.bias[n0 + c + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      const float y0 = acc[4 * j + 2 * h] + b0, y1 = acc[4 * j + 2 * h + 1] + b1;
+      const int at = (j / 8) * kBM * 128 + hp::swizzled<128>(row, j % 8) + 4 * quad;
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(y0, y1);
+      *reinterpret_cast<__nv_bfloat162*>(hi_tile + at) = hv;
+      if (with_lo)
+        *reinterpret_cast<__nv_bfloat162*>(lo_tile + at) =
+            __floats2bfloat162_rn(y0 - __low2float(hv), y1 - __high2float(hv));
+    }
+  }
+  hp::named_barrier(1, kConsumers);
+  bf16* hi = ep.out[D ? 2 * part : 0];
+  bf16* lo = with_lo ? ep.out[2 * part + 1] : nullptr;
+  constexpr int kChunks = kBN / 8;  // 16-byte chunks of a tile row
+  for (int i = tid; i < kBM * kChunks; i += kConsumers) {
+    const int row = i / kChunks, c16 = i % kChunks;
+    if (m0 + row >= M) break;  // rows grow with i
+    const int at = (c16 / 8) * kBM * 128 + hp::swizzled<128>(row, c16 % 8);
+    const long g = long(m0 + row) * ld + c0 + c16 * 8;
+    *reinterpret_cast<uint4*>(hi + g) = *reinterpret_cast<const uint4*>(hi_tile + at);
+    if (with_lo) *reinterpret_cast<uint4*>(lo + g) = *reinterpret_cast<const uint4*>(lo_tile + at);
+  }
+}
+
+// the 2-D map of a row-major (rows, cols) bf16 matrix, box (kBK, box_rows)
+inline bool encode_matrix(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(kBK), cuuint32_t(box_rows)}, elem[2] = {1, 1};
+  return hp::encode_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+                               dims, strides, box, elem,
+                               CU_TENSOR_MAP_SWIZZLE_128B) == CUDA_SUCCESS;
+}
+
+// y = a (M, K) · w (N, K)ᵀ + bias into ep; N a multiple of 128 (and of 3
+// with split = N / 3 a multiple of 128), K a multiple of 64, a and w
+// 16-byte aligned. Returns a cudaError_t.
+inline int launch(const void* a, const void* w, const Epilogue& ep, int M, int N, int K,
+                  cudaStream_t stream) {
+  if (M < 1 || N < kBN || N % kBN || K < kBK || K % kBK) return int(cudaErrorInvalidValue);
+  if (ep.split && (ep.split % kBN || N != 3 * ep.split)) return int(cudaErrorInvalidValue);
+  CUtensorMap ma, mw;
+  if (!encode_matrix(&ma, a, M, K, kBM) || !encode_matrix(&mw, w, N, K, kBN))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return int(err);
+  const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
+  if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
+  gemm_wgmma<<<unsigned(tiles), kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+}  // namespace gemm
+}  // namespace alpro

@@ -92,9 +92,11 @@ _SIGNATURES = {
     "alpro_temporal_qkv_proj": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # x, scale, bias, out, R, D, eps, in_bf16, out_bf16, device, stream
     "alpro_layernorm": ([_P] * 4 + [_I, _I, _F, _I, _I, _I, _P], _I),
-    # x, wqkv, bqkv, wproj, bproj, key_bias, heads, out, B, S, H, q_split,
+    # x, wqkv, bqkv, wproj, bproj, key mask, scratch, out, B, S, H, q_split,
     # scale, is_bf16, device, stream
     "alpro_block_attn": ([_P] * 8 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # a, w, bias, outputs (array of 5 pointers), M, N, K, split, device, stream
+    "alpro_gemm_bf16": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # is_bf16, device
     "alpro_block_attn_max_seq": ([_I, _I], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
@@ -173,6 +175,8 @@ def build() -> Path:
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             handle = ctypes.CDLL(str(build()))
@@ -188,7 +192,7 @@ def check_cuda_operand(t, name: str, dtypes, align: int = 16) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of one of ``dtypes``
     whose data pointer is ``align``-byte aligned (the kernels use vector and
     tensor-core loads)."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name}: dtype {t.dtype} not in {dtypes}")
@@ -208,11 +212,23 @@ def smem_optin(device) -> int:
     return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
 
 
-def stream_args(t) -> tuple:
-    """(device index, current stream handle) for a launch on ``t``'s device."""
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of SMs of CUDA ``device`` (132 on an H100 SXM), cached."""
     import torch
 
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream_args(t) -> tuple:
+    """(device index, raw handle of the current stream) for a launch on
+    ``t``'s device: what ``torch.cuda.current_stream(device).cuda_stream``
+    gives, without building a ``torch.cuda.Stream`` per call. Under
+    ``torch.cuda.stream(s)`` or a CUDA-graph capture it is that stream."""
+    import torch
+
+    dev = t.get_device()
+    return dev, torch._C._cuda_getCurrentRawStream(dev)
 
 
 def refuse_grad(name: str, *tensors) -> None:

@@ -9,10 +9,12 @@ Counterpart of ``alpro_tpu/ops/pallas_layernorm.py::fused_layernorm``
 
 Gradient: as the JAX custom_vjp, the kernel call is a
 ``torch.autograd.Function`` whose backward is JAX's analytic ``_bwd``
-(``layernorm_backward``: fp32 dx, dscale, dbias). A wrapper runs the twin
-only for a CPU tensor (differentiated directly by autograd, the same
-gradient up to rounding); for a CUDA tensor it launches the kernel or
-raises. ``launches`` counts kernel launches.
+(``layernorm_backward``: fp32 dx, dscale, dbias); a call that needs no
+gradient (grad mode off, or no input requiring one) launches directly, since
+the Function's bookkeeping costs more host time than the kernel takes on the
+card. A wrapper runs the twin only for a CPU tensor (differentiated directly
+by autograd, the same gradient up to rounding); for a CUDA tensor it
+launches the kernel or raises. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -53,6 +55,14 @@ def layernorm_backward(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor, ep
             gf.sum(dim=rows).to(scale.dtype))
 
 
+def _fp32_operand(v: torch.Tensor) -> torch.Tensor:
+    """scale or bias as the kernel reads it: an fp32 contiguous tensor passes
+    as it is, anything else is converted once."""
+    if v.dtype == torch.float32 and v.is_contiguous():
+        return v
+    return v.detach().float().contiguous()
+
+
 def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
             out_dtype: torch.dtype) -> torch.Tensor:
     global launches
@@ -63,10 +73,10 @@ def _launch(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float
     if D % _VEC or D > _MAX_D or tuple(scale.shape) != (D,) or tuple(bias.shape) != (D,):
         raise ValueError(f"layernorm kernel needs D % {_VEC} == 0, D <= {_MAX_D} and (D,) scale "
                          f"and bias; got D={D}, {tuple(scale.shape)}, {tuple(bias.shape)}")
-    s, b = (v.detach().float().contiguous() for v in (scale, bias))
+    s, b = _fp32_operand(scale), _fp32_operand(bias)
     for key, v in (("scale", s), ("bias", b)):
         _build.check_cuda_operand(v, f"layernorm {key}", (torch.float32,))
-    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    out = torch.empty_like(x, dtype=out_dtype)
     dev, stream = _build.stream_args(x)
     err = _build.lib().alpro_layernorm(
         x.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), x.numel() // D, D, float(eps),
@@ -101,4 +111,6 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *, eps: 
     out_dtype = x.dtype if out_dtype is None else out_dtype
     if x.device.type == "cpu":
         return layernorm_plain(x, scale, bias, eps, out_dtype)
-    return _KernelLayerNorm.apply(x, scale, bias, float(eps), out_dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad or bias.requires_grad):
+        return _KernelLayerNorm.apply(x, scale, bias, float(eps), out_dtype)
+    return _launch(x, scale, bias, float(eps), out_dtype)

@@ -72,24 +72,30 @@ _SPATIAL_HEAD_DIMS = (32, 64, 128)  # csrc/attn_wgmma.cuh Cfg, csrc/spatial_attn
 _SPATIAL_MAX_SLOTS = 30  # csrc/attn_wgmma.cuh kMaxSlots
 
 
-def attn_wgmma_smem(keys: int, hd: int, smem: int, bias: bool = False) -> int:
+def attn_wgmma_smem(keys: int, hd: int, smem: int, bias: bool = False,
+                    split: bool = False) -> int:
     """Dynamic shared memory of a launch of the bf16 attention body
     (``csrc/attn_wgmma.cuh`` ``plan_bf16``) at ``keys`` keys on a device with
     ``smem`` bytes of opt-in shared memory per block, or 0 where no launch
     fits: two 64-row query tiles and the CLS key block, the key-bias row
     (B12/B13, ``bias``), and K and V in chunks of up to 256 keys (128 at
-    head_dim 128) — all of them where they fit, else a ring of at least two."""
+    head_dim 128) — all of them where they fit, else a ring of at least two.
+    ``split`` (B17's kSplit): one query buffer of q_hi and q_lo in place of
+    two of q, a K/V slot of k_hi, v and k_lo, and one chunk's keys rounded
+    to 16 rows, not 64, with a pad after the slots for the last 64-key
+    block's over-read."""
     if keys < 1 or hd not in _SPATIAL_HEAD_DIMS:
         return 0
     max_n = 128 if hd == 128 else 256
     if keys <= max_n:
-        n, rows = 1, -(-keys // 64) * 64
+        n, rows = 1, -(-keys // (16 if split else 64)) * (16 if split else 64)
     else:
         n, rows = -(-keys // max_n), max_n
     fixed = 2048 + 2 * 64 * hd * 2 + -(-8 * hd * 2 // 1024) * 1024
+    fixed += (-(-rows // 64) * 64 - rows) * min(hd, 64) * 2  # the pad
     if bias:
         fixed += -(-n * rows * 4 // 1024) * 1024
-    slot = 2 * rows * hd * 2
+    slot = (3 if split else 2) * rows * hd * 2
     slots = min(n, _SPATIAL_MAX_SLOTS, max(0, (smem - fixed) // slot))
     return fixed + slots * slot if slots >= (2 if n > 1 else 1) else 0
 

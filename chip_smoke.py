@@ -15,9 +15,12 @@ line):
 3. kernels — each CUDA kernel against its plain PyTorch twin on the same
    bf16 inputs at the shapes of the main paths, with the tolerance stated
    beside it (the masked attention's and the LayerNorm's gradients too); the
-   median time of both, of one PyTorch library call that computes the same
-   function where there is one, and the least time the card could take at
-   the main shape (``bound_ms``);
+   median time of both per wrapper call, of one PyTorch library call that
+   computes the same function where there is one, and the least time the
+   card could take at the main shape (``bound_ms``); at the main shape also
+   the device time of the kernel and of the library call (``device_ms``: 20
+   calls captured in one CUDA graph, replays timed, so the host's share of
+   a call drops out; a wrapper that cannot be captured says why);
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -61,8 +64,12 @@ line):
    spatial attention sublayer) with the counts set to 0 just before and read
    just after; each against its twin at those and other shapes (B16 over
    its envelope: T = 48, head_dim 16 and 40, fp32; B17 with a key mask, at
-   the QA shape, fp32), gradients against autograd through the twins, B17
-   against the port's ``Attention`` module on the same weights; phase 4's
+   the QA shape, at 577 keys masked (streamed through its slot ring), fp32),
+   gradients against autograd through the twins, B17
+   against the port's ``Attention`` module on the same weights, B17 against
+   the TPU kernel's contract (q and k unrounded) at the main shape, masked
+   and with scores in the tens (where the twin, rounding q and k, must miss
+   it), and B17's GEMM alone at its qkv and projection shapes; phase 4's
    video tower under ``temporal_attn_impl='packed'`` and ``'circulant'``
    against phase 4's plain path; the spatial kernels at 256² frames (S =
    257, past one key chunk: ``auto`` launches K1 and ``cls_sideband`` B6,
@@ -216,6 +223,38 @@ def median_ms(fn, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, iters: int = 20, reps: int = 5):
+    """Device time per call: ``iters`` back-to-back calls captured in one
+    CUDA graph, replays timed by CUDA events (median of ``reps``), so the
+    wrappers' host time drops out. Returns (ms, None), or (None, reason)
+    where the calls cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+    except Exception as e:  # a wrapper that synchronises or copies from the host
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return statistics.median(times), None
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke needs a CUDA device; torch.cuda.is_available() is False")
@@ -246,7 +285,8 @@ def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
     """Kernel vs twin on the same inputs; ``main`` marks the shape the main
     path gives the kernel (the JSON line reports that one), with ``work`` =
     (FLOP, bytes) of the function there and ``library`` one PyTorch call
-    that computes it, where one exists."""
+    that computes it, where one exists. At the main shape also the device
+    time of the kernel's and the library call's (``graph_ms``)."""
     got, want = _flat(kernel()), _flat(twin())
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -257,8 +297,16 @@ def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
     ms, plain_ms = median_ms(kernel), median_ms(twin)
     lib_ms = median_ms(library) if library is not None else None
     res = {"shape": list(shape), "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": lib_ms, "main": main}
+           "library_ms": lib_ms, "main": main, "device_ms": None, "library_device_ms": None}
     extra = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    if main:
+        res["device_ms"], why = graph_ms(kernel)
+        extra += (f"; device {res['device_ms']:.4f} ms" if why is None
+                  else f"; device_ms not measured ({why})")
+        if library is not None:
+            res["library_device_ms"], why = graph_ms(library)
+            extra += (f", library device {res['library_device_ms']:.4f} ms" if why is None
+                      else f", library device_ms not measured ({why})")
     if work is not None:
         flop_ms, byte_ms = work[0] / PEAK_FLOPS * 1e3, work[1] / PEAK_BYTES * 1e3
         res["bound_ms"] = max(flop_ms, byte_ms)
@@ -1100,6 +1148,60 @@ def _kernel_vs_plain(what, model, cfg, x, field, kernel, forward) -> None:
     fail_if(diff > TOWER_TOL * scale, f"{what}: differs from {field}='plain' by {diff}")
 
 
+def _block_contract(xs, w, mask, H, randn, card) -> None:
+    """B17 against the TPU kernel's contract (q and k never rounded:
+    ``fused_attention_block_reference``) at the main shape and masked, then
+    with scores in the tens (q and k weights 0.25), where the twin, which
+    rounds q and k to bf16, must miss the reference by at least 5 x the
+    tolerance. Then its GEMM alone at the qkv (split) and projection shapes
+    against the fp32 product, with its device time and rate."""
+    from alpro_tpu_torch.ops import block_attn
+
+    tol = KERNEL_TOL["block_attn"]
+    D = xs.shape[-1]
+    wide = (torch.cat([randn(2 * D, D, std=0.25), w[0][2 * D:]]), *w[1:])
+    for what, x, ws, key_mask in (("main", xs, w, None), ("masked", xs, w, mask),
+                                  ("scores in the tens", xs[:8], wide, None)):
+        with torch.no_grad():
+            got = block_attn.fused_attention_block(x, *ws, H, key_mask).float()
+            ref = block_attn.fused_attention_block_reference(x, *ws, H, key_mask).float()
+            twin = block_attn.fused_attention_block_plain(x, *ws, H, key_mask).float()
+        bad = int(((got - ref).abs() > tol + tol * ref.abs()).sum())
+        twin_err = float((twin - ref).abs().max())
+        print(f"[last] fused_attention_block vs the contract reference, {what} "
+              f"{tuple(x.shape)}: max_abs {float((got - ref).abs().max()):.3e} (tol atol=rtol="
+              f"{tol}, {bad} outside); the twin's max_abs {twin_err:.3e} [{card}]", flush=True)
+        fail_if(bad > 0, f"B17 vs its contract reference ({what}): {bad} outside {tol}")
+        if what == "scores in the tens":
+            fail_if(twin_err < 5 * tol, f"B17 contract check: the rounded twin is within "
+                    f"{twin_err} of the reference, so the check cannot tell them apart")
+    M = xs.shape[0] * xs.shape[1]
+    a = xs.reshape(M, D)
+    for what, wt, bias, split in (("qkv, split", w[0], w[1], D), ("projection", w[2], w[3], 0)):
+        y = a.float() @ wt.float().t() + bias
+        got = block_attn.gemm_bf16(a, wt, bias, split)
+        hi = torch.cat([got[0], got[2], got[4]], 1) if split else got
+        err = float(((hi.float() - y).abs() / (y.abs() + 1e-3)).max())
+        lo_err = 0.0
+        if split:  # q and k as hi + lo
+            pair = torch.cat([got[0], got[2]], 1).float() + torch.cat([got[1], got[3]], 1).float()
+            lo_err = float((pair - y[:, :2 * D]).abs().max() / y[:, :2 * D].abs().max())
+        ms = median_ms(lambda: block_attn.gemm_bf16(a, wt, bias, split))
+        dev, why = graph_ms(lambda: block_attn.gemm_bf16(a, wt, bias, split))
+        b16 = bias.to(torch.bfloat16)
+        lib_dev, lib_why = graph_ms(lambda: torch.nn.functional.linear(a, wt, b16))
+        flop = 2 * M * wt.shape[0] * D
+
+        def rate(t, why):
+            return f"not measured ({why})" if why else f"{t:.4f} ms, {flop / t / 1e9:.1f} TFLOP/s"
+
+        print(f"[last] gemm_wgmma {what} ({M}, {D}) x ({wt.shape[0]}, {D})^T: max |y - bf16| / "
+              f"|y| {err:.3e} (tol 2^-8), |q,k hi + lo - y| / max|y| {lo_err:.3e}; {ms:.4f} ms "
+              f"a call, device {rate(dev, why)}; library F.linear (bf16 out, no split) device "
+              f"{rate(lib_dev, lib_why)} [{card}]", flush=True)
+        fail_if(err > 2 ** -8 or lo_err > 2 ** -14, f"gemm_wgmma {what}: error {err}, {lo_err}")
+
+
 def phase_last(card: str, res: dict, ret: dict) -> dict:
     """Phase 9: B16 and B17 through their public entries (the main path,
     counted), against their twins, their gradients, B17 against the port's
@@ -1183,8 +1285,11 @@ def phase_last(card: str, res: dict, ret: dict) -> dict:
         mha.out_proj.weight.copy_(w[2])
         mha.out_proj.bias.copy_(w[3])
     w_bytes = 4 * D * D * 2 + 4 * D * 4
+    long_mask = (torch.arange(577, device="cuda")[None] < torch.tensor([[577], [300]],
+                                                                        device="cuda")).float()
     for M, seq, key_mask, dtype, main in ((B * T, S, None, bf, True), (B * T, S, mask, bf, False),
                                           (2 * 16, S, None, bf, False),
+                                          (2, 577, long_mask, bf, False),
                                           (4, 150, None, torch.float32, False)):
         x = xs if main else (xs[:M] if dtype == bf and seq == S else randn(M, seq, D, dtype=dtype))
         ws = w if dtype == bf else tuple(t.float() for t in w)
@@ -1215,6 +1320,7 @@ def phase_last(card: str, res: dict, ret: dict) -> dict:
     _grad_gap("block_attn", xs.shape,
               lambda *a: block_attn.fused_attention_block(*a, H, mask),
               lambda *a: block_attn.fused_attention_block_plain(*a, H, mask), [xs, *w], SEED + 8)
+    _block_contract(xs, w, mask, H, randn, card)
 
     # ---- the packed and circulant temporal forms on phase 4's video tower ----
     model, tok, clips, ids = ret["model"], ret["tok"], ret["clips"], ret["ids"]
@@ -1564,6 +1670,8 @@ def main() -> int:
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],
             "library_ms": main_shape["library_ms"], "shape": main_shape["shape"],
+            "device_ms": main_shape["device_ms"],
+            "library_device_ms": main_shape["library_device_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

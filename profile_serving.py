@@ -16,7 +16,12 @@ first:
   ``predict_batch`` of 4 questions;
 * ``LayerNorm(impl='pallas')`` (the LayerNorm kernel's only entry) and the
   plain ``LayerNorm`` over the rows of one ``add_videos`` call's spatial
-  input (8 · 8 · 197, 768) in bf16, under ``no_grad``.
+  input (8 · 8 · 197, 768) in bf16, under ``no_grad``;
+* ``fused_attention_block`` (B17) on the spatial attention sublayer of one
+  ``add_videos`` call (64, 197, 768) in bf16, without and with a key mask,
+  under ``no_grad``: its launches by kernel name (the per-launch split).
+
+``--kernels-only`` runs the last two alone (no model is built).
 
 For each it prints one line: host ms per call (synchronised), device kernel
 ms per call (the sum of kernel times), device busy ms (the union of kernel
@@ -88,9 +93,19 @@ def _profile(label: str, fn, iters: int, card: str, top_n: int = 5) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=5)
-    iters = ap.parse_args().iters
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="profile only the LayerNorm and fused_attention_block calls")
+    args = ap.parse_args()
+    iters = args.iters
     card = smoke.phase_device()
     smoke.phase_build()
+    if not args.kernels_only:
+        _profile_models(iters, card)
+    _profile_kernels(iters, card)
+    return 0
+
+
+def _profile_models(iters: int, card: str) -> None:
     from alpro_tpu_torch.models.alpro import build_qa_model, build_retrieval_model
     from alpro_tpu_torch.serving.qa import VideoQAPredictor
     from alpro_tpu_torch.serving.retrieval import RetrievalIndex
@@ -136,6 +151,9 @@ def main() -> int:
                  lambda: qa.predict_batch(feats, smoke.QUESTIONS), iters, card)
     del qa_model, qa
 
+
+def _profile_kernels(iters: int, card: str) -> None:
+    from alpro_tpu_torch.ops import block_attn
     from alpro_tpu_torch.ops.layers import LayerNorm
 
     rows = smoke.CLIPS_PER_CALL * smoke.FRAMES * (1 + smoke.PATCHES)
@@ -147,7 +165,22 @@ def main() -> int:
             # catch every launch of a 5-call window
             _profile(f"LayerNorm(impl='{impl}') ({rows}, 768) bf16", lambda: ln(x, torch.bfloat16),
                      10 * iters, card)
-    return 0
+    g = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    M, S, D, H = smoke.CLIPS_PER_CALL * smoke.FRAMES, 1 + smoke.PATCHES, 768, 12
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device="cuda") * std).to(dtype)
+
+    xs = randn(M, S, D)
+    w = (randn(3 * D, D, std=D ** -0.5), randn(3 * D, std=0.02, dtype=torch.float32),
+         randn(D, D, std=D ** -0.5), randn(D, std=0.02, dtype=torch.float32))
+    mask = (torch.arange(S, device="cuda")[None] < torch.randint(
+        1, S + 1, (M, 1), generator=g, device="cuda")).float()
+    with torch.no_grad():
+        for what, key_mask in (("", None), (", masked", mask)):
+            _profile(f"fused_attention_block ({M}, {S}, {D}) bf16{what}",
+                     lambda: block_attn.fused_attention_block(xs, *w, H, key_mask),
+                     10 * iters, card)
 
 
 if __name__ == "__main__":

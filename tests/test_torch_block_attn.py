@@ -5,6 +5,11 @@ The wrapper runs its twin on a CPU tensor; the JAX kernel runs in interpret
 mode, as tests/test_block_attn.py runs it, at its shapes and tolerances:
 fp32, atol 2e-5 forward (unmasked and with a key mask), 1e-4 for the
 gradients of x, the qkv weight and bias and the projection weight and bias.
+The contract reference ``fused_attention_block_reference`` (the JAX
+``_kernel`` body in plain torch) against the JAX kernel in fp32 (2e-5) and
+bf16 (4e-3, one bf16 ulp of these outputs, under 0.5: p, v, the per-head
+output and the result round to bf16 in both, and a sum taken in another
+order may put a value on the other side of a rounding).
 Then B17 against the port's ``Attention`` module on the weights of a JAX
 ``VitAttention`` (2e-5), which is what ties B17 to the model. The JAX
 function takes (D, 3D) and (D, D) kernels; the port takes torch Linear
@@ -65,6 +70,33 @@ def test_matches_jax_kernel(masked):
                                   else jnp.asarray(mask))), atol=2e-5, rtol=0)
 
 
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 2e-5), ("bfloat16", 4e-3)])
+@pytest.mark.parametrize("masked", [False, True])
+def test_contract_reference_matches_jax_kernel(masked, dtype, tol):
+    """The reference the CUDA kernel is held to on the card (q and k never
+    rounded) is the JAX kernel's own arithmetic."""
+    ws = _mk(seed=4 + int(masked))
+    mask = _mask() if masked else None
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    jx = jnp.asarray(ws[0]).astype(jdt)
+    jw = [jnp.asarray(w) for w in ws[1:]]
+    want = jax_block(jx, jw[0].astype(jdt), jw[1], jw[2].astype(jdt), jw[3], 4,
+                     None if mask is None else jnp.asarray(mask))
+    x, qk, qb, pk, pb = _port(ws)
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    got = block_attn.fused_attention_block_reference(
+        x.to(tdt), qk.to(tdt), qb, pk.to(tdt), pb, 4,
+        None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == tdt and got.shape == (2, 17, 32)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=0)
+    # evaluated in query chunks, as the card test at long S does
+    chunked = block_attn.fused_attention_block_reference(
+        x.to(tdt), qk.to(tdt), qb, pk.to(tdt), pb, 4,
+        None if mask is None else torch.from_numpy(mask), query_chunk=5)
+    np.testing.assert_allclose(chunked.float().numpy(), got.float().numpy(), atol=tol, rtol=0)
+
+
 def test_gradients_match_jax():
     """All five gradients (x, qkv weight and bias, proj weight and bias)."""
     ws = _mk(B=1, S=9, D=16, seed=2)
@@ -115,10 +147,11 @@ def test_wrapper_checks_shapes_and_limits():
         block_attn.fused_attention_block(x, qk, qb, pk, pb, 4, torch.ones(2, 16))
     # the kernel's limits, given an H100's 227 KB of opt-in shared memory
     smem = 232448
-    assert block_attn.max_seq(torch.bfloat16, smem) == 256
+    assert block_attn.max_seq(torch.bfloat16, smem) == 4096
     assert block_attn.max_seq(torch.float32, smem) == 192
     assert block_attn.fits(64, 197, 768, 12, torch.bfloat16, smem)
-    assert not block_attn.fits(64, 257, 768, 12, torch.bfloat16, smem)
+    assert block_attn.fits(64, 257, 768, 12, torch.bfloat16, smem)
+    assert not block_attn.fits(64, 4097, 768, 12, torch.bfloat16, smem)
     assert not block_attn.fits(64, 197, 768, 16, torch.bfloat16, smem)  # head_dim 48
     assert not block_attn.fits(2, 17, 32, 4, torch.float32, smem)  # the CPU tests' toy width
     assert block_attn.max_seq(torch.bfloat16, 100_000) < 197

@@ -15,7 +15,13 @@ grad. The CLS-sideband attention (B6) rounds p like K1 except the CLS
 column's, so bf16 takes K1's tolerance; B7, B8 and B14 round where their
 twins do. B16 is K2's kernel over its whole envelope (head_dim a multiple of
 8 up to 128, T up to 128): K2's tolerance. B17 keeps q, k, v in fp32 where
-its twin rounds them (its TPU kernel's rounding points): bf16 within 2e-2.
+its twin rounds them (its TPU kernel's rounding points): bf16 within 2e-2;
+with scores in the tens it matches the contract reference at 2e-2 where the
+twin, rounding q and k, misses it by 5x that. B17's GEMM alone against the
+fp32 product: within the bf16 rounding of the result (split: hi + lo within
+2^-15 of it). B14 and B17 launch on the current stream: under
+``torch.cuda.stream(s)`` (their result ready on s while the default stream
+still sleeps) and inside a CUDA-graph capture (a replay on new inputs).
 The limit predicates that ``auto`` reads agree with what the kernels take:
 S at the Python limit launches, one past it raises ``ValueError``, and
 where the C side reports a limit the two are equal.
@@ -731,7 +737,9 @@ def _lengths_mask(B, S, cuda):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,S,D,masked", [(4, 197, 768, False), (4, 197, 768, True),
-                                          (3, 17, 256, True), (2, 150, 1024, False)])
+                                          (3, 17, 256, True), (2, 150, 1024, False),
+                                          (2, 256, 512, True), (2, 577, 768, True),
+                                          (1, 1000, 768, False)])
 def test_block_attn_kernel_matches_twin(cuda, B, S, D, masked, dtype):
     if dtype == torch.float32 and S > block_attn.max_seq(dtype, _build.smem_optin(cuda)):
         S = block_attn.max_seq(dtype, _build.smem_optin(cuda))
@@ -774,3 +782,108 @@ def test_block_attn_raises_past_its_limits(cuda):
                                          12)
     with pytest.raises(ValueError, match="head_dim 64"):
         block_attn.fused_attention_block(*_block_args(1, 9, 768, cuda, torch.bfloat16), 16)
+
+
+def test_block_attn_keeps_q_and_k_unrounded(cuda):
+    """Scores in the tens (q and k weights 0.25, scores' std ~50): the kernel
+    holds to the TPU kernel's contract (q and k in fp32) at 2e-2, where the
+    twin, which rounds q and k to bf16, misses the same reference by at
+    least five times that. A kernel that rounds q or k fails here."""
+    B, S, D, H = 4, 197, 768, 12
+    x = _randn((B, S, D), 40, cuda, torch.bfloat16)
+    wqkv = torch.cat([_randn((2 * D, D), 41, cuda, torch.float32, 0.25),
+                      _randn((D, D), 42, cuda, torch.float32, D ** -0.5)]).to(torch.bfloat16)
+    rest = (_randn((3 * D,), 43, cuda, torch.float32, 0.1),
+            _randn((D, D), 44, cuda, torch.bfloat16, D ** -0.5),
+            _randn((D,), 45, cuda, torch.float32, 0.1))
+    for mask in (None, _lengths_mask(B, S, cuda)):
+        args = (x, wqkv, *rest, H, mask)
+        got = block_attn.fused_attention_block(*args)
+        ref = block_attn.fused_attention_block_reference(*args)
+        twin = block_attn.fused_attention_block_plain(*args)
+        torch.testing.assert_close(got.float(), ref.float(), atol=2e-2, rtol=2e-2)
+        assert float((twin.float() - ref.float()).abs().max()) >= 5 * 2e-2
+
+
+@pytest.mark.parametrize("M,N,K,split", [(12608, 2304, 768, 768), (12608, 768, 768, 0),
+                                         (12608, 2304, 768, 0), (1000, 3072, 1024, 1024),
+                                         (77, 768, 768, 0), (9, 768, 256, 256),
+                                         (300, 512, 512, 0)])
+def test_gemm_bf16_matches_fp32_product(cuda, M, N, K, split):
+    """B17's GEMM at its qkv (split) and projection shapes (one add_videos
+    call's 12608 rows) and at row counts that are no multiple of the 128-row
+    tile: y = a·wᵀ + bias in fp32 from the upcast operands, rounded once
+    (bf16: half an ulp, 2^-9 of |y|, plus the fp32 sums' order), or split
+    into hi + lo (within 2^-15 of |y|, plus the sums' order) and v."""
+    a = _randn((M, K), M + N, cuda, torch.bfloat16)
+    w = _randn((N, K), K, cuda, torch.bfloat16, K ** -0.5)
+    bias = _randn((N,), 3, cuda, torch.float32, 0.1)
+    y = a.float() @ w.float().t() + bias
+    got = block_attn.gemm_bf16(a, w, bias, split)
+    torch.cuda.synchronize()
+    if not split:
+        torch.testing.assert_close(got.float(), y, atol=1e-4, rtol=2 ** -8)
+        return
+    D = split
+    for i, part in enumerate(y.split(D, dim=1)[:2]):
+        hi, lo = got[2 * i].float(), got[2 * i + 1].float()
+        torch.testing.assert_close(hi, part, atol=1e-4, rtol=2 ** -8)
+        torch.testing.assert_close(hi + lo, part, atol=1e-4, rtol=2 ** -15)
+    torch.testing.assert_close(got[4].float(), y[:, 2 * D:], atol=1e-4, rtol=2 ** -8)
+
+
+def _stream_cases(cuda):
+    from alpro_tpu_torch.ops import layernorm
+
+    x = _randn((12608, 768), 50, cuda, torch.bfloat16, 2.0)
+    s, b = 1 + _randn((768,), 51, cuda, torch.float32, 0.1), _randn((768,), 52, cuda,
+                                                                      torch.float32, 0.1)
+    args = _block_args(8, 197, 768, cuda, torch.bfloat16, seed=53)
+    return {"layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
+                          lambda x: layernorm.layernorm_plain(x, s, b, 1e-6, torch.bfloat16),
+                          2e-2),
+            "block_attn": ((args[0],), lambda x: block_attn.fused_attention_block(x, *args[1:], 12),
+                           lambda x: block_attn.fused_attention_block_plain(x, *args[1:], 12),
+                           2e-2)}
+
+
+@pytest.mark.parametrize("kernel", ["layernorm", "block_attn"])
+def test_kernel_launches_on_the_current_stream(cuda, kernel):
+    """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
+    stream asleep, its result is complete on s. Inside a CUDA-graph capture
+    it lands on the capturing stream: replaying the graph on new inputs gives
+    the twin's result for them."""
+    (x,), fn, twin, tol = _stream_cases(cuda)[kernel]
+    want = twin(x).float()
+    side = torch.cuda.Stream()
+
+    def on_side():
+        with torch.cuda.stream(side):
+            got = fn(x)
+            return int(((got.float() - want).abs() > tol + tol * want.abs()).sum())  # syncs side
+
+    # first on an idle card: the build, the module load and the side stream's
+    # first allocations (a cudaMalloc may wait for the whole device) happen here
+    on_side()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second of the default stream
+    bad = on_side()
+    asleep = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert asleep, "the default stream finished first: the check proves nothing"
+    assert bad == 0
+
+    static = x.clone()
+    warm = torch.cuda.Stream()
+    warm.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(warm):
+        fn(static)
+    torch.cuda.current_stream().wait_stream(warm)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(static)
+    fresh = (x.float() * 0.5 + 0.25).to(x.dtype)
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), twin(fresh).float(), atol=tol, rtol=tol)
