@@ -1,29 +1,40 @@
-// A bf16 GEMM on Hopper: y = a · wᵀ + bias, fp32 accumulation, for B17's
-// two projections (csrc/block_attn.cu).
+// A bf16 GEMM on Hopper: y = a · wᵀ (+ bias), fp32 accumulation, for B17's
+// two projections (csrc/block_attn.cu) and the two products of the MLP
+// kernels K3 and K5 (csrc/ln_mlp.cu).
 //
 // a (M, K) and w (N, K) are row-major bf16 (w in torch Linear layout, so
 // both are K-major, as wgmma takes them from shared memory); bias (N) fp32.
-// The epilogue adds the bias to the fp32 sums and either rounds y to bf16
-// into one (M, N) output, or (split D, N = 3D: a packed [q | k | v]
-// projection) writes five (M, D) bf16 outputs: q and k as a pair hi =
-// bf16(y), lo = bf16(y - hi), so hi + lo keeps y to about 2^-16 of |y|, and
-// v rounded once.
+// The epilogue mode (kMode) says what becomes of the fp32 sums:
+//   kRound: y + bias rounded to bf16 into one (M, N) output, or (split D,
+//     N = 3D: a packed [q | k | v] projection) into five (M, D) bf16
+//     outputs: q and k as a pair hi = bf16(y), lo = bf16(y - hi), so
+//     hi + lo keeps y to about 2^-16 of |y|, and v rounded once (B17);
+//   kGelu: gelu(y + bias) with the exact erf in fp32, rounded to bf16 into
+//     one (M, N) output (fc1 of K3/K5);
+//   kFloat: y (+ bias where given) in fp32, either stored as fp32 into
+//     split-K partial grid.y of an fp32 (splits, M, N) buffer, or, plus an
+//     optional bf16 residual (M, N) added in fp32, rounded once into a bf16
+//     (M, N) output (fc2 of K3/K5).
+// Grid y splits K into slices of ep.k_split columns (kFloat with partials
+// only); every other launch has one slice.
 //
 // What bounds it on an H100: at B17's shapes (M = 12608 rows, K = 768, N =
 // 2304 or 768) 2·M·N·K operations over (M + N)·K inputs and M·N outputs,
 // ~295 operations per byte at 989 TFLOP/s and 3.35 TB/s: the tensor cores
-// bound the qkv product, and the split outputs (5 · M · D bf16) come close.
-// Design: one CTA per kBM x kBN output tile, in a 1-D grid with the column
-// tiles fastest, so the CTAs in flight share their rows of a in L2 (w stays
-// there whole). One producer warp keeps kStages 64-wide K-chunks of a and w
-// in flight by TMA (128-byte swizzle, one mbarrier per stage for "full" and
-// one for "empty"); two consumer warpgroups each take 64 rows of the tile
-// and run m64 x kBN x 16 wgmma with A and B from shared memory into fp32
-// registers, one stage's products in flight behind the next's. The
-// epilogue stages the bf16 tile (and lo) in the freed stage memory and
-// writes it out in coalesced 16-byte chunks. kMinBlocks CTAs share an SM, so
-// one CTA's epilogue overlaps another's products. Rows past M are
-// zero-filled by TMA and not stored.
+// bound the qkv product, and the split outputs (5 · M · D bf16) come close;
+// the MLP's products (K = 768 or 3072, N = 3072 or 768) are bound by the
+// tensor cores at every R past a few hundred rows.
+// Design: one CTA per kBM x kBN output tile (and K slice), in a grid with
+// the column tiles fastest, so the CTAs in flight share their rows of a in
+// L2 (w stays there whole). One producer warp keeps kStages 64-wide
+// K-chunks of a and w in flight by TMA (128-byte swizzle, one mbarrier per
+// stage for "full" and one for "empty"); two consumer warpgroups each take
+// 64 rows of the tile and run m64 x kBN x 16 wgmma with A and B from shared
+// memory into fp32 registers, one stage's products in flight behind the
+// next's. The epilogue stages the tile (bf16, or fp32 for kFloat) in the
+// freed stage memory and writes it out in coalesced 16-byte chunks.
+// kMinBlocks CTAs share an SM, so one CTA's epilogue overlaps another's
+// products. Rows past M are zero-filled by TMA and not stored.
 #pragma once
 
 #include "hopper.cuh"
@@ -46,18 +57,32 @@ constexpr int kABytes = kBM * kBK * 2;
 constexpr int kBBytes = kBN * kBK * 2;
 constexpr int kStageBytes = kABytes + kBBytes;
 constexpr int kOutBytes = kBM * kBN * 2;   // one bf16 output tile, staged
-static_assert(2 * kOutBytes <= kStages * kStageBytes, "hi and lo tiles fit the stages");
+static_assert(2 * kOutBytes <= kStages * kStageBytes, "hi and lo tiles, or an fp32 tile, fit");
 // 1024 alignment slack, the stages, the 2 x kStages barriers
 constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 
-// Where y goes. split == 0: out[0] is (M, N). split == D: N = 3D, out[0..4]
-// are q_hi, q_lo, k_hi, k_lo, v, each (M, D).
+// epilogue modes (the kernel's template argument)
+constexpr int kRound = 0, kGelu = 1, kFloat = 2;
+
+// Where y goes. kRound, split == 0, and kGelu: out[0] is (M, N). kRound,
+// split == D: N = 3D, out[0..4] are q_hi, q_lo, k_hi, k_lo, v, each (M, D).
+// kFloat: partial (splits, M, N) fp32 where not null, else out[0] (M, N)
+// bf16 with the residual (M, N) bf16 added where not null. k_split: K
+// columns per slice of grid y (0: all of K).
 struct Epilogue {
   bf16* out[5];
   const float* bias;
   int split;
+  float* partial;
+  const bf16* residual;
+  int k_split;
 };
 
+__device__ __forceinline__ float gelu_erf(float v) {
+  return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
+}
+
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
            const __grid_constant__ Epilogue ep, int M, int N, int K) {
@@ -69,7 +94,9 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
   const int ntn = N / kBN;
   const int n0 = (blockIdx.x % ntn) * kBN, m0 = (blockIdx.x / ntn) * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kt = K / kBK;
+  // this CTA's K slice: chunks k_lo .. k_lo + kt - 1
+  const int k_lo = blockIdx.y * (ep.k_split / kBK);
+  const int kt = min(K / kBK - k_lo, ep.k_split / kBK);
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -87,8 +114,8 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
         if (k >= kStages) hp::mbar_wait(&empty[s], ((k / kStages) - 1) & 1);
         unsigned char* st = base + s * kStageBytes;
         hp::mbar_expect_tx(&full[s], kStageBytes);
-        hp::tma_load_2d(st, &ma, &full[s], k * kBK, m0);
-        hp::tma_load_2d(st + kABytes, &mw, &full[s], k * kBK, n0);
+        hp::tma_load_2d(st, &ma, &full[s], (k_lo + k) * kBK, m0);
+        hp::tma_load_2d(st + kABytes, &mw, &full[s], (k_lo + k) * kBK, n0);
       }
     }
     return;
@@ -119,19 +146,72 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) hp::pin(acc[i]);
 
-  // The epilogue: y + bias rounded (and lo = y - hi) into the stage memory,
-  // now free, as 64-column panels of 128-byte swizzled rows (each thread's
-  // 4-byte writes conflict-free), then copied out in 16-byte chunks, a row's
-  // chunks on neighbouring threads. Register 4 j + e holds tile row r (+ 8
-  // for e & 2), column 8 j + 2 quad + (e & 1).
-  const int D = ep.split;
+  // The epilogue: the tile into the stage memory, now free, as panels of
+  // 128-byte swizzled rows (each thread's 4- or 8-byte writes conflict-
+  // free), then copied out in 16-byte chunks, a row's chunks on
+  // neighbouring threads. Register 4 j + e holds tile row r (+ 8 for e & 2),
+  // column 8 j + 2 quad + (e & 1).
+  hp::named_barrier(1, kConsumers);  // every warpgroup's products are done
+  const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2), quad = lane & 3;
+  if constexpr (kMode == kFloat) {
+    // fp32 y (+ bias): panels of 32 columns
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c = 8 * j + 2 * quad;
+      const float b0 = ep.bias ? ep.bias[n0 + c] : 0.0f, b1 = ep.bias ? ep.bias[n0 + c + 1] : 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int at = (j / 4) * kBM * 128 + hp::swizzled<128>(r + 8 * h, 2 * (j % 4) + quad / 2) +
+                       8 * (quad & 1);
+        *reinterpret_cast<float2*>(base + at) =
+            make_float2(acc[4 * j + 2 * h] + b0, acc[4 * j + 2 * h + 1] + b1);
+      }
+    }
+    hp::named_barrier(1, kConsumers);
+    // 8 columns per thread and step: two fp32 chunks out, or (+ residual)
+    // one bf16 chunk
+    constexpr int kGroups = kBN / 8;
+    float* part = ep.partial ? ep.partial + long(blockIdx.y) * M * N : nullptr;
+    for (int i = tid; i < kBM * kGroups; i += kConsumers) {
+      const int row = i / kGroups, c8 = i % kGroups;
+      if (m0 + row >= M) break;  // rows grow with i
+      const unsigned char* src = base + (c8 / 4) * kBM * 128;
+      const float4 v0 = *reinterpret_cast<const float4*>(src + hp::swizzled<128>(row, 2 * (c8 % 4)));
+      const float4 v1 =
+          *reinterpret_cast<const float4*>(src + hp::swizzled<128>(row, 2 * (c8 % 4) + 1));
+      const long g = long(m0 + row) * N + n0 + c8 * 8;
+      if (part) {
+        *reinterpret_cast<float4*>(part + g) = v0;
+        *reinterpret_cast<float4*>(part + g + 4) = v1;
+        continue;
+      }
+      float y[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      if (ep.residual) {
+        const uint4 xr = *reinterpret_cast<const uint4*>(ep.residual + g);
+        const __nv_bfloat162* xv = reinterpret_cast<const __nv_bfloat162*>(&xr);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          y[2 * e] += __low2float(xv[e]);
+          y[2 * e + 1] += __high2float(xv[e]);
+        }
+      }
+      uint4 o;
+      uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ov[e] = hp::pack_bf16(y[2 * e], y[2 * e + 1]);
+      *reinterpret_cast<uint4*>(ep.out[0] + g) = o;
+    }
+    return;
+  }
+
+  // bf16: y + bias (gelu for kGelu) rounded (and lo = y - hi), panels of 64
+  // columns
+  const int D = kMode == kRound ? ep.split : 0;
   const int part = D ? n0 / D : 0;  // 0 q, 1 k, 2 v (split)
   const int ld = D ? D : N, c0 = n0 - part * D;
   const bool with_lo = D && part < 2;
   unsigned char* hi_tile = base;
   unsigned char* lo_tile = base + kOutBytes;
-  hp::named_barrier(1, kConsumers);  // every warpgroup's products are done
-  const int r = wg * 64 + (warp & 3) * 16 + (lane >> 2), quad = lane & 3;
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int c = 8 * j + 2 * quad;
@@ -139,7 +219,11 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
-      const float y0 = acc[4 * j + 2 * h] + b0, y1 = acc[4 * j + 2 * h + 1] + b1;
+      float y0 = acc[4 * j + 2 * h] + b0, y1 = acc[4 * j + 2 * h + 1] + b1;
+      if constexpr (kMode == kGelu) {
+        y0 = gelu_erf(y0);
+        y1 = gelu_erf(y1);
+      }
       const int at = (j / 8) * kBM * 128 + hp::swizzled<128>(row, j % 8) + 4 * quad;
       const __nv_bfloat162 hv = __floats2bfloat162_rn(y0, y1);
       *reinterpret_cast<__nv_bfloat162*>(hi_tile + at) = hv;
@@ -172,22 +256,29 @@ inline bool encode_matrix(CUtensorMap* map, const void* p, int rows, int cols, i
                                CU_TENSOR_MAP_SWIZZLE_128B) == CUDA_SUCCESS;
 }
 
-// y = a (M, K) · w (N, K)ᵀ + bias into ep; N a multiple of 128 (and of 3
-// with split = N / 3 a multiple of 128), K a multiple of 64, a and w
-// 16-byte aligned. Returns a cudaError_t.
-inline int launch(const void* a, const void* w, const Epilogue& ep, int M, int N, int K,
-                  cudaStream_t stream) {
+// y = a (M, K) · w (N, K)ᵀ (+ bias) into ep under kMode; N a multiple of 128
+// (and of 3 with split = N / 3 a multiple of 128), K a multiple of 64, a
+// and w 16-byte aligned. ep.k_split, a multiple of 64 (0: K), slices K over
+// grid y, for kFloat into partials only. Returns a cudaError_t.
+template <int kMode = kRound>
+int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaStream_t stream) {
   if (M < 1 || N < kBN || N % kBN || K < kBK || K % kBK) return int(cudaErrorInvalidValue);
-  if (ep.split && (ep.split % kBN || N != 3 * ep.split)) return int(cudaErrorInvalidValue);
+  if (ep.split && (kMode != kRound || ep.split % kBN || N != 3 * ep.split))
+    return int(cudaErrorInvalidValue);
+  if (kMode != kFloat && !ep.bias) return int(cudaErrorInvalidValue);
+  if (!ep.k_split) ep.k_split = K;
+  if (ep.k_split < 0 || ep.k_split % kBK || (ep.k_split < K && !(kMode == kFloat && ep.partial)))
+    return int(cudaErrorInvalidValue);
   CUtensorMap ma, mw;
   if (!encode_matrix(&ma, a, M, K, kBM) || !encode_matrix(&mw, w, N, K, kBN))
     return int(cudaErrorInvalidValue);
-  cudaError_t err =
-      cudaFuncSetAttribute(gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma<kMode>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return int(err);
   const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
   if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
-  gemm_wgmma<<<unsigned(tiles), kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K);
+  const dim3 grid(unsigned(tiles), unsigned((K + ep.k_split - 1) / ep.k_split));
+  gemm_wgmma<kMode><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K);
   return int(cudaGetLastError());
 }
 

@@ -7,18 +7,38 @@
 // fused_bert_mlp_block (_bert_mlp_kernel). Contract kept from them: one-pass
 // fp32 LN statistics (E[x^2] - E[x]^2, clamped at 0); fc1 on operands in the
 // weights' dtype with fp32 accumulation, plus b1; GELU with the exact erf in
-// fp32; fc2 the same, plus b2; the residual added in fp32; the (R, Dh)
-// hidden never written to device memory. The weights come in torch Linear
-// layout: w1 (Dh, D), w2 (D, Dh).
+// fp32, rounded to the weights' dtype; fc2 the same, plus b2; the residual
+// added in fp32; post-LN, the LN over the fp32 row, then one rounding. The
+// weights come in torch Linear layout: w1 (Dh, D), w2 (D, Dh). The TPU
+// kernels keep the (R, Dh) hidden on chip; that was their tiling's choice,
+// not part of the contract.
 //
-// What bounds it on an H100: at the flagship (R = 3136, D = 768, Dh = 3072)
-// it is 30 GFLOP against 4.8 MB of activations and 9.4 MB of bf16 weights, so
-// the tensor cores bound it, provided the hidden stays on chip — which is the
-// point of fusing. Design: one block of 16 warps per tile of 32 rows; the
-// (LN'd, for pre-LN) tile (32 x D, input dtype) sits in shared memory and the
-// fp32 32 x D accumulator in registers (warp w owns rows 16*(w/8).., one
-// 16x16 output tile in each 128-column group; row_tile.cuh). The hidden is
-// walked in chunks of 128:
+// What bounds it on an H100: at the main shapes (K3: R = 12544, K5: R =
+// 1896; D = 768, Dh = 3072) it is 4·R·D·Dh operations (118 and 18 GFLOP)
+// against ~9.4 MB of bf16 weights and 4·R·D bytes of rows, so the tensor
+// cores bound it. bf16 runs as up to four launches behind one C call, both
+// products on wgmma (gemm_wgmma.cuh: TMA ring, one producer warp, two
+// consumer warpgroups on 128 x 128 tiles, so a CTA re-reads the weights
+// from L2 per 128 rows instead of the 32 of a row tile):
+//   1. K3 only, ln_rows: xn = bf16(LN(x)) into an (R, D) scratch, one warp
+//      a row;
+//   2. fc1, gemm_wgmma<kGelu>: g = bf16(gelu(xn · w1ᵀ + b1)) into an
+//      (R, Dh) scratch;
+//   3. fc2, gemm_wgmma<kFloat>: g · w2ᵀ over the hidden, which the wrapper
+//      may cut into slices of h_split columns (grid y) where the 128-row
+//      tiles would leave SMs idle (a text query's R = 40, the R = B CLS
+//      rows). K3 with one slice adds b2 and the residual in fp32 and rounds
+//      into out; otherwise each slice writes an fp32 partial (splits, R, D);
+//   4. the finalize pass sums the partials in slice order, adds b2 and x
+//      (and for K5 takes the row's LN), and rounds once.
+// The hidden's round trip (2·R·Dh bf16 each way, 154 MB at K3's main shape)
+// is ~0.05 ms at 3.35 TB/s, under a fifth of the products' time.
+//
+// fp32 keeps a CUDA-core body: one block of 16 warps per tile of 32 rows;
+// the (LN'd, for pre-LN) tile (32 x D) sits in shared memory and the fp32
+// 32 x D accumulator in registers (warp w owns rows 16*(w/8).., one 16x16
+// output tile in each 128-column group; row_tile.cuh). The hidden is walked
+// in chunks of 128:
 //   fc1: h = xn . W1[chunk]^T over D/128 k-tiles (one 16x16 h tile per
 //        warp), + b1, exact GELU into a small shared buffer;
 //   fc2: acc += gelu(h) . W2[:, chunk]^T over D/128 output groups.
@@ -27,12 +47,9 @@
 // warps; the next tile is loaded into registers while the current one is
 // multiplied. The post-LN epilogue stages the whole fp32 row tile in shared
 // memory (aliasing the main loop's buffers) and applies LN per row. When
-// there are fewer row tiles than SMs (the B cls rows, one text query) the
-// hidden is split across blocks (grid.y): each writes its fp32 partial to a
-// scratch buffer from the wrapper, and a second pass sums the partials in a
-// fixed order, adds b2 and the residual (and, post-LN, applies the LN with
-// one block per row). bf16 products run on the tensor cores (WMMA), fp32 on
-// the CUDA cores (warp_tile.cuh).
+// there are fewer row tiles than SMs the hidden is split across blocks
+// (grid.y) into fp32 partials, summed by the same finalize pass.
+#include "gemm_wgmma.cuh"
 #include "row_tile.cuh"
 
 namespace {
@@ -294,15 +311,16 @@ int launch(const void* x, const void* s, const void* b, const void* w1, const vo
   return int(cudaGetLastError());
 }
 
-template <typename T, bool kPostLN>
-int dispatch(const void* x, const void* s, const void* b, const void* w1, const void* b1,
-             const void* w2, const void* b2, void* out, void* partial, int R, int D, int Dh,
-             int h_split, float eps, int residual, cudaStream_t st) {
+template <bool kPostLN>
+int dispatch_f32(const void* x, const void* s, const void* b, const void* w1, const void* b1,
+                 const void* w2, const void* b2, void* out, void* partial, int R, int D, int Dh,
+                 int h_split, float eps, int residual, cudaStream_t st) {
+  if (h_split % kTile != 0 || Dh % kTile != 0) return int(cudaErrorInvalidValue);
   switch (D) {
-#define ALPRO_LN_MLP_CASE(NG)                                                               \
-  case NG * kTile:                                                                           \
-    return launch<T, NG, kPostLN>(x, s, b, w1, b1, w2, b2, out, partial, R, Dh, h_split, \
-                                  eps, residual, st);
+#define ALPRO_LN_MLP_CASE(NG)                                                              \
+  case NG * kTile:                                                                        \
+    return launch<float, NG, kPostLN>(x, s, b, w1, b1, w2, b2, out, partial, R, Dh,       \
+                                      h_split, eps, residual, st);
     ALPRO_LN_MLP_CASE(2)
     ALPRO_LN_MLP_CASE(4)
     ALPRO_LN_MLP_CASE(6)
@@ -312,39 +330,142 @@ int dispatch(const void* x, const void* s, const void* b, const void* w1, const 
   }
 }
 
+using bf16 = __nv_bfloat16;
+constexpr int kLnRows = 8;  // ln_rows: rows (warps) per block
+constexpr int kLnVecs = 4;  // 8-element vectors a lane holds: D <= 1024
+
+// xn = bf16(LN(x)) over rows of D, one warp per row, the row in registers
+__global__ void __launch_bounds__(kLnRows * 32)
+ln_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+        const float* __restrict__ ln_b, bf16* __restrict__ xn, int R, int D, float eps) {
+  const int row = blockIdx.x * kLnRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+  if (row >= R) return;
+  const bf16* src = x + long(row) * D;
+  float v[kLnVecs][8];
+  float s = 0.0f, ss = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kLnVecs; ++i) {
+    const int c = (i * 32 + lane) * 8;
+    if (c < D) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + c);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[i][2 * e] = __low2float(h[e]);
+        v[i][2 * e + 1] = __high2float(h[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s += v[i][e];
+        ss = fmaf(v[i][e], v[i][e], ss);
+      }
+    }
+  }
+  s = alpro::warp_sum(s);
+  ss = alpro::warp_sum(ss);
+  const float mean = s / D;
+  const float var = fmaxf(ss / D - mean * mean, 0.0f);
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int i = 0; i < kLnVecs; ++i) {
+    const int c = (i * 32 + lane) * 8;
+    if (c < D) {
+      uint4 o;
+      uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = c + 2 * e;
+        ov[e] = alpro::hopper::pack_bf16((v[i][2 * e] - mean) * rstd * ln_s[k] + ln_b[k],
+                                         (v[i][2 * e + 1] - mean) * rstd * ln_s[k + 1] +
+                                             ln_b[k + 1]);
+      }
+      *reinterpret_cast<uint4*>(xn + long(row) * D + c) = o;
+    }
+  }
+}
+
+// bf16: [ln_rows →] fc1 + GELU → fc2 (K slices of h_split) → [finalize].
+// hidden: bf16 (R, Dh); normed: bf16 (R, D), pre-LN only; partial: fp32
+// (ceil(Dh / h_split), R, D), unless pre-LN with h_split == Dh.
+template <bool kPostLN>
+int launch_bf16(const bf16* x, const float* s, const float* b, const bf16* w1,
+                const float* b1, const bf16* w2, const float* b2, bf16* out, float* partial,
+                bf16* hidden, bf16* normed, int R, int D, int Dh, int h_split, float eps,
+                int residual, cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  const int splits = (Dh + h_split - 1) / h_split;
+  const bool fused = !kPostLN && splits == 1;  // fc2 rounds straight into out
+  if (D % 256 || D > 32 * 8 * kLnVecs || h_split % gm::kBK || hidden == nullptr ||
+      (!kPostLN && normed == nullptr) || (!fused && partial == nullptr))
+    return int(cudaErrorInvalidValue);
+  const bf16* a = x;
+  if (!kPostLN) {
+    ln_rows<<<(R + kLnRows - 1) / kLnRows, kLnRows * 32, 0, stream>>>(x, s, b, normed, R, D,
+                                                                      eps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+    a = normed;
+  }
+  int err = gm::launch<gm::kGelu>(a, w1, gm::Epilogue{{hidden}, b1}, R, Dh, D, stream);
+  if (err) return err;
+  gm::Epilogue fc2{{out}, fused ? b2 : nullptr, 0, fused ? nullptr : partial,
+                   fused && residual ? x : nullptr, h_split};
+  err = gm::launch<gm::kFloat>(hidden, w2, fc2, R, D, Dh, stream);
+  if (err || fused) return err;
+  if constexpr (kPostLN) {
+    bert_mlp_finalize<bf16><<<R, kFinThreads, 0, stream>>>(partial, splits, b2, x, s, b, out, R,
+                                                           D, eps);
+  } else {
+    const long n = long(R) * D;
+    ln_mlp_finalize<bf16><<<unsigned((n + 255) / 256), 256, 0, stream>>>(partial, splits, b2, x,
+                                                                         out, R, D, residual);
+  }
+  return int(cudaGetLastError());
+}
+
 template <bool kPostLN>
 int run(const void* x, const void* ln_s, const void* ln_b, const void* w1, const void* b1,
-        const void* w2, const void* b2, void* out, void* partial, int R, int D, int Dh,
-        int h_split, float eps, int residual, int is_bf16, int device, void* stream) {
-  if (h_split < 1 || h_split % kTile != 0 || Dh % kTile != 0) return int(cudaErrorInvalidValue);
+        const void* w2, const void* b2, void* out, void* partial, void* hidden, void* normed,
+        int R, int D, int Dh, int h_split, float eps, int residual, int is_bf16, int device,
+        void* stream) {
+  if (R < 1 || h_split < 1 || Dh % kTile != 0) return int(cudaErrorInvalidValue);
   if (h_split < Dh && partial == nullptr) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16, kPostLN>(x, ln_s, ln_b, w1, b1, w2, b2, out,
-                                                    partial, R, D, Dh, h_split, eps,
-                                                    residual, st)
-                 : dispatch<float, kPostLN>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R,
-                                            D, Dh, h_split, eps, residual, st);
+  if (!is_bf16)
+    return dispatch_f32<kPostLN>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh, h_split,
+                                 eps, residual, st);
+  return launch_bf16<kPostLN>(
+      static_cast<const bf16*>(x), static_cast<const float*>(ln_s),
+      static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const float*>(b2), static_cast<bf16*>(out), static_cast<float*>(partial),
+      static_cast<bf16*>(hidden), static_cast<bf16*>(normed), R, D, Dh, h_split, eps, residual,
+      st);
 }
 
 }  // namespace
 
-// K3, pre-LN: out = [x +] fc2(gelu(fc1(LN(x)))).
-// partial: fp32 (ceil(Dh / h_split), R, D) scratch, used when h_split < Dh.
+// K3, pre-LN: out = [x +] fc2(gelu(fc1(LN(x)))). h_split: hidden columns per
+// fp32 partial (fp32: a multiple of 128, per block; bf16: a multiple of 64,
+// fc2's K slice). partial: fp32 (ceil(Dh / h_split), R, D), used when
+// h_split < Dh. bf16 only: hidden (R, Dh) and normed (R, D) bf16 scratch.
 extern "C" int alpro_ln_mlp(const void* x, const void* ln_s, const void* ln_b,
                             const void* w1, const void* b1, const void* w2, const void* b2,
-                            void* out, void* partial, int R, int D, int Dh, int h_split,
-                            float eps, int residual, int is_bf16, int device, void* stream) {
-  return run<false>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh, h_split, eps,
-                    residual, is_bf16, device, stream);
+                            void* out, void* partial, void* hidden, void* normed, int R, int D,
+                            int Dh, int h_split, float eps, int residual, int is_bf16,
+                            int device, void* stream) {
+  return run<false>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, hidden, normed, R, D, Dh,
+                    h_split, eps, residual, is_bf16, device, stream);
 }
 
-// K5, post-LN: out = LN(x + fc2(gelu(fc1(x)))); ln_s, ln_b are the closing LN's.
+// K5, post-LN: out = LN(x + fc2(gelu(fc1(x)))); ln_s, ln_b are the closing
+// LN's. As alpro_ln_mlp, with no normed scratch; bf16 always takes partial.
 extern "C" int alpro_bert_mlp(const void* x, const void* w1, const void* b1, const void* w2,
                               const void* b2, const void* ln_s, const void* ln_b, void* out,
-                              void* partial, int R, int D, int Dh, int h_split, float eps,
-                              int is_bf16, int device, void* stream) {
-  return run<true>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, R, D, Dh, h_split, eps, 1,
-                   is_bf16, device, stream);
+                              void* partial, void* hidden, int R, int D, int Dh, int h_split,
+                              float eps, int is_bf16, int device, void* stream) {
+  return run<true>(x, ln_s, ln_b, w1, b1, w2, b2, out, partial, hidden, nullptr, R, D, Dh,
+                   h_split, eps, 1, is_bf16, device, stream);
 }

@@ -45,16 +45,12 @@ _SIGNATURES = {
     "alpro_spatial_attn_smem": ([_I, _I, _I, _I], _I),
     # qkv, out, B, T, N, H, hd, scale, is_bf16, device, stream
     "alpro_temporal_attn": ([_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
-    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, partial, R, D, Dh, h_split,
-    # eps, residual, is_bf16, device, stream
-    "alpro_ln_mlp": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P], _I
-    ),
-    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, partial, R, D, Dh, h_split,
-    # eps, is_bf16, device, stream
-    "alpro_bert_mlp": (
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P], _I
-    ),
+    # x, ln_scale, ln_bias, w1, b1, w2, b2, out, partial, hidden, normed, R, D,
+    # Dh, h_split, eps, residual, is_bf16, device, stream
+    "alpro_ln_mlp": ([_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _I, _P], _I),
+    # x, w1, b1, w2, b2, ln_scale, ln_bias, out, partial, hidden, R, D, Dh,
+    # h_split, eps, is_bf16, device, stream
+    "alpro_bert_mlp": ([_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _P], _I),
     # x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, heads, out,
     # M, S, H, q_split, scale, eps, is_bf16, device, stream
     "alpro_bert_attn": (

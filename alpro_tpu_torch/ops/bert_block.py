@@ -14,9 +14,10 @@ Weights are in torch Linear layout (out, in), the transposes of the JAX
 functions', so the model's ``nn.Linear`` weights go in without a copy. A
 wrapper runs the twin only for a CPU tensor; for a CUDA tensor it launches
 the kernel or raises. ``attn_launches`` and ``mlp_launches`` count kernel
-launches (one per call; the attention chain is two CUDA launches). Neither
-kernel has a backward (the JAX model runs them only at serving): a wrapper
-raises when grad mode is on and an input requires grad.
+launches (one per call; the attention chain is two CUDA launches, the bf16
+MLP chain three). Neither kernel has a backward (the JAX model runs them
+only at serving): a wrapper raises when grad mode is on and an input
+requires grad.
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
-from alpro_tpu_torch.ops.ln_mlp import _HIDDEN_CHUNK, _WIDTHS, hidden_split, ln_mlp_fits
+from alpro_tpu_torch.ops.ln_mlp import (_F32_WIDTHS, _HIDDEN_CHUNK, _WIDTHS, launch_scratch,
+                                        ln_mlp_fits, ptr)
 
 attn_launches = 0
 mlp_launches = 0
@@ -162,10 +164,12 @@ def bert_attention_block(x: torch.Tensor, attention_mask: torch.Tensor,
 
 def bert_mlp_block(x: torch.Tensor, w1, b1, w2, b2, ln_s, ln_b, *,
                    eps: float) -> torch.Tensor:
-    """``LN(x + fc2(gelu_exact(fc1(x))))`` over the rows of x (..., D), the
-    (R, Dh) hidden never written out. w1: (Dh, D), w2: (D, Dh). The kernel
-    takes x, w1, w2 contiguous in one dtype (bf16 or fp32), D in (256, 512,
-    768, 1024) and Dh % 128 == 0, and raises on anything else."""
+    """``LN(x + fc2(gelu_exact(fc1(x))))`` over the rows of x (..., D). w1:
+    (Dh, D), w2: (D, Dh). The kernel takes x, w1, w2 contiguous in one dtype
+    (bf16 or fp32), D in (256, 512, 768, 1024) (fp32: up to 768) and Dh %
+    128 == 0, and raises on anything else. In bf16 it runs fc1 + GELU, fc2
+    into fp32 partials and the row LN as three launches
+    (``ln_mlp.bf16_plan``)."""
     global mlp_launches
     D = x.shape[-1]
     Dh = w1.shape[0]
@@ -185,22 +189,17 @@ def bert_mlp_block(x: torch.Tensor, w1, b1, w2, b2, ln_s, ln_b, *,
     R = x.numel() // D
     if not ln_mlp_fits(D, Dh, x.dtype) or R < 1:
         raise ValueError(
-            f"bert_mlp kernel needs D in {_WIDTHS} and Dh % {_HIDDEN_CHUNK} == 0;"
-            f" got R={R}, D={D}, Dh={Dh}"
+            f"bert_mlp kernel needs D in {_WIDTHS} ({_F32_WIDTHS} in fp32) and Dh % "
+            f"{_HIDDEN_CHUNK} == 0; got R={R}, D={D}, Dh={Dh}, {x.dtype}"
         )
     v1, v2, vs, vb = _f32_vectors("bert_mlp_block", b1=b1, b2=b2, ln_s=ln_s, ln_b=ln_b)
     out = torch.empty_like(x)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    h_split = hidden_split(R, Dh, sms)
-    partial = None
-    if h_split < Dh:
-        partial = torch.empty((-(-Dh // h_split), R, D), dtype=torch.float32, device=x.device)
+    h_split, partial, hidden, _ = launch_scratch(x, R, D, Dh, post_ln=True)
     dev, stream = _build.stream_args(x)
     err = _build.lib().alpro_bert_mlp(
         x.data_ptr(), w1.data_ptr(), v1.data_ptr(), w2.data_ptr(), v2.data_ptr(),
-        vs.data_ptr(), vb.data_ptr(), out.data_ptr(),
-        None if partial is None else partial.data_ptr(), R, D, Dh, h_split, float(eps),
-        int(x.dtype == torch.bfloat16), dev, stream,
+        vs.data_ptr(), vb.data_ptr(), out.data_ptr(), ptr(partial), ptr(hidden), R, D, Dh,
+        h_split, float(eps), int(x.dtype == torch.bfloat16), dev, stream,
     )
     _build.check(err, "bert_mlp_block")
     mlp_launches += 1

@@ -20,7 +20,9 @@ line):
    card could take at the main shape (``bound_ms``); at the main shape also
    the device time of the kernel and of the library call (``device_ms``: 20
    calls captured in one CUDA graph, replays timed, so the host's share of
-   a call drops out; a wrapper that cannot be captured says why);
+   a call drops out; a wrapper that cannot be captured says why), for the
+   MLP kernels K3/K5 at their small shapes too, and beside them at the main
+   shape a yardstick: ``F.linear`` at fc1's and fc2's shapes;
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -281,12 +283,13 @@ def phase_build() -> None:
 
 
 def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
-             work=None) -> dict:
+             work=None, device: bool = False) -> dict:
     """Kernel vs twin on the same inputs; ``main`` marks the shape the main
     path gives the kernel (the JSON line reports that one), with ``work`` =
     (FLOP, bytes) of the function there and ``library`` one PyTorch call
-    that computes it, where one exists. At the main shape also the device
-    time of the kernel's and the library call's (``graph_ms``)."""
+    that computes it, where one exists. At the main shape, and where
+    ``device`` asks, also the device time of the kernel's and the library
+    call's (``graph_ms``)."""
     got, want = _flat(kernel()), _flat(twin())
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
@@ -299,7 +302,7 @@ def _compare(name, shape, kernel, twin, card, main: bool = False, library=None,
     res = {"shape": list(shape), "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "main": main, "device_ms": None, "library_device_ms": None}
     extra = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
-    if main:
+    if main or device:
         res["device_ms"], why = graph_ms(kernel)
         extra += (f"; device {res['device_ms']:.4f} ms" if why is None
                   else f"; device_ms not measured ({why})")
@@ -373,6 +376,8 @@ def phase_kernels(card: str) -> dict:
          randn(D, Dh, std=Dh ** -0.5), randn(D, std=0.02))
     ln = (1 + randn(D, std=0.1).float(), randn(D, std=0.1).float())
     w_bytes = 2 * D * Dh * 2 + (Dh + 3 * D) * 4
+    # the small shapes (the B cls rows; one text query, a batch of 8) with
+    # their device time too: there the kernels' split of the hidden decides
     for R, residual, main in ((2 * T * N, True, False), (2, False, False),
                               (B * T * N, True, True), (B, True, False)):
         xr = randn(R, D, std=2.0)
@@ -381,7 +386,9 @@ def phase_kernels(card: str) -> dict:
             lambda: ln_mlp.ln_mlp(xr, *ln, w[0], w[1], w[2], w[3], eps=1e-6,
                                   residual=residual),
             lambda: ln_mlp.ln_mlp_plain(xr, *ln, w[0], w[1], w[2], w[3], 1e-6, residual),
-            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
+            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes), device=R <= B))
+        if main:
+            _mlp_yardstick("ln_mlp", xr, w, card)
     # BERT layer: text S = 40 (max_txt_len), fusion S = 40 + 197 video tokens
     wa = [t for _ in range(4) for t in (randn(D, D, std=D ** -0.5), randn(D, std=0.02))]
     for M, S, main in ((1, 40, False), (8, 40, False), (8, 40 + 1 + N, True),
@@ -404,11 +411,28 @@ def phase_kernels(card: str) -> dict:
             "bert_mlp", (R, D),
             lambda: bert_block.bert_mlp_block(xr, *w, *ln, eps=1e-12),
             lambda: bert_block.bert_mlp_block_plain(xr, *w, *ln, 1e-12),
-            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes)))
+            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes), device=R <= 8 * 40))
+        if main:
+            _mlp_yardstick("bert_mlp", xr, w, card)
     _masked_attn_kernels(res, randn, card)
     _fused_ingest_kernels(res, randn, ln, card)
     _opt_in_kernels(res, randn, card)
     return res
+
+
+def _mlp_yardstick(name, x, w, card) -> None:
+    """A yardstick beside K3/K5 at their main shape, not a library call (no
+    single PyTorch call computes the MLP): ``F.linear`` at fc1's and at
+    fc2's shapes, bf16 with their biases, each by device time and rate."""
+    (R, D), Dh = x.shape, w[0].shape[0]
+    h = torch.nn.functional.linear(x, w[0], w[1])
+    parts = []
+    for what, a, wt, b in (("fc1", x, w[0], w[1]), ("fc2", h, w[2], w[3])):
+        dev, why = graph_ms(lambda: torch.nn.functional.linear(a, wt, b))
+        rate = "" if why else f", {2 * R * D * Dh / dev / 1e9:.1f} TFLOP/s"
+        parts.append(f"{what} ({R}, {a.shape[1]}) x ({wt.shape[0]}, {a.shape[1]})^T "
+                     + (f"not measured ({why})" if why else f"{dev:.4f} ms{rate}"))
+    print(f"[kernel] {name} yardstick, F.linear device: {'; '.join(parts)} [{card}]", flush=True)
 
 
 def _opt_in_kernels(res, randn, card) -> None:

@@ -19,21 +19,31 @@ first:
   input (8 · 8 · 197, 768) in bf16, under ``no_grad``;
 * ``fused_attention_block`` (B17) on the spatial attention sublayer of one
   ``add_videos`` call (64, 197, 768) in bf16, without and with a key mask,
-  under ``no_grad``: its launches by kernel name (the per-launch split).
+  under ``no_grad``: its launches by kernel name (the per-launch split);
+* the MLP kernels ``ln_mlp`` (K3) and ``bert_mlp_block`` (K5) in bf16 at
+  their main shapes (12544 and 1896 rows of 768: one ``add_videos`` call's
+  patch rows, the fusion of 8 candidates) and small ones (8 and 2 CLS rows;
+  40 and 320 rows: one text query, 8 texts), with their device time per
+  call by CUDA-graph replay (``chip_smoke.graph_ms``) beside the profile.
 
-``--kernels-only`` runs the last two alone (no model is built).
+``--kernels-only`` runs the last three alone (no model is built). They call
+only the wrappers' public entries, so the script also times an older
+checkout's kernels when copied into it with ``chip_smoke.py``.
 
 For each it prints one line: host ms per call (synchronised), device kernel
 ms per call (the sum of kernel times), device busy ms (the union of kernel
 intervals), the idle share of the span from first kernel start to last
-kernel end, and the top kernels by device time with their launch counts.
-Exits non-zero without a CUDA device.
+kernel end, and the top kernels by device time with their launch counts;
+where K3's or K5's bf16 launches ran, a second line splits their time into
+the LN rows, fc1 (+ GELU), fc2 and the finalize pass. Exits non-zero
+without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import re
 import sys
 import time
 
@@ -41,6 +51,25 @@ import numpy as np
 import torch
 
 import chip_smoke as smoke
+
+
+# K3/K5's bf16 launches (csrc/ln_mlp.cu, gemm_wgmma.cuh), by short name
+MLP_STAGES = {"LN": "ln_rows", "fc1": "gemm_wgmma<1>", "fc2": "gemm_wgmma<2>",
+              "finalize": "_finalize<"}
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name without its return type, namespaces and
+    argument list: ``gemm_wgmma<1>``, ``attn_wgmma<64, false, true, true>``."""
+    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += (ch == "<") - (ch == ">")
+        if ch == "(" and depth == 0:
+            name = name[:i]
+            break
+    head, _, _ = name.partition("<")
+    return name[len(head) - len(head.split("::")[-1]):]
 
 
 def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
@@ -60,8 +89,9 @@ def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
     span = spans[-1][1] - spans[0][0]
     by_name: dict = {}
     for e in events:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        name = _short(e.name)
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + e.time_range.elapsed_us(), n + 1)
     total = sum(t for t, _ in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
     return {"kernel_ms": total / iters / 1e3, "busy_ms": busy / iters / 1e3,
@@ -87,6 +117,14 @@ def _profile(label: str, fn, iters: int, card: str, top_n: int = 5) -> dict:
     print(f"[profile] {label}: host {host_ms:.2f} ms/call, kernels {st['kernel_ms']:.2f} ms, "
           f"busy {st['busy_ms']:.2f} ms, idle {100 * st['idle']:.1f}% | {top} [{card}]",
           flush=True)
+    split = []
+    for stage, key in MLP_STAGES.items():
+        hits = [(t, c) for n, (t, c) in st["by_name"].items() if key in n]
+        if hits:
+            split.append(f"{stage} {sum(t for t, _ in hits):.4f} ms "
+                         f"({sum(c for _, c in hits)}x)")
+    if split:
+        print(f"[profile]   K3/K5 bf16 split: {'; '.join(split)} [{card}]", flush=True)
     return st
 
 
@@ -94,7 +132,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="profile only the LayerNorm and fused_attention_block calls")
+                    help="profile only the LayerNorm, fused_attention_block and MLP "
+                         "kernel calls")
     args = ap.parse_args()
     iters = args.iters
     card = smoke.phase_device()
@@ -181,6 +220,32 @@ def _profile_kernels(iters: int, card: str) -> None:
             _profile(f"fused_attention_block ({M}, {S}, {D}) bf16{what}",
                      lambda: block_attn.fused_attention_block(xs, *w, H, key_mask),
                      10 * iters, card)
+    _profile_mlp(iters, card, randn)
+
+
+def _profile_mlp(iters: int, card: str, randn) -> None:
+    """K3 and K5 at their main and small shapes: the profile (50 calls) and
+    the device time per call by CUDA-graph replay."""
+    from alpro_tpu_torch.ops import bert_block, ln_mlp
+
+    D, Dh = 768, 3072
+    w = (randn(Dh, D, std=D ** -0.5), randn(Dh, std=0.02),
+         randn(D, Dh, std=Dh ** -0.5), randn(D, std=0.02))
+    ln = (1 + randn(D, std=0.1, dtype=torch.float32), randn(D, std=0.1, dtype=torch.float32))
+    patches = smoke.CLIPS_PER_CALL * smoke.FRAMES * smoke.PATCHES
+    fusion = 8 * (40 + 1 + smoke.PATCHES)
+    calls = [(f"ln_mlp (K3) ({R}, {D}) bf16", R,
+              lambda x: ln_mlp.ln_mlp(x, *ln, *w, eps=1e-6)) for R in (patches, 8, 2)]
+    calls += [(f"bert_mlp_block (K5) ({R}, {D}) bf16", R,
+               lambda x: bert_block.bert_mlp_block(x, *w, *ln, eps=1e-12))
+              for R in (fusion, 40, 320)]
+    with torch.no_grad():
+        for label, R, fn in calls:
+            x = randn(R, D, std=2.0)
+            dev, why = smoke.graph_ms(lambda: fn(x))
+            _profile(f"{label}, device per call (graph) "
+                     + (f"not measured ({why})" if why else f"{dev:.4f} ms"),
+                     lambda: fn(x), 10 * iters, card)
 
 
 if __name__ == "__main__":

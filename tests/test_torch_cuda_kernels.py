@@ -120,10 +120,25 @@ def test_temporal_kernel_matches_twin(cuda, T, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R,residual", [(3136, True), (2, False), (45, True)])
-def test_ln_mlp_kernel_matches_twin(cuda, R, residual, dtype):
-    D, Dh = 768, 3072
+# R across the bf16 plan's branches (ln_mlp.bf16_plan on 132 SMs): 24 slices
+# of fc2's hidden up to one 128-row tile (1-128), 16 past it (129), 12 at
+# 320, 2 at 1896, one slice from 3136 (K3: fc2 rounds into the output, no
+# partials); D 256 and 1024 and Dh 1024 as in the narrow models `auto` takes
+_MLP_CASES = [(R, True, 768, 3072) for R in (1, 8, 40, 127, 128, 129, 1896, 3792, 12544)] + [
+    (8, False, 768, 3072), (12544, False, 768, 3072), (40, True, 256, 1024),
+    (3136, True, 256, 1024), (129, True, 1024, 4096), (1896, True, 1024, 4096),
+    (300, True, 768, 1024)]
+
+
+def _mlp_dtype_cases(cases):
+    """Each case in bf16 and, where the fp32 row kernel takes its D, fp32."""
+    return [(*c, dt) for c in cases for dt in (torch.bfloat16, torch.float32)
+            if ln_mlp.ln_mlp_fits(c[-2], c[-1], dt)]
+
+
+@pytest.mark.parametrize("R,residual,D,Dh,dtype", _mlp_dtype_cases(
+    [(3136, True, 768, 3072), (2, False, 768, 3072), (45, True, 768, 3072)] + _MLP_CASES))
+def test_ln_mlp_kernel_matches_twin(cuda, R, residual, D, Dh, dtype):
     args = (
         _randn((R, D), R, cuda, dtype, 2.0),
         1 + _randn((D,), 1, cuda, torch.float32, 0.1),
@@ -159,6 +174,25 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="dtype"):
         ln_mlp.ln_mlp(x, v, v, w, torch.zeros(3072, device=cuda), w.t().contiguous(), v,
                       eps=1e-6)
+
+
+def test_mlp_kernels_raise_past_the_fp32_width(cuda):
+    """fp32's row kernel stops at D = 768 (its shared memory at 1024 is past
+    a block's): the wrappers raise naming the limit and launch nothing,
+    where bf16 takes D = 1024."""
+    D, Dh = 1024, 4096
+    x = _randn((4, D), 0, cuda, torch.float32)
+    w1, w2 = _randn((Dh, D), 1, cuda, torch.float32), _randn((D, Dh), 2, cuda, torch.float32)
+    b1, v = torch.zeros(Dh, device=cuda), torch.ones(D, device=cuda)
+    n, nb = ln_mlp.launches, bert_block.mlp_launches
+    with pytest.raises(ValueError, match="in fp32"):
+        ln_mlp.ln_mlp(x, v, v, w1, b1, w2, v, eps=1e-6)
+    with pytest.raises(ValueError, match="in fp32"):
+        bert_block.bert_mlp_block(x, w1, b1, w2, v, v, v, eps=1e-12)
+    assert (ln_mlp.launches, bert_block.mlp_launches) == (n, nb)
+    bf = torch.bfloat16
+    got = ln_mlp.ln_mlp(x.to(bf), v, v, w1.to(bf), b1, w2.to(bf), v, eps=1e-6)
+    assert got.shape == (4, D) and ln_mlp.launches == n + 1
 
 
 def _bert_attn_args(M, S, cuda, dtype, seed=0):
@@ -203,10 +237,11 @@ def test_bert_attn_kernel_takes_the_longest_fusion_sequence(cuda):
         bert_block.bert_attention_block(x, mask, *ws, *ln, 12, eps=1e-12)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("R", [40, 320, 1896, 3])
-def test_bert_mlp_kernel_matches_twin(cuda, R, dtype):
-    D, Dh = 768, 3072
+@pytest.mark.parametrize("R,D,Dh,dtype", _mlp_dtype_cases(
+    [(40, 768, 3072), (320, 768, 3072), (1896, 768, 3072), (3, 768, 3072)]
+    + [(R, D, Dh) for R, residual, D, Dh in _MLP_CASES
+       if residual and (R, D) not in ((40, 768), (1896, 768))]))
+def test_bert_mlp_kernel_matches_twin(cuda, R, D, Dh, dtype):
     args = (
         _randn((R, D), R, cuda, dtype, 2.0),
         _randn((Dh, D), 3, cuda, dtype, D ** -0.5),

@@ -81,3 +81,36 @@ def test_hidden_split_fills_the_sms(R, want):
     """Row tiles of 32 fill 132 SMs at R=12544 (no split); fewer row tiles
     split the 24 hidden chunks of 128 across blocks."""
     assert ln_mlp.hidden_split(R, 3072, 132) == want
+
+
+@pytest.mark.parametrize("R,post_ln,splits", [
+    (3136, False, 1), (2, False, 24), (12544, False, 1), (8, False, 24),  # K3, phase 3
+    (40, True, 24), (320, True, 12), (1896, True, 2), (3792, True, 1),  # K5, phase 3
+    (128, False, 24), (129, True, 16)])
+def test_bf16_plan_fills_the_sms(R, post_ln, splits):
+    """The bf16 plan on 132 SMs: fc2's 128 x 128 output tiles times the
+    slices of its hidden (64-column multiples covering Dh) fit one wave of
+    two CTAs an SM; K3 in one slice rounds into the output (no partials),
+    K5 always sums fp32 partials before its LN."""
+    D, Dh = 768, 3072
+    plan = ln_mlp.bf16_plan(R, D, Dh, 132, post_ln)
+    assert plan.splits == splits
+    assert plan.h_split % 64 == 0 and (splits - 1) * plan.h_split < Dh <= splits * plan.h_split
+    tiles = -(-R // 128) * (D // 128)
+    assert tiles * splits <= max(tiles, 2 * 132)
+    assert plan.hidden == (R, Dh)
+    assert plan.normed == (None if post_ln else (R, D))
+    assert plan.partial == (None if splits == 1 and not post_ln else (splits, R, D))
+
+
+@pytest.mark.parametrize("D,dtype,fits", [
+    (768, torch.bfloat16, True), (1024, torch.bfloat16, True), (768, torch.float32, True),
+    (1024, torch.float32, False), (384, torch.bfloat16, False)])
+def test_fits_keeps_fp32_inside_shared_memory(D, dtype, fits):
+    """bf16 takes the four widths; fp32's row kernel, whose shared memory
+    (32 x D tile + 32 x 132 fp32 hidden chunk + 32 x 132 GELU chunk + 128 x
+    132 weight tile, 4 bytes each) is 232,960 bytes at D = 1024 against a
+    Hopper block's 232,448, stops at 768, so `auto` takes the plain path
+    there."""
+    assert 4 * (32 * (1024 + 4) + 2 * 32 * 132 + 128 * 132) == 232960
+    assert ln_mlp.ln_mlp_fits(D, 4 * D, dtype) == fits
