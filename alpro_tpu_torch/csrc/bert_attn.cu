@@ -5,40 +5,66 @@
 // Replaces the TPU kernel alpro_tpu/ops/pallas_bert_block.py::
 // fused_bert_attention_block (_bert_attn_kernel). Its rounding points are
 // the contract kept here:
-//   * q, k and v get their bias in fp32; q and k round to the input dtype
-//     for QK^T, v for PV (fp32 accumulation of both products);
+//   * q, k and v get their bias in fp32, then round to the input dtype (q
+//     and k for QK^T, v for PV; fp32 accumulation of both products);
 //   * the scale is applied to the fp32 scores, the mask bias added in fp32,
-//     an exact two-pass softmax (row max first, then exp); the row sum l is
+//     the exact fp32 row max known before any p is rounded; the row sum l is
 //     taken from the fp32 p, p rounds to the input dtype before PV, and the
 //     division by l comes after PV, in fp32;
 //   * the per-head output rounds to the weights' dtype before the output
 //     projection, whose products over the heads are summed in fp32, plus the
-//     bias and the fp32 residual, then LN with one-pass fp32 statistics.
-// The weights come in torch Linear layout (out, in); biases and LN
-// parameters in fp32.
+//     bias and the fp32 residual, then LN with one-pass fp32 statistics and
+//     one rounding.
+// The TPU tiling (128-lane head windows, the cross-window sum carried in
+// VMEM from one grid step to the next) does not bind. The weights come in
+// torch Linear layout (out, in).
 //
 // What bounds it on an H100: at the fusion shape (M = 8, S = 237) it is
-// 10.3 GFLOP (two thirds of it the q/k/v projections) against 10.5 MB of
-// activations and weights, so the tensor cores bound it; one text query
-// (M = 1, S = 40) is 0.19 GFLOP against 4.7 MB of weights, bound by bytes
-// on paper and by latency in practice (12 blocks). A Hopper block cannot carry the cross-head sum from one grid step
-// to the next as the TPU grid does, and a fusion sequence's x (237 x 768)
-// does not fit one block's shared memory, so the chain runs as two launches:
+// 10.3 GFLOP (two thirds of it the q/k/v projections) against ~10.5 MB of
+// activations and weights, so the tensor cores bound it (0.010 ms); one text
+// query (M = 1, S = 40) is 0.19 GFLOP against 4.7 MB of weights, bound by
+// bytes on paper and by latency in practice. bf16 runs as four launches
+// behind one C call, every product on wgmma, from the port's Hopper parts:
+//   1. gemm_wgmma.cuh, packed: [q | k | v] = x . [wq; wk; wv]^T + [bq | bk |
+//      bv], the three weights through three tensor maps read in place (no
+//      concatenation), each bias read in its dtype, rounded once into an
+//      (M·S, 3D) bf16 scratch; one CTA per 128 x 128 tile, so x and the
+//      weights are read from L2 per tile and K and V are projected once;
+//   2. attn_wgmma.cuh with the key bias (B12/B13's instantiation): q, k and
+//      v are 4-D tensor maps over the packed scratch (row stride 3D), the key
+//      bias (1 - mask) * -10000 staged from the fp32 mask, one CTA per (head,
+//      sequence) and its query tiles split over grid z where M·H CTAs would
+//      leave the card idle; score rows in registers, one pass up to 256 keys,
+//      two passes over streamed key chunks past that; o / l rounded into an
+//      (M·S, D) bf16 heads scratch;
+//   3. gemm_wgmma.cuh, kFloat: heads . wo^T in fp32 into partials (splits,
+//      M·S, D), the K axis (the heads) cut into k_split-column slices where
+//      the 128-row tiles would leave CTA slots free (ops/bert_block.py
+//      proj_plan);
+//   4. post_ln.cuh's finalize (K5's): the partials summed in slice order, +
+//      bo + x in fp32, the row LN, one rounding.
+// Shared memory bounds only the attention's key-bias row (20 480 keys on an
+// H100): alpro_bert_attn_max_seq.
+//
+// fp32 (a test dtype: no tensor-core product keeps fp32 operands) keeps a
+// CUDA-core body (warp_tile.cuh) in two launches:
 //   1. bert_attn_heads: one block per (query-tile group, head, sequence).
 //      It projects K and V of its head for the whole sequence (x streamed
 //      through shared memory in 64 x 64 chunks with the weight chunks,
 //      zero-filled past S) into shared memory, then for each of its 64-row
 //      query tiles projects Q and runs the two softmax passes over 64-key
-//      chunks (one warp per 16 query rows), and writes the rounded per-head
-//      output into an (M, S, D) scratch. The wrapper gives a sequence
-//      several blocks (each its share of the query tiles) when M * H blocks
-//      would leave SMs idle; each recomputes K and V.
+//      chunks (one warp per 16 query rows), and writes the per-head output
+//      into an (M, S, D) scratch. The wrapper gives a sequence several
+//      blocks (each its share of the query tiles) when M * H blocks would
+//      leave SMs idle; each recomputes K and V.
 //   2. bert_attn_proj_ln: the row-tile GEMM of row_tile.cuh (32 rows x all
 //      D columns per block, fp32 accumulators in registers, 128 x 128 weight
 //      tiles through shared memory) with the post-LN epilogue.
-// bf16 products run on the tensor cores (WMMA 16x16x16), fp32 on the CUDA
-// cores (warp_tile.cuh). The largest S follows from shared memory (K and V
-// of one head for the whole sequence): alpro_bert_attn_max_seq reports it.
+// Its largest S follows from shared memory (K and V of one head for the
+// whole sequence).
+#include "attn_wgmma.cuh"
+#include "gemm_wgmma.cuh"
+#include "post_ln.cuh"
 #include "row_tile.cuh"
 
 namespace {
@@ -316,10 +342,10 @@ int launch_proj_ln(const void* heads, const void* wo, const void* bo, const void
 }
 
 template <typename T>
-int launch(const void* x, const void* mask, const void* wq, const void* bq, const void* wk,
-           const void* bk, const void* wv, const void* bv, const void* wo, const void* bo,
-           const void* ln_s, const void* ln_b, void* heads, void* out, int M, int S, int H,
-           int q_split, float scale, float eps, int device, cudaStream_t stream) {
+int launch_f32(const void* x, const void* mask, const void* wq, const void* bq, const void* wk,
+               const void* bk, const void* wv, const void* bv, const void* wo, const void* bo,
+               const void* ln_s, const void* ln_b, void* heads, void* out, int M, int S, int H,
+               int q_split, float scale, float eps, int device, cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
   const int limit = alpro::max_smem_optin(device);
   int ldkv = kHD + pad<T>();  // padded rows against bank conflicts, where they fit
@@ -353,29 +379,102 @@ int launch(const void* x, const void* mask, const void* wq, const void* bq, cons
   }
 }
 
-}  // namespace
+using bf16 = __nv_bfloat16;
 
-// The largest S the kernel takes for this dtype on this device (K and V of
-// one head for the whole sequence in shared memory).
-extern "C" int alpro_bert_attn_max_seq(int is_bf16, int device) {
-  return is_bf16 ? max_seq<__nv_bfloat16>(device) : max_seq<float>(device);
+// the bf16 attention plan's shared memory at S keys, with the key-bias row
+// (0: no launch fits)
+int plan_smem(int S, int optin) { return alpro::attn::plan_bf16<kHD>(S, optin, true).smem; }
+
+// operand `part` (0 q, 1 k, 2 v) of the packed (M·S, 3D) scratch as the
+// attention reads it: head_dim contiguous, the byte strides of the sequence,
+// head and batch axes; an axis of extent 1 is never stepped and takes the
+// view's byte span rounded up to 16 (ops/masked_attn.py::map_geometry)
+alpro::attn::Operand packed_operand(const bf16* qkv, int part, int M, int S, int H) {
+  const long long D = H * kHD, s_s = 3 * D, s_h = kHD, s_b = s_s * S;  // elements
+  const long long span =
+      (2 * (1 + (M - 1) * s_b + (H - 1) * s_h + (S - 1) * s_s + kHD - 1) + 15) / 16 * 16;
+  auto stride = [&](long long st, int n) { return n > 1 ? 2 * st : span; };
+  return {qkv + part * D, stride(s_s, S), stride(s_h, H), stride(s_b, M)};
 }
 
-// x, heads (scratch), out: (M, S, H * 64) in one dtype; mask: fp32 (M, S),
-// 1 = valid key; weights (out, in) in x's dtype; biases, LN params fp32.
-// Blocks per (head, sequence): q_split (at most the number of 64-row tiles).
+// the four launches; TV: the biases' and LN vectors' dtype (bf16 or fp32)
+template <typename TV>
+int launch_bf16(const bf16* x, const float* mask, const bf16* wq, const TV* bq, const bf16* wk,
+                const TV* bk, const bf16* wv, const TV* bv, const bf16* wo, const TV* bo,
+                const TV* ln_s, const TV* ln_b, bf16* qkv, bf16* heads, float* partial,
+                bf16* out, int M, int S, int H, int k_split, float scale, float eps, int device,
+                cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  const int D = H * kHD, R = M * S;
+  if (D > alpro::kFinThreads * alpro::kFinMaxPer || k_split < gm::kBK || k_split % gm::kBK ||
+      !plan_smem(S, alpro::max_smem_optin(device)) || !qkv || !heads || !partial)
+    return int(cudaErrorInvalidValue);
+  const void* w[3] = {wq, wk, wv};
+  const TV* b[3] = {bq, bk, bv};
+  int err = gm::launch_packed<3, TV>(x, w, b, qkv, R, D, D, stream);
+  if (err) return err;
+  const alpro::attn::Strides so{static_cast<long long>(S) * D, D, kHD};
+  err = alpro::attn::launch<kHD, false, true>(
+      packed_operand(qkv, 0, M, S, H), packed_operand(qkv, 1, M, S, H),
+      packed_operand(qkv, 2, M, S, H), heads, so, mask, nullptr, nullptr, M, H, S, S, scale, 1,
+      device, stream);
+  if (err) return err;
+  const gm::Epilogue proj{{nullptr}, nullptr, 0, partial, nullptr, k_split};
+  err = gm::launch<gm::kFloat>(heads, wo, proj, R, D, D, stream);
+  if (err) return err;
+  alpro::bert_mlp_finalize<bf16, TV><<<R, alpro::kFinThreads, 0, stream>>>(
+      partial, (D + k_split - 1) / k_split, bo, x, ln_s, ln_b, out, R, D, eps);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// The largest S the kernel takes for this dtype on this device: bf16 the
+// attention plan's (its key-bias row in shared memory), fp32 K and V of one
+// head for the whole sequence in shared memory.
+extern "C" int alpro_bert_attn_max_seq(int is_bf16, int device) {
+  if (!is_bf16) return max_seq<float>(device);
+  const int optin = alpro::max_smem_optin(device);
+  int s = 0;
+  while (plan_smem(s + 1, optin)) ++s;
+  return s;
+}
+
+// x, out: (M, S, H * 64) in one dtype; mask: fp32 (M, S), 1 = valid key;
+// weights (out, in) in x's dtype. bf16: the biases and LN vectors all bf16
+// (vec_bf16 1) or all fp32; scratch qkv (M·S, 3D) and heads (M·S, D) bf16,
+// partial fp32 (ceil(D / k_split), M·S, D); k_split a multiple of 64. fp32:
+// the vectors fp32, heads an (M, S, D) fp32 scratch, q_split blocks per
+// (head, sequence) (at most the number of 64-row query tiles).
 extern "C" int alpro_bert_attn(const void* x, const void* mask, const void* wq, const void* bq,
                                const void* wk, const void* bk, const void* wv, const void* bv,
                                const void* wo, const void* bo, const void* ln_s,
-                               const void* ln_b, void* heads, void* out, int M, int S, int H,
-                               int q_split, float scale, float eps, int is_bf16, int device,
-                               void* stream) {
-  if (M < 1 || S < 1 || H < 1 || q_split < 1) return int(cudaErrorInvalidValue);
+                               const void* ln_b, void* qkv, void* heads, void* partial, void* out,
+                               int M, int S, int H, int q_split, int k_split, float scale,
+                               float eps, int is_bf16, int vec_bf16, int device, void* stream) {
+  if (M < 1 || S < 1 || H < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_s, ln_b,
-                                         heads, out, M, S, H, q_split, scale, eps, device, st)
-                 : launch<float>(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_s, ln_b, heads,
-                                 out, M, S, H, q_split, scale, eps, device, st);
+  const float* m = static_cast<const float*>(mask);
+  if (!is_bf16) {
+    if (vec_bf16 || q_split < 1) return int(cudaErrorInvalidValue);
+    return launch_f32<float>(x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_s, ln_b, heads, out, M,
+                             S, H, q_split, scale, eps, device, st);
+  }
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* o = static_cast<bf16*>(out);
+  bf16* sq = static_cast<bf16*>(qkv);
+  bf16* sh = static_cast<bf16*>(heads);
+  float* sp = static_cast<float*>(partial);
+  if (vec_bf16) {
+    auto v = [](const void* p) { return static_cast<const bf16*>(p); };
+    return launch_bf16<bf16>(w(x), m, w(wq), v(bq), w(wk), v(bk), w(wv), v(bv), w(wo), v(bo),
+                             v(ln_s), v(ln_b), sq, sh, sp, o, M, S, H, k_split, scale, eps,
+                             device, st);
+  }
+  auto v = [](const void* p) { return static_cast<const float*>(p); };
+  return launch_bf16<float>(w(x), m, w(wq), v(bq), w(wk), v(bk), w(wv), v(bv), w(wo), v(bo),
+                            v(ln_s), v(ln_b), sq, sh, sp, o, M, S, H, k_split, scale, eps, device,
+                            st);
 }

@@ -1,6 +1,6 @@
 // A bf16 GEMM on Hopper: y = a · wᵀ (+ bias), fp32 accumulation, for B17's
-// two projections (csrc/block_attn.cu) and the two products of the MLP
-// kernels K3 and K5 (csrc/ln_mlp.cu).
+// two projections (csrc/block_attn.cu), the two products of the MLP kernels
+// K3 and K5 (csrc/ln_mlp.cu) and K4's two projections (csrc/bert_attn.cu).
 //
 // a (M, K) and w (N, K) are row-major bf16 (w in torch Linear layout, so
 // both are K-major, as wgmma takes them from shared memory); bias (N) fp32.
@@ -16,7 +16,10 @@
 //     optional bf16 residual (M, N) added in fp32, rounded once into a bf16
 //     (M, N) output (fc2 of K3/K5).
 // Grid y splits K into slices of ep.k_split columns (kFloat with partials
-// only); every other launch has one slice.
+// only); every other launch has one slice. kSegs > 1 (kRound, K4's packed
+// [q | k | v]): w is kSegs separate (N / kSegs, K) matrices, each through
+// its own tensor map and with its own bias (fp32 or bf16, widened on load),
+// read in place; y goes to one (M, N) output.
 //
 // What bounds it on an H100: at B17's shapes (M = 12608 rows, K = 768, N =
 // 2304 or 768) 2·M·N·K operations over (M + N)·K inputs and M·N outputs,
@@ -38,6 +41,7 @@
 #pragma once
 
 #include "hopper.cuh"
+#include "warp_tile.cuh"
 
 namespace alpro {
 namespace gemm {
@@ -78,14 +82,24 @@ struct Epilogue {
   int k_split;
 };
 
+// kSegs > 1: the maps of weight segments 1 .. kSegs - 1 (segment 0 is the
+// kernel's mw) and every segment's bias, in TV
+template <int kSegs, typename TV> struct Segments {
+  CUtensorMap w[kSegs - 1];
+  const TV* bias[kSegs];
+};
+template <typename TV> struct Segments<1, TV> {};
+
 __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-template <int kMode>
+template <int kMode, int kSegs = 1, typename TV = float>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
-           const __grid_constant__ Epilogue ep, int M, int N, int K) {
+           const __grid_constant__ Epilogue ep, int M, int N, int K,
+           const __grid_constant__ Segments<kSegs, TV> segs) {
+  static_assert(kSegs == 1 || kMode == kRound, "segments are a kRound launch's");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -94,6 +108,12 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
   const int ntn = N / kBN;
   const int n0 = (blockIdx.x % ntn) * kBN, m0 = (blockIdx.x / ntn) * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // this CTA's weight rows: segment sg's rows from wrow (kSegs 1: all of w)
+  int sg = 0, wrow = n0;
+  if constexpr (kSegs > 1) {
+    sg = n0 / (N / kSegs);
+    wrow = n0 - sg * (N / kSegs);
+  }
   // this CTA's K slice: chunks k_lo .. k_lo + kt - 1
   const int k_lo = blockIdx.y * (ep.k_split / kBK);
   const int kt = min(K / kBK - k_lo, ep.k_split / kBK);
@@ -109,13 +129,19 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
 
   if (warp == kConsumers / 32) {  // the producer
     if (lane == 0) {
+      const CUtensorMap* wmap = &mw;
+      if constexpr (kSegs > 1) {
+#pragma unroll
+        for (int i = 1; i < kSegs; ++i)
+          if (sg == i) wmap = &segs.w[i - 1];
+      }
       for (int k = 0; k < kt; ++k) {
         const int s = k % kStages;
         if (k >= kStages) hp::mbar_wait(&empty[s], ((k / kStages) - 1) & 1);
         unsigned char* st = base + s * kStageBytes;
         hp::mbar_expect_tx(&full[s], kStageBytes);
         hp::tma_load_2d(st, &ma, &full[s], (k_lo + k) * kBK, m0);
-        hp::tma_load_2d(st + kABytes, &mw, &full[s], (k_lo + k) * kBK, n0);
+        hp::tma_load_2d(st + kABytes, wmap, &full[s], (k_lo + k) * kBK, wrow);
       }
     }
     return;
@@ -212,10 +238,25 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
   const bool with_lo = D && part < 2;
   unsigned char* hi_tile = base;
   unsigned char* lo_tile = base + kOutBytes;
+  const TV* seg_bias = nullptr;  // kSegs > 1: segment sg's, from wrow
+  if constexpr (kSegs > 1) {
+    seg_bias = segs.bias[0];
+#pragma unroll
+    for (int i = 1; i < kSegs; ++i)
+      if (sg == i) seg_bias = segs.bias[i];
+    seg_bias += wrow;
+  }
 #pragma unroll
   for (int j = 0; j < kBN / 8; ++j) {
     const int c = 8 * j + 2 * quad;
-    const float b0 = ep.bias[n0 + c], b1 = ep.bias[n0 + c + 1];
+    float b0, b1;
+    if constexpr (kSegs > 1) {
+      b0 = to_f32(seg_bias[c]);
+      b1 = to_f32(seg_bias[c + 1]);
+    } else {
+      b0 = ep.bias[n0 + c];
+      b1 = ep.bias[n0 + c + 1];
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = r + 8 * h;
@@ -278,7 +319,38 @@ int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaS
   const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
   if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
   const dim3 grid(unsigned(tiles), unsigned((K + ep.k_split - 1) / ep.k_split));
-  gemm_wgmma<kMode><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K);
+  gemm_wgmma<kMode><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K,
+                                                       Segments<1, float>{});
+  return int(cudaGetLastError());
+}
+
+// K4's packed projection: out (M, kSegs · seg) bf16 = a (M, K) · [w_0; ...;
+// w_{kSegs-1}]ᵀ + [bias_0 | ... ], rounded once, each w_i (seg, K) bf16 and
+// bias_i (seg) in TV read in place (no concatenation); seg a multiple of
+// 128, K of 64, a and w_i 16-byte aligned. Returns a cudaError_t.
+template <int kSegs, typename TV>
+int launch_packed(const void* a, const void* const (&w)[kSegs], const TV* const (&bias)[kSegs],
+                  bf16* out, int M, int seg, int K, cudaStream_t stream) {
+  if (M < 1 || seg < kBN || seg % kBN || K < kBK || K % kBK || !out)
+    return int(cudaErrorInvalidValue);
+  CUtensorMap ma, mw;
+  Segments<kSegs, TV> segs;
+  if (!encode_matrix(&ma, a, M, K, kBM) || !encode_matrix(&mw, w[0], seg, K, kBN))
+    return int(cudaErrorInvalidValue);
+  for (int i = 0; i < kSegs; ++i) {
+    if (!bias[i] || (i && !encode_matrix(&segs.w[i - 1], w[i], seg, K, kBN)))
+      return int(cudaErrorInvalidValue);
+    segs.bias[i] = bias[i];
+  }
+  auto kernel = gemm_wgmma<kRound, kSegs, TV>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return int(err);
+  const int N = kSegs * seg;
+  const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
+  if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
+  const Epilogue ep{{out}, nullptr, 0, nullptr, nullptr, K};
+  kernel<<<dim3(unsigned(tiles)), kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K, segs);
   return int(cudaGetLastError());
 }
 

@@ -50,10 +50,14 @@
 // there are fewer row tiles than SMs the hidden is split across blocks
 // (grid.y) into fp32 partials, summed by the same finalize pass.
 #include "gemm_wgmma.cuh"
+#include "post_ln.cuh"
 #include "row_tile.cuh"
 
 namespace {
 
+using alpro::bert_mlp_finalize;
+using alpro::kFinMaxPer;
+using alpro::kFinThreads;
 using alpro::rows::kThreads;
 using alpro::rows::kTile;
 using alpro::rows::kTM;
@@ -224,57 +228,6 @@ __global__ void ln_mlp_finalize(const float* __restrict__ partial, int splits,
   y += b2[i % D];
   if (residual) y += alpro::to_f32(x[i]);
   out[i] = alpro::from_f32<T>(y);
-}
-
-// post-LN: the same sum, + b2 + x, then LN of the row; one block per row
-constexpr int kFinThreads = 256;
-constexpr int kFinMaxPer = 4;  // D <= 1024
-
-template <typename T>
-__global__ void __launch_bounds__(kFinThreads)
-bert_mlp_finalize(const float* __restrict__ partial, int splits, const float* __restrict__ b2,
-                  const T* __restrict__ x, const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, T* __restrict__ out, int R, int D,
-                  float eps) {
-  __shared__ float red[2][kFinThreads / 32];
-  const int row = blockIdx.x, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long n = long(R) * D, base = long(row) * D;
-  float y[kFinMaxPer];
-  float s = 0.0f, ss = 0.0f;
-#pragma unroll
-  for (int j = 0; j < kFinMaxPer; ++j) {
-    const int c = threadIdx.x + j * kFinThreads;
-    y[j] = 0.0f;
-    if (c < D) {
-      float v = 0.0f;
-      for (int k = 0; k < splits; ++k) v += partial[k * n + base + c];
-      v += b2[c] + alpro::to_f32(x[base + c]);
-      y[j] = v;
-      s += v;
-      ss = fmaf(v, v, ss);
-    }
-  }
-  s = alpro::warp_sum(s);
-  ss = alpro::warp_sum(ss);
-  if (lane == 0) {
-    red[0][warp] = s;
-    red[1][warp] = ss;
-  }
-  __syncthreads();
-  s = ss = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kFinThreads / 32; ++w) {
-    s += red[0][w];
-    ss += red[1][w];
-  }
-  const float mean = s / D;
-  const float var = fmaxf(ss / D - mean * mean, 0.0f);
-  const float rstd = rsqrtf(var + eps);
-#pragma unroll
-  for (int j = 0; j < kFinMaxPer; ++j) {
-    const int c = threadIdx.x + j * kFinThreads;
-    if (c < D) out[base + c] = alpro::from_f32<T>((y[j] - mean) * rstd * ln_s[c] + ln_b[c]);
-  }
 }
 
 template <typename T, int NG, bool kPostLN>

@@ -26,7 +26,7 @@ kernels take (``BertConfig.use_fused``) and to ``plain`` otherwise.
 (``ops/masked_attn.py``) with its gradient. The TPU
 package's gate (``_on_tpu()``, S <= 640, D % 128) is not carried over:
 ``auto`` stays inside the kernels' own limits (S <= ``bert_block.max_seq``,
-752 in bf16 on an H100), and an explicit ``fused`` raises past them.
+20 480 in bf16 on an H100), and an explicit ``fused`` raises past them.
 """
 
 from __future__ import annotations

@@ -51,11 +51,10 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, ln_scale, ln_bias, out, partial, hidden, R, D, Dh,
     # h_split, eps, is_bf16, device, stream
     "alpro_bert_mlp": ([_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, _P], _I),
-    # x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, heads, out,
-    # M, S, H, q_split, scale, eps, is_bf16, device, stream
-    "alpro_bert_attn": (
-        [_P] * 14 + [_I, _I, _I, _I, _F, _F, _I, _I, _P], _I
-    ),
+    # x, mask, wq, bq, wk, bk, wv, bv, wo, bo, ln_scale, ln_bias, qkv, heads,
+    # partial, out, M, S, H, q_split, k_split, scale, eps, is_bf16, vec_bf16,
+    # device, stream
+    "alpro_bert_attn": ([_P] * 16 + [_I] * 5 + [_F, _F, _I, _I, _I, _P], _I),
     # is_bf16, device
     "alpro_bert_attn_max_seq": ([_I, _I], _I),
     # q, k, v, bias, out, strides (12 int64: the byte strides of the sequence,

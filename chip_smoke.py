@@ -21,8 +21,14 @@ line):
    the device time of the kernel and of the library call (``device_ms``: 20
    calls captured in one CUDA graph, replays timed, so the host's share of
    a call drops out; a wrapper that cannot be captured says why), for the
-   MLP kernels K3/K5 at their small shapes too, and beside them at the main
-   shape a yardstick: ``F.linear`` at fc1's and fc2's shapes;
+   MLP kernels K3/K5 at their small shapes too and for the BERT attention
+   chain K4 at all four of its shapes, and beside them at the main shape a
+   yardstick: ``F.linear`` at fc1's and fc2's shapes; for K4, ``F.linear``
+   at the q/k/v and output projections' shapes, SDPA with the key mask on
+   the same q/k/v views and ``F.layer_norm``; K4 also against the TPU
+   kernel's own rounding points (``bert_attention_block_reference``) with
+   scores in the tens (q/k/v/o weights at std 4·D^-½), at the fusion and
+   the one-text shapes;
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -77,7 +83,7 @@ line):
    257, past one key chunk: ``auto`` launches K1 and ``cls_sideband`` B6,
    each within TOWER_TOL of the forward with ``attn_impl='plain'``); then
    eval forwards under ``auto`` one past a kernel's limit (T = 129 frames,
-   BERT S = 800 in bf16, head_dim 48 for K1, which has no S limit, and D =
+   BERT S = 20 481 in bf16, head_dim 48 for K1, which has no S limit, and D =
    384 for the MLP tail, at narrow widths): each equals the forward with
    that call site set to ``plain`` and launches none of the kernel
    concerned, while the same model at the limit launches it.
@@ -117,7 +123,10 @@ CHECK_TOPK = 8  # half the gallery, so the candidate set is a real choice
 # rounds p to bf16 before PV where its twin keeps fp32, and the BERT attention
 # kernel q, k, v, p and the per-head output (its TPU kernel's rounding points);
 # the masked-attention kernel rounds p where its twin does, so only the
-# summation order and exp differ
+# summation order and exp differ; K4 against its TPU kernel's own rounding
+# points (bert_attention_block_reference: q, k, v rounded after the fp32
+# bias) with scores in the tens, where only the fp32 sums' order differs
+BERT_CONTRACT_TOL = 2e-2
 # the fused ingest's kernels round where their twins do (the LN output, the
 # per-head output, the outputs), except the temporal chain, which stages q,
 # k, v in bf16 as its TPU kernel does where its twin keeps fp32; the
@@ -389,21 +398,24 @@ def phase_kernels(card: str) -> dict:
             card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes), device=R <= B))
         if main:
             _mlp_yardstick("ln_mlp", xr, w, card)
-    # BERT layer: text S = 40 (max_txt_len), fusion S = 40 + 197 video tokens
+    # BERT layer: text S = 40 (max_txt_len), fusion S = 40 + 197 video tokens;
+    # every bias and LN vector bf16, as the bf16 model passes them
     wa = [t for _ in range(4) for t in (randn(D, D, std=D ** -0.5), randn(D, std=0.02))]
+    lna = tuple(t.to(bf) for t in ln)
     for M, S, main in ((1, 40, False), (8, 40, False), (8, 40 + 1 + N, True),
                        (16, 40 + 1 + N, False)):
-        xa = randn(M, S, D)
-        mask = torch.ones(M, S, device="cuda")
-        for m in range(M):  # padded text tails of different lengths
-            mask[m, 8 + 3 * m % 32:40] = 0.0
+        xa, mask = randn(M, S, D), _text_mask(M, S)
         res["bert_attn"].append(_compare(
             "bert_attn", xa.shape,
-            lambda: bert_block.bert_attention_block(xa, mask, *wa, *ln, H, eps=1e-12),
-            lambda: bert_block.bert_attention_block_plain(xa, mask, *wa, *ln, H, 1e-12),
+            lambda: bert_block.bert_attention_block(xa, mask, *wa, *lna, H, eps=1e-12),
+            lambda: bert_block.bert_attention_block_plain(xa, mask, *wa, *lna, H, 1e-12),
             card, main,
             work=(8 * M * S * D * D + 4 * M * H * S * S * hd,
-                  2 * xa.numel() * 2 + 4 * D * D * 2 + M * S * 4 + 6 * D * 4)))
+                  2 * xa.numel() * 2 + 4 * D * D * 2 + M * S * 4 + 6 * D * 2), device=True))
+        if main:
+            _bert_attn_yardstick(xa, mask, wa, lna, card)
+        if M * S in (40, 8 * (40 + 1 + N)):
+            _bert_attn_contract(xa, mask, [t * 4 if t.dim() == 2 else t for t in wa], lna, card)
     for R, main in ((40, False), (8 * 40, False), (8 * (40 + 1 + N), True),
                     (16 * (40 + 1 + N), False)):
         xr = randn(R, D, std=2.0)
@@ -418,6 +430,67 @@ def phase_kernels(card: str) -> dict:
     _fused_ingest_kernels(res, randn, ln, card)
     _opt_in_kernels(res, randn, card)
     return res
+
+
+def _text_mask(M: int, S: int) -> torch.Tensor:
+    """(M, S) fp32 key mask of M texts of 40 positions (max_txt_len), each
+    with a padded tail of its own length, then S - 40 video tokens."""
+    mask = torch.ones(M, S, device="cuda")
+    for m in range(M):
+        mask[m, 8 + 3 * m % 32:40] = 0.0
+    return mask
+
+
+def _bert_attn_contract(x, mask, w, ln, card) -> None:
+    """K4 against ``bert_attention_block_reference``, the TPU kernel's own
+    rounding points (q, k and v rounded to bf16 after the fp32 bias), with
+    the q/k/v/o weights ``w`` at std 4·D^-½ (scores in the tens, where the
+    twin, which keeps q, k and v in fp32, drifts from both)."""
+    from alpro_tpu_torch.ops import bert_block
+
+    H = x.shape[-1] // 64
+    with torch.no_grad():
+        got = bert_block.bert_attention_block(x, mask, *w, *ln, H, eps=1e-12).float()
+        ref = bert_block.bert_attention_block_reference(x, mask, *w, *ln, H, 1e-12).float()
+        twin = bert_block.bert_attention_block_plain(x, mask, *w, *ln, H, 1e-12).float()
+    tol = BERT_CONTRACT_TOL
+    bad = int(((got - ref).abs() > tol + tol * ref.abs()).sum())
+    print(f"[kernel] bert_attn vs the contract reference, weights at std 4·D^-½, "
+          f"{tuple(x.shape)}: max_abs {float((got - ref).abs().max()):.3e} (tol atol=rtol={tol}, "
+          f"{bad} outside); the twin's max_abs {float((twin - ref).abs().max()):.3e} [{card}]",
+          flush=True)
+    fail_if(not bool(torch.isfinite(got).all()), f"bert_attn {tuple(x.shape)}: non-finite output")
+    fail_if(bad > 0, f"bert_attn vs its contract reference: {bad} outside {tol}")
+
+
+def _bert_attn_yardstick(x, mask, w, ln, card) -> None:
+    """A yardstick beside K4 at its main shape, not a library call (no single
+    PyTorch call computes the chain): the device time of ``F.linear`` at the
+    packed q/k/v projection's shape (R, 3D), SDPA with the key mask on the
+    (M, H, S, 64) views of that projection, ``F.linear`` at the output
+    projection's shape (R, D) and ``F.layer_norm`` over the R rows, bf16."""
+    F = torch.nn.functional
+    M, S, D = x.shape
+    H, R = D // 64, M * S
+    a = x.reshape(R, D)
+    wqkv, bqkv = torch.cat(w[0:6:2]), torch.cat(w[1:6:2])
+    qkv = F.linear(a, wqkv, bqkv)
+    q, k, v = (qkv.view(M, S, 3, H, 64)[:, :, i].transpose(1, 2) for i in range(3))
+    bias = ((1.0 - mask) * -10000.0).to(x.dtype)[:, None, None, :]
+    o = a.clone()
+    parts = []
+    for what, fn, flop in (
+            (f"F.linear ({R}, {D}) x ({3 * D}, {D})^T", lambda: F.linear(a, wqkv, bqkv),
+             6 * R * D * D),
+            (f"SDPA ({M}, {H}, {S}, 64) masked", lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias), 4 * M * H * S * S * 64),
+            (f"F.linear ({R}, {D}) x ({D}, {D})^T", lambda: F.linear(o, w[6], w[7]),
+             2 * R * D * D),
+            (f"F.layer_norm ({R}, {D})", lambda: F.layer_norm(a, (D,), ln[0], ln[1], 1e-12), 0)):
+        dev, why = graph_ms(fn)
+        rate = "" if why or not flop else f", {flop / dev / 1e9:.1f} TFLOP/s"
+        parts.append(f"{what} " + (f"not measured ({why})" if why else f"{dev:.4f} ms{rate}"))
+    print(f"[kernel] bert_attn yardstick, device: {'; '.join(parts)} [{card}]", flush=True)
 
 
 def _mlp_yardstick(name, x, w, card) -> None:
@@ -1400,9 +1473,10 @@ def phase_last(card: str, res: dict, ret: dict) -> dict:
     bcfg = BertConfig(hidden_size=256, num_hidden_layers=2, num_attention_heads=4,
                       intermediate_size=1024)
     limit = bert_block.max_seq(bf, smem)
-    _auto_limit(f"BERT S = 800 in bf16 (S = {limit} at the limit)",
+    _auto_limit(f"BERT S = {limit + 1} in bf16 (S = {limit} at the limit)",
                 _seeded_(BertModel(bcfg, dtype=bf).cuda(), SEED + 12), bcfg,
-                randn(1, 800, 256), randn(1, limit, 256), "block_impl", ("bert_attn", "bert_mlp"),
+                randn(1, limit + 1, 256), randn(1, limit, 256), "block_impl",
+                ("bert_attn", "bert_mlp"),
                 lambda m, x: m(encoder_embeds=x, mode="multi_modal"))
     return {k: counts[k] for k in ("temporal_roll", "block_attn")}
 

@@ -24,19 +24,23 @@ first:
   their main shapes (12544 and 1896 rows of 768: one ``add_videos`` call's
   patch rows, the fusion of 8 candidates) and small ones (8 and 2 CLS rows;
   40 and 320 rows: one text query, 8 texts), with their device time per
-  call by CUDA-graph replay (``chip_smoke.graph_ms``) beside the profile.
+  call by CUDA-graph replay (``chip_smoke.graph_ms``) beside the profile;
+* the BERT attention chain ``bert_attention_block`` (K4) in bf16 at the
+  fusion of 8 and of 16 candidates (8 and 16 sequences of 40 + 197) and at
+  one text query and 8 texts (S = 40), every vector bf16 as the model
+  passes them, with its device time per call by CUDA-graph replay.
 
-``--kernels-only`` runs the last three alone (no model is built). They call
+``--kernels-only`` runs the last four alone (no model is built). They call
 only the wrappers' public entries, so the script also times an older
 checkout's kernels when copied into it with ``chip_smoke.py``.
 
 For each it prints one line: host ms per call (synchronised), device kernel
 ms per call (the sum of kernel times), device busy ms (the union of kernel
 intervals), the idle share of the span from first kernel start to last
-kernel end, and the top kernels by device time with their launch counts;
-where K3's or K5's bf16 launches ran, a second line splits their time into
-the LN rows, fc1 (+ GELU), fc2 and the finalize pass. Exits non-zero
-without a CUDA device.
+kernel end, the copy launches per call (the dtype casts: PyTorch's
+``direct_copy_kernel``), and the top kernels by device time with their launch counts;
+where K3's, K4's or K5's bf16 launches ran, a second line splits their time
+by kernel name (``SPLIT_STAGES``). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -53,9 +57,17 @@ import torch
 import chip_smoke as smoke
 
 
-# K3/K5's bf16 launches (csrc/ln_mlp.cu, gemm_wgmma.cuh), by short name
-MLP_STAGES = {"LN": "ln_rows", "fc1": "gemm_wgmma<1>", "fc2": "gemm_wgmma<2>",
-              "finalize": "_finalize<"}
+# the bf16 launches of K3/K5 (csrc/ln_mlp.cu) and K4 (csrc/bert_attn.cu), by
+# a prefix of the short name; K4's projection is the same instantiation as
+# K3/K5's fc2 (gemm_wgmma<2, ...>), and K4 and K5 share the finalize, so a
+# call that runs both kernels reads those two stages summed. The last two are
+# the bert_attn.cu body before its redesign (an older checkout's).
+SPLIT_STAGES = {"LN rows (K3)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
+                "qkv (K4)": "gemm_wgmma<0, 3",
+                "attention (K4)": "attn_wgmma<64, false, true, false>",
+                "fp32 tiles (K3/K5 fc2, K4 projection)": "gemm_wgmma<2",
+                "finalize": "_finalize<", "heads (K4, older body)": "bert_attn_heads",
+                "projection + LN (K4, older body)": "bert_attn_proj_ln"}
 
 
 def _short(name: str) -> str:
@@ -114,17 +126,18 @@ def _profile(label: str, fn, iters: int, card: str, top_n: int = 5) -> dict:
     st = _device_stats(prof, iters, top_n)
     st["host_ms"] = host_ms
     top = "; ".join(f"{n} {t:.3f} ms ({c}x)" for n, t, c in st["top"])
+    copies = sum(n for name, (_, n) in st["by_name"].items() if "direct_copy" in name)
     print(f"[profile] {label}: host {host_ms:.2f} ms/call, kernels {st['kernel_ms']:.2f} ms, "
-          f"busy {st['busy_ms']:.2f} ms, idle {100 * st['idle']:.1f}% | {top} [{card}]",
-          flush=True)
+          f"busy {st['busy_ms']:.2f} ms, idle {100 * st['idle']:.1f}%, {copies} copy launches "
+          f"(casts) | {top} [{card}]", flush=True)
     split = []
-    for stage, key in MLP_STAGES.items():
+    for stage, key in SPLIT_STAGES.items():
         hits = [(t, c) for n, (t, c) in st["by_name"].items() if key in n]
         if hits:
             split.append(f"{stage} {sum(t for t, _ in hits):.4f} ms "
                          f"({sum(c for _, c in hits)}x)")
     if split:
-        print(f"[profile]   K3/K5 bf16 split: {'; '.join(split)} [{card}]", flush=True)
+        print(f"[profile]   bf16 split: {'; '.join(split)} [{card}]", flush=True)
     return st
 
 
@@ -132,8 +145,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="profile only the LayerNorm, fused_attention_block and MLP "
-                         "kernel calls")
+                    help="profile only the LayerNorm, fused_attention_block, MLP and BERT "
+                         "attention kernel calls")
     args = ap.parse_args()
     iters = args.iters
     card = smoke.phase_device()
@@ -221,6 +234,7 @@ def _profile_kernels(iters: int, card: str) -> None:
                      lambda: block_attn.fused_attention_block(xs, *w, H, key_mask),
                      10 * iters, card)
     _profile_mlp(iters, card, randn)
+    _profile_bert_attn(iters, card, randn)
 
 
 def _profile_mlp(iters: int, card: str, randn) -> None:
@@ -246,6 +260,29 @@ def _profile_mlp(iters: int, card: str, randn) -> None:
             _profile(f"{label}, device per call (graph) "
                      + (f"not measured ({why})" if why else f"{dev:.4f} ms"),
                      lambda: fn(x), 10 * iters, card)
+
+
+def _profile_bert_attn(iters: int, card: str, randn) -> None:
+    """K4 at the fusion shapes (8 and 16 sequences of 40 + 197) and the text
+    shapes (1 and 8 sequences of 40), chip_smoke's padded text mask, every
+    vector bf16: the profile (50 calls) and the device time per call by
+    CUDA-graph replay."""
+    from alpro_tpu_torch.ops import bert_block
+
+    D, H = 768, 12
+    w = [t for _ in range(4) for t in (randn(D, D, std=D ** -0.5), randn(D, std=0.02))]
+    ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
+    with torch.no_grad():
+        for M, S in ((8, 40 + 1 + smoke.PATCHES), (16, 40 + 1 + smoke.PATCHES), (1, 40),
+                     (8, 40)):
+            x, mask = randn(M, S, D), smoke._text_mask(M, S)
+
+            def fn():
+                return bert_block.bert_attention_block(x, mask, *w, *ln, H, eps=1e-12)
+
+            dev, why = smoke.graph_ms(fn)
+            _profile(f"bert_attention_block (K4) ({M}, {S}, {D}) bf16, device per call (graph) "
+                     + (f"not measured ({why})" if why else f"{dev:.4f} ms"), fn, 10 * iters, card)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ import torch
 
 from alpro_tpu_torch.models.bert import BertConfig
 from alpro_tpu_torch.models.timesformer import TimeSformerConfig
-from alpro_tpu_torch.ops import _build, bert_block, ln_mlp, qkv_attn
+from alpro_tpu_torch.ops import _build, bert_block, ln_mlp, masked_attn, qkv_attn
 
 H100_SMEM = 232448
 BF16, F32 = torch.bfloat16, torch.float32
@@ -64,17 +64,21 @@ def test_predicates_at_their_edges():
     assert not qkv_attn.temporal_fits(8, 36, BF16, H100_SMEM)
     assert not qkv_attn.temporal_fits(8, 136, BF16, H100_SMEM)
     assert not qkv_attn.temporal_fits(8, 64, torch.float16, H100_SMEM)
-    # K4: S up to 752 in bf16; K3 / K5: the four widths
-    assert bert_block.max_seq(BF16, H100_SMEM) == 752
-    assert bert_block.attention_fits(8, 752, 768, 12, BF16, H100_SMEM)
-    assert not bert_block.attention_fits(8, 753, 768, 12, BF16, H100_SMEM)
+    # K4: S up to the masked attention's 20 480 keys in bf16 (its key-bias
+    # row in shared memory; K and V stream), 304 in fp32 (K and V of a head
+    # in shared memory); K3 / K5: the four widths
+    assert bert_block.max_seq(BF16, H100_SMEM) == 20480
+    assert bert_block.max_seq(BF16, H100_SMEM) == masked_attn.max_keys(BF16, 64, H100_SMEM)
+    assert bert_block.attention_fits(8, 20480, 768, 12, BF16, H100_SMEM)
+    assert not bert_block.attention_fits(8, 20481, 768, 12, BF16, H100_SMEM)
+    assert bert_block.max_seq(F32, H100_SMEM) == 304
     assert ln_mlp.ln_mlp_fits(768, 3072, BF16)
     assert not ln_mlp.ln_mlp_fits(384, 1536, BF16)
     # the predicates read the figure they are given
     assert not qkv_attn.spatial_fits(8, 197, 12, 64, BF16, 80_000)  # 84,992 at S = 197
     assert qkv_attn.spatial_fits(8, 197, 12, 64, BF16, 84_992)
     assert not qkv_attn.spatial_fits(8, 257, 12, 64, BF16, 150_000)  # two 64 KB slots
-    assert bert_block.max_seq(BF16, 160_000) < 752
+    assert bert_block.max_seq(BF16, 160_000) < 20480
 
 
 def test_timesformer_auto_stays_inside(h100):
@@ -118,10 +122,10 @@ def test_timesformer_auto_stays_inside(h100):
 def test_bert_auto_stays_inside(h100):
     cfg = BertConfig()
     assert cfg.use_fused(h100((8, 237, 768)))
-    assert cfg.use_fused(h100((8, 752, 768)))
-    assert not cfg.use_fused(h100((8, 800, 768)))  # past K4's 752 in bf16
+    assert cfg.use_fused(h100((8, 20480, 768)))
+    assert not cfg.use_fused(h100((8, 20481, 768)))  # past K4's 20 480 in bf16
     assert not cfg.use_fused(h100((8, 237, 768)), training=True)
     assert not cfg.use_fused(h100((8, 400, 768), F32))  # fp32 K4 takes S <= 304
     narrow = BertConfig(hidden_size=384, num_attention_heads=6, intermediate_size=1536)
     assert not narrow.use_fused(h100((8, 40, 384)))
-    assert BertConfig(block_impl="fused").use_fused(h100((8, 800, 768)))  # raises at launch
+    assert BertConfig(block_impl="fused").use_fused(h100((8, 20481, 768)))  # raises at launch

@@ -70,6 +70,45 @@ def test_attention_twin_matches_jax_reference_and_kernel(seed):
     np.testing.assert_allclose(got, np.asarray(kern), atol=ATOL_BLOCK, rtol=0)
 
 
+def _contract_inputs(std_mul, M=2, S=24, H=2, hd=64):
+    """bf16-sized inputs with a padded mask; the q/k/v/o weights at std
+    ``std_mul``·D^-½ (4: scores in the tens)."""
+    rng = np.random.RandomState(20 + std_mul)
+    D = H * hd
+    mask = np.ones((M, S), np.float32)
+    mask[1, 17:] = 0.0
+    w = [(rng.randn(D, D) * std_mul * D ** -0.5).astype(np.float32) if i % 2 == 0
+         else (rng.randn(D) * 0.1).astype(np.float32) for i in range(8)]
+    ln = [(1 + 0.1 * rng.randn(D)).astype(np.float32), (0.1 * rng.randn(D)).astype(np.float32)]
+    return rng.randn(M, S, D).astype(np.float32), mask, w, ln, H
+
+
+@pytest.mark.parametrize("std_mul", [1, 4])
+def test_reference_holds_the_jax_kernels_rounding_points(std_mul):
+    """``bert_attention_block_reference`` against the JAX kernel in interpret
+    mode, everything in bf16 (as the serving layer passes it): within 2e-3.
+    At std 4·D^-½ the twin, which keeps q, k and v in fp32, misses the same
+    kernel by more than ten times that, so the reference, not the twin, is
+    the contract the CUDA kernel is held to on the card."""
+    x, mask, w, ln, H = _contract_inputs(std_mul)
+    j = [jnp.asarray(a, jnp.bfloat16) for a in (x, *w, *ln)]
+    kern = np.asarray(fused_bert_attention_block(j[0], jnp.asarray(mask), *j[1:], H, eps=EPS)
+                      .astype(jnp.float32))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a.T if a.ndim == 2 else a)).to(
+            torch.bfloat16)
+
+    args = (torch.from_numpy(x).to(torch.bfloat16), torch.from_numpy(mask),
+            *(t(a) for a in w), *(t(a) for a in ln), H, EPS)
+    ref = bert_block.bert_attention_block_reference(*args)
+    assert ref.dtype == torch.bfloat16
+    np.testing.assert_allclose(ref.float().numpy(), kern, atol=2e-3, rtol=0)
+    if std_mul == 4:
+        twin = bert_block.bert_attention_block_plain(*args).float().numpy()
+        assert np.abs(twin - kern).max() > 10 * 2e-3
+
+
 @pytest.mark.parametrize("shape", [(2, 9), (1, 5), (13,)])
 def test_mlp_twin_matches_jax_reference_and_kernel(shape):
     rng = np.random.RandomState(len(shape))

@@ -195,7 +195,7 @@ def test_mlp_kernels_raise_past_the_fp32_width(cuda):
     assert got.shape == (4, D) and ln_mlp.launches == n + 1
 
 
-def _bert_attn_args(M, S, cuda, dtype, seed=0):
+def _bert_attn_args(M, S, cuda, dtype, seed=0, w_std=768 ** -0.5):
     D = 768
     g = torch.Generator().manual_seed(seed)
     mask = torch.ones(M, S)
@@ -205,7 +205,7 @@ def _bert_attn_args(M, S, cuda, dtype, seed=0):
     ws = []
     for _ in range(4):
         ws += [_randn((D, D), int(torch.randint(1 << 30, (1,), generator=g)), cuda, dtype,
-                      D ** -0.5),
+                      w_std),
                _randn((D,), int(torch.randint(1 << 30, (1,), generator=g)), cuda, dtype, 0.1)]
     ln = (1 + _randn((D,), 7, cuda, torch.float32, 0.1), _randn((D,), 8, cuda, torch.float32, 0.1))
     return _randn((M, S, D), S + M, cuda, dtype), mask.to(cuda), ws, ln
@@ -226,15 +226,50 @@ def test_bert_attn_kernel_matches_twin(cuda, M, S, dtype):
 
 def test_bert_attn_kernel_takes_the_longest_fusion_sequence(cuda):
     """512 text positions + 197 video tokens, in bf16; fp32 has a lower
-    limit, and past it the wrapper raises naming it."""
+    limit, and past it the wrapper raises naming it, as bf16 does past its
+    own."""
     x, mask, ws, ln = _bert_attn_args(1, 512 + 197, cuda, torch.bfloat16, seed=1)
     got = bert_block.bert_attention_block(x, mask, *ws, *ln, 12, eps=1e-12)
     want = bert_block.bert_attention_block_plain(x, mask, *ws, *ln, 12, 1e-12)
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+    n = bert_block.attn_launches
+    limit = bert_block.max_seq_len(torch.bfloat16, cuda)
+    long_x = torch.zeros(1, limit + 1, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=f"S <= {limit}"):
+        bert_block.bert_attention_block(long_x, torch.ones(1, limit + 1, device=cuda), *ws, *ln,
+                                        12, eps=1e-12)
     limit = bert_block.max_seq_len(torch.float32, cuda)
     x, mask, ws, ln = _bert_attn_args(1, limit + 1, cuda, torch.float32)
     with pytest.raises(ValueError, match=f"S <= {limit}"):
         bert_block.bert_attention_block(x, mask, *ws, *ln, 12, eps=1e-12)
+    assert bert_block.attn_launches == n
+
+
+@pytest.mark.parametrize("M,S", [(1, 2048), (2, 1000), (3, 257)])
+def test_bert_attn_kernel_past_the_old_limit(cuda, M, S):
+    """bf16 past the 752 keys that K and V of a head in shared memory
+    allowed, and past one 256-key chunk: the attention walks the keys twice
+    (the exact row max, then exp, sum and P·V), K and V streamed past what
+    stays resident; against the twin at the twin tolerance."""
+    x, mask, ws, ln = _bert_attn_args(M, S, cuda, torch.bfloat16, seed=2)
+    got = bert_block.bert_attention_block(x, mask, *ws, *ln, 12, eps=1e-12)
+    want = bert_block.bert_attention_block_plain(x, mask, *ws, *ln, 12, 1e-12)
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("M,S", [(8, 237), (1, 40)])
+def test_bert_attn_kernel_holds_the_tpu_contract(cuda, M, S):
+    """q/k/v/o weights at std 4·D^-½ (scores in the tens) and every vector
+    bf16, as the serving layer passes them: the kernel against
+    ``bert_attention_block_reference`` (q, k and v rounded to bf16 after the
+    fp32 bias, as the TPU kernel rounds them) within 2e-2. A kernel that
+    kept q or k in fp32, or rounded p after the division, would miss it."""
+    x, mask, ws, ln = _bert_attn_args(M, S, cuda, torch.bfloat16, seed=3,
+                                      w_std=4 * 768 ** -0.5)
+    ln = tuple(v.to(torch.bfloat16) for v in ln)
+    got = bert_block.bert_attention_block(x, mask, *ws, *ln, 12, eps=1e-12)
+    want = bert_block.bert_attention_block_reference(x, mask, *ws, *ln, 12, 1e-12)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("R,D,Dh,dtype", _mlp_dtype_cases(
@@ -874,20 +909,28 @@ def _stream_cases(cuda):
     s, b = 1 + _randn((768,), 51, cuda, torch.float32, 0.1), _randn((768,), 52, cuda,
                                                                       torch.float32, 0.1)
     args = _block_args(8, 197, 768, cuda, torch.bfloat16, seed=53)
+    xa, mask, ws, ln = _bert_attn_args(8, 237, cuda, torch.bfloat16, seed=54)
+    ln = tuple(v.to(torch.bfloat16) for v in ln)
     return {"layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
                           lambda x: layernorm.layernorm_plain(x, s, b, 1e-6, torch.bfloat16),
                           2e-2),
             "block_attn": ((args[0],), lambda x: block_attn.fused_attention_block(x, *args[1:], 12),
                            lambda x: block_attn.fused_attention_block_plain(x, *args[1:], 12),
-                           2e-2)}
+                           2e-2),
+            "bert_attn": ((xa,), lambda x: bert_block.bert_attention_block(x, mask, *ws, *ln, 12,
+                                                                          eps=1e-12),
+                          lambda x: bert_block.bert_attention_block_plain(x, mask, *ws, *ln, 12,
+                                                                          1e-12),
+                          3e-2)}
 
 
-@pytest.mark.parametrize("kernel", ["layernorm", "block_attn"])
+@pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn"])
 def test_kernel_launches_on_the_current_stream(cuda, kernel):
     """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
     stream asleep, its result is complete on s. Inside a CUDA-graph capture
-    it lands on the capturing stream: replaying the graph on new inputs gives
-    the twin's result for them."""
+    it lands on the capturing stream, its scratch allocated there too:
+    replaying the graph on new inputs gives the twin's result for them, bit
+    for bit the uncaptured call's."""
     (x,), fn, twin, tol = _stream_cases(cuda)[kernel]
     want = twin(x).float()
     side = torch.cuda.Stream()
@@ -922,3 +965,4 @@ def test_kernel_launches_on_the_current_stream(cuda, kernel):
     graph.replay()
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), twin(fresh).float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(out, fn(fresh), atol=0, rtol=0)
