@@ -53,7 +53,23 @@
 //     last 64-key block's wgmmas read past a panel into the next one (k_hi
 //     into v, v into k_lo, k_lo into a pad after the slots), rows whose
 //     scores are masked and whose p are 0 (v's over-read rows are k_lo's,
-//     finite).
+//     finite);
+//   * kPSplit (B7, csrc/qkv_proj.cu; with kSplit B9, csrc/fused_block.cu):
+//     their contracts keep p in fp32 for P·V, so p leaves the fp32 score
+//     registers as a pair p_hi = bf16(p), p_lo = bf16(p - p_hi) (p to
+//     ~2^-16), and P·V = p_hi·v + p_lo·v, two wgmma chains into the same o;
+//     l stays the fp32 sum of the unrounded p. To fit the p_lo fragments in
+//     registers, each 64-key block's P·V is its own commit group, waited for
+//     after the next block's is issued, and q is read from its buffer by
+//     descriptor (the buffer is refilled after the tile's last product)
+//     instead of being held as fragments. Under kSplit
+//     too, v comes as v_hi + v_lo as well and P·V = p_hi·v_hi + p_hi·v_lo +
+//     p_lo·v_hi (p_lo·v_lo, ~2^-16 of |p||v|, dropped), so neither p nor v
+//     is rounded at the contract's 2^-8. A K slot then holds k_hi, v_hi,
+//     v_lo and k_lo in that order (each panel's over-read rows are the next
+//     panel's: finite values under p = 0, and k_lo's, whose scores are
+//     masked, the pad's); past one chunk of 256 keys its chunks are 128
+//     keys, so a ring of two 64 KB slots fits beside the query buffer.
 #pragma once
 
 #include "hopper.cuh"
@@ -72,10 +88,14 @@ namespace hp = alpro::hopper;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSlots = 30;  // K/V slots: barriers fit the first 256 bytes
 
-template <bool kSplit> struct LoMaps {  // kSplit: the maps of q_lo and k_lo
+// kSplit: the maps of q_lo and k_lo; kVLo (kSplit and kPSplit): and of v_lo
+template <bool kSplit, bool kVLo> struct LoMaps {};
+template <> struct LoMaps<true, false> {
   CUtensorMap q, k;
 };
-template <> struct LoMaps<false> {};
+template <> struct LoMaps<true, true> {
+  CUtensorMap q, k, v;
+};
 
 template <int HD> struct Cfg {
   static_assert(HD == 32 || HD == 64 || HD == 128, "head_dim");
@@ -106,20 +126,22 @@ struct Plan {
 // bias: whether the launch stages a key-bias row; split: kSplit's layout
 // (one query buffer of q_hi and q_lo where the others have two of q; K
 // slots of k_hi, v and k_lo; one chunk's rows rounded to 16, with a pad for
-// the last panel's over-read)
-template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias, bool split = false) {
+// the last panel's over-read); vlo (kSplit with kPSplit): a K slot also
+// holds v_lo, and past one chunk the chunks are half as long
+template <int HD>
+Plan plan_bf16(int keys, int smem_optin, bool bias, bool split = false, bool vlo = false) {
   using C = Cfg<HD>;
   Plan p;
   if (keys <= C::kMaxN) {
     p.n = 1;
     p.R = split ? (keys + 15) / 16 * 16 : (keys + 63) / 64 * 64;
   } else {
-    p.n = (keys + C::kMaxN - 1) / C::kMaxN;
-    p.R = C::kMaxN;
+    p.R = vlo ? C::kMaxN / 2 : C::kMaxN;
+    p.n = (keys + p.R - 1) / p.R;
   }
   const long fixed = C::kFixed + (bias ? bias_bytes(p.n, p.R) : 0) +
                      long((p.R + 63) / 64 * 64 - p.R) * C::SW;  // the pad
-  const long slot = (split ? 3L : 2L) * p.R * HD * 2;
+  const long slot = (vlo ? 4L : split ? 3L : 2L) * p.R * HD * 2;
   long fit = (long(smem_optin) - fixed) / slot;
   if (fit > kMaxSlots) fit = kMaxSlots;
   p.nslots = int(fit < p.n ? fit : p.n);
@@ -133,13 +155,41 @@ template <int HD> Plan plan_bf16(int keys, int smem_optin, bool bias, bool split
 // ptxas serialize them). s: this thread's NBL x 32 fp32 accumulators; K and
 // V: R-row panels at kb and vb. kSplit: kb holds k_hi, kl k_lo and ql the
 // 64-row q_lo tile; the two cross products follow q_hi·k_hiᵀ in the stage.
-template <int HD, int NBL, bool kSplit>
+// kQSS (kPSplit): q (q_hi) is read from its 64-row tile at qh in shared
+// memory (A by descriptor), not from the registers qf, which kPSplit's p_lo
+// fragments need.
+template <int HD, int NBL, bool kSplit, bool kQSS>
 __device__ __forceinline__ void qk_stage(float (&s)[NBL * 32],
                                          const uint32_t (&qf)[HD / 16][4],
                                          const unsigned char* kb, const unsigned char* kl,
-                                         const unsigned char* ql, int R) {
+                                         const unsigned char* ql, const unsigned char* qh,
+                                         int R) {
   using C = Cfg<HD>;
   hp::wgmma_fence();
+  if constexpr (kQSS) {
+    auto desc = [](const unsigned char* base, int off) {
+      return hp::smem_desc<C::SW>(base + off, 16, 8 * C::SW);
+    };
+#pragma unroll
+    for (int b = 0; b < NBL; ++b) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (kk * 16 / C::P) * R * C::SW + b * 64 * C::SW + (kk * 16 % C::P) * 2;
+        const int aoff = (kk * 16 / C::P) * 64 * C::SW + (kk * 16 % C::P) * 2;
+        if (kk == 0) hp::WgmmaSS<64>::run_zero<0>(s + b * 32, desc(qh, aoff), desc(kb, off));
+        else hp::WgmmaSS<64>::run<0>(s + b * 32, desc(qh, aoff), desc(kb, off), 1);
+        if constexpr (kSplit) {
+          hp::WgmmaSS<64>::run<0>(s + b * 32, desc(qh, aoff), desc(kl, off), 1);
+          hp::WgmmaSS<64>::run<0>(s + b * 32, desc(ql, aoff), desc(kb, off), 1);
+        }
+      }
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < NBL * 32; ++i) hp::pin(s[i]);
+    return;
+  }
 #pragma unroll
   for (int b = 0; b < NBL; ++b) {
 #pragma unroll
@@ -186,6 +236,31 @@ __device__ __forceinline__ void pv_stage(float (&o)[HD / 2], const uint32_t (&pf
   for (int i = 0; i < HD / 2; ++i) hp::pin(o[i]);
 }
 
+// kPSplit: the P·V of 64-key block b, p_hi·V + p_lo·V (kVLo: + p_hi·v_lo at
+// vl) as one commit group, then a wait for the group before it, so only two
+// blocks' fragments are live (a whole chunk's p_hi and p_lo would spill)
+template <int HD, bool kVLo>
+__device__ __forceinline__ void pv_split_block(float (&o)[HD / 2], const uint32_t (&ph)[4][4],
+                                               const uint32_t (&pl)[4][4],
+                                               const unsigned char* vb, const unsigned char* vl,
+                                               int R, int b) {
+  using C = Cfg<HD>;
+  auto desc = [&](const unsigned char* v, int g) {
+    return hp::smem_desc<C::SW>(v + (4 * b + g) * 16 * C::SW, R * C::SW, 8 * C::SW);
+  };
+  hp::wgmma_fence();
+#pragma unroll
+  for (int g = 0; g < 4; ++g) hp::WgmmaRS<HD>::template run<1>(o, ph[g], desc(vb, g), 1);
+#pragma unroll
+  for (int g = 0; g < 4; ++g) hp::WgmmaRS<HD>::template run<1>(o, pl[g], desc(vb, g), 1);
+  if constexpr (kVLo) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) hp::WgmmaRS<HD>::template run<1>(o, ph[g], desc(vl, g), 1);
+  }
+  hp::wgmma_commit();
+  hp::wgmma_wait<1>();
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -210,18 +285,19 @@ struct Rows {
 // the last one's sums). Pass 1 (pass2 false): the row max only. Pass 2: the
 // max too when the chunk is the row's only one, then p = exp(s - max) in fp32
 // (as 2^(s·scale·log2e - max·log2e): one FMA and ex2), its partial sums, and
-// p rounded to bf16 . V into o. Columns past `valid` (in the last block) are
-// -inf for the max and 0 for p. kBias: cb is the chunk's bias row, added to
-// the scaled scores in place first.
-template <int HD, int NBL, bool kBias, bool kSplit>
+// p rounded to bf16 . V into o (kPSplit: p_hi + p_lo; kVLo: and V's v_lo at
+// vl). Columns past `valid` (in the last block) are -inf for the max and 0
+// for p. kBias: cb is the chunk's bias row, added to the scaled scores in
+// place first.
+template <int HD, int NBL, bool kBias, bool kSplit, bool kPSplit>
 __device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, float scale,
                                            int quad, const uint32_t (&qf)[HD / 16][4],
                                            const unsigned char* kb, const unsigned char* vb,
-                                           const unsigned char* kl, const unsigned char* ql,
-                                           int R, const float* cb, Rows& st,
-                                           float (&o)[HD / 2]) {
+                                           const unsigned char* kl, const unsigned char* vl,
+                                           const unsigned char* qbuf, int R, const float* cb,
+                                           Rows& st, float (&o)[HD / 2]) {
   float s[NBL * 32];
-  qk_stage<HD, NBL, kSplit>(s, qf, kb, kl, ql, R);
+  qk_stage<HD, NBL, kSplit, kPSplit>(s, qf, kb, kl, qbuf + Cfg<HD>::kQBytes, qbuf, R);
   // register 4 j + e of block b holds column 64 b + 8 j + 2 quad + (e & 1)
   float sc = scale;
   if constexpr (kBias) {
@@ -254,6 +330,34 @@ __device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, f
     st.quad_max();
   }
   const float sl2 = sc * kLog2e, ml0 = st.mx0 * kLog2e, ml1 = st.mx1 * kLog2e;
+  if constexpr (kPSplit) {
+#pragma unroll
+    for (int b = 0; b < NBL; ++b) {
+      uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float p[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = 32 * b + 8 * g + e;
+          p[e] = masked(i) ? 0.0f : ex2(fmaf(s[i], sl2, (i & 2) ? -ml1 : -ml0));
+        }
+        st.l0 += (p[0] + p[1]) + (p[4] + p[5]);
+        st.l1 += (p[2] + p[3]) + (p[6] + p[7]);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {  // p_lo = p - p_hi, the first value in the low half
+          ph[g][f] = hp::pack_bf16(p[2 * f], p[2 * f + 1]);
+          pl[g][f] = hp::pack_bf16(p[2 * f] - __uint_as_float(ph[g][f] << 16),
+                                   p[2 * f + 1] - __uint_as_float(ph[g][f] & 0xffff0000u));
+        }
+      }
+      pv_split_block<HD, kSplit>(o, ph, pl, vb, vl, R, b);
+    }
+    hp::wgmma_wait_all();
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) hp::pin(o[i]);
+    return;
+  }
   uint32_t pf[4 * NBL][4];
 #pragma unroll
   for (int g = 0; g < 4 * NBL; ++g) {
@@ -272,19 +376,20 @@ __device__ __forceinline__ void chunk_step(bool pass2, bool single, int valid, f
 }
 
 // chunk_step for nbl (1..NB) blocks
-template <int HD, bool kBias, bool kSplit, int NBL = 1>
+template <int HD, bool kBias, bool kSplit, bool kPSplit, int NBL = 1>
 __device__ __forceinline__ void chunk(int nbl, bool pass2, bool single, int valid, float scale,
                                       int quad, const uint32_t (&qf)[HD / 16][4],
                                       const unsigned char* kb, const unsigned char* vb,
-                                      const unsigned char* kl, const unsigned char* ql, int R,
-                                      const float* cb, Rows& st, float (&o)[HD / 2]) {
+                                      const unsigned char* kl, const unsigned char* vl,
+                                      const unsigned char* qbuf, int R, const float* cb, Rows& st,
+                                      float (&o)[HD / 2]) {
   if constexpr (NBL <= Cfg<HD>::NB) {
     if (nbl == NBL)
-      chunk_step<HD, NBL, kBias, kSplit>(pass2, single, valid, scale, quad, qf, kb, vb, kl, ql,
-                                         R, cb, st, o);
+      chunk_step<HD, NBL, kBias, kSplit, kPSplit>(pass2, single, valid, scale, quad, qf, kb, vb,
+                                                  kl, vl, qbuf, R, cb, st, o);
     else
-      chunk<HD, kBias, kSplit, NBL + 1>(nbl, pass2, single, valid, scale, quad, qf, kb, vb, kl,
-                                        ql, R, cb, st, o);
+      chunk<HD, kBias, kSplit, kPSplit, NBL + 1>(nbl, pass2, single, valid, scale, quad, qf, kb,
+                                                 vb, kl, vl, qbuf, R, cb, st, o);
   }
 }
 
@@ -311,16 +416,19 @@ struct Strides {
 // kCls: qkv_c holds the CLS rows (one per sample of Tn frames), out_c gets the
 // CLS query's output (one row per frame). kBias: mask holds one fp32 key-mask
 // row of nkeys per sequence (1: a valid key). kSplit: mq and mk are the
-// maps of q_hi and k_hi, lo those of q_lo and k_lo.
-template <int HD, bool kCls, bool kBias, bool kSplit = false>
+// maps of q_hi and k_hi, lo those of q_lo and k_lo. kPSplit: P·V on p_hi +
+// p_lo; with kSplit, mv is v_hi's map and lo.v v_lo's.
+template <int HD, bool kCls, bool kBias, bool kSplit = false, bool kPSplit = false>
 __global__ void __launch_bounds__(128, 1)
 attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
            const __grid_constant__ CUtensorMap mv, bf16* __restrict__ out, Strides so,
            const float* __restrict__ mask, const bf16* __restrict__ qkv_c,
            bf16* __restrict__ out_c, int nkeys, int nq, int H, float scale, int Tn, int n, int R,
-           int nslots, int tpc, const __grid_constant__ LoMaps<kSplit> lo) {
+           int nslots, int tpc, const __grid_constant__ LoMaps<kSplit, kSplit && kPSplit> lo) {
   static_assert(!(kCls && kBias), "the CLS sideband takes no key bias");
   static_assert(!(kCls && kSplit), "the CLS sideband takes no split operands");
+  static_assert(!(kCls && kPSplit), "the CLS sideband keeps its CLS p apart");
+  constexpr bool kVLo = kSplit && kPSplit;  // a K slot holds v_lo too
   using C = Cfg<HD>;
   constexpr int QB = (kSplit ? 2 : 1) * C::kQBytes;  // one query buffer (kSplit: hi, lo)
   constexpr int NQB = kSplit ? 1 : 2;                 // query buffers
@@ -342,7 +450,9 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   unsigned char* slots =                                        // nslots x (K, V), R rows
       kcls + C::kClsBytes + (kBias ? bias_bytes(n, R) : 0);
   const int half = R * HD * 2;
-  const int slot_bytes = (kSplit ? 3 : 2) * half;  // K (k_hi), V (and k_lo)
+  // K (k_hi) and V (v_hi), then kVLo v_lo, then kSplit k_lo
+  const int slot_bytes = (kVLo ? 4 : kSplit ? 3 : 2) * half;
+  const int kl_at = (kVLo ? 3 : 2) * half;
 
   const bool resident = n <= nslots;
   const int tile_steps = n > 1 ? 2 * n : 1;  // pass 1 (max), pass 2 (exp, sum, PV)
@@ -360,10 +470,12 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   auto load_kv = [&](int slot, int c, bool with_v) {
     uint64_t* bar = &bar_kv[slot];
     unsigned char* dst = slots + slot * slot_bytes;
-    hp::mbar_expect_tx(bar, ((with_v ? 2 : 1) + (kSplit ? 1 : 0)) * half);
+    hp::mbar_expect_tx(bar, ((with_v ? (kVLo ? 3 : 2) : 1) + (kSplit ? 1 : 0)) * half);
     load_rows<HD>(dst, &mk, bar, c * R, R, h, m);
     if (with_v) load_rows<HD>(dst + half, &mv, bar, c * R, R, h, m);
-    if constexpr (kSplit) load_rows<HD>(dst + 2 * half, &lo.k, bar, c * R, R, h, m);
+    if constexpr (kVLo)
+      if (with_v) load_rows<HD>(dst + 2 * half, &lo.v, bar, c * R, R, h, m);
+    if constexpr (kSplit) load_rows<HD>(dst + kl_at, &lo.k, bar, c * R, R, h, m);
   };
   // streamed step j: (pass, chunk) and its load
   auto load_step = [&](int j) {
@@ -434,16 +546,19 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
       }
       __syncthreads();
     }
-    // this warp's 16 query rows as wgmma A fragments
+    // this warp's 16 query rows as wgmma A fragments (kPSplit: q stays in
+    // its buffer, read by descriptor, until the tile's last product)
     uint32_t qf[HD / 16][4];
+    if constexpr (!kPSplit) {
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int c = (kk * 16 % P) / 8 + (lane >> 4);
-      hp::ldmatrix_x4(qf[kk], qb + (kk * 16 / P) * 64 * SW + hp::swizzled<SW>(row, c));
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+        const int c = (kk * 16 % P) / 8 + (lane >> 4);
+        hp::ldmatrix_x4(qf[kk], qb + (kk * 16 / P) * 64 * SW + hp::swizzled<SW>(row, c));
+      }
+      __syncthreads();  // the buffer is free for tile t + 2 (kSplit: after the tile)
+      if (!kSplit && tid == 0 && t + 2 < ntiles) load_q(t + 2);
     }
-    __syncthreads();  // the buffer is free for tile t + 2 (kSplit: after the tile)
-    if (!kSplit && tid == 0 && t + 2 < ntiles) load_q(t + 2);
 
     Rows st{-INFINITY, -INFINITY, 0.0f, 0.0f};
     float sc[4];  // kCls: the CLS key's score (column 0, held by quad 0)
@@ -475,9 +590,9 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
       for (int c = 0; c < n; ++c) {
         const int valid = min(R, nkeys - c * R);
         const unsigned char* kv = acquire(c);
-        chunk<HD, kBias, kSplit>((valid + 63) / 64, pass == 1, n == 1, valid, scale, quad, qf,
-                                 kv, kv + half, kv + 2 * half, qb + C::kQBytes, R, bsm + c * R,
-                                 st, o);
+        chunk<HD, kBias, kSplit, kPSplit>((valid + 63) / 64, pass == 1, n == 1, valid, scale,
+                                          quad, qf, kv, kv + half, kv + kl_at, kv + 2 * half,
+                                          qb, R, bsm + c * R, st, o);
         release();
       }
       if (pass == 0) st.quad_max();
@@ -525,6 +640,9 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
     if constexpr (kSplit) {  // every product of tile t has read its q_lo
       __syncthreads();
       if (tid == 0 && t + 1 < ntiles) load_q(t + 1);
+    } else if constexpr (kPSplit) {  // ... and its q
+      __syncthreads();
+      if (tid == 0 && t + 2 < ntiles) load_q(t + 2);
     }
   }
 }
@@ -551,27 +669,31 @@ bool encode_operand(CUtensorMap* map, const Operand& x, int rows, int H, int B) 
 
 // One launch of attn_wgmma over B sequences of H heads: nq query rows (the
 // q map holds nkeys of them when kCls), nkeys keys; out through so (elements).
-// kSplit: q and k are q_hi and k_hi, split[0] and split[1] q_lo and k_lo.
-// A map that does not encode or a plan that does not fit returns
-// cudaErrorInvalidValue.
-template <int HD, bool kCls, bool kBias, bool kSplit = false>
+// kSplit: q and k are q_hi and k_hi, split[0] and split[1] q_lo and k_lo;
+// with kPSplit, v is v_hi and split[2] v_lo. A map that does not encode or a
+// plan that does not fit returns cudaErrorInvalidValue.
+template <int HD, bool kCls, bool kBias, bool kSplit = false, bool kPSplit = false>
 int launch(const Operand& q, const Operand& k, const Operand& v, void* out, Strides so,
            const float* mask, const void* qkv_c, void* out_c, int B, int H, int nq, int nkeys,
            float scale, int Tn, int device, cudaStream_t stream,
            const Operand* split = nullptr) {
-  const Plan p = plan_bf16<HD>(nkeys, alpro::max_smem_optin(device), kBias, kSplit);
+  constexpr bool kVLo = kSplit && kPSplit;
+  const Plan p = plan_bf16<HD>(nkeys, alpro::max_smem_optin(device), kBias, kSplit, kVLo);
   if (!p.smem) return int(cudaErrorInvalidValue);
   CUtensorMap mq, mk, mv;
   if (!encode_operand<HD>(&mq, q, kCls ? nkeys : nq, H, B) ||
       !encode_operand<HD>(&mk, k, nkeys, H, B) || !encode_operand<HD>(&mv, v, nkeys, H, B))
     return int(cudaErrorInvalidValue);
-  LoMaps<kSplit> lo;
+  LoMaps<kSplit, kVLo> lo;
   if constexpr (kSplit) {
     if (!split || !encode_operand<HD>(&lo.q, split[0], nq, H, B) ||
         !encode_operand<HD>(&lo.k, split[1], nkeys, H, B))
       return int(cudaErrorInvalidValue);
   }
-  auto kernel = attn_wgmma<HD, kCls, kBias, kSplit>;
+  if constexpr (kVLo) {
+    if (!encode_operand<HD>(&lo.v, split[2], nkeys, H, B)) return int(cudaErrorInvalidValue);
+  }
+  auto kernel = attn_wgmma<HD, kCls, kBias, kSplit, kPSplit>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return int(err);

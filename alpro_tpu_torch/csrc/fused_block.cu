@@ -1,5 +1,4 @@
-// Whole attention chains of the divided space-time block, the packed qkv
-// never written to device memory:
+// Whole attention chains of the divided space-time block:
 //   spatial (B9):  out = [x +] proj(softmax(q k^T) v),  x (M, S, D) per cell;
 //   temporal (B10): out = x + attn_T(q, k, v) . w_eff^T + b_eff,  x (B, T, N, D),
 //                   attention over T at each (b, n);
@@ -19,14 +18,41 @@
 //     projection sums the heads in fp32, plus its bias (and, temporal always,
 //     spatial when asked, the fp32 residual).
 // Weights come in torch Linear layout (out, in); biases and LN parameters
-// in fp32.
+// in fp32, or (spatial bf16) all in bf16, widened on load.
 //
 // What bounds it on an H100: at 8 clips x 8 frames the spatial chain is
-// 67 GFLOP (the q/k/v and output projections on the tensor cores, 7.6 GFLOP
-// of fp32 attention core) and the temporal 59.5 GFLOP, against ~20 MB in and
-// out each, so both are bound by operations. A Hopper block cannot carry
-// the projection's cross-head sum from one grid step to the next as the TPU
-// grid does, so each chain runs as two launches, as bert_attn.cu's does:
+// 67 GFLOP (44.6 of q/k/v projection, 7.6 of attention, 14.9 of output
+// projection) and the temporal 59.5 GFLOP, against ~20 MB in and out each,
+// so both are bound by operations (0.068 and 0.060 ms at 989 TFLOP/s). A
+// Hopper block cannot carry the projection's cross-head sum from one grid
+// step to the next as the TPU grid does.
+//
+// Spatial, bf16: four launches behind one C call, every product on wgmma,
+// from the port's Hopper parts (B17's design, csrc/block_attn.cu, with the
+// LN in front and p and v kept unrounded too):
+//   1. ln_rows (ln_rows.cuh, K3's): xn = bf16(LN(x)) into an (M·S, D)
+//      scratch;
+//   2. gemm_wgmma.cuh: [q | k | v] = xn · wqkvᵀ + bqkv, written as six
+//      (M·S, D) bf16 scratch tensors, q, k and v each as a pair hi =
+//      bf16(y), lo = bf16(y - hi) (fp32 to ~2^-16: never rounded at the
+//      contract's 2^-8);
+//   3. attn_wgmma.cuh under kSplit and kPSplit, one CTA per (head, cell):
+//      s = q_hi·k_hiᵀ + q_hi·k_loᵀ + q_lo·k_hiᵀ in fp32, times hd^-1/2 (a
+//      power of two: the same as scaling q first), the exact row max in
+//      registers, p = exp(s - max) split into p_hi + p_lo from the fp32
+//      score registers, P·V = p_hi·v_hi + p_hi·v_lo + p_lo·v_hi in fp32,
+//      o / l (l the fp32 sum of the unrounded p) rounded into an (M·S, D)
+//      heads scratch (xn's, free by then);
+//   4. gemm_wgmma.cuh: heads · wprojᵀ + bproj over all D columns in fp32
+//      (the contract's head sum in another order), plus x in fp32 when
+//      asked (kFloat), rounded once.
+// The scratch round trip writes and reads 8 · M·S·D bf16 (~155 MB each way
+// at the main shape, ~0.09 ms at 3.35 TB/s). A K slot holds k_hi, v_hi,
+// v_lo and k_lo (one CTA an SM at 197 keys); past 256 keys the keys stream
+// in chunks of 128 through a ring of slots, so S has no upper limit.
+//
+// Spatial fp32 (a test dtype: no tensor-core product keeps fp32 operands)
+// and temporal keep a CUDA-core body, two launches each:
 //   1. a heads launch, one block of 4 warps per (head, group of rows): the
 //      rows' LN statistics first (one warp per row), then their q, k, v
 //      projections with the LN applied while x is staged through shared
@@ -36,7 +62,7 @@
 //        spatial (spatial_block_heads): per (query-tile group, head, cell),
 //        fp32 K and V of the whole cell in shared memory, then per 64-row
 //        query tile fp32 Q, full fp32 score rows per warp (16 x S), softmax,
-//        p.V on the CUDA cores (warp_tile.cuh); S <= 256;
+//        p.V on the CUDA cores (attn_f32.cuh); S <= 256;
 //        temporal (temporal_block_heads): per (patch-location tile, head,
 //        clip), T x (64 / T) rows, q, k, v of the head in x's dtype in shared
 //        memory, then temporal_attn.cu's warp per (location, head): lanes
@@ -45,7 +71,10 @@
 //   2. a projection launch (proj_rows): the row-tile GEMM of row_tile.cuh,
 //      heads . W^T + bias (+ residual).
 #include "attn_f32.cuh"
+#include "attn_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 #include "head_proj.cuh"
+#include "ln_rows.cuh"
 #include "row_tile.cuh"
 
 namespace {
@@ -100,19 +129,11 @@ __device__ __forceinline__ void ln_stats(RowFn row_ptr, int rows, int D, float e
   }
 }
 
-// ---- spatial (B9) ----
+// ---- spatial (B9), fp32 ----
 
 template <typename T> size_t spatial_smem(int SP) {
   return 2 * size_t(SP) * kLdF * 4 + size_t(kQT) * kLdF * 4 + 2 * size_t(SP) * 4 +
          std::max(staging_bytes<T>(2), size_t(kWarps) * alpro::f32attn::warp_floats(SP) * 4);
-}
-
-// the largest S whose fp32 K, V and score rows fit
-template <typename T> int spatial_max_seq(int device) {
-  const size_t limit = size_t(alpro::max_smem_optin(device));
-  int s = 0;
-  while (spatial_smem<T>(s + 16) <= limit) s += 16;
-  return s;
 }
 
 template <typename T>
@@ -247,26 +268,63 @@ temporal_block_heads(const T* __restrict__ x, const float* __restrict__ ln_s,
   }
 }
 
-template <typename T>
-int spatial(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
-            const void* bqkv, const void* wproj, const void* bproj, void* heads, void* out,
-            int M, int S, int H, int q_split, float scale, float eps, int residual, int device,
-            cudaStream_t stream) {
+int spatial_f32(const float* x, const float* ln_s, const float* ln_b, const float* wqkv,
+                const float* bqkv, const float* wproj, const float* bproj, float* heads,
+                float* out, int M, int S, int H, int q_split, float scale, float eps,
+                int residual, int device, cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
-  const size_t smem = spatial_smem<T>(SP);
-  if (smem > size_t(alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(spatial_block_heads<T>,
+  const size_t smem = spatial_smem<float>(SP);
+  if (q_split < 1 || smem > size_t(alpro::max_smem_optin(device)))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(spatial_block_heads<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid(std::min(q_split, (S + kQT - 1) / kQT), H, M);
-  spatial_block_heads<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(heads), S,
-      SP, H, scale, eps);
+  spatial_block_heads<float><<<grid, kThreads, smem, stream>>>(x, ln_s, ln_b, wqkv, bqkv, heads,
+                                                               S, SP, H, scale, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return alpro::rows::dispatch_proj<T>(H * kHD, heads, wproj, bproj, residual ? x : nullptr,
-                                       out, M * S, stream);
+  return alpro::rows::dispatch_proj<float>(H * kHD, heads, wproj, bproj, residual ? x : nullptr,
+                                           out, M * S, stream);
+}
+
+// the bf16 route's attention plan at S keys (kSplit with v_lo; 0: none fits)
+int spatial_plan_smem(int S, int optin) {
+  return alpro::attn::plan_bf16<kHD>(S, optin, false, true, true).smem;
+}
+
+// scratch: seven (M·S, D) bf16 tensors, xn (then the heads), q_hi, q_lo,
+// k_hi, k_lo, v_hi, v_lo; TV: the LN and bias vectors' dtype
+template <typename TV>
+int spatial_bf16(const __nv_bfloat16* x, const TV* ln_s, const TV* ln_b,
+                 const __nv_bfloat16* wqkv, const TV* bqkv, const __nv_bfloat16* wproj,
+                 const TV* bproj, __nv_bfloat16* scratch, __nv_bfloat16* out, int M, int S, int H,
+                 float scale, float eps, int residual, int device, cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  using alpro::attn::Operand;
+  const int D = H * kHD, R = M * S;
+  if (!spatial_plan_smem(S, alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
+  __nv_bfloat16* part[7];
+  for (int i = 0; i < 7; ++i) part[i] = scratch + long(i) * R * D;
+  int err = alpro::launch_ln_rows<TV>(x, ln_s, ln_b, part[0], R, D, eps, stream);
+  if (err) return err;
+  const gm::Epilogue qkv{{part[1], part[2], part[3], part[4], part[5], part[6]}, bqkv, D};
+  err = gm::launch<gm::kRound, TV>(part[0], wqkv, qkv, R, 3 * D, D, stream);
+  if (err) return err;
+  // each operand (M, S, H, 64): byte strides of the sequence, head and cell
+  auto operand = [&](int i) { return Operand{part[i], 2LL * D, 2LL * kHD, 2LL * S * D}; };
+  const Operand lo[3] = {operand(2), operand(4), operand(6)};
+  const alpro::attn::Strides so{static_cast<long long>(S) * D, D, kHD};
+  err = alpro::attn::launch<kHD, false, false, true, true>(
+      operand(1), operand(3), operand(5), part[0], so, nullptr, nullptr, nullptr, M, H, S, S,
+      scale, 1, device, stream, lo);
+  if (err) return err;
+  if (residual)
+    return gm::launch<gm::kFloat, TV>(part[0], wproj,
+                                      gm::Epilogue{{out}, bproj, 0, nullptr, x, 0}, R, D, D,
+                                      stream);
+  return gm::launch<gm::kRound, TV>(part[0], wproj, gm::Epilogue{{out}, bproj, 0}, R, D, D,
+                                    stream);
 }
 
 template <typename T>
@@ -291,27 +349,48 @@ int temporal(const void* x, const void* ln_s, const void* ln_b, const void* wqkv
 
 }  // namespace
 
-// The largest S the spatial chain takes for this dtype on this device.
-extern "C" int alpro_fused_spatial_max_seq(int is_bf16, int device) {
-  return is_bf16 ? spatial_max_seq<__nv_bfloat16>(device) : spatial_max_seq<float>(device);
+// The dynamic shared memory of the spatial chain's launch at S keys on this
+// device (bf16: the attention plan; fp32: the heads block), 0 where none fits.
+extern "C" int alpro_fused_spatial_smem(int S, int is_bf16, int device) {
+  if (S < 1) return 0;
+  const int optin = alpro::max_smem_optin(device);
+  if (is_bf16) return spatial_plan_smem(S, optin);
+  const size_t smem = spatial_smem<float>((S + 15) / 16 * 16);
+  return smem <= size_t(optin) ? int(smem) : 0;
 }
 
-// x, heads (scratch), out: (M, S, H * 64) in one dtype; wqkv (3D, D) and
-// wproj (D, D) in it; ln_*, bqkv, bproj fp32. Blocks per (head, cell):
-// q_split (at most the number of 64-row query tiles).
+// x, out: (M, S, H * 64) in one dtype; wqkv (3D, D) and wproj (D, D) in it.
+// bf16: ln_*, bqkv, bproj all bf16 (vec_bf16 1) or all fp32; scratch seven
+// (M·S, D) bf16 tensors; q_split unused. fp32: the vectors fp32, scratch one
+// (M, S, D) tensor of heads, q_split blocks per (head, cell) (at most the
+// number of 64-row query tiles).
 extern "C" int alpro_fused_spatial_block(const void* x, const void* ln_s, const void* ln_b,
                                          const void* wqkv, const void* bqkv, const void* wproj,
-                                         const void* bproj, void* heads, void* out, int M, int S,
-                                         int H, int q_split, float scale, float eps, int residual,
-                                         int is_bf16, int device, void* stream) {
-  if (M < 1 || S < 1 || H < 1 || q_split < 1) return int(cudaErrorInvalidValue);
+                                         const void* bproj, void* scratch, void* out, int M,
+                                         int S, int H, int q_split, float scale, float eps,
+                                         int residual, int is_bf16, int vec_bf16, int device,
+                                         void* stream) {
+  if (M < 1 || S < 1 || H < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? spatial<__nv_bfloat16>(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, out,
-                                          M, S, H, q_split, scale, eps, residual, device, st)
-                 : spatial<float>(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, heads, out, M, S, H,
-                                  q_split, scale, eps, residual, device, st);
+  if (!is_bf16) {
+    if (vec_bf16) return int(cudaErrorInvalidValue);
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    return spatial_f32(f(x), f(ln_s), f(ln_b), f(wqkv), f(bqkv), f(wproj), f(bproj),
+                       static_cast<float*>(scratch), static_cast<float*>(out), M, S, H, q_split,
+                       scale, eps, residual, device, st);
+  }
+  using bf16 = __nv_bfloat16;
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* sc = static_cast<bf16*>(scratch);
+  bf16* o = static_cast<bf16*>(out);
+  if (vec_bf16)
+    return spatial_bf16<bf16>(w(x), w(ln_s), w(ln_b), w(wqkv), w(bqkv), w(wproj), w(bproj), sc,
+                              o, M, S, H, scale, eps, residual, device, st);
+  auto v = [](const void* p) { return static_cast<const float*>(p); };
+  return spatial_bf16<float>(w(x), v(ln_s), v(ln_b), w(wqkv), v(bqkv), w(wproj), v(bproj), sc, o,
+                             M, S, H, scale, eps, residual, device, st);
 }
 
 // x, heads (scratch), out: (B, T, N, H * 64) in one dtype, 1 <= T <= 32;

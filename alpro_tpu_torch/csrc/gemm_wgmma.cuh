@@ -1,14 +1,17 @@
 // A bf16 GEMM on Hopper: y = a · wᵀ (+ bias), fp32 accumulation, for B17's
 // two projections (csrc/block_attn.cu), the two products of the MLP kernels
-// K3 and K5 (csrc/ln_mlp.cu) and K4's two projections (csrc/bert_attn.cu).
+// K3 and K5 (csrc/ln_mlp.cu), K4's two projections (csrc/bert_attn.cu) and
+// B9's and B7's (csrc/fused_block.cu, csrc/qkv_proj.cu).
 //
 // a (M, K) and w (N, K) are row-major bf16 (w in torch Linear layout, so
-// both are K-major, as wgmma takes them from shared memory); bias (N) fp32.
+// both are K-major, as wgmma takes them from shared memory); bias (N) fp32,
+// or (TV = bf16: B9, B7) the layer's bf16 vector widened on load.
 // The epilogue mode (kMode) says what becomes of the fp32 sums:
 //   kRound: y + bias rounded to bf16 into one (M, N) output, or (split D,
 //     N = 3D: a packed [q | k | v] projection) into five (M, D) bf16
 //     outputs: q and k as a pair hi = bf16(y), lo = bf16(y - hi), so
-//     hi + lo keeps y to about 2^-16 of |y|, and v rounded once (B17);
+//     hi + lo keeps y to about 2^-16 of |y|, and v rounded once (B17); or,
+//     where a sixth output is given, six: v as a hi + lo pair too (B9);
 //   kGelu: gelu(y + bias) with the exact erf in fp32, rounded to bf16 into
 //     one (M, N) output (fc1 of K3/K5);
 //   kFloat: y (+ bias where given) in fp32, either stored as fp32 into
@@ -69,13 +72,14 @@ constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
 constexpr int kRound = 0, kGelu = 1, kFloat = 2;
 
 // Where y goes. kRound, split == 0, and kGelu: out[0] is (M, N). kRound,
-// split == D: N = 3D, out[0..4] are q_hi, q_lo, k_hi, k_lo, v, each (M, D).
-// kFloat: partial (splits, M, N) fp32 where not null, else out[0] (M, N)
-// bf16 with the residual (M, N) bf16 added where not null. k_split: K
-// columns per slice of grid y (0: all of K).
+// split == D: N = 3D, out[0..4] are q_hi, q_lo, k_hi, k_lo, v (v_hi), each
+// (M, D), and out[5], where not null, v_lo. kFloat: partial (splits, M, N)
+// fp32 where not null, else out[0] (M, N) bf16 with the residual (M, N)
+// bf16 added where not null. bias: N values of the kernel's TV (kSegs 1).
+// k_split: K columns per slice of grid y (0: all of K).
 struct Epilogue {
-  bf16* out[5];
-  const float* bias;
+  bf16* out[6];
+  const void* bias;
   int split;
   float* partial;
   const bf16* residual;
@@ -100,6 +104,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
            const __grid_constant__ Epilogue ep, int M, int N, int K,
            const __grid_constant__ Segments<kSegs, TV> segs) {
   static_assert(kSegs == 1 || kMode == kRound, "segments are a kRound launch's");
+  const TV* bias = static_cast<const TV*>(ep.bias);  // kSegs 1
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -184,7 +189,8 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
       const int c = 8 * j + 2 * quad;
-      const float b0 = ep.bias ? ep.bias[n0 + c] : 0.0f, b1 = ep.bias ? ep.bias[n0 + c + 1] : 0.0f;
+      const float b0 = bias ? to_f32(bias[n0 + c]) : 0.0f;
+      const float b1 = bias ? to_f32(bias[n0 + c + 1]) : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int at = (j / 4) * kBM * 128 + hp::swizzled<128>(r + 8 * h, 2 * (j % 4) + quad / 2) +
@@ -235,7 +241,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
   const int D = kMode == kRound ? ep.split : 0;
   const int part = D ? n0 / D : 0;  // 0 q, 1 k, 2 v (split)
   const int ld = D ? D : N, c0 = n0 - part * D;
-  const bool with_lo = D && part < 2;
+  const bool with_lo = D && (part < 2 || ep.out[5] != nullptr);
   unsigned char* hi_tile = base;
   unsigned char* lo_tile = base + kOutBytes;
   const TV* seg_bias = nullptr;  // kSegs > 1: segment sg's, from wrow
@@ -254,8 +260,8 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
       b0 = to_f32(seg_bias[c]);
       b1 = to_f32(seg_bias[c + 1]);
     } else {
-      b0 = ep.bias[n0 + c];
-      b1 = ep.bias[n0 + c + 1];
+      b0 = to_f32(bias[n0 + c]);
+      b1 = to_f32(bias[n0 + c + 1]);
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -297,11 +303,12 @@ inline bool encode_matrix(CUtensorMap* map, const void* p, int rows, int cols, i
                                CU_TENSOR_MAP_SWIZZLE_128B) == CUDA_SUCCESS;
 }
 
-// y = a (M, K) · w (N, K)ᵀ (+ bias) into ep under kMode; N a multiple of 128
-// (and of 3 with split = N / 3 a multiple of 128), K a multiple of 64, a
-// and w 16-byte aligned. ep.k_split, a multiple of 64 (0: K), slices K over
-// grid y, for kFloat into partials only. Returns a cudaError_t.
-template <int kMode = kRound>
+// y = a (M, K) · w (N, K)ᵀ (+ bias, N values of TV) into ep under kMode; N a
+// multiple of 128 (and of 3 with split = N / 3 a multiple of 128), K a
+// multiple of 64, a and w 16-byte aligned. ep.k_split, a multiple of 64 (0:
+// K), slices K over grid y, for kFloat into partials only. Returns a
+// cudaError_t.
+template <int kMode = kRound, typename TV = float>
 int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaStream_t stream) {
   if (M < 1 || N < kBN || N % kBN || K < kBK || K % kBK) return int(cudaErrorInvalidValue);
   if (ep.split && (kMode != kRound || ep.split % kBN || N != 3 * ep.split))
@@ -313,14 +320,14 @@ int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaS
   CUtensorMap ma, mw;
   if (!encode_matrix(&ma, a, M, K, kBM) || !encode_matrix(&mw, w, N, K, kBN))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma<kMode>,
+  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma<kMode, 1, TV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return int(err);
   const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
   if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
   const dim3 grid(unsigned(tiles), unsigned((K + ep.k_split - 1) / ep.k_split));
-  gemm_wgmma<kMode><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K,
-                                                       Segments<1, float>{});
+  gemm_wgmma<kMode, 1, TV><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K,
+                                                              Segments<1, TV>{});
   return int(cudaGetLastError());
 }
 

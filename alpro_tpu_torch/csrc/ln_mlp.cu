@@ -20,8 +20,8 @@
 // products on wgmma (gemm_wgmma.cuh: TMA ring, one producer warp, two
 // consumer warpgroups on 128 x 128 tiles, so a CTA re-reads the weights
 // from L2 per 128 rows instead of the 32 of a row tile):
-//   1. K3 only, ln_rows: xn = bf16(LN(x)) into an (R, D) scratch, one warp
-//      a row;
+//   1. K3 only, ln_rows (ln_rows.cuh, shared with B9): xn = bf16(LN(x))
+//      into an (R, D) scratch, one warp a row;
 //   2. fc1, gemm_wgmma<kGelu>: g = bf16(gelu(xn · w1ᵀ + b1)) into an
 //      (R, Dh) scratch;
 //   3. fc2, gemm_wgmma<kFloat>: g · w2ᵀ over the hidden, which the wrapper
@@ -50,6 +50,7 @@
 // there are fewer row tiles than SMs the hidden is split across blocks
 // (grid.y) into fp32 partials, summed by the same finalize pass.
 #include "gemm_wgmma.cuh"
+#include "ln_rows.cuh"
 #include "post_ln.cuh"
 #include "row_tile.cuh"
 
@@ -284,58 +285,6 @@ int dispatch_f32(const void* x, const void* s, const void* b, const void* w1, co
 }
 
 using bf16 = __nv_bfloat16;
-constexpr int kLnRows = 8;  // ln_rows: rows (warps) per block
-constexpr int kLnVecs = 4;  // 8-element vectors a lane holds: D <= 1024
-
-// xn = bf16(LN(x)) over rows of D, one warp per row, the row in registers
-__global__ void __launch_bounds__(kLnRows * 32)
-ln_rows(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-        const float* __restrict__ ln_b, bf16* __restrict__ xn, int R, int D, float eps) {
-  const int row = blockIdx.x * kLnRows + (threadIdx.x >> 5), lane = threadIdx.x & 31;
-  if (row >= R) return;
-  const bf16* src = x + long(row) * D;
-  float v[kLnVecs][8];
-  float s = 0.0f, ss = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kLnVecs; ++i) {
-    const int c = (i * 32 + lane) * 8;
-    if (c < D) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        v[i][2 * e] = __low2float(h[e]);
-        v[i][2 * e + 1] = __high2float(h[e]);
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        s += v[i][e];
-        ss = fmaf(v[i][e], v[i][e], ss);
-      }
-    }
-  }
-  s = alpro::warp_sum(s);
-  ss = alpro::warp_sum(ss);
-  const float mean = s / D;
-  const float var = fmaxf(ss / D - mean * mean, 0.0f);
-  const float rstd = rsqrtf(var + eps);
-#pragma unroll
-  for (int i = 0; i < kLnVecs; ++i) {
-    const int c = (i * 32 + lane) * 8;
-    if (c < D) {
-      uint4 o;
-      uint32_t* ov = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int k = c + 2 * e;
-        ov[e] = alpro::hopper::pack_bf16((v[i][2 * e] - mean) * rstd * ln_s[k] + ln_b[k],
-                                         (v[i][2 * e + 1] - mean) * rstd * ln_s[k + 1] +
-                                             ln_b[k + 1]);
-      }
-      *reinterpret_cast<uint4*>(xn + long(row) * D + c) = o;
-    }
-  }
-}
 
 // bf16: [ln_rows →] fc1 + GELU → fc2 (K slices of h_split) → [finalize].
 // hidden: bf16 (R, Dh); normed: bf16 (R, D), pre-LN only; partial: fp32
@@ -348,15 +297,13 @@ int launch_bf16(const bf16* x, const float* s, const float* b, const bf16* w1,
   namespace gm = alpro::gemm;
   const int splits = (Dh + h_split - 1) / h_split;
   const bool fused = !kPostLN && splits == 1;  // fc2 rounds straight into out
-  if (D % 256 || D > 32 * 8 * kLnVecs || h_split % gm::kBK || hidden == nullptr ||
+  if (D % 256 || D > 32 * 8 * alpro::kLnVecs || h_split % gm::kBK || hidden == nullptr ||
       (!kPostLN && normed == nullptr) || (!fused && partial == nullptr))
     return int(cudaErrorInvalidValue);
   const bf16* a = x;
   if (!kPostLN) {
-    ln_rows<<<(R + kLnRows - 1) / kLnRows, kLnRows * 32, 0, stream>>>(x, s, b, normed, R, D,
-                                                                      eps);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return int(err);
+    const int err = alpro::launch_ln_rows<float>(x, s, b, normed, R, D, eps, stream);
+    if (err) return err;
     a = normed;
   }
   int err = gm::launch<gm::kGelu>(a, w1, gm::Epilogue{{hidden}, b1}, R, Dh, D, stream);

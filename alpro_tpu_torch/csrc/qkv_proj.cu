@@ -17,20 +17,33 @@
 //   * the per-head output o / l is rounded to the projection weight's dtype;
 //   * the projection accumulates over all heads in fp32, then adds the fp32
 //     bias and is cast to qkv's dtype.
-// Weights come in torch Linear layout (out, in), D = H * 64; biases fp32.
+// Weights come in torch Linear layout (out, in), D = H * 64; biases fp32,
+// or (spatial bf16) the layer's bf16 bias, widened on load.
 //
 // What bounds it on an H100. B7 at 8 clips x 8 frames (64 cells of 197):
 // 7.6 GFLOP of attention and 14.9 GFLOP of projection against ~79 MB read
-// and written, balanced at the bf16 tensor-core rate; but the contract's
-// fp32 attention runs on the CUDA cores. B8 at the same clips: 0.3 GFLOP of
-// attention (T x T per location) and 14.8 GFLOP of projection against ~78
-// MB: bound by bytes. Neither can carry the projection's cross-head sum
-// from one grid step to the next as the TPU grid does; the designs:
-//   B7, two launches (as fused_block.cu's B9): a heads launch, one block of
-//     4 warps per (query-tile group, head, cell) with the cell's fp32 K and V
-//     in shared memory and a warp per 16 query rows running attn_f32.cuh's
-//     core, writing the rounded per-head output into an (M, S, D) scratch;
-//     then row_tile.cuh's projection launch (proj_rows). S <= 256;
+// and written: bound by bytes (0.024 ms at 3.35 TB/s). B8 at the same
+// clips: 0.3 GFLOP of attention (T x T per location) and 14.8 GFLOP of
+// projection against ~78 MB: bound by bytes. Neither can carry the
+// projection's cross-head sum from one grid step to the next as the TPU
+// grid does; the designs:
+//   B7, bf16: two launches behind one C call, every product on wgmma:
+//     1. attn_wgmma.cuh under kPSplit (K1's body and plan, one CTA per
+//        (head, cell)): q, k and v read in place from the packed input
+//        through 4-D tensor maps (bf16 values, so q·kᵀ on them is the
+//        contract's fp32 product), s times hd^-1/2 (a power of two: the same
+//        as scaling q first), the exact row max in registers, p = exp(s -
+//        max) split into p_hi + p_lo from the fp32 score registers (p to
+//        ~2^-16, where K1 rounds it), P·V = p_hi·v + p_lo·v in fp32, o / l
+//        (l the fp32 sum of the unrounded p) rounded into an (M·S, D) heads
+//        scratch. Past 256 keys the keys stream in chunks: S has no limit;
+//     2. gemm_wgmma.cuh: heads · wpᵀ + bp over all D columns in fp32 (the
+//        contract's head sum in another order), rounded once;
+//   B7, fp32 (a test dtype): a heads launch, one block of 4 warps per
+//     (query-tile group, head, cell) with the cell's fp32 K and V in shared
+//     memory and a warp per 16 query rows running attn_f32.cuh's core,
+//     writing the per-head output into an (M, S, D) scratch; then
+//     row_tile.cuh's projection launch (proj_rows). S <= 256;
 //   B8, one launch per (tile of T x 32/T locations, clip): the heads in
 //     groups of 4, each group's q, k, v staged in shared memory in qkv's
 //     dtype, one warp per (location, head) running temporal_attn.cu's warp
@@ -39,6 +52,8 @@
 //     memory; then the row-tile GEMM (rows::gemm) of the A tile against
 //     w_eff, so the attention output never reaches device memory. T <= 32.
 #include "attn_f32.cuh"
+#include "attn_wgmma.cuh"
+#include "gemm_wgmma.cuh"
 #include "row_tile.cuh"
 
 namespace {
@@ -48,7 +63,7 @@ using alpro::f32attn::kHD;
 using alpro::f32attn::kLdF;
 namespace rows = alpro::rows;
 
-// ---- spatial (B7): the heads launch ----
+// ---- spatial (B7), fp32: the heads launch ----
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
@@ -59,12 +74,6 @@ size_t spatial_smem(int SP) {
          size_t(kWarps) * alpro::f32attn::warp_floats(SP) * 4;
 }
 
-int spatial_max_seq(int device) {
-  const size_t limit = size_t(alpro::max_smem_optin(device));
-  int s = 0;
-  while (spatial_smem(s + 16) <= limit) s += 16;
-  return s;
-}
 
 // rows r0 .. r0 + n of the cell's head columns col .. col + 64 (row stride
 // ld) into dst (fp32, leading dimension kLdF) times mul, rows S.. zero;
@@ -116,21 +125,45 @@ spatial_proj_heads(const T* __restrict__ qkv, T* __restrict__ heads, int S, int 
   }
 }
 
-template <typename T>
-int spatial(const void* qkv, const void* wproj, const void* bproj, void* heads, void* out, int M,
-            int S, int H, int q_split, float scale, int device, cudaStream_t stream) {
+int spatial_f32(const float* qkv, const float* wproj, const float* bproj, float* heads,
+                float* out, int M, int S, int H, int q_split, float scale, int device,
+                cudaStream_t stream) {
   const int SP = (S + 15) / 16 * 16;
   const size_t smem = spatial_smem(SP);
-  if (smem > size_t(alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(spatial_proj_heads<T>,
+  if (q_split < 1 || smem > size_t(alpro::max_smem_optin(device)))
+    return int(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(spatial_proj_heads<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid(std::min(q_split, (S + kQT - 1) / kQT), H, M);
-  spatial_proj_heads<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(heads), S, SP, H, scale);
+  spatial_proj_heads<float><<<grid, kThreads, smem, stream>>>(qkv, heads, S, SP, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return rows::dispatch_proj<T>(H * kHD, heads, wproj, bproj, nullptr, out, M * S, stream);
+  return rows::dispatch_proj<float>(H * kHD, heads, wproj, bproj, nullptr, out, M * S, stream);
+}
+
+// the bf16 route's attention plan at S keys (K1's; 0: none fits)
+int spatial_plan_smem(int S, int optin) {
+  return alpro::attn::plan_bf16<kHD>(S, optin, false).smem;
+}
+
+// heads: an (M·S, D) bf16 scratch; TV: the bias's dtype
+template <typename TV>
+int spatial_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* wproj, const TV* bproj,
+                 __nv_bfloat16* heads, __nv_bfloat16* out, int M, int S, int H, float scale,
+                 int device, cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  using alpro::attn::Operand;
+  const long long D = 1LL * H * kHD, row = 3 * D * 2, cell = row * S;  // bytes: row, cell
+  if (!spatial_plan_smem(S, alpro::max_smem_optin(device))) return int(cudaErrorInvalidValue);
+  const Operand q{qkv, row, kHD * 2, cell}, k{qkv + D, row, kHD * 2, cell},
+      v{qkv + 2 * D, row, kHD * 2, cell};
+  const alpro::attn::Strides so{S * D, D, kHD};
+  int err = alpro::attn::launch<kHD, false, false, false, true>(
+      q, k, v, heads, so, nullptr, nullptr, nullptr, M, H, S, S, scale, 1, device, stream);
+  if (err) return err;
+  return gm::launch<gm::kRound, TV>(heads, wproj, gm::Epilogue{{out}, bproj, 0}, M * S, int(D),
+                                    int(D), stream);
 }
 
 // ---- temporal (B8): one launch ----
@@ -273,24 +306,44 @@ int temporal(int D, const void* qkv, const void* w_eff, const void* b_eff, void*
 
 }  // namespace
 
-// The largest S the spatial chain takes on this device (fp32 K, V and score
-// rows in shared memory; the same for both dtypes).
-extern "C" int alpro_spatial_qkv_proj_max_seq(int device) { return spatial_max_seq(device); }
+// The dynamic shared memory of the spatial chain's launch at S keys on this
+// device (bf16: the attention plan; fp32: the heads block), 0 where none fits.
+extern "C" int alpro_spatial_qkv_proj_smem(int S, int is_bf16, int device) {
+  if (S < 1) return 0;
+  const int optin = alpro::max_smem_optin(device);
+  if (is_bf16) return spatial_plan_smem(S, optin);
+  const size_t smem = spatial_smem((S + 15) / 16 * 16);
+  return smem <= size_t(optin) ? int(smem) : 0;
+}
 
 // qkv (M, S, 3D), heads (scratch) and out (M, S, D) in one dtype, wproj (D, D)
-// in it, bproj fp32, D = H * 64. Blocks per (head, cell): q_split (at most the
-// number of 64-row query tiles).
+// in it, D = H * 64; bproj fp32, or bf16 (vec_bf16 1, bf16 only). fp32:
+// q_split blocks per (head, cell) (at most the number of 64-row query tiles);
+// bf16: q_split unused, heads (M·S, D).
 extern "C" int alpro_spatial_qkv_proj(const void* qkv, const void* wproj, const void* bproj,
                                       void* heads, void* out, int M, int S, int H, int q_split,
-                                      float scale, int is_bf16, int device, void* stream) {
-  if (M < 1 || S < 1 || H < 1 || q_split < 1) return int(cudaErrorInvalidValue);
+                                      float scale, int is_bf16, int vec_bf16, int device,
+                                      void* stream) {
+  if (M < 1 || S < 1 || H < 1) return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? spatial<__nv_bfloat16>(qkv, wproj, bproj, heads, out, M, S, H, q_split, scale,
-                                          device, st)
-                 : spatial<float>(qkv, wproj, bproj, heads, out, M, S, H, q_split, scale, device,
-                                  st);
+  if (!is_bf16) {
+    if (vec_bf16) return int(cudaErrorInvalidValue);
+    return spatial_f32(static_cast<const float*>(qkv), static_cast<const float*>(wproj),
+                       static_cast<const float*>(bproj), static_cast<float*>(heads),
+                       static_cast<float*>(out), M, S, H, q_split, scale, device, st);
+  }
+  using bf16 = __nv_bfloat16;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* w = static_cast<const bf16*>(wproj);
+  bf16* hs = static_cast<bf16*>(heads);
+  bf16* o = static_cast<bf16*>(out);
+  if (vec_bf16)
+    return spatial_bf16<bf16>(x, w, static_cast<const bf16*>(bproj), hs, o, M, S, H, scale,
+                              device, st);
+  return spatial_bf16<float>(x, w, static_cast<const float*>(bproj), hs, o, M, S, H, scale,
+                             device, st);
 }
 
 // qkv (B, T, N, 3D) and out (B, T, N, D) in one dtype, 1 <= T <= 32; w_eff

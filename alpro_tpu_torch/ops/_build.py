@@ -68,21 +68,21 @@ _SIGNATURES = {
     # raw, kernel, bias, out, frames, H, W, p, D, mean (3), std (3), is_bf16,
     # device, stream
     "alpro_patchify_embed": ([_P] * 4 + [_I] * 5 + [_F] * 6 + [_I, _I, _P], _I),
-    # x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, heads, out, M, S, H,
-    # q_split, scale, eps, residual, is_bf16, device, stream
-    "alpro_fused_spatial_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _I, _P], _I),
-    # is_bf16, device
-    "alpro_fused_spatial_max_seq": ([_I, _I], _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, scratch, out, M, S, H,
+    # q_split, scale, eps, residual, is_bf16, vec_bf16, device, stream
+    "alpro_fused_spatial_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _I, _I, _P], _I),
+    # S, is_bf16, device
+    "alpro_fused_spatial_smem": ([_I, _I, _I], _I),
     # x, ln_scale, ln_bias, wqkv, bqkv, w_eff, b_eff, heads, out, B, T, N, H,
     # scale, eps, is_bf16, device, stream
     "alpro_fused_temporal_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
     # qkv_x, qkv_c, out_x, out_c, M, N, T, H, hd, scale, is_bf16, device, stream
     "alpro_spatial_cls_attn": ([_P] * 4 + [_I] * 5 + [_F, _I, _I, _P], _I),
-    # qkv, wproj, bproj, heads, out, M, S, H, q_split, scale, is_bf16, device,
-    # stream
-    "alpro_spatial_qkv_proj": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _P], _I),
-    # device
-    "alpro_spatial_qkv_proj_max_seq": ([_I], _I),
+    # qkv, wproj, bproj, heads, out, M, S, H, q_split, scale, is_bf16,
+    # vec_bf16, device, stream
+    "alpro_spatial_qkv_proj": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P], _I),
+    # S, is_bf16, device
+    "alpro_spatial_qkv_proj_smem": ([_I, _I, _I], _I),
     # qkv, w_eff, b_eff, out, B, T, N, H, scale, is_bf16, device, stream
     "alpro_temporal_qkv_proj": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
     # x, scale, bias, out, R, D, eps, in_bf16, out_bf16, device, stream
@@ -213,6 +213,34 @@ def sm_count(device) -> int:
     import torch
 
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def f32_vectors(name: str, vecs: dict) -> tuple:
+    """A kernel's bias and LN vectors as contiguous fp32 CUDA tensors (no
+    copy where they already are)."""
+    import torch
+
+    out = []
+    for key, v in vecs.items():
+        v = v.float().contiguous()
+        check_cuda_operand(v, f"{name} {key}", (torch.float32,), align=4)
+        out.append(v)
+    return tuple(out)
+
+
+def layer_vectors(name: str, x, vecs: dict) -> tuple:
+    """(vectors, vec_bf16) for a kernel that takes a layer's bias and LN
+    vectors: where x and every vector are bf16, the vectors as they are (the
+    kernel widens them on load, which is exact: no cast launch per call),
+    vec_bf16 1; else ``f32_vectors`` (exact for every bf16 value), vec_bf16
+    0."""
+    import torch
+
+    if x.dtype == torch.bfloat16 and all(v.dtype == torch.bfloat16 for v in vecs.values()):
+        for key, v in vecs.items():
+            check_cuda_operand(v, f"{name} {key}", (torch.bfloat16,), align=2)
+        return tuple(vecs.values()), 1
+    return f32_vectors(name, vecs), 0
 
 
 def stream_args(t) -> tuple:

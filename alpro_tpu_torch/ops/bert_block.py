@@ -106,15 +106,6 @@ def bert_mlp_block_plain(x, w1, b1, w2, b2, ln_s, ln_b, eps: float) -> torch.Ten
     return ln_rows_f32(y, ln_s, ln_b, eps).to(x.dtype)
 
 
-def _f32_vectors(name: str, **vecs) -> list:
-    out = []
-    for key, v in vecs.items():
-        v = v.float().contiguous()
-        _build.check_cuda_operand(v, f"{name} {key}", (torch.float32,), align=4)
-        out.append(v)
-    return out
-
-
 def _f32_max_seq(smem: int) -> int:
     """The fp32 body's largest S (``csrc/bert_attn.cu`` max_seq<float>): K
     and V of one head for the whole sequence beside a fixed query tile and
@@ -182,12 +173,7 @@ def _vectors(x: torch.Tensor, vecs: tuple) -> tuple:
     """(vectors, vec_bf16) for the launch: in bf16 the layer's six bias and
     LN vectors as they are where all are bf16 (the kernels widen them on
     load), else each in fp32 (exact); fp32 kernels take fp32."""
-    if x.dtype == torch.bfloat16 and all(v.dtype == torch.bfloat16 for v in vecs):
-        for key, v in zip(_VECTORS, vecs):
-            _build.check_cuda_operand(v, f"bert_attention_block {key}", (torch.bfloat16,),
-                                      align=2)
-        return vecs, 1
-    return tuple(_f32_vectors("bert_attention_block", **dict(zip(_VECTORS, vecs)))), 0
+    return _build.layer_vectors("bert_attention_block", x, dict(zip(_VECTORS, vecs)))
 
 
 def bert_attention_block(x: torch.Tensor, attention_mask: torch.Tensor,
@@ -287,7 +273,8 @@ def bert_mlp_block(x: torch.Tensor, w1, b1, w2, b2, ln_s, ln_b, *,
             f"bert_mlp kernel needs D in {_WIDTHS} ({_F32_WIDTHS} in fp32) and Dh % "
             f"{_HIDDEN_CHUNK} == 0; got R={R}, D={D}, Dh={Dh}, {x.dtype}"
         )
-    v1, v2, vs, vb = _f32_vectors("bert_mlp_block", b1=b1, b2=b2, ln_s=ln_s, ln_b=ln_b)
+    v1, v2, vs, vb = _build.f32_vectors("bert_mlp_block",
+                                        dict(b1=b1, b2=b2, ln_s=ln_s, ln_b=ln_b))
     out = torch.empty_like(x)
     h_split, partial, hidden, _ = launch_scratch(x, R, D, Dh, post_ln=True)
     dev, stream = _build.stream_args(x)

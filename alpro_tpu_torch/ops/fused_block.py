@@ -16,27 +16,40 @@ Weights are in torch Linear layout (out, in): wqkv (3D, D) with ``[q|k|v]``
 rows, each head-major; wproj and w_eff (D, D). Rounding points: the LN output
 rounds to the weights' dtype and the products accumulate in fp32; the twins
 keep q, k, v, scores and p in fp32, as the XLA references do. The spatial
-kernel does too (its TPU kernel keeps q, k, v in fp32); the temporal kernel
-stages q, k, v in x's dtype after their fp32 bias, as its TPU kernel does, so
-in bf16 it is held to the twin with the tolerance of the kernels that round
-where their twins do not. The per-head output rounds to the projection
-weight's dtype, and the projection sums the heads in fp32, + bias (+ the fp32
-residual).
+kernel does too (its TPU kernel keeps q, k, v in fp32): in bf16 it carries
+q, k, v and p as bf16 pairs hi + lo (fp32 to ~2^-16) through the tensor-core
+products; the temporal kernel stages q, k, v in x's dtype after their fp32
+bias, as its TPU kernel does, so in bf16 it is held to the twin with the
+tolerance of the kernels that round where their twins do not. The per-head
+output rounds to the projection weight's dtype, and the projection sums the
+heads in fp32, + bias (+ the fp32 residual).
+
+In bf16 one spatial call is four launches behind one C call (the source
+gives the design): the LN rows, the TMA/``wgmma`` GEMM into six bf16
+scratch tensors (q, k, v as hi + lo pairs), the attention body
+(``csrc/attn_wgmma.cuh`` under kSplit and kPSplit) and the GEMM again for
+the projection; it takes the layer's bf16 LN and bias vectors as they are
+(``_build.layer_vectors``). fp32 and the temporal chain are two launches
+(a heads launch, then ``proj_rows``).
 
 A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it launches
 the kernel or raises. ``spatial_launches`` and ``temporal_launches`` count
-kernel launches (one per call; each chain is two CUDA launches). Neither
-kernel has a backward (the JAX model reaches them only at serving): a
-wrapper raises when grad mode is on and an input requires grad.
+wrapper calls that launched (one per call). Neither kernel has a backward
+(the JAX model reaches them only at serving): a wrapper raises when grad mode
+is on and an input requires grad.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.kernel_math import ln_rows_f32
 from alpro_tpu_torch.ops.ln_mlp import _WIDTHS  # the D values row_tile.cuh's kernels take
+from alpro_tpu_torch.ops.qkv_attn import attn_wgmma_smem, largest_seq, seq_limit_text
 
 spatial_launches = 0
 temporal_launches = 0
@@ -46,6 +59,10 @@ _HEAD_DIM = 64  # csrc/fused_block.cu kHD
 _QUERY_TILE = 64  # csrc/fused_block.cu kQT
 _MAX_T = 32  # csrc/fused_block.cu: the temporal softmax holds one score per lane
 _MAX_GRID_YZ = 65535
+_VECTORS = ("ln_s", "ln_b", "bqkv", "bproj")
+# (M·S, D) tensors of scratch one spatial call allocates: bf16 xn (then the
+# heads), q_hi, q_lo, k_hi, k_lo, v_hi, v_lo; fp32 the heads
+_SPATIAL_SCRATCH = {torch.bfloat16: 7, torch.float32: 1}
 
 
 def _lin_f32(x, w, b) -> torch.Tensor:
@@ -105,8 +122,8 @@ def _check_args(name, x, wqkv, bqkv, wo, bo, ln_s, ln_b, num_heads) -> int:
     return D // num_heads
 
 
-def _cuda_operands(name, x, wqkv, wo, hd, **vecs) -> list:
-    """Check the CUDA operands; the vectors as contiguous fp32."""
+def _cuda_operands(name, x, wqkv, wo, hd) -> None:
+    """Check x and the two weights on the card."""
     D = x.shape[-1]
     _build.check_cuda_operand(x, f"{name} x", _DTYPES)
     for key, w in (("wqkv", wqkv), ("w", wo)):
@@ -116,56 +133,108 @@ def _cuda_operands(name, x, wqkv, wo, hd, **vecs) -> list:
             f"{name} kernel needs head_dim {_HEAD_DIM} and D in {_WIDTHS}; got head_dim={hd}, "
             f"D={D}"
         )
-    out = []
-    for key, v in vecs.items():
-        v = v.float().contiguous()
-        _build.check_cuda_operand(v, f"{name} {key}", (torch.float32,), align=4)
-        out.append(v)
-    return out
 
 
-def spatial_max_seq_len(dtype: torch.dtype, device) -> int:
-    """The largest S the spatial kernel takes for ``dtype`` on ``device``
-    (fp32 K and V of one head for the whole sequence and the full score rows
-    live in shared memory)."""
-    dev = torch.device(device).index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    return _build.lib().alpro_fused_spatial_max_seq(int(dtype == torch.bfloat16), dev)
+def _f32_smem(S: int) -> int:
+    """Shared memory of one fp32 spatial heads block (``csrc/fused_block.cu``
+    spatial_smem<float>): the cell's fp32 K and V, a query tile, the LN
+    statistics, and the staging area or four warps' score rows."""
+    sp, ldf = -(-S // 16) * 16, _HEAD_DIM + 4
+    staging = (64 + 2 * _HEAD_DIM) * (64 + 4) * 4  # head_proj.cuh staging_bytes<float>(2)
+    warps = 4 * (16 * (sp + 4) + 256 + 16) * 4
+    return 2 * sp * ldf * 4 + _QUERY_TILE * ldf * 4 + 2 * sp * 4 + max(staging, warps)
+
+
+def spatial_smem(S: int, dtype: torch.dtype, smem: int) -> int:
+    """Dynamic shared memory of B9's launch at S keys (``csrc/fused_block.cu``
+    ``alpro_fused_spatial_smem``) on a device with ``smem`` bytes of opt-in
+    shared memory per block, or 0 where none fits: in bf16 the attention
+    body's plan under kSplit with v_lo (a K slot of k_hi, v_hi, v_lo and
+    k_lo; past 256 keys a ring of slots of 128), in fp32 the heads block."""
+    if S < 1:
+        return 0
+    if dtype == torch.bfloat16:
+        return attn_wgmma_smem(S, _HEAD_DIM, smem, split=True, vlo=True)
+    need = _f32_smem(S)
+    return need if need <= smem else 0
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_max_seq(dtype: torch.dtype, smem: int) -> Optional[int]:
+    """The largest S the spatial kernel takes in ``dtype`` given ``smem``
+    bytes of opt-in shared memory per block: None in bf16 on an H100 (past
+    256 keys they stream through a ring of K/V slots, so S has no limit),
+    256 in fp32 (the cell's fp32 K, V and score rows)."""
+    return largest_seq(lambda S: spatial_smem(S, dtype, smem), dtype)
+
+
+def spatial_fits(M: int, S: int, D: int, num_heads: int, dtype: torch.dtype,
+                 smem: int) -> bool:
+    """Whether the spatial kernel takes x (M, S, D) in ``dtype``: head_dim
+    64, D in (256, 512, 768, 1024), M and H within the grid, S >= 1 and a
+    launch that fits shared memory."""
+    return (dtype in _DTYPES and D % num_heads == 0 and D // num_heads == _HEAD_DIM
+            and D in _WIDTHS and 1 <= M <= _MAX_GRID_YZ and num_heads <= _MAX_GRID_YZ
+            and spatial_smem(S, dtype, smem) > 0)
+
+
+def spatial_max_seq_len(dtype: torch.dtype, device) -> Optional[int]:
+    """``spatial_max_seq`` on ``device`` (None: no limit)."""
+    return spatial_max_seq(dtype, _build.smem_optin(device))
+
+
+def spatial_scratch_shape(M: int, S: int, D: int, dtype: torch.dtype) -> tuple:
+    """The scratch one spatial call allocates (in ``dtype``): bf16 xn (then
+    the heads) and q, k, v as hi + lo pairs; fp32 the heads."""
+    return (_SPATIAL_SCRATCH[dtype], M * S, D)
 
 
 def fused_spatial_block(x: torch.Tensor, ln_s, ln_b, wqkv, bqkv, wproj, bproj,
                         num_heads: int, *, eps: float, residual: bool = False) -> torch.Tensor:
     """``[x +] proj(attn(qkv(LN(x))))`` per cell of x (M, S, D). The kernel
-    takes x and the weights contiguous in one dtype (bf16 or fp32), head_dim
-    64, D in (256, 512, 768, 1024) and S up to ``spatial_max_seq_len``; it
-    raises on anything else."""
-    global spatial_launches
+    takes x and the weights contiguous in one dtype (bf16 or fp32), the LN
+    and bias vectors in bf16 (all four, beside bf16 x: read as they are) or
+    fp32, head_dim 64, D in (256, 512, 768, 1024) and S up to
+    ``spatial_max_seq_len`` (bf16: any S); it raises on anything else."""
+    name = "fused_spatial_block"
     if x.dim() != 3:
         raise ValueError(f"expected (M, S, D) x, got shape {tuple(x.shape)}")
-    hd = _check_args("fused_spatial_block", x, wqkv, bqkv, wproj, bproj, ln_s, ln_b, num_heads)
+    hd = _check_args(name, x, wqkv, bqkv, wproj, bproj, ln_s, ln_b, num_heads)
     if x.device.type == "cpu":
         return fused_spatial_block_plain(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, num_heads,
                                          eps, residual)
-    vs, vb, vq, vp = _cuda_operands("fused_spatial_block", x, wqkv, wproj, hd, ln_s=ln_s,
-                                    ln_b=ln_b, bqkv=bqkv, bproj=bproj)
-    M, S, _ = x.shape
-    limit = spatial_max_seq_len(x.dtype, x.device)
-    if S > limit or M > _MAX_GRID_YZ:
+    _cuda_operands(name, x, wqkv, wproj, hd)
+    M, S, D = x.shape
+    smem = _build.smem_optin(x.device)
+    if not spatial_fits(M, S, D, num_heads, x.dtype, smem):
         raise ValueError(
-            f"fused_spatial_block kernel takes S <= {limit} for {x.dtype} on this device and "
-            f"M <= {_MAX_GRID_YZ}; got S={S}, M={M}"
+            f"{name} kernel takes {seq_limit_text(spatial_max_seq(x.dtype, smem))} for {x.dtype}"
+            f" on this device and M <= {_MAX_GRID_YZ}; got S={S}, M={M}"
         )
-    heads = torch.empty_like(x)
+    vecs, vec_bf16 = _build.layer_vectors(name, x, dict(zip(_VECTORS,
+                                                             (ln_s, ln_b, bqkv, bproj))))
+    return _launch_spatial(x, vecs, vec_bf16, wqkv, wproj, num_heads, eps, residual)
+
+
+def _launch_spatial(x, vecs, vec_bf16: int, wqkv, wproj, num_heads: int, eps: float,
+                    residual: bool) -> torch.Tensor:
+    """One launch of the checked operands; vecs (ln_s, ln_b, bqkv, bproj)
+    as ``_build.layer_vectors`` gives them."""
+    global spatial_launches
+    M, S, D = x.shape
+    hd = D // num_heads
+    bf16 = x.dtype == torch.bfloat16
+    scratch = torch.empty(spatial_scratch_shape(M, S, D, x.dtype), dtype=x.dtype,
+                          device=x.device)
     out = torch.empty_like(x)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    q_split = min(max(1, -(-sms // (M * num_heads))), -(-S // _QUERY_TILE))
+    q_split = 0 if bf16 else min(max(1, -(-_build.sm_count(x.device) // (M * num_heads))),
+                                 -(-S // _QUERY_TILE))
     dev, stream = _build.stream_args(x)
     err = _build.lib().alpro_fused_spatial_block(
-        x.data_ptr(), vs.data_ptr(), vb.data_ptr(), wqkv.data_ptr(), vq.data_ptr(),
-        wproj.data_ptr(), vp.data_ptr(), heads.data_ptr(), out.data_ptr(), M, S, num_heads,
-        q_split, float(hd ** -0.5), float(eps), int(residual), int(x.dtype == torch.bfloat16),
-        dev, stream,
+        x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), wqkv.data_ptr(),
+        vecs[2].data_ptr(), wproj.data_ptr(), vecs[3].data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), M, S, num_heads, q_split, float(hd ** -0.5), float(eps), int(residual),
+        int(bf16), vec_bf16, dev, stream,
     )
     _build.check(err, "fused_spatial_block")
     spatial_launches += 1
@@ -186,8 +255,9 @@ def fused_temporal_block(x: torch.Tensor, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff,
     if x.device.type == "cpu":
         return fused_temporal_block_plain(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, num_heads,
                                           eps)
-    vs, vb, vq, ve = _cuda_operands("fused_temporal_block", x, wqkv, w_eff, hd, ln_s=ln_s,
-                                    ln_b=ln_b, bqkv=bqkv, b_eff=b_eff)
+    _cuda_operands("fused_temporal_block", x, wqkv, w_eff, hd)
+    vs, vb, vq, ve = _build.f32_vectors("fused_temporal_block",
+                                        dict(ln_s=ln_s, ln_b=ln_b, bqkv=bqkv, b_eff=b_eff))
     B, T, N, _ = x.shape
     if not 1 <= T <= _MAX_T or B > _MAX_GRID_YZ:
         raise ValueError(

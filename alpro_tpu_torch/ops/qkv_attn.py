@@ -41,6 +41,7 @@ grad.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -73,7 +74,7 @@ _SPATIAL_MAX_SLOTS = 30  # csrc/attn_wgmma.cuh kMaxSlots
 
 
 def attn_wgmma_smem(keys: int, hd: int, smem: int, bias: bool = False,
-                    split: bool = False) -> int:
+                    split: bool = False, vlo: bool = False) -> int:
     """Dynamic shared memory of a launch of the bf16 attention body
     (``csrc/attn_wgmma.cuh`` ``plan_bf16``) at ``keys`` keys on a device with
     ``smem`` bytes of opt-in shared memory per block, or 0 where no launch
@@ -83,19 +84,21 @@ def attn_wgmma_smem(keys: int, hd: int, smem: int, bias: bool = False,
     ``split`` (B17's kSplit): one query buffer of q_hi and q_lo in place of
     two of q, a K/V slot of k_hi, v and k_lo, and one chunk's keys rounded
     to 16 rows, not 64, with a pad after the slots for the last 64-key
-    block's over-read."""
+    block's over-read. ``vlo`` (B9's kSplit with kPSplit): a slot holds
+    v_lo too, and past one chunk the chunks are half as long (128 keys)."""
     if keys < 1 or hd not in _SPATIAL_HEAD_DIMS:
         return 0
     max_n = 128 if hd == 128 else 256
     if keys <= max_n:
         n, rows = 1, -(-keys // (16 if split else 64)) * (16 if split else 64)
     else:
-        n, rows = -(-keys // max_n), max_n
+        rows = max_n // 2 if vlo else max_n
+        n = -(-keys // rows)
     fixed = 2048 + 2 * 64 * hd * 2 + -(-8 * hd * 2 // 1024) * 1024
     fixed += (-(-rows // 64) * 64 - rows) * min(hd, 64) * 2  # the pad
     if bias:
         fixed += -(-n * rows * 4 // 1024) * 1024
-    slot = (3 if split else 2) * rows * hd * 2
+    slot = (4 if vlo else 3 if split else 2) * rows * hd * 2
     slots = min(n, _SPATIAL_MAX_SLOTS, max(0, (smem - fixed) // slot))
     return fixed + slots * slot if slots >= (2 if n > 1 else 1) else 0
 
@@ -361,58 +364,136 @@ def temporal_attention_qkv_proj_plain(qkv, w_eff, b_eff, num_heads: int,
     return _proj_f32(temporal_attention_plain(qkv, num_heads, scale), w_eff, b_eff, qkv.dtype)
 
 
-def _proj_operands(name, qkv, w, b, num_heads):
-    """Check the shapes (and on CUDA the operands); returns (hd, fp32 bias)."""
+def _proj_operands(name, qkv, w, b, num_heads, bf16_bias: bool):
+    """Check the shapes (and on CUDA the operands); returns (hd, bias,
+    vec_bf16): on CUDA the bias in fp32, or where ``bf16_bias`` (B7) as
+    ``_build.layer_vectors`` hands it over."""
     D = qkv.shape[-1] // 3
     hd = _head_dim(qkv, num_heads)
     if tuple(w.shape) != (D, D) or tuple(b.shape) != (D,):
         raise ValueError(f"{name}: projection shapes {tuple(w.shape)}, {tuple(b.shape)} for D={D}")
     if qkv.device.type == "cpu":
-        return hd, b
+        return hd, b, 0
     _build.refuse_grad(name, qkv, w, b)
     _build.check_cuda_operand(qkv, name, _DTYPES)
     _build.check_cuda_operand(w, f"{name} w", (qkv.dtype,))
     if hd != _PROJ_HEAD_DIM or D not in _WIDTHS:
         raise ValueError(f"{name} kernel needs head_dim {_PROJ_HEAD_DIM} and D in {_WIDTHS}; "
                          f"got head_dim={hd}, D={D}")
-    b = b.float().contiguous()
-    _build.check_cuda_operand(b, f"{name} b", (torch.float32,), align=4)
-    return hd, b
+    if bf16_bias:
+        (b,), vec_bf16 = _build.layer_vectors(name, qkv, {"b": b})
+        return hd, b, vec_bf16
+    return hd, _build.f32_vectors(name, {"b": b})[0], 0
 
 
-def spatial_max_seq_len(device) -> int:
-    """The largest S the spatial projection kernel takes on ``device`` (the
-    cell's fp32 K and V and the score rows live in shared memory)."""
-    dev = torch.device(device).index
-    return _build.lib().alpro_spatial_qkv_proj_max_seq(
-        torch.cuda.current_device() if dev is None else dev)
+def _proj_f32_smem(S: int) -> int:
+    """Shared memory of one fp32 B7 heads block (``csrc/qkv_proj.cu``
+    spatial_smem): the cell's fp32 K and V, a 64-row query tile and four
+    warps' score rows."""
+    sp, ldf = -(-S // 16) * 16, _PROJ_HEAD_DIM + 4
+    warp_floats = 16 * (sp + 4) + 256 + 16
+    return (2 * sp + _PROJ_QUERY_TILE) * ldf * 4 + 4 * warp_floats * 4
+
+
+def spatial_proj_smem(S: int, dtype: torch.dtype, smem: int) -> int:
+    """Dynamic shared memory of B7's launch at S keys (``csrc/qkv_proj.cu``
+    ``alpro_spatial_qkv_proj_smem``) on a device with ``smem`` bytes of
+    opt-in shared memory per block, or 0 where none fits: in bf16 the
+    attention body's plan (K1's: kPSplit needs no more), in fp32 the heads
+    block."""
+    if S < 1:
+        return 0
+    if dtype == torch.bfloat16:
+        return attn_wgmma_smem(S, _PROJ_HEAD_DIM, smem)
+    need = _proj_f32_smem(S)
+    return need if need <= smem else 0
+
+
+def largest_seq(smem_at, dtype: torch.dtype) -> Optional[int]:
+    """The largest S at which ``smem_at(S)`` (a launch's shared memory, 0
+    where none fits) is non-zero, or None where S has no limit: an unmasked
+    bf16 attention plan that fits past one chunk of 256 keys fits at every
+    longer S (its ring of slots does not grow with S); fp32 heads blocks
+    grow with S."""
+    if dtype == torch.bfloat16 and smem_at(257):
+        return None
+    lo, hi = 0, 256 if dtype == torch.bfloat16 else 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if smem_at(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def seq_limit_text(limit: Optional[int]) -> str:
+    """``largest_seq``'s answer for an error message."""
+    return "any S" if limit is None else f"S <= {limit}"
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_proj_max_seq(dtype: torch.dtype, smem: int) -> Optional[int]:
+    """The largest S B7 takes in ``dtype`` given ``smem`` bytes of opt-in
+    shared memory per block: None in bf16 on an H100 (past 256 keys they
+    stream through a ring of K/V slots, so S has no limit), 256 in fp32 (the
+    cell's fp32 K, V and score rows)."""
+    return largest_seq(lambda S: spatial_proj_smem(S, dtype, smem), dtype)
+
+
+def spatial_proj_fits(M: int, S: int, D: int, num_heads: int, dtype: torch.dtype,
+                      smem: int) -> bool:
+    """Whether B7 takes packed qkv (M, S, 3D) in ``dtype``: head_dim 64, D in
+    (256, 512, 768, 1024), M and H within the grid, S >= 1 and a launch that
+    fits shared memory."""
+    return (dtype in _DTYPES and D % num_heads == 0 and D // num_heads == _PROJ_HEAD_DIM
+            and D in _WIDTHS and 1 <= M <= _MAX_GRID_YZ and num_heads <= _MAX_GRID_YZ
+            and spatial_proj_smem(S, dtype, smem) > 0)
+
+
+def spatial_max_seq_len(dtype: torch.dtype, device) -> Optional[int]:
+    """``spatial_proj_max_seq`` on ``device`` (None: no limit)."""
+    return spatial_proj_max_seq(dtype, _build.smem_optin(device))
 
 
 def spatial_attention_qkv_proj(qkv: torch.Tensor, wproj: torch.Tensor, bproj: torch.Tensor,
                                num_heads: int, *, scale: Optional[float] = None) -> torch.Tensor:
     """``attn(qkv)·wprojᵀ + bproj`` over packed qkv (M, S, 3D) → (M, S, D);
-    wproj (D, D) in qkv's dtype. The kernel takes head_dim 64, D in (256,
-    512, 768, 1024) and S up to ``spatial_max_seq_len``."""
-    global spatial_proj_launches
+    wproj (D, D) in qkv's dtype, bproj (D,) in bf16 or fp32 (bf16 beside bf16
+    qkv goes in as it is). The kernel takes head_dim 64, D in (256, 512,
+    768, 1024) and, in fp32, S up to ``spatial_max_seq_len`` (bf16 has no
+    limit on S: ``spatial_proj_fits``)."""
     if qkv.dim() != 3:
         raise ValueError(f"expected (M, S, 3D) qkv, got shape {tuple(qkv.shape)}")
-    hd, b = _proj_operands("spatial_attention_qkv_proj", qkv, wproj, bproj, num_heads)
+    hd, b, vec_bf16 = _proj_operands("spatial_attention_qkv_proj", qkv, wproj, bproj, num_heads,
+                                     bf16_bias=True)
     scale = hd ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
         return spatial_attention_qkv_proj_plain(qkv, wproj, b, num_heads, scale)
     M, S, threeD = qkv.shape
-    limit = spatial_max_seq_len(qkv.device)
-    if S > limit or M > _MAX_GRID_YZ:
-        raise ValueError(f"spatial_attention_qkv_proj kernel takes S <= {limit} on this device "
-                         f"and M <= {_MAX_GRID_YZ}; got S={S}, M={M}")
+    smem = _build.smem_optin(qkv.device)
+    if not spatial_proj_fits(M, S, threeD // 3, num_heads, qkv.dtype, smem):
+        raise ValueError(f"spatial_attention_qkv_proj kernel takes M <= {_MAX_GRID_YZ} and "
+                         f"{seq_limit_text(spatial_proj_max_seq(qkv.dtype, smem))} for "
+                         f"{qkv.dtype} on this device; got S={S}, M={M}")
+    return _launch_spatial_proj(qkv, wproj, b, vec_bf16, num_heads, scale)
+
+
+def _launch_spatial_proj(qkv, wproj, b, vec_bf16: int, num_heads: int,
+                         scale: float) -> torch.Tensor:
+    """One launch of B7 on the checked operands; b as ``_proj_operands``
+    gives it."""
+    global spatial_proj_launches
+    M, S, threeD = qkv.shape
+    bf16 = qkv.dtype == torch.bfloat16
     heads = qkv.new_empty((M, S, threeD // 3))
     out = torch.empty_like(heads)
-    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
-    q_split = min(max(1, -(-sms // (M * num_heads))), -(-S // _PROJ_QUERY_TILE))
+    q_split = 0 if bf16 else min(max(1, -(-_build.sm_count(qkv.device) // (M * num_heads))),
+                                 -(-S // _PROJ_QUERY_TILE))
     dev, stream = _build.stream_args(qkv)
     err = _build.lib().alpro_spatial_qkv_proj(
         qkv.data_ptr(), wproj.data_ptr(), b.data_ptr(), heads.data_ptr(), out.data_ptr(), M, S,
-        num_heads, q_split, scale, int(qkv.dtype == torch.bfloat16), dev, stream,
+        num_heads, q_split, scale, int(bf16), vec_bf16, dev, stream,
     )
     _build.check(err, "spatial_attention_qkv_proj")
     spatial_proj_launches += 1
@@ -427,7 +508,8 @@ def temporal_attention_qkv_proj(qkv: torch.Tensor, w_eff: torch.Tensor, b_eff: t
     global temporal_proj_launches
     if qkv.dim() != 4:
         raise ValueError(f"expected (B, T, N, 3D) qkv, got shape {tuple(qkv.shape)}")
-    hd, b = _proj_operands("temporal_attention_qkv_proj", qkv, w_eff, b_eff, num_heads)
+    hd, b, _ = _proj_operands("temporal_attention_qkv_proj", qkv, w_eff, b_eff, num_heads,
+                              bf16_bias=False)
     scale = hd ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
         return temporal_attention_qkv_proj_plain(qkv, w_eff, b, num_heads, scale)

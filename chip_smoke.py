@@ -28,7 +28,11 @@ line):
    the same q/k/v views and ``F.layer_norm``; K4 also against the TPU
    kernel's own rounding points (``bert_attention_block_reference``) with
    scores in the tens (q/k/v/o weights at std 4·D^-½), at the fusion and
-   the one-text shapes;
+   the one-text shapes; B9 and B7 with their device time at the retrieval
+   and QA shapes (64 and 32 frames of 197 tokens) beside a yardstick of the
+   PyTorch calls that compute the same chain (``F.layer_norm``,
+   ``F.linear``, SDPA on the q/k/v views, ``F.linear``), and at one clip of
+   384² frames (S = 577);
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -511,11 +515,12 @@ def _mlp_yardstick(name, x, w, card) -> None:
 def _opt_in_kernels(res, randn, card) -> None:
     """B6, B7 and B8 at the shapes of one add_videos call of CLIPS_PER_CALL
     clips (main) and of the QA encode (2 clips, T=16); B6 also at 256² and
-    384² frames (N = 256, 576), B8 at T=32. B14
-    at the rows of one add_videos call's spatial input, bf16 → bf16 (main)
-    and fp32 → bf16. Library calls: SDPA over the pre-concatenated [cls; x]
-    packed qkv for B6 (the concat not timed), one ``layer_norm`` for B14;
-    none computes B7 or B8."""
+    384² frames (N = 256, 576), B7 at one clip of 384² frames (S = 577), B8
+    at T=32. B14 at the rows of one add_videos call's spatial input, bf16 →
+    bf16 (main) and fp32 → bf16. Library calls: SDPA over the
+    pre-concatenated [cls; x] packed qkv for B6 (the concat not timed), one
+    ``layer_norm`` for B14; none computes B7 or B8. B7's device time at both
+    video shapes, beside a yardstick (``_spatial_yardstick``)."""
     from alpro_tpu_torch.ops import layernorm, qkv_attn
 
     H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
@@ -533,15 +538,21 @@ def _opt_in_kernels(res, randn, card) -> None:
             lambda: qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, t), card,
             main, library=lambda: _sdpa(*heads),
             work=(4 * M * H * Sn * Sn * hd, 2 * (qx.numel() + qc.numel()) + 2 * M * Sn * D)))
-    wp, bp = randn(D, D, std=D ** -0.5), randn(D, std=0.02).float()
-    w_bytes = D * D * 2 + D * 4
-    for M, main in ((B * T, True), (2 * 16, False)):
-        x = randn(M, S, 3 * D)
+    # B7's bias bf16, as the bf16 model passes it (B8 takes it in fp32)
+    wp, bp_bf = randn(D, D, std=D ** -0.5), randn(D, std=0.02)
+    bp = bp_bf.float()
+    # and one clip of 384² frames (S = 577: the keys streamed in chunks)
+    for M, Sx, main in ((B * T, S, True), (2 * 16, S, False), (T, 577, False)):
+        x = randn(M, Sx, 3 * D)
         res["spatial_qkv_proj"].append(_compare(
-            "spatial_qkv_proj", x.shape, lambda: qkv_attn.spatial_attention_qkv_proj(x, wp, bp, H),
-            lambda: qkv_attn.spatial_attention_qkv_proj_plain(x, wp, bp, H, hd ** -0.5), card,
-            main, work=(4 * M * H * S * S * hd + 2 * M * S * D * D,
-                        2 * x.numel() + 2 * M * S * D + w_bytes)))
+            "spatial_qkv_proj", x.shape,
+            lambda: qkv_attn.spatial_attention_qkv_proj(x, wp, bp_bf, H),
+            lambda: qkv_attn.spatial_attention_qkv_proj_plain(x, wp, bp_bf, H, hd ** -0.5), card,
+            main, work=(4 * M * H * Sx * Sx * hd + 2 * M * Sx * D * D,
+                        2 * x.numel() + 2 * M * Sx * D + D * D * 2 + D * 2), device=Sx == S))
+        if Sx == S:
+            _spatial_yardstick("spatial_qkv_proj", x, None, (wp, bp_bf), card)
+    w_bytes = D * D * 2 + D * 4
     for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False)):
         xt = randn(b, t, N, 3 * D)
         R = b * t * N
@@ -569,7 +580,9 @@ def _fused_ingest_kernels(res, randn, ln, card) -> None:
     """B11, B15, B10 and B9 at the shapes of one add_videos call of
     CLIPS_PER_CALL clips (main) and of the QA encode (2 clips, T=16); B10
     also at T=32 (``configs/msrvtt_ret_longT.json``), B11 at the temporal
-    rows too. No single PyTorch call computes any of the four."""
+    rows too, B9 at one clip of 384² frames (S = 577). No single PyTorch call
+    computes any of the four; B9's device time at both video shapes, beside
+    a yardstick (``_spatial_yardstick``)."""
     from alpro_tpu_torch.models.timesformer import TimeSformerConfig
     from alpro_tpu_torch.ops import fused_block, ln_matmul, preprocess
 
@@ -605,14 +618,58 @@ def _fused_ingest_kernels(res, randn, ln, card) -> None:
             lambda: fused_block.fused_temporal_block_plain(xt, *ln, wqkv, bqkv, wo, bo, H, 1e-6),
             card, main,
             work=(2 * R * D * 4 * D + 4 * b * N * H * t * t * hd, 2 * xt.numel() * 2 + w_bytes)))
-    for M, main in ((B * T, True), (2 * 16, False)):
-        xs = randn(M, S, D)
+    # B9 with every LN and bias vector bf16, as the bf16 model passes them
+    lnb = tuple(t.to(torch.bfloat16) for t in ln)
+    for M, Sx, main in ((B * T, S, True), (2 * 16, S, False), (T, 577, False)):
+        xs = randn(M, Sx, D)
         res["fused_spatial_block"].append(_compare(
             "fused_spatial_block", xs.shape,
-            lambda: fused_block.fused_spatial_block(xs, *ln, wqkv, bqkv, wo, bo, H, eps=1e-6),
-            lambda: fused_block.fused_spatial_block_plain(xs, *ln, wqkv, bqkv, wo, bo, H, 1e-6),
+            lambda: fused_block.fused_spatial_block(xs, *lnb, wqkv, bqkv, wo, bo, H, eps=1e-6),
+            lambda: fused_block.fused_spatial_block_plain(xs, *lnb, wqkv, bqkv, wo, bo, H, 1e-6),
             card, main,
-            work=(2 * M * S * D * 4 * D + 4 * M * H * S * S * hd, 2 * xs.numel() * 2 + w_bytes)))
+            work=(2 * M * Sx * D * 4 * D + 4 * M * H * Sx * Sx * hd,
+                  2 * xs.numel() * 2 + 4 * D * D * 2 + 6 * D * 2), device=Sx == S))
+        if Sx == S:
+            _spatial_yardstick("fused_spatial_block", xs, lnb, (wqkv, bqkv, wo, bo), card)
+
+
+def _spatial_yardstick(name, x, ln, w, card) -> None:
+    """A yardstick beside B9 and B7, not a library call (no single PyTorch
+    call computes either chain): the device time of the PyTorch calls that
+    compute the same function on the same inputs in bf16. B9 (``ln`` given,
+    x (M, S, D), w = wqkv, bqkv, wo, bo): ``F.layer_norm``, ``F.linear`` (R,
+    3D), SDPA on the (M, H, S, 64) views of its output, ``F.linear`` (R, D).
+    B7 (x the packed (M, S, 3D) qkv, w = wo, bo): SDPA on the views,
+    ``F.linear`` (R, D)."""
+    F = torch.nn.functional
+    M, S, width = x.shape
+    D = width if ln is not None else width // 3
+    H, R = D // 64, M * S
+    calls = []
+    if ln is not None:
+        wqkv, bqkv, wo, bo = w
+        a = x.reshape(R, D)
+        xn = F.layer_norm(a, (D,), ln[0], ln[1], 1e-6)
+        qkv = F.linear(xn, wqkv, bqkv).view(M, S, 3 * D)
+        calls += [(f"F.layer_norm ({R}, {D})", lambda: F.layer_norm(a, (D,), ln[0], ln[1], 1e-6),
+                   0),
+                  (f"F.linear ({R}, {D}) x ({3 * D}, {D})^T", lambda: F.linear(xn, wqkv, bqkv),
+                   6 * R * D * D)]
+    else:
+        (wo, bo), qkv = w, x
+    q, k, v = (qkv.view(M, S, 3, H, 64)[:, :, i].transpose(1, 2) for i in range(3))
+    o = qkv[..., :D].reshape(R, D).clone()
+    calls += [(f"SDPA ({M}, {H}, {S}, 64)", lambda: F.scaled_dot_product_attention(q, k, v),
+               4 * M * H * S * S * 64),
+              (f"F.linear ({R}, {D}) x ({D}, {D})^T", lambda: F.linear(o, wo, bo), 2 * R * D * D)]
+    parts, total = [], 0.0
+    for what, fn, flop in calls:
+        dev, why = graph_ms(fn)
+        total += dev or 0.0
+        rate = "" if why or not flop else f", {flop / dev / 1e9:.1f} TFLOP/s"
+        parts.append(f"{what} " + (f"not measured ({why})" if why else f"{dev:.4f} ms{rate}"))
+    print(f"[kernel] {name} yardstick {tuple(x.shape)}, device: {'; '.join(parts)}; sum "
+          f"{total:.4f} ms [{card}]", flush=True)
 
 
 def _masked_grad_check(name, shape, fn, twin, inputs) -> None:

@@ -28,9 +28,20 @@ first:
 * the BERT attention chain ``bert_attention_block`` (K4) in bf16 at the
   fusion of 8 and of 16 candidates (8 and 16 sequences of 40 + 197) and at
   one text query and 8 texts (S = 40), every vector bf16 as the model
-  passes them, with its device time per call by CUDA-graph replay.
+  passes them, with its device time per call by CUDA-graph replay;
+* the video tower's whole spatial chain ``fused_spatial_block`` (B9) and
+  its attention + projection ``spatial_attention_qkv_proj`` (B7) in bf16 at
+  one ``add_videos`` call's spatial shape (64 frames of 197 tokens) and QA's
+  (32), every vector bf16 as the model passes them, B9 also with the
+  residual (then its two GEMMs have two names in the split line), with
+  their device time per call by CUDA-graph replay;
+* the device time per call (CUDA-graph replay, no profile) of the other
+  attention kernels on the same body at their main shapes: K1
+  ``spatial_attention_qkv`` (64, 197), B6 ``spatial_attention_qkv_cls`` (64,
+  196) + CLS, B13 ``fused_attention_bshd`` and B12 ``fused_attention`` at
+  (64, 197) with a key mask.
 
-``--kernels-only`` runs the last four alone (no model is built). They call
+``--kernels-only`` runs the last six alone (no model is built). They call
 only the wrappers' public entries, so the script also times an older
 checkout's kernels when copied into it with ``chip_smoke.py``.
 
@@ -57,17 +68,28 @@ import torch
 import chip_smoke as smoke
 
 
-# the bf16 launches of K3/K5 (csrc/ln_mlp.cu) and K4 (csrc/bert_attn.cu), by
-# a prefix of the short name; K4's projection is the same instantiation as
-# K3/K5's fc2 (gemm_wgmma<2, ...>), and K4 and K5 share the finalize, so a
-# call that runs both kernels reads those two stages summed. The last two are
-# the bert_attn.cu body before its redesign (an older checkout's).
-SPLIT_STAGES = {"LN rows (K3)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
+# the bf16 launches of K3/K5 (csrc/ln_mlp.cu), K4 (csrc/bert_attn.cu), B9
+# (csrc/fused_block.cu) and B7 (csrc/qkv_proj.cu), by a substring of the
+# short name; K4's projection is the same instantiation as K3/K5's fc2
+# (gemm_wgmma<2, 1, float>), K4 and K5 share the finalize, and B9's qkv and
+# (without the residual) projection GEMMs are one instantiation, so a call
+# that runs both reads those stages summed. The last five are the bodies
+# before their redesign (an older checkout's).
+SPLIT_STAGES = {"LN rows (K3, B9)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
                 "qkv (K4)": "gemm_wgmma<0, 3",
-                "attention (K4)": "attn_wgmma<64, false, true, false>",
-                "fp32 tiles (K3/K5 fc2, K4 projection)": "gemm_wgmma<2",
-                "finalize": "_finalize<", "heads (K4, older body)": "bert_attn_heads",
-                "projection + LN (K4, older body)": "bert_attn_proj_ln"}
+                "attention (K4)": "attn_wgmma<64, false, true, false",
+                "fp32 tiles (K3/K5 fc2, K4 projection)": "gemm_wgmma<2, 1, float>",
+                "finalize": "_finalize<",
+                "qkv hi/lo (B9), projection (B7; B9 without residual)":
+                    "gemm_wgmma<0, 1, __nv_bfloat16>",
+                "attention (B9)": "attn_wgmma<64, false, false, true, true>",
+                "attention (B7)": "attn_wgmma<64, false, false, false, true>",
+                "projection + residual (B9)": "gemm_wgmma<2, 1, __nv_bfloat16>",
+                "heads (K4, older body)": "bert_attn_heads",
+                "projection + LN (K4, older body)": "bert_attn_proj_ln",
+                "heads (B9, older body)": "spatial_block_heads",
+                "heads (B7, older body)": "spatial_proj_heads",
+                "proj_rows (B9, B7, older body)": "proj_rows"}
 
 
 def _short(name: str) -> str:
@@ -145,8 +167,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="profile only the LayerNorm, fused_attention_block, MLP and BERT "
-                         "attention kernel calls")
+                    help="profile only the LayerNorm, fused_attention_block, MLP, BERT "
+                         "attention and spatial chain kernel calls")
     args = ap.parse_args()
     iters = args.iters
     card = smoke.phase_device()
@@ -235,6 +257,8 @@ def _profile_kernels(iters: int, card: str) -> None:
                      10 * iters, card)
     _profile_mlp(iters, card, randn)
     _profile_bert_attn(iters, card, randn)
+    _profile_spatial(iters, card, randn)
+    _attention_device_times(card, randn)
 
 
 def _profile_mlp(iters: int, card: str, randn) -> None:
@@ -283,6 +307,62 @@ def _profile_bert_attn(iters: int, card: str, randn) -> None:
             dev, why = smoke.graph_ms(fn)
             _profile(f"bert_attention_block (K4) ({M}, {S}, {D}) bf16, device per call (graph) "
                      + (f"not measured ({why})" if why else f"{dev:.4f} ms"), fn, 10 * iters, card)
+
+
+def _profile_spatial(iters: int, card: str, randn) -> None:
+    """B9 and B7 at one add_videos call's spatial shape and QA's, every
+    vector bf16: the profile (50 calls) and the device time per call by
+    CUDA-graph replay."""
+    from alpro_tpu_torch.ops import fused_block, qkv_attn
+
+    D, H, S = 768, 12, 1 + smoke.PATCHES
+    ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
+    wqkv, bqkv = randn(3 * D, D, std=D ** -0.5), randn(3 * D, std=0.02)
+    wo, bo = randn(D, D, std=D ** -0.5), randn(D, std=0.02)
+    with torch.no_grad():
+        for M in (smoke.CLIPS_PER_CALL * smoke.FRAMES, 2 * smoke.QA_FRAMES):
+            x, qkv = randn(M, S, D), randn(M, S, 3 * D)
+            calls = [(f"fused_spatial_block (B9) ({M}, {S}, {D}) bf16{tag}",
+                      lambda r=residual: fused_block.fused_spatial_block(
+                          x, *ln, wqkv, bqkv, wo, bo, H, eps=1e-6, residual=r))
+                     for residual, tag in ((False, ""), (True, ", residual"))]
+            calls.append((f"spatial_attention_qkv_proj (B7) ({M}, {S}, {3 * D}) bf16",
+                           lambda: qkv_attn.spatial_attention_qkv_proj(qkv, wo, bo, H)))
+            for label, fn in calls:
+                dev, why = smoke.graph_ms(fn)
+                _profile(f"{label}, device per call (graph) "
+                         + (f"not measured ({why})" if why else f"{dev:.4f} ms"), fn, 10 * iters,
+                         card)
+
+
+def _attention_device_times(card: str, randn) -> None:
+    """The device time per call (CUDA-graph replay) of K1, B6 and the masked
+    attention B13/B12 at their main shapes, bf16: the kernels that share the
+    attention body with B9 and B7."""
+    from alpro_tpu_torch.ops import masked_attn, qkv_attn
+
+    H, hd, T = 12, 64, smoke.FRAMES
+    M, N, D = smoke.CLIPS_PER_CALL * T, smoke.PATCHES, 12 * 64
+    x, qx, qc = randn(M, 1 + N, 3 * D), randn(M, N, 3 * D), randn(M // T, 1, 3 * D)
+    q, k, v = x[..., :D], x[..., D:2 * D], x[..., 2 * D:]
+    heads = [t.unflatten(-1, (H, hd)).transpose(1, 2).contiguous() for t in (q, k, v)]
+    mask = (torch.arange(1 + N, device="cuda")[None] < 150 + torch.arange(M, device="cuda")[:, None]
+            % 48).float()
+    calls = {f"K1 spatial_attention_qkv ({M}, {1 + N})": lambda: qkv_attn.spatial_attention_qkv(
+                 x, H),
+             f"B6 spatial_attention_qkv_cls ({M}, {N}) + CLS": lambda:
+                 qkv_attn.spatial_attention_qkv_cls(qx, qc, H, T),
+             f"B13 fused_attention_bshd ({M}, {1 + N}) masked": lambda:
+                 masked_attn.fused_attention_bshd(q, k, v, H, key_mask=mask),
+             f"B12 fused_attention ({M}, {H}, {1 + N}, {hd}) masked": lambda:
+                 masked_attn.fused_attention(*heads, key_mask=mask)}
+    parts = []
+    with torch.no_grad():
+        for label, fn in calls.items():
+            dev, why = smoke.graph_ms(fn)
+            parts.append(f"{label} " + (f"not measured ({why})" if why else f"{dev:.4f} ms"))
+    print(f"[profile] attention device per call (graph), bf16: {'; '.join(parts)} [{card}]",
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -19,9 +19,14 @@ its twin rounds them (its TPU kernel's rounding points): bf16 within 2e-2;
 with scores in the tens it matches the contract reference at 2e-2 where the
 twin, rounding q and k, misses it by 5x that. B17's GEMM alone against the
 fp32 product: within the bf16 rounding of the result (split: hi + lo within
-2^-15 of it). B14 and B17 launch on the current stream: under
-``torch.cuda.stream(s)`` (their result ready on s while the default stream
-still sleeps) and inside a CUDA-graph capture (a replay on new inputs).
+2^-15 of it). B9 and B7 carry q, k, v (B9) and p as bf16 hi + lo pairs
+in bf16: within 2e-2 of their twins, which keep them in fp32 (the TPU
+kernels' contract), up to 2048 keys; B9 with scores in the tens too, where
+the twin with q and k rounded misses by 5x that; the layer's bf16 vectors
+read as they are give their fp32 copies' result bit for bit. B14, B17, K4,
+B9 and B7 launch on the current stream: under ``torch.cuda.stream(s)``
+(their result ready on s while the default stream still sleeps) and inside
+a CUDA-graph capture (a replay on new inputs).
 The limit predicates that ``auto`` reads agree with what the kernels take:
 S at the Python limit launches, one past it raises ``ValueError``, and
 where the C side reports a limit the two are equal.
@@ -30,8 +35,9 @@ where the C side reports a limit the two are equal.
 import pytest
 import torch
 
-from alpro_tpu_torch.ops import (_build, block_attn, bert_block, ln_mlp, masked_attn, qkv_attn,
-                                 temporal_attn)
+from alpro_tpu_torch.ops import (_build, block_attn, bert_block, fused_block, ln_mlp,
+                                 masked_attn, qkv_attn, temporal_attn)
+from alpro_tpu_torch.ops.kernel_math import ln_rows_f32
 
 pytestmark = pytest.mark.cuda
 
@@ -559,10 +565,16 @@ def test_fused_temporal_block_kernel_matches_twin(cuda, B, T, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,S,residual", [(64, 197, False), (32, 197, True), (3, 17, False),
-                                          (2, 256, True)])
+                                          (2, 256, True), (4, 257, False), (2, 577, True),
+                                          (1, 2048, False)])
 def test_fused_spatial_block_kernel_matches_twin(cuda, M, S, residual, dtype):
+    """Up to 256 keys one chunk; 257 (256² frames) and 577 (384²) stream
+    their keys in chunks, and 2048 is far past them (bf16 has no S limit);
+    fp32 runs those at its own limit, 256."""
     from alpro_tpu_torch.ops import fused_block
 
+    if dtype == torch.float32:
+        S = min(S, fused_block.spatial_max_seq_len(dtype, cuda))
     ws = _block_weights(cuda, dtype, seed=S)
     x = _randn((M, S, 768), M + S, cuda, dtype)
     n = fused_block.spatial_launches
@@ -590,14 +602,80 @@ def test_fused_ingest_kernels_refuse_grad_and_limits(cuda):
         ln_matmul.ln_matmul(x, *ws[:4], eps=1e-6)
     with torch.no_grad():
         assert fused_block.fused_spatial_block(x[0], *ws, 12, eps=1e-6).shape == (4, 196, 768)
+        # bf16: no S limit (the keys stream past 256), S = 577 and far past launch;
+        # fp32 keeps its 256: one past raises before a launch
+        assert fused_block.spatial_max_seq_len(torch.bfloat16, cuda) is None
+        wb = _block_weights(cuda, torch.bfloat16)
+        for S in (577, 4096):
+            got = fused_block.fused_spatial_block(torch.zeros(1, S, 768, device=cuda,
+                                                              dtype=torch.bfloat16), *wb, 12,
+                                                  eps=1e-6)
+            assert got.shape == (1, S, 768) and bool(torch.isfinite(got).all())
         limit = fused_block.spatial_max_seq_len(torch.float32, cuda)
-        assert limit >= 197
+        assert limit == 256
+        n = fused_block.spatial_launches
         with pytest.raises(ValueError, match=f"S <= {limit}"):
             fused_block.fused_spatial_block(torch.zeros(1, limit + 1, 768, device=cuda), *ws, 12,
                                             eps=1e-6)
+        assert fused_block.spatial_launches == n
         with pytest.raises(ValueError, match="T <= 32"):
             fused_block.fused_temporal_block(torch.zeros(1, 33, 2, 768, device=cuda), *ws, 12,
                                              eps=1e-6)
+
+
+def _spatial_block_rounded_qk(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, H, eps):
+    """B9's twin with q and k rounded to bf16 after their fp32 bias (what a
+    kernel that kept them in bf16 would compute)."""
+    M, S, D = x.shape
+    hd = D // H
+    qkv = fused_block._lin_f32(ln_rows_f32(x, ln_s, ln_b, eps), wqkv, bqkv)
+    q, k, v = (qkv[..., i * D:(i + 1) * D].reshape(M, S, H, hd) for i in range(3))
+    q, k = (t.to(torch.bfloat16).float() for t in (q, k))
+    p = torch.softmax(torch.einsum("mqhd,mkhd->mhqk", q, k) * hd ** -0.5, dim=-1)
+    o = torch.einsum("mhqk,mkhd->mqhd", p, v).reshape(M, S, D)
+    return fused_block._lin_f32(o, wproj, bproj).to(x.dtype)
+
+
+def test_fused_spatial_block_keeps_q_k_v_and_p_unrounded(cuda):
+    """Scores in the tens (the q and k weights at std 4·D^-½, scores' std
+    ~16): the bf16 kernel, which carries q, k, v and p as hi + lo pairs,
+    stays within atol = rtol = 2e-2 of the twin (fp32 q, k, v, scores and p:
+    the TPU kernel's contract), where the same twin with q and k rounded to
+    bf16 misses it (~0.1 off at its worst). A kernel that rounds q or k
+    fails here."""
+    M, S, D, H = 8, 197, 768, 12
+    bf = torch.bfloat16
+    ln_s, ln_b, _, bqkv, wproj, bproj = _block_weights(cuda, bf, seed=60)
+    wqkv = torch.cat([_randn((2 * D, D), 61, cuda, torch.float32, 4 * D ** -0.5),
+                      _randn((D, D), 62, cuda, torch.float32, D ** -0.5)]).to(bf)
+    x = _randn((M, S, D), 63, cuda, bf)
+    args = (x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, H)
+    got = fused_block.fused_spatial_block(*args, eps=1e-6).float()
+    twin = fused_block.fused_spatial_block_plain(*args, 1e-6).float()
+    rounded = _spatial_block_rounded_qk(*args, 1e-6).float()
+    torch.testing.assert_close(got, twin, atol=2e-2, rtol=2e-2)
+    assert int(((rounded - twin).abs() > 2e-2 + 2e-2 * twin.abs()).sum()) > 0
+
+
+def test_fused_spatial_kernels_read_bf16_vectors_as_fp32(cuda):
+    """The layer's bf16 LN and bias vectors, read as they are, give what
+    their fp32 copies give, bit for bit (widening bf16 is exact): B9 with
+    and without the residual, B7."""
+    bf = torch.bfloat16
+    ln_s, ln_b, wqkv, bqkv, wproj, bproj = _block_weights(cuda, bf, seed=70)
+    vecs = [t.to(bf) for t in (ln_s, ln_b, bqkv, bproj)]
+    x = _randn((16, 197, 768), 71, cuda, bf)
+    for residual in (False, True):
+        a = fused_block.fused_spatial_block(x, vecs[0], vecs[1], wqkv, vecs[2], wproj, vecs[3],
+                                            12, eps=1e-6, residual=residual)
+        b = fused_block.fused_spatial_block(x, *(vecs[i].float() for i in (0, 1)), wqkv,
+                                            vecs[2].float(), wproj, vecs[3].float(), 12,
+                                            eps=1e-6, residual=residual)
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    qkv = _randn((16, 197, 3 * 768), 72, cuda, bf)
+    torch.testing.assert_close(qkv_attn.spatial_attention_qkv_proj(qkv, wproj, vecs[3], 12),
+                               qkv_attn.spatial_attention_qkv_proj(qkv, wproj, vecs[3].float(),
+                                                                   12), atol=0, rtol=0)
 
 
 # ---- the opt-in serving forms B6, B7, B8 and the LayerNorm kernel B14 ------
@@ -625,8 +703,13 @@ def _proj_weights(D, cuda, dtype, seed):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("M,S", [(64, 197), (32, 197), (3, 17), (2, 256)])
+@pytest.mark.parametrize("M,S", [(64, 197), (32, 197), (3, 17), (2, 256), (4, 257), (2, 577),
+                                 (1, 2048)])
 def test_spatial_qkv_proj_kernel_matches_twin(cuda, M, S, dtype):
+    """As B9's: one key chunk up to 256, streamed past it, no bf16 S limit;
+    fp32 at its own 256."""
+    if dtype == torch.float32:
+        S = min(S, qkv_attn.spatial_max_seq_len(dtype, cuda))
     x = _randn((M, S, 3 * 768), S + M, cuda, dtype)
     w, b = _proj_weights(768, cuda, dtype, S)
     n = qkv_attn.spatial_proj_launches
@@ -667,11 +750,20 @@ def test_opt_in_serving_kernels_refuse_grad_and_limits(cuda):
         qkv_attn.temporal_attention_qkv_proj(x[None], w, b, 12)
     with torch.no_grad():
         assert qkv_attn.spatial_attention_qkv_cls(x, c, 12, 2)[1].shape == (4, 1, 768)
-        limit = qkv_attn.spatial_max_seq_len(cuda)
-        assert limit >= 197
+        # bf16: no S limit (K1's plan streams past 256 keys); fp32 keeps 256
+        assert qkv_attn.spatial_max_seq_len(torch.bfloat16, cuda) is None
+        wb = w.to(torch.bfloat16)
+        for S in (577, 4096):
+            got = qkv_attn.spatial_attention_qkv_proj(
+                torch.zeros(1, S, 3 * 768, device=cuda, dtype=torch.bfloat16), wb, b, 12)
+            assert got.shape == (1, S, 768) and bool(torch.isfinite(got).all())
+        limit = qkv_attn.spatial_max_seq_len(torch.float32, cuda)
+        assert limit == 256
+        n = qkv_attn.spatial_proj_launches
         with pytest.raises(ValueError, match=f"S <= {limit}"):
             qkv_attn.spatial_attention_qkv_proj(torch.zeros(1, limit + 1, 3 * 768, device=cuda),
                                                 w, b, 12)
+        assert qkv_attn.spatial_proj_launches == n
         with pytest.raises(ValueError, match="T <= 32"):
             qkv_attn.temporal_attention_qkv_proj(torch.zeros(1, 33, 2, 3 * 768, device=cuda),
                                                  w, b, 12)
@@ -785,6 +877,11 @@ def test_python_limits_equal_the_kernels(cuda):
                     qkv_attn.spatial_launch_smem(S, hd, dtype, cuda), (S, hd, dtype)
                 assert masked_attn.smem_bytes(S, hd, dtype, smem) == \
                     lib.alpro_masked_attn_smem(S, hd, bf, dev), ("masked", S, hd, dtype)
+        for S in (1, 17, 150, 197, 208, 256, 257, 577, 4000, 20481):
+            assert fused_block.spatial_smem(S, dtype, smem) == \
+                lib.alpro_fused_spatial_smem(S, bf, dev), ("fused_block", S, dtype)
+            assert qkv_attn.spatial_proj_smem(S, dtype, smem) == \
+                lib.alpro_spatial_qkv_proj_smem(S, bf, dev), ("qkv_proj", S, dtype)
 
 
 # ---- B17: the whole attention sublayer ----
@@ -911,6 +1008,10 @@ def _stream_cases(cuda):
     args = _block_args(8, 197, 768, cuda, torch.bfloat16, seed=53)
     xa, mask, ws, ln = _bert_attn_args(8, 237, cuda, torch.bfloat16, seed=54)
     ln = tuple(v.to(torch.bfloat16) for v in ln)
+    # B9 and B7 at one add_videos call's spatial shape, every vector bf16
+    fb = tuple(t.to(torch.bfloat16) for t in _block_weights(cuda, torch.bfloat16, seed=55))
+    xs = _randn((64, 197, 768), 56, cuda, torch.bfloat16)
+    xq = _randn((64, 197, 3 * 768), 57, cuda, torch.bfloat16)
     return {"layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
                           lambda x: layernorm.layernorm_plain(x, s, b, 1e-6, torch.bfloat16),
                           2e-2),
@@ -921,10 +1022,17 @@ def _stream_cases(cuda):
                                                                           eps=1e-12),
                           lambda x: bert_block.bert_attention_block_plain(x, mask, *ws, *ln, 12,
                                                                           1e-12),
-                          3e-2)}
+                          3e-2),
+            "fused_block": ((xs,), lambda x: fused_block.fused_spatial_block(
+                x, *fb, 12, eps=1e-6, residual=True),
+                lambda x: fused_block.fused_spatial_block_plain(x, *fb, 12, 1e-6, True), 2e-2),
+            "qkv_proj": ((xq,), lambda x: qkv_attn.spatial_attention_qkv_proj(x, *fb[4:], 12),
+                         lambda x: qkv_attn.spatial_attention_qkv_proj_plain(x, *fb[4:], 12,
+                                                                             0.125), 2e-2)}
 
 
-@pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn"])
+@pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn", "fused_block",
+                                    "qkv_proj"])
 def test_kernel_launches_on_the_current_stream(cuda, kernel):
     """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
     stream asleep, its result is complete on s. Inside a CUDA-graph capture
