@@ -2,7 +2,7 @@
 //   spatial (B9):  out = [x +] proj(softmax(q k^T) v),  x (M, S, D) per cell;
 //   temporal (B10): out = x + attn_T(q, k, v) . w_eff^T + b_eff,  x (B, T, N, D),
 //                   attention over T at each (b, n);
-//   q, k, v = LN(x) . Wqkv^T + b per head (q scaled by hd^-1/2), D = H * 64.
+//   q, k, v = LN(x) . Wqkv^T + b per head (q scaled by hd^-1/2).
 //
 // Replaces the TPU kernels alpro_tpu/ops/pallas_fused_block.py::
 // fused_spatial_block (_spatial_block_kernel) and fused_temporal_block
@@ -11,14 +11,14 @@
 //     dtype, the q/k/v products accumulated in fp32 plus the bias in fp32;
 //   * spatial: q, k, v stay fp32; scores, the exact softmax (row max first,
 //     then exp and sum) and p.v are fp32, then o / l;
-//   * temporal: q, k, v are staged in x's dtype after their bias; the
-//     attention over T <= 32 runs in fp32 on them (max, exp, sum, then
-//     sum_u p_u v_u / l);
+//   * temporal: q, k, v are rounded to x's dtype after their bias; the
+//     attention over T runs in fp32 on them (q times hd^-1/2, the scores
+//     over all T, max, exp, sum, then sum_u p_u v_u / l);
 //   * the per-head output rounds to the projection weight's dtype; the
 //     projection sums the heads in fp32, plus its bias (and, temporal always,
-//     spatial when asked, the fp32 residual).
-// Weights come in torch Linear layout (out, in); biases and LN parameters
-// in fp32, or (spatial bf16) all in bf16, widened on load.
+//     spatial when asked, the fp32 residual), rounded once.
+// Weights come in torch Linear layout (out, in); in bf16 the LN and bias
+// vectors are all the layer's bf16 (widened on load) or all fp32.
 //
 // What bounds it on an H100: at 8 clips x 8 frames the spatial chain is
 // 67 GFLOP (44.6 of q/k/v projection, 7.6 of attention, 14.9 of output
@@ -27,9 +27,9 @@
 // Hopper block cannot carry the projection's cross-head sum from one grid
 // step to the next as the TPU grid does.
 //
-// Spatial, bf16: four launches behind one C call, every product on wgmma,
-// from the port's Hopper parts (B17's design, csrc/block_attn.cu, with the
-// LN in front and p and v kept unrounded too):
+// Spatial, bf16 (D = H * 64): four launches behind one C call, every
+// product on wgmma, from the port's Hopper parts (B17's design,
+// csrc/block_attn.cu, with the LN in front and p and v kept unrounded too):
 //   1. ln_rows (ln_rows.cuh, K3's): xn = bf16(LN(x)) into an (M·S, D)
 //      scratch;
 //   2. gemm_wgmma.cuh: [q | k | v] = xn · wqkvᵀ + bqkv, written as six
@@ -51,23 +51,38 @@
 // v_lo and k_lo (one CTA an SM at 197 keys); past 256 keys the keys stream
 // in chunks of 128 through a ring of slots, so S has no upper limit.
 //
-// Spatial fp32 (a test dtype: no tensor-core product keeps fp32 operands)
-// and temporal keep a CUDA-core body, two launches each:
+// Temporal, bf16: four launches behind one C call, R = B·T·N rows:
+//   1.-2. ln_rows.cuh's launch_ln_linear (B11's whole route, csrc/
+//      ln_matmul.cu): xn = bf16(LN(x)) into an (R, D) scratch, then qkv =
+//      xn · wqkvᵀ + bqkv on the TMA/wgmma GEMM (kRound: fp32 sums, + bias,
+//      rounded once to bf16: the contract's q, k, v) into an (R, 3D)
+//      scratch, which is K2's (B, T, N, 3D) packed input as it lies;
+//   3. K2's body (temporal_attn.cuh) on that scratch: q scaled in fp32, the
+//      exact softmax over T, sum p v / l rounded once into the (R, D) heads
+//      (xn's buffer, free by then); its fast path at head_dim 32/64/96/128
+//      and T <= 32, its wide path (any head_dim a multiple of 8 up to 128, T
+//      up to 128) past them;
+//   4. gemm_wgmma.cuh's kFloat: heads · w_effᵀ + b_eff + x in fp32, rounded
+//      once into out (B9's step 4).
+// The scratch round trip is ~4 · R·D bf16 each way (~77 MB at the main
+// shape, ~0.05 ms at 3.35 TB/s). D a multiple of 128 up to 1024.
+//
+// Spatial and temporal fp32 (a test dtype: no tensor-core product keeps fp32
+// operands; head_dim 64) keep a CUDA-core body, two launches each:
 //   1. a heads launch, one block of 4 warps per (head, group of rows): the
 //      rows' LN statistics first (one warp per row), then their q, k, v
 //      projections with the LN applied while x is staged through shared
-//      memory in 64 x 64 chunks beside the head's weight chunks (head_proj.cuh:
-//      WMMA bf16 / fp32 CUDA cores, one warp per 16 rows), the attention, and
-//      the rounded per-head output written into an (rows, D) scratch;
+//      memory in 64 x 64 chunks beside the head's weight chunks (head_proj.cuh,
+//      fp32 CUDA cores, one warp per 16 rows), the attention, and the
+//      per-head output written into an (rows, D) scratch;
 //        spatial (spatial_block_heads): per (query-tile group, head, cell),
 //        fp32 K and V of the whole cell in shared memory, then per 64-row
 //        query tile fp32 Q, full fp32 score rows per warp (16 x S), softmax,
 //        p.V on the CUDA cores (attn_f32.cuh); S <= 256;
 //        temporal (temporal_block_heads): per (patch-location tile, head,
-//        clip), T x (64 / T) rows, q, k, v of the head in x's dtype in shared
-//        memory, then temporal_attn.cu's warp per (location, head): lanes
-//        over the head's channels, scores by warp reductions, lane u keeping
-//        score u;
+//        clip), T x (64 / T) rows, q, k, v of the head in shared memory,
+//        then a warp per (location, head): lanes over the head's channels,
+//        scores by warp reductions, lane u keeping score u; T <= 32;
 //   2. a projection launch (proj_rows): the row-tile GEMM of row_tile.cuh,
 //      heads . W^T + bias (+ residual).
 #include "attn_f32.cuh"
@@ -76,6 +91,7 @@
 #include "head_proj.cuh"
 #include "ln_rows.cuh"
 #include "row_tile.cuh"
+#include "temporal_attn.cuh"
 
 namespace {
 
@@ -327,24 +343,43 @@ int spatial_bf16(const __nv_bfloat16* x, const TV* ln_s, const TV* ln_b,
                                     stream);
 }
 
-template <typename T>
-int temporal(const void* x, const void* ln_s, const void* ln_b, const void* wqkv,
-             const void* bqkv, const void* w_eff, const void* b_eff, void* heads, void* out,
-             int B, int Tn, int N, int H, float scale, float eps, cudaStream_t stream) {
+int temporal_f32(const float* x, const float* ln_s, const float* ln_b, const float* wqkv,
+                 const float* bqkv, const float* w_eff, const float* b_eff, float* heads,
+                 float* out, int B, int Tn, int N, int H, float scale, float eps,
+                 cudaStream_t stream) {
   const int NT = kRC / Tn;  // patch locations per block: T x NT <= 64 rows
-  const size_t smem = temporal_smem<T>();
-  cudaError_t err = cudaFuncSetAttribute(temporal_block_heads<T>,
+  const size_t smem = temporal_smem<float>();
+  cudaError_t err = cudaFuncSetAttribute(temporal_block_heads<float>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid((N + NT - 1) / NT, H, B);
-  temporal_block_heads<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-      static_cast<const T*>(wqkv), static_cast<const float*>(bqkv), static_cast<T*>(heads), Tn,
-      N, NT, H, scale, eps);
+  temporal_block_heads<float><<<grid, kThreads, smem, stream>>>(x, ln_s, ln_b, wqkv, bqkv, heads,
+                                                                Tn, N, NT, H, scale, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  return alpro::rows::dispatch_proj<T>(H * kHD, heads, w_eff, b_eff, x, out, B * Tn * N,
-                                       stream);
+  return alpro::rows::dispatch_proj<float>(H * kHD, heads, w_eff, b_eff, x, out, B * Tn * N,
+                                           stream);
+}
+
+// scratch: (R, 4D) bf16, R = B·T·N: xn (R, D), then the heads in its place,
+// and the packed qkv (R, 3D), which is K2's (B, T, N, 3D) input as it is;
+// TV: the LN and bias vectors' dtype
+template <typename TV>
+int temporal_bf16(const __nv_bfloat16* x, const TV* ln_s, const TV* ln_b,
+                  const __nv_bfloat16* wqkv, const TV* bqkv, const __nv_bfloat16* w_eff,
+                  const TV* b_eff, __nv_bfloat16* scratch, __nv_bfloat16* out, int B, int Tn,
+                  int N, int H, int hd, float scale, float eps, int device, cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  const int D = H * hd, R = B * Tn * N;
+  __nv_bfloat16* xn = scratch;
+  __nv_bfloat16* qkv = scratch + long(R) * D;
+  int err = alpro::launch_ln_linear<TV>(x, ln_s, ln_b, wqkv, bqkv, xn, qkv, R, D, 3 * D, eps,
+                                        stream);
+  if (err) return err;
+  err = alpro::tattn::dispatch<__nv_bfloat16>(qkv, xn, B, Tn, N, H, hd, scale, device, stream);
+  if (err) return err;
+  return gm::launch<gm::kFloat, TV>(xn, w_eff, gm::Epilogue{{out}, b_eff, 0, nullptr, x, 0}, R, D,
+                                    D, stream);
 }
 
 }  // namespace
@@ -393,19 +428,40 @@ extern "C" int alpro_fused_spatial_block(const void* x, const void* ln_s, const 
                              M, S, H, scale, eps, residual, device, st);
 }
 
-// x, heads (scratch), out: (B, T, N, H * 64) in one dtype, 1 <= T <= 32;
-// wqkv (3D, D) and w_eff (D, D) in it; ln_*, bqkv, b_eff fp32.
+// x, out: (B, T, N, H * hd) in one dtype, wqkv (3D, D) and w_eff (D, D) in
+// it. bf16: ln_*, bqkv, b_eff all bf16 (vec_bf16 1) or all fp32; scratch
+// (B·T·N, 4D) bf16; 1 <= T <= 128, hd a multiple of 8 up to 128, D = H·hd a
+// multiple of 128 up to 1024. fp32: the vectors fp32, scratch the (B, T, N,
+// D) heads; hd 64, 1 <= T <= 32. Every limit is checked before a launch.
 extern "C" int alpro_fused_temporal_block(const void* x, const void* ln_s, const void* ln_b,
                                           const void* wqkv, const void* bqkv, const void* w_eff,
-                                          const void* b_eff, void* heads, void* out, int B,
-                                          int Tn, int N, int H, float scale, float eps,
-                                          int is_bf16, int device, void* stream) {
-  if (B < 1 || N < 1 || H < 1 || Tn < 1 || Tn > 32) return int(cudaErrorInvalidValue);
+                                          const void* b_eff, void* scratch, void* out, int B,
+                                          int Tn, int N, int H, int hd, float scale, float eps,
+                                          int is_bf16, int vec_bf16, int device, void* stream) {
+  if (B < 1 || N < 1 || H < 1 || Tn < 1 || long(B) * Tn * N > 0x7fffffffL)
+    return int(cudaErrorInvalidValue);
+  const int D = H * hd;
+  if (is_bf16 ? (Tn > alpro::tattn::kMaxT || hd < 8 || hd > 128 || hd % 8 ||
+                 D % alpro::gemm::kBN || D > 1024)
+              : (vec_bf16 || hd != kHD || Tn > 32))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? temporal<__nv_bfloat16>(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, heads, out,
-                                           B, Tn, N, H, scale, eps, st)
-                 : temporal<float>(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, heads, out, B, Tn,
-                                   N, H, scale, eps, st);
+  if (!is_bf16) {
+    auto f = [](const void* p) { return static_cast<const float*>(p); };
+    return temporal_f32(f(x), f(ln_s), f(ln_b), f(wqkv), f(bqkv), f(w_eff), f(b_eff),
+                        static_cast<float*>(scratch), static_cast<float*>(out), B, Tn, N, H,
+                        scale, eps, st);
+  }
+  using bf16 = __nv_bfloat16;
+  auto w = [](const void* p) { return static_cast<const bf16*>(p); };
+  bf16* sc = static_cast<bf16*>(scratch);
+  bf16* o = static_cast<bf16*>(out);
+  if (vec_bf16)
+    return temporal_bf16<bf16>(w(x), w(ln_s), w(ln_b), w(wqkv), w(bqkv), w(w_eff), w(b_eff), sc,
+                               o, B, Tn, N, H, hd, scale, eps, device, st);
+  auto v = [](const void* p) { return static_cast<const float*>(p); };
+  return temporal_bf16<float>(w(x), v(ln_s), v(ln_b), w(wqkv), v(bqkv), w(w_eff), v(b_eff), sc,
+                              o, B, Tn, N, H, hd, scale, eps, device, st);
 }

@@ -1,11 +1,14 @@
-// The LN rows pass of the bf16 routes of K3 (csrc/ln_mlp.cu) and B9
-// (csrc/fused_block.cu): xn = bf16(LN(x)) over rows of D, one warp a row,
-// the row in registers. One-pass fp32 statistics (E[x^2] - E[x]^2, clamped
-// at 0), as alpro_tpu/ops/kernel_math.py::ln_rows_f32; the scale and shift
-// are fp32, or (TV = bf16, B9) the layer's bf16 vectors widened on load,
-// which is exact.
+// The LN rows pass of the bf16 routes of K3 (csrc/ln_mlp.cu), B9, B10
+// (csrc/fused_block.cu) and B11 (csrc/ln_matmul.cu): xn = bf16(LN(x)) over
+// rows of D, one warp a row, the row in registers. One-pass fp32 statistics
+// (E[x^2] - E[x]^2, clamped at 0), as alpro_tpu/ops/kernel_math.py::
+// ln_rows_f32; the scale and shift are fp32, or (TV = bf16) the layer's bf16
+// vectors widened on load, which is exact. launch_ln_linear puts the
+// TMA/wgmma GEMM behind it: B11's whole bf16 route and B10's first two
+// launches.
 #pragma once
 
+#include "gemm_wgmma.cuh"
 #include "hopper.cuh"
 #include "warp_tile.cuh"
 
@@ -73,6 +76,22 @@ int launch_ln_rows(const __nv_bfloat16* x, const TV* ln_s, const TV* ln_b, __nv_
   ln_rows<TV><<<(R + kLnRows - 1) / kLnRows, kLnRows * 32, 0, stream>>>(x, ln_s, ln_b, xn, R,
                                                                          D, eps);
   return int(cudaGetLastError());
+}
+
+// out (R, F) = bf16(LN(x) · wᵀ + b): the LN rows into the (R, D) bf16
+// scratch xn, then gemm_wgmma.cuh's kRound over it (fp32 sums, + b in fp32,
+// rounded once); w (F, D) bf16, b F values of TV. D a multiple of 64 up to
+// 1024, F of 128 (checked before either launch).
+template <typename TV>
+int launch_ln_linear(const __nv_bfloat16* x, const TV* ln_s, const TV* ln_b,
+                     const __nv_bfloat16* w, const TV* b, __nv_bfloat16* xn, __nv_bfloat16* out,
+                     int R, int D, int F, float eps, cudaStream_t stream) {
+  if (R < 1 || D < gemm::kBK || D % gemm::kBK || D > 32 * 8 * kLnVecs || F < gemm::kBN ||
+      F % gemm::kBN)
+    return int(cudaErrorInvalidValue);
+  const int err = launch_ln_rows<TV>(x, ln_s, ln_b, xn, R, D, eps, stream);
+  if (err) return err;
+  return gemm::launch<gemm::kRound, TV>(xn, w, gemm::Epilogue{{out}, b, 0}, R, F, D, stream);
 }
 
 }  // namespace

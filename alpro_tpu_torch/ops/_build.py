@@ -63,8 +63,9 @@ _SIGNATURES = {
     "alpro_masked_attn": ([_P] * 6 + [_I] * 5 + [_F, _I, _I, _P], _I),
     # Sk, hd, is_bf16, device
     "alpro_masked_attn_smem": ([_I, _I, _I, _I], _I),
-    # x, ln_scale, ln_bias, w, b, out, R, D, F, eps, is_bf16, device, stream
-    "alpro_ln_matmul": ([_P] * 6 + [_I, _I, _I, _F, _I, _I, _P], _I),
+    # x, ln_scale, ln_bias, w, b, xn (scratch), out, R, D, F, eps, is_bf16,
+    # vec_bf16, device, stream
+    "alpro_ln_matmul": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
     # raw, kernel, bias, out, frames, H, W, p, D, mean (3), std (3), is_bf16,
     # device, stream
     "alpro_patchify_embed": ([_P] * 4 + [_I] * 5 + [_F] * 6 + [_I, _I, _P], _I),
@@ -73,9 +74,9 @@ _SIGNATURES = {
     "alpro_fused_spatial_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _I, _I, _P], _I),
     # S, is_bf16, device
     "alpro_fused_spatial_smem": ([_I, _I, _I], _I),
-    # x, ln_scale, ln_bias, wqkv, bqkv, w_eff, b_eff, heads, out, B, T, N, H,
-    # scale, eps, is_bf16, device, stream
-    "alpro_fused_temporal_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _P], _I),
+    # x, ln_scale, ln_bias, wqkv, bqkv, w_eff, b_eff, scratch, out, B, T, N, H,
+    # hd, scale, eps, is_bf16, vec_bf16, device, stream
+    "alpro_fused_temporal_block": ([_P] * 9 + [_I] * 5 + [_F, _F, _I, _I, _I, _P], _I),
     # qkv_x, qkv_c, out_x, out_c, M, N, T, H, hd, scale, is_bf16, device, stream
     "alpro_spatial_cls_attn": ([_P] * 4 + [_I] * 5 + [_F, _I, _I, _P], _I),
     # qkv, wproj, bproj, heads, out, M, S, H, q_split, scale, is_bf16,

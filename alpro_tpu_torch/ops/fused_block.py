@@ -1,5 +1,5 @@
 """Whole attention chains of the divided space-time block, LN → qkv →
-attention → projection, with the packed qkv never written to device memory.
+attention → projection, behind one call each.
 
 Counterpart of ``alpro_tpu/ops/pallas_fused_block.py``:
 
@@ -18,19 +18,24 @@ rounds to the weights' dtype and the products accumulate in fp32; the twins
 keep q, k, v, scores and p in fp32, as the XLA references do. The spatial
 kernel does too (its TPU kernel keeps q, k, v in fp32): in bf16 it carries
 q, k, v and p as bf16 pairs hi + lo (fp32 to ~2^-16) through the tensor-core
-products; the temporal kernel stages q, k, v in x's dtype after their fp32
+products; the temporal kernel rounds q, k, v to x's dtype after their fp32
 bias, as its TPU kernel does, so in bf16 it is held to the twin with the
-tolerance of the kernels that round where their twins do not. The per-head
-output rounds to the projection weight's dtype, and the projection sums the
-heads in fp32, + bias (+ the fp32 residual).
+tolerance of the kernels that round where their twins do not, and to
+``fused_temporal_block_reference``, the TPU kernel's own rounding points,
+within one output ulp. The per-head output rounds to the projection
+weight's dtype, and the projection sums the heads in fp32, + bias (+ the
+fp32 residual).
 
-In bf16 one spatial call is four launches behind one C call (the source
-gives the design): the LN rows, the TMA/``wgmma`` GEMM into six bf16
-scratch tensors (q, k, v as hi + lo pairs), the attention body
+In bf16 each call is four launches behind one C call (the source gives the
+design). Spatial: the LN rows, the TMA/``wgmma`` GEMM into six bf16 scratch
+tensors (q, k, v as hi + lo pairs), the attention body
 (``csrc/attn_wgmma.cuh`` under kSplit and kPSplit) and the GEMM again for
-the projection; it takes the layer's bf16 LN and bias vectors as they are
-(``_build.layer_vectors``). fp32 and the temporal chain are two launches
-(a heads launch, then ``proj_rows``).
+the projection. Temporal: the LN rows and the GEMM into the packed (R, 3D)
+qkv scratch (``ops/ln_matmul.py``'s route), K2's body
+(``csrc/temporal_attn.cuh``) on it in place, and the GEMM for the
+projection + b_eff + the residual. Both take the layer's bf16 LN and bias
+vectors as they are (``_build.layer_vectors``). fp32 is a test dtype, two
+launches (a heads launch, then ``proj_rows``).
 
 A wrapper runs the twin only for a CPU tensor; for a CUDA tensor it launches
 the kernel or raises. ``spatial_launches`` and ``temporal_launches`` count
@@ -50,6 +55,7 @@ from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.kernel_math import ln_rows_f32
 from alpro_tpu_torch.ops.ln_mlp import _WIDTHS  # the D values row_tile.cuh's kernels take
 from alpro_tpu_torch.ops.qkv_attn import attn_wgmma_smem, largest_seq, seq_limit_text
+from alpro_tpu_torch.ops.qkv_attn import temporal_fits as temporal_attn_fits
 
 spatial_launches = 0
 temporal_launches = 0
@@ -57,12 +63,18 @@ temporal_launches = 0
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIM = 64  # csrc/fused_block.cu kHD
 _QUERY_TILE = 64  # csrc/fused_block.cu kQT
-_MAX_T = 32  # csrc/fused_block.cu: the temporal softmax holds one score per lane
+_MAX_T = 32  # csrc/fused_block.cu, fp32: the temporal softmax holds one score per lane
 _MAX_GRID_YZ = 65535
+_GEMM_TILE = 128  # csrc/gemm_wgmma.cuh kBN: the temporal bf16 route's D (qkv 3D and proj D columns)
+_MAX_D_BF16 = 1024  # csrc/ln_rows.cuh: a row in one warp's registers
 _VECTORS = ("ln_s", "ln_b", "bqkv", "bproj")
+_TEMPORAL_VECTORS = ("ln_s", "ln_b", "bqkv", "b_eff")
 # (M·S, D) tensors of scratch one spatial call allocates: bf16 xn (then the
 # heads), q_hi, q_lo, k_hi, k_lo, v_hi, v_lo; fp32 the heads
 _SPATIAL_SCRATCH = {torch.bfloat16: 7, torch.float32: 1}
+# (R, D) tensors of scratch one temporal call allocates: bf16 xn (then the
+# heads) and the packed qkv's three; fp32 the heads
+_TEMPORAL_SCRATCH = {torch.bfloat16: 4, torch.float32: 1}
 
 
 def _lin_f32(x, w, b) -> torch.Tensor:
@@ -241,36 +253,102 @@ def _launch_spatial(x, vecs, vec_bf16: int, wqkv, wproj, num_heads: int, eps: fl
     return out
 
 
+def temporal_fits(B: int, T: int, D: int, num_heads: int, dtype: torch.dtype,
+                  smem: int) -> bool:
+    """Whether the temporal kernel takes x (B, T, N, D) in ``dtype`` given
+    ``smem`` bytes of opt-in shared memory per block: bf16 the limits of
+    its parts — K2's body (``qkv_attn.temporal_fits``: head_dim a multiple
+    of 8 up to 128, 1 <= T <= 128) and the LN rows and GEMM (D a multiple of
+    128 up to 1024); fp32 head_dim 64, D in (256, 512, 768, 1024), 1 <= T
+    <= 32 and B within the grid."""
+    if dtype not in _DTYPES or D % num_heads or B < 1:
+        return False
+    hd = D // num_heads
+    if dtype == torch.bfloat16:
+        return (temporal_attn_fits(T, hd, dtype, smem) and D % _GEMM_TILE == 0
+                and D <= _MAX_D_BF16)
+    return hd == _HEAD_DIM and D in _WIDTHS and 1 <= T <= _MAX_T and B <= _MAX_GRID_YZ
+
+
+def temporal_scratch_shape(B: int, T: int, N: int, D: int, dtype: torch.dtype) -> tuple:
+    """The scratch one temporal call allocates (in ``dtype``), R = B·T·N:
+    bf16 (4, R, D) — xn (then the heads) and the packed qkv (R, 3D), K2's
+    (B, T, N, 3D) input; fp32 the (1, R, D) heads."""
+    return (_TEMPORAL_SCRATCH[dtype], B * T * N, D)
+
+
+def fused_temporal_block_reference(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, num_heads: int,
+                                   eps: float) -> torch.Tensor:
+    """The TPU kernel's contract (``_temporal_block_kernel`` of
+    ``alpro_tpu/ops/pallas_fused_block.py``) in plain torch: xn = LN(x)
+    rounded to wqkv's dtype; q, k and v = xn·Wᵀ with fp32 accumulation plus
+    the fp32 bias, rounded to x's dtype; per head in fp32, q times hd^-½,
+    scores over all T, p = exp(s - max) with the exact max, o = Σ p·v / Σ p,
+    rounded to w_eff's dtype; the projection summed over the heads in fp32
+    + b_eff + the fp32 residual, rounded once to x's dtype. Only the tests
+    and ``chip_smoke.py`` use it (the twin is
+    ``fused_temporal_block_plain``)."""
+    B, T, N, D = x.shape
+    hd = D // num_heads
+    qkv = _lin_f32(ln_rows_f32(x, ln_s, ln_b, eps), wqkv, bqkv).to(x.dtype).float()
+    shape = (B, T, N, num_heads, hd)
+    q = qkv[..., :D].reshape(shape) * hd ** -0.5
+    k, v = qkv[..., D:2 * D].reshape(shape), qkv[..., 2 * D:].reshape(shape)
+    s = torch.einsum("btnhd,bsnhd->bnhts", q, k)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.einsum("bnhts,bsnhd->btnhd", p, v) / p.sum(dim=-1).permute(0, 3, 1, 2)[..., None]
+    return (_lin_f32(o.reshape(B, T, N, D), w_eff, b_eff) + x.float()).to(x.dtype)
+
+
 def fused_temporal_block(x: torch.Tensor, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff,
                          num_heads: int, *, eps: float) -> torch.Tensor:
     """``x + attn_T(qkv(LN(x)))·w_effᵀ + b_eff`` on x (B, T, N, D). The
-    kernel takes x and the weights contiguous in one dtype (bf16 or fp32),
-    head_dim 64, D in (256, 512, 768, 1024) and 1 <= T <= 32; it raises on
-    anything else."""
-    global temporal_launches
+    kernel takes x (contiguous: the projection reads it in place as the
+    residual) and the weights contiguous in one dtype (bf16 or fp32), the
+    vectors all bf16 beside bf16 x (read as they are) or as fp32, and the
+    shapes of ``temporal_fits``; it raises on anything else."""
+    name = "fused_temporal_block"
     if x.dim() != 4:
         raise ValueError(f"expected (B, T, N, D) x, got shape {tuple(x.shape)}")
-    hd = _check_args("fused_temporal_block", x, wqkv, bqkv, w_eff, b_eff, ln_s, ln_b,
-                     num_heads)
+    _check_args(name, x, wqkv, bqkv, w_eff, b_eff, ln_s, ln_b, num_heads)
     if x.device.type == "cpu":
         return fused_temporal_block_plain(x, ln_s, ln_b, wqkv, bqkv, w_eff, b_eff, num_heads,
                                           eps)
-    _cuda_operands("fused_temporal_block", x, wqkv, w_eff, hd)
-    vs, vb, vq, ve = _build.f32_vectors("fused_temporal_block",
-                                        dict(ln_s=ln_s, ln_b=ln_b, bqkv=bqkv, b_eff=b_eff))
-    B, T, N, _ = x.shape
-    if not 1 <= T <= _MAX_T or B > _MAX_GRID_YZ:
-        raise ValueError(
-            f"fused_temporal_block kernel needs 1 <= T <= {_MAX_T} and B <= {_MAX_GRID_YZ};"
-            f" got T={T}, B={B}"
-        )
-    heads = torch.empty_like(x)
+    _build.check_cuda_operand(x, f"{name} x", _DTYPES)
+    for key, w in (("wqkv", wqkv), ("w_eff", w_eff)):
+        _build.check_cuda_operand(w, f"{name} {key}", (x.dtype,))
+    B, T, N, D = x.shape
+    if N < 1 or not temporal_fits(B, T, D, num_heads, x.dtype, _build.smem_optin(x.device)):
+        limit = ("head_dim a multiple of 8 up to 128, 1 <= T <= 128 and D a multiple of 128 up"
+                 " to 1024" if x.dtype == torch.bfloat16 else
+                 f"head_dim {_HEAD_DIM}, D in {_WIDTHS}, 1 <= T <= {_MAX_T} and B <= "
+                 f"{_MAX_GRID_YZ}")
+        raise ValueError(f"{name} kernel needs, for {x.dtype}, {limit}; got B={B}, T={T}, "
+                         f"N={N}, D={D}, head_dim={D / num_heads:g}")
+    vecs, vec_bf16 = _build.layer_vectors(name, x, dict(zip(_TEMPORAL_VECTORS,
+                                                             (ln_s, ln_b, bqkv, b_eff))))
+    return _launch_temporal(x, vecs, vec_bf16, wqkv, w_eff, num_heads, eps)
+
+
+def _launch_temporal(x, vecs, vec_bf16: int, wqkv, w_eff, num_heads: int, eps: float,
+                     scratch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of the checked operands; vecs (ln_s, ln_b, bqkv, b_eff)
+    as ``_build.layer_vectors`` gives them; ``scratch`` of
+    ``temporal_scratch_shape`` (default: a new one), which the call leaves
+    holding the heads and, in bf16, the packed qkv."""
+    global temporal_launches
+    B, T, N, D = x.shape
+    hd = D // num_heads
+    if scratch is None:
+        scratch = torch.empty(temporal_scratch_shape(B, T, N, D, x.dtype), dtype=x.dtype,
+                              device=x.device)
     out = torch.empty_like(x)
     dev, stream = _build.stream_args(x)
     err = _build.lib().alpro_fused_temporal_block(
-        x.data_ptr(), vs.data_ptr(), vb.data_ptr(), wqkv.data_ptr(), vq.data_ptr(),
-        w_eff.data_ptr(), ve.data_ptr(), heads.data_ptr(), out.data_ptr(), B, T, N, num_heads,
-        float(hd ** -0.5), float(eps), int(x.dtype == torch.bfloat16), dev, stream,
+        x.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), wqkv.data_ptr(),
+        vecs[2].data_ptr(), w_eff.data_ptr(), vecs[3].data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), B, T, N, num_heads, hd, float(hd ** -0.5), float(eps),
+        int(x.dtype == torch.bfloat16), vec_bf16, dev, stream,
     )
     _build.check(err, "fused_temporal_block")
     temporal_launches += 1

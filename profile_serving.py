@@ -35,13 +35,19 @@ first:
   (32), every vector bf16 as the model passes them, B9 also with the
   residual (then its two GEMMs have two names in the split line), with
   their device time per call by CUDA-graph replay;
+* B11 ``ln_matmul`` at one ``add_videos`` call's spatial rows and QA's
+  (12608 and 6304 rows of 768 → 2304) and the temporal chain
+  ``fused_temporal_block`` (B10) at its temporal shape (8, 8, 196) and QA's
+  (2, 16, 196), in bf16, every vector bf16, with their device time per call
+  by CUDA-graph replay;
 * the device time per call (CUDA-graph replay, no profile) of the other
-  attention kernels on the same body at their main shapes: K1
-  ``spatial_attention_qkv`` (64, 197), B6 ``spatial_attention_qkv_cls`` (64,
-  196) + CLS, B13 ``fused_attention_bshd`` and B12 ``fused_attention`` at
-  (64, 197) with a key mask.
+  attention kernels at their main shapes: K2 ``temporal_attention_qkv``
+  (8, 8, 196) (its body is B10's), K1 ``spatial_attention_qkv`` (64, 197),
+  B6 ``spatial_attention_qkv_cls`` (64, 196) + CLS, B13
+  ``fused_attention_bshd`` and B12 ``fused_attention`` at (64, 197) with a
+  key mask; and a hash of K2's output on a seeded input.
 
-``--kernels-only`` runs the last six alone (no model is built). They call
+``--kernels-only`` runs the last seven alone (no model is built). They call
 only the wrappers' public entries, so the script also times an older
 checkout's kernels when copied into it with ``chip_smoke.py``.
 
@@ -50,15 +56,15 @@ ms per call (the sum of kernel times), device busy ms (the union of kernel
 intervals), the idle share of the span from first kernel start to last
 kernel end, the copy launches per call (the dtype casts: PyTorch's
 ``direct_copy_kernel``), and the top kernels by device time with their launch counts;
-where K3's, K4's or K5's bf16 launches ran, a second line splits their time
-by kernel name (``SPLIT_STAGES``). Exits non-zero without a CUDA device.
+where the redesigned kernels' bf16 launches ran, a second line splits their
+time by kernel name (``SPLIT_STAGES``). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import re
+import hashlib
 import sys
 import time
 
@@ -69,41 +75,33 @@ import chip_smoke as smoke
 
 
 # the bf16 launches of K3/K5 (csrc/ln_mlp.cu), K4 (csrc/bert_attn.cu), B9
-# (csrc/fused_block.cu) and B7 (csrc/qkv_proj.cu), by a substring of the
-# short name; K4's projection is the same instantiation as K3/K5's fc2
-# (gemm_wgmma<2, 1, float>), K4 and K5 share the finalize, and B9's qkv and
-# (without the residual) projection GEMMs are one instantiation, so a call
-# that runs both reads those stages summed. The last five are the bodies
-# before their redesign (an older checkout's).
-SPLIT_STAGES = {"LN rows (K3, B9)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
+# and B10 (csrc/fused_block.cu), B7 (csrc/qkv_proj.cu) and B11
+# (csrc/ln_matmul.cu), by a substring of the short name; K4's projection is
+# the same instantiation as K3/K5's fc2 (gemm_wgmma<2, 1, float>), K4 and K5
+# share the finalize, B9's qkv and (without the residual) projection GEMMs,
+# B7's projection and, with bf16 vectors, B11's and B10's qkv GEMM are one
+# instantiation, and B10's projection is B9's with the residual, so a call
+# that runs several reads those stages summed. The last seven are the
+# bodies before their redesign (an older checkout's).
+SPLIT_STAGES = {"LN rows (K3, B9, B10, B11)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
                 "qkv (K4)": "gemm_wgmma<0, 3",
                 "attention (K4)": "attn_wgmma<64, false, true, false",
                 "fp32 tiles (K3/K5 fc2, K4 projection)": "gemm_wgmma<2, 1, float>",
                 "finalize": "_finalize<",
-                "qkv hi/lo (B9), projection (B7; B9 without residual)":
+                "qkv hi/lo (B9), qkv (B10, B11), projection (B7; B9 without residual)":
                     "gemm_wgmma<0, 1, __nv_bfloat16>",
                 "attention (B9)": "attn_wgmma<64, false, false, true, true>",
                 "attention (B7)": "attn_wgmma<64, false, false, false, true>",
-                "projection + residual (B9)": "gemm_wgmma<2, 1, __nv_bfloat16>",
+                "projection + residual (B9, B10)": "gemm_wgmma<2, 1, __nv_bfloat16>",
+                "attention over T (K2's body: K2, B10)": "temporal_attn_kernel",
+                "attention over T, wide (K2's body)": "temporal_attn_wide",
                 "heads (K4, older body)": "bert_attn_heads",
                 "projection + LN (K4, older body)": "bert_attn_proj_ln",
                 "heads (B9, older body)": "spatial_block_heads",
                 "heads (B7, older body)": "spatial_proj_heads",
-                "proj_rows (B9, B7, older body)": "proj_rows"}
-
-
-def _short(name: str) -> str:
-    """A kernel's demangled name without its return type, namespaces and
-    argument list: ``gemm_wgmma<1>``, ``attn_wgmma<64, false, true, true>``."""
-    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
-    depth = 0
-    for i, ch in enumerate(name):
-        depth += (ch == "<") - (ch == ">")
-        if ch == "(" and depth == 0:
-            name = name[:i]
-            break
-    head, _, _ = name.partition("<")
-    return name[len(head) - len(head.split("::")[-1]):]
+                "heads (B10, older body)": "temporal_block_heads",
+                "LN + qkv (B11, older body)": "ln_matmul_kernel",
+                "proj_rows (B9, B7, B10, older body)": "proj_rows"}
 
 
 def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
@@ -123,7 +121,7 @@ def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
     span = spans[-1][1] - spans[0][0]
     by_name: dict = {}
     for e in events:
-        name = _short(e.name)
+        name = smoke.kernel_name(e.name)
         t, n = by_name.get(name, (0.0, 0))
         by_name[name] = (t + e.time_range.elapsed_us(), n + 1)
     total = sum(t for t, _ in by_name.values())
@@ -168,7 +166,8 @@ def main() -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--kernels-only", action="store_true",
                     help="profile only the LayerNorm, fused_attention_block, MLP, BERT "
-                         "attention and spatial chain kernel calls")
+                         "attention, spatial and temporal chain, LN-matmul and attention "
+                         "kernel calls")
     args = ap.parse_args()
     iters = args.iters
     card = smoke.phase_device()
@@ -258,6 +257,7 @@ def _profile_kernels(iters: int, card: str) -> None:
     _profile_mlp(iters, card, randn)
     _profile_bert_attn(iters, card, randn)
     _profile_spatial(iters, card, randn)
+    _profile_ingest(iters, card, randn)
     _attention_device_times(card, randn)
 
 
@@ -335,10 +335,41 @@ def _profile_spatial(iters: int, card: str, randn) -> None:
                          card)
 
 
+def _profile_ingest(iters: int, card: str, randn) -> None:
+    """B11 ``ln_matmul`` at one add_videos call's spatial rows (64 · 197)
+    and QA's (32 · 197) → 3D, and B10 ``fused_temporal_block`` at one
+    add_videos call's temporal shape (8, 8, 196) and QA's (2, 16, 196), every
+    vector bf16: the profile (50 calls) and the device time per call by
+    CUDA-graph replay."""
+    from alpro_tpu_torch.ops import fused_block, ln_matmul
+
+    D, H, S, N = 768, 12, 1 + smoke.PATCHES, smoke.PATCHES
+    ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
+    wqkv, bqkv = randn(3 * D, D, std=D ** -0.5), randn(3 * D, std=0.02)
+    wo, bo = randn(D, D, std=D ** -0.5), randn(D, std=0.02)
+    calls = []
+    for M in (smoke.CLIPS_PER_CALL * smoke.FRAMES, 2 * smoke.QA_FRAMES):
+        x = randn(M * S, D, std=2.0)
+        calls.append((f"ln_matmul (B11) ({M * S}, {D}) -> {3 * D} bf16",
+                      lambda x=x: ln_matmul.ln_matmul(x, *ln, wqkv, bqkv, eps=1e-6)))
+    for B, T in ((smoke.CLIPS_PER_CALL, smoke.FRAMES), (2, smoke.QA_FRAMES)):
+        x = randn(B, T, N, D)
+        calls.append((f"fused_temporal_block (B10) ({B}, {T}, {N}, {D}) bf16",
+                      lambda x=x: fused_block.fused_temporal_block(x, *ln, wqkv, bqkv, wo, bo, H,
+                                                                   eps=1e-6)))
+    with torch.no_grad():
+        for label, fn in calls:
+            dev, why = smoke.graph_ms(fn)
+            _profile(f"{label}, device per call (graph) "
+                     + (f"not measured ({why})" if why else f"{dev:.4f} ms"), fn, 10 * iters,
+                     card)
+
+
 def _attention_device_times(card: str, randn) -> None:
-    """The device time per call (CUDA-graph replay) of K1, B6 and the masked
-    attention B13/B12 at their main shapes, bf16: the kernels that share the
-    attention body with B9 and B7."""
+    """The device time per call (CUDA-graph replay) of K2, K1, B6 and the
+    masked attention B13/B12 at their main shapes, bf16: the kernels that
+    share an attention body with B10, B9 and B7. K2's output is also printed
+    as a hash, so two trees' runs show whether it is bit-equal."""
     from alpro_tpu_torch.ops import masked_attn, qkv_attn
 
     H, hd, T = 12, 64, smoke.FRAMES
@@ -348,7 +379,16 @@ def _attention_device_times(card: str, randn) -> None:
     heads = [t.unflatten(-1, (H, hd)).transpose(1, 2).contiguous() for t in (q, k, v)]
     mask = (torch.arange(1 + N, device="cuda")[None] < 150 + torch.arange(M, device="cuda")[:, None]
             % 48).float()
-    calls = {f"K1 spatial_attention_qkv ({M}, {1 + N})": lambda: qkv_attn.spatial_attention_qkv(
+    xt = randn(smoke.CLIPS_PER_CALL, T, N, 3 * D)
+    with torch.no_grad():
+        k2 = qkv_attn.temporal_attention_qkv(xt, H)
+    digest = hashlib.sha256(k2.view(torch.int16).cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"[profile] K2 temporal_attention_qkv {tuple(xt.shape)} bf16 output sha256 {digest}"
+          f" (seeded input: equal across two trees means bit-equal outputs) [{card}]",
+          flush=True)
+    calls = {f"K2 temporal_attention_qkv {tuple(xt.shape)}": lambda:
+                 qkv_attn.temporal_attention_qkv(xt, H),
+             f"K1 spatial_attention_qkv ({M}, {1 + N})": lambda: qkv_attn.spatial_attention_qkv(
                  x, H),
              f"B6 spatial_attention_qkv_cls ({M}, {N}) + CLS": lambda:
                  qkv_attn.spatial_attention_qkv_cls(qx, qc, H, T),

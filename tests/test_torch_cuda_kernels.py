@@ -23,8 +23,15 @@ fp32 product: within the bf16 rounding of the result (split: hi + lo within
 in bf16: within 2e-2 of their twins, which keep them in fp32 (the TPU
 kernels' contract), up to 2048 keys; B9 with scores in the tens too, where
 the twin with q and k rounded misses by 5x that; the layer's bf16 vectors
-read as they are give their fp32 copies' result bit for bit. B14, B17, K4,
-B9 and B7 launch on the current stream: under ``torch.cuda.stream(s)``
+read as they are give their fp32 copies' result bit for bit. B11's bf16
+route (LN rows, then the TMA/wgmma GEMM) against ``ln_matmul_plain``, its
+TPU kernel's contract, within one output ulp, at R 12608, 12544, 6304, 45
+and 1 and F 896 and 384 past the old F % 768; B10's bf16 route against
+``fused_temporal_block_reference`` (q, k, v rounded) within one ulp and
+2^-7, on K2's fast and wide paths (T up to 48); its qkv scratch bit-equal to
+B11's output and its heads to K2's own instantiation; past ``fits`` and
+``temporal_fits`` the C side refuses too. B14, B17, K4, B9, B7, B11 and B10
+launch on the current stream: under ``torch.cuda.stream(s)``
 (their result ready on s while the default stream still sleeps) and inside
 a CUDA-graph capture (a replay on new inputs).
 The limit predicates that ``auto`` reads agree with what the kernels take:
@@ -501,6 +508,43 @@ def test_ln_matmul_kernel_matches_twin(cuda, R, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# B11's bf16 route rounds where its contract reference (ln_matmul_plain)
+# does, so only fp32 sums differ in order: one bf16 ulp of the output. B10
+# rounds q, k, v and the per-head output to bf16 at fp32 values that differ
+# from the reference's in their last bits, so a few of those roundings land
+# one ulp apart, and the projection carries that (|w_eff| · ulp(o), up to a
+# few 1e-3 in a row): one ulp and 2^-7 absolute
+ULP_ATOL, ULP_RTOL = 2 ** -8, 2 ** -7
+B10_ATOL, B10_RTOL = 2 ** -7, 2 ** -7
+
+
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("R,D,F", [(12608, 768, 2304), (12544, 768, 2304), (6304, 768, 2304),
+                                   (45, 768, 2304), (300, 768, 896), (77, 64, 128),
+                                   (130, 1024, 384), (1, 512, 1536)])
+def test_ln_matmul_bf16_route_holds_its_contract(cuda, R, D, F, vec_dtype):
+    """B11's bf16 route (LN rows, then the TMA/wgmma GEMM) against
+    ``ln_matmul_plain``, which is the TPU kernel's contract, within one
+    output ulp: rows that are and are not a multiple of the GEMM's 128-row
+    tile (the TMA zero fill and the store mask), the QA shape (2 clips x 16
+    frames x 197), F = 896 and 384 (not multiples of 768, the old limit),
+    D 64-1024, the layer's bf16 vectors read as they are or fp32 ones."""
+    from alpro_tpu_torch.ops import ln_matmul
+
+    s = (1 + _randn((D,), R, cuda, torch.float32, 0.1)).to(vec_dtype)
+    b = _randn((D,), R + 1, cuda, torch.float32, 0.1).to(vec_dtype)
+    w = _randn((F, D), R + 2, cuda, torch.bfloat16, D ** -0.5)
+    bw = _randn((F,), R + 3, cuda, torch.float32, 0.02).to(vec_dtype)
+    x = _randn((R, D), R + 4, cuda, torch.bfloat16, 2.0)
+    n = ln_matmul.launches
+    with torch.no_grad():
+        got = ln_matmul.ln_matmul(x, s, b, w, bw, eps=1e-6)
+    torch.cuda.synchronize()
+    assert ln_matmul.launches == n + 1 and got.shape == (R, F) and got.dtype == torch.bfloat16
+    want = ln_matmul.ln_matmul_plain(x, s, b, w, bw, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=ULP_ATOL, rtol=ULP_RTOL)
+
+
 _MEAN, _STD = (0.48145466, 0.4578275, 0.40821073), (0.26862954, 0.26130258, 0.27577711)
 
 
@@ -563,6 +607,102 @@ def test_fused_temporal_block_kernel_matches_twin(cuda, B, T, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("vec_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,T", [(8, 8), (2, 16), (1, 32), (3, 5), (1, 48)])
+def test_fused_temporal_block_holds_the_tpu_contract(cuda, B, T, vec_dtype):
+    """B10's bf16 route against ``fused_temporal_block_reference`` (q, k and
+    v rounded to bf16 after their fp32 bias, as the TPU kernel does) within
+    one output ulp and 2^-7 (B10_ATOL): K2's fast path (T <= 32) and its
+    wide path (T = 48), the layer's bf16 vectors read as they are or fp32
+    ones."""
+    ws = list(_block_weights(cuda, torch.bfloat16, seed=T))
+    ws[:2] = [v.to(vec_dtype) for v in ws[:2]]
+    ws[3], ws[5] = ws[3].to(vec_dtype), ws[5].to(vec_dtype)
+    x = _randn((B, T, 196, 768), B + T, cuda, torch.bfloat16)
+    n = fused_block.temporal_launches
+    got = fused_block.fused_temporal_block(x, *ws, 12, eps=1e-6)
+    torch.cuda.synchronize()
+    assert fused_block.temporal_launches == n + 1
+    want = fused_block.fused_temporal_block_reference(x, *ws, 12, 1e-6)
+    torch.testing.assert_close(got.float(), want.float(), atol=B10_ATOL, rtol=B10_RTOL)
+
+
+def test_fused_temporal_block_holds_the_contract_where_the_twin_misses(cuda):
+    """q/k weights at std 4·D^-½ (scores in the tens). There the GEMM's fp32
+    sums, in another order than torch's, flip the bf16 rounding of some q/k
+    entries, each moving a score by ~1e-2 and a few outputs by up to ~3e-2:
+    the kernel is held to the reference within 3e-2 (B10's tolerance
+    against its twin), and, since those flips are rare where the twin
+    (q, k and v in fp32) misses nearly everywhere, its mean miss is under a
+    tenth of the twin's."""
+    ws = list(_block_weights(cuda, torch.bfloat16, seed=7))
+    ws[2] = ws[2] * torch.tensor([4.0] * 1536 + [1.0] * 768, device=cuda,
+                                 dtype=torch.bfloat16)[:, None]
+    x = _randn((8, 8, 196, 768), 8, cuda, torch.bfloat16)
+    got = fused_block.fused_temporal_block(x, *ws, 12, eps=1e-6).float()
+    want = fused_block.fused_temporal_block_reference(x, *ws, 12, 1e-6).float()
+    twin = fused_block.fused_temporal_block_plain(x, *ws, 12, 1e-6).float()
+    torch.testing.assert_close(got, want, atol=3e-2, rtol=3e-2)
+    assert 10 * float((got - want).abs().mean()) < float((twin - want).abs().mean())
+
+
+@pytest.mark.parametrize("T", [8, 48])
+def test_fused_temporal_block_runs_b11_then_k2(cuda, T):
+    """B10's bf16 route is B11's route, K2's body and the projection: the
+    packed qkv it leaves in its scratch is ``ln_matmul``'s output bit for
+    bit, and the heads are K2's (``temporal_attention_qkv``, csrc/
+    temporal_attn.cu's instantiation of the shared body) on that qkv bit for
+    bit, on K2's fast path (T = 8) and its wide path (T = 48)."""
+    from alpro_tpu_torch.ops import ln_matmul
+
+    B, N, D, H = 2, 196, 768, 12
+    ws = [t.to(torch.bfloat16) for t in _block_weights(cuda, torch.bfloat16, seed=T)]
+    x = _randn((B, T, N, D), T, cuda, torch.bfloat16)
+    scratch = torch.empty(fused_block.temporal_scratch_shape(B, T, N, D, x.dtype),
+                          dtype=x.dtype, device=cuda)
+    vecs = (ws[0], ws[1], ws[3], ws[5])
+    with torch.no_grad():
+        fused_block._launch_temporal(x, vecs, 1, ws[2], ws[4], H, 1e-6, scratch)
+        heads = scratch[0].reshape(B, T, N, D).clone()
+        qkv = scratch[1:].reshape(B, T, N, 3 * D)
+        torch.testing.assert_close(qkv, ln_matmul.ln_matmul(x, ws[0], ws[1], ws[2], ws[3],
+                                                            eps=1e-6), atol=0, rtol=0)
+        torch.testing.assert_close(heads, qkv_attn.temporal_attention_qkv(qkv, H), atol=0,
+                                   rtol=0)
+
+
+def test_temporal_block_and_ln_matmul_limits_equal_the_kernels(cuda):
+    """Past ``temporal_fits`` and ``ln_matmul.fits`` the C side refuses too
+    (an error code before any launch), and at them it launches: bf16 T 128
+    and 129, head_dim 128 and 136, D 1024 and 1152, 640 (not a multiple of
+    the GEMM's 128 columns); B11 F 128 and 192, D 64 and 96."""
+    from alpro_tpu_torch.ops import ln_matmul
+
+    bf, smem = torch.bfloat16, _build.smem_optin(cuda)
+    for T, D, H in ((128, 768, 12), (129, 768, 12), (8, 1024, 8), (8, 1088, 8), (8, 1152, 9),
+                    (8, 640, 10), (8, 768, 6)):
+        x = torch.zeros(1, T, 2, D, device=cuda, dtype=bf)
+        w = (torch.zeros(3 * D, D, device=cuda, dtype=bf), torch.zeros(D, D, device=cuda,
+                                                                         dtype=bf))
+        vecs = tuple(torch.zeros(n, device=cuda, dtype=bf) for n in (D, D, 3 * D, D))
+        fits = fused_block.temporal_fits(1, T, D, H, bf, smem)
+        if fits:
+            fused_block._launch_temporal(x, vecs, 1, *w, H, 1e-6)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                fused_block._launch_temporal(x, vecs, 1, *w, H, 1e-6)
+    torch.cuda.synchronize()
+    for D, F in ((64, 128), (96, 128), (768, 192), (768, 128)):
+        x, w = torch.zeros(5, D, device=cuda, dtype=bf), torch.zeros(F, D, device=cuda, dtype=bf)
+        vecs = tuple(torch.zeros(n, device=cuda, dtype=bf) for n in (D, D, F))
+        if ln_matmul.fits(D, F, bf):
+            ln_matmul._launch(x, vecs, 1, w, 1e-6)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                ln_matmul._launch(x, vecs, 1, w, 1e-6)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("M,S,residual", [(64, 197, False), (32, 197, True), (3, 17, False),
                                           (2, 256, True), (4, 257, False), (2, 577, True),
@@ -621,6 +761,17 @@ def test_fused_ingest_kernels_refuse_grad_and_limits(cuda):
         with pytest.raises(ValueError, match="T <= 32"):
             fused_block.fused_temporal_block(torch.zeros(1, 33, 2, 768, device=cuda), *ws, 12,
                                              eps=1e-6)
+        # bf16: K2's T <= 128 (T = 33 and 128 launch), one past raises before a launch
+        n = fused_block.temporal_launches
+        for T in (33, 128):
+            got = fused_block.fused_temporal_block(torch.zeros(1, T, 2, 768, device=cuda,
+                                                               dtype=torch.bfloat16), *wb, 12,
+                                                   eps=1e-6)
+            assert got.shape == (1, T, 2, 768) and bool(torch.isfinite(got).all())
+        with pytest.raises(ValueError, match="1 <= T <= 128"):
+            fused_block.fused_temporal_block(torch.zeros(1, 129, 2, 768, device=cuda,
+                                                         dtype=torch.bfloat16), *wb, 12, eps=1e-6)
+        assert fused_block.temporal_launches == n + 2
 
 
 def _spatial_block_rounded_qk(x, ln_s, ln_b, wqkv, bqkv, wproj, bproj, H, eps):
@@ -1000,7 +1151,7 @@ def test_gemm_bf16_matches_fp32_product(cuda, M, N, K, split):
 
 
 def _stream_cases(cuda):
-    from alpro_tpu_torch.ops import layernorm
+    from alpro_tpu_torch.ops import layernorm, ln_matmul
 
     x = _randn((12608, 768), 50, cuda, torch.bfloat16, 2.0)
     s, b = 1 + _randn((768,), 51, cuda, torch.float32, 0.1), _randn((768,), 52, cuda,
@@ -1012,7 +1163,14 @@ def _stream_cases(cuda):
     fb = tuple(t.to(torch.bfloat16) for t in _block_weights(cuda, torch.bfloat16, seed=55))
     xs = _randn((64, 197, 768), 56, cuda, torch.bfloat16)
     xq = _randn((64, 197, 3 * 768), 57, cuda, torch.bfloat16)
-    return {"layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
+    # B11 at one add_videos call's spatial rows, B10 at its temporal shape
+    xt = _randn((8, 8, 196, 768), 58, cuda, torch.bfloat16)
+    return {"ln_matmul": ((x,), lambda x: ln_matmul.ln_matmul(x, *fb[:4], eps=1e-6),
+                          lambda x: ln_matmul.ln_matmul_plain(x, *fb[:4], 1e-6), 2e-2),
+            "temporal_block": ((xt,), lambda x: fused_block.fused_temporal_block(
+                x, *fb, 12, eps=1e-6),
+                lambda x: fused_block.fused_temporal_block_reference(x, *fb, 12, 1e-6), 2e-2),
+            "layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
                           lambda x: layernorm.layernorm_plain(x, s, b, 1e-6, torch.bfloat16),
                           2e-2),
             "block_attn": ((args[0],), lambda x: block_attn.fused_attention_block(x, *args[1:], 12),
@@ -1032,7 +1190,7 @@ def _stream_cases(cuda):
 
 
 @pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn", "fused_block",
-                                    "qkv_proj"])
+                                    "qkv_proj", "ln_matmul", "temporal_block"])
 def test_kernel_launches_on_the_current_stream(cuda, kernel):
     """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
     stream asleep, its result is complete on s. Inside a CUDA-graph capture
