@@ -59,9 +59,9 @@
 //      scratch, which is K2's (B, T, N, 3D) packed input as it lies;
 //   3. K2's body (temporal_attn.cuh) on that scratch: q scaled in fp32, the
 //      exact softmax over T, sum p v / l rounded once into the (R, D) heads
-//      (xn's buffer, free by then); its fast path at head_dim 32/64/96/128
-//      and T <= 32, its wide path (any head_dim a multiple of 8 up to 128, T
-//      up to 128) past them;
+//      (xn's buffer, free by then); its TMA-staged fast path at T <= 32,
+//      its wide path up to T = 128 (either: any head_dim a multiple of 8 up
+//      to 128);
 //   4. gemm_wgmma.cuh's kFloat: heads · w_effᵀ + b_eff + x in fp32, rounded
 //      once into out (B9's step 4).
 // The scratch round trip is ~4 · R·D bf16 each way (~77 MB at the main

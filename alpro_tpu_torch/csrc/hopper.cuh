@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the port's kernels, in raw PTX: mbarriers,
-// TMA tensor loads, wgmma shared-memory descriptors and the register-A and
-// shared-A wgmma products, ldmatrix, and the host-side encoding of a tensor
-// map.
+// TMA tensor loads and stores and their bulk groups, wgmma shared-memory
+// descriptors and the register-A and shared-A wgmma products, ldmatrix, and
+// the host-side encoding of a tensor map.
 //
 // Layouts. A tile staged by TMA with a swizzle of SW bytes (32, 64 or 128) is
 // a stack of "panels", each rows x (SW / 2) bf16 elements: row r of a panel
@@ -101,6 +101,45 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// box of a 5-D tensor map at element coordinates (c0 innermost, ..., c4) into
+// shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// shared memory at src into the box of a 4-D tensor map at element
+// coordinates (c0 innermost, ..., c3); the box's parts outside the tensor are
+// not written. Completes in this thread's bulk group (bulk_commit, then
+// bulk_wait_read before src is written again)
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's bulk groups still read shared memory
+template <int N> __device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until at most N of this thread's bulk groups are not complete
+template <int N> __device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- swizzled panels ----

@@ -17,15 +17,15 @@
 //   * the per-head output o / l is rounded to the projection weight's dtype;
 //   * the projection accumulates over all heads in fp32, then adds the fp32
 //     bias and is cast to qkv's dtype.
-// Weights come in torch Linear layout (out, in), D = H * 64; biases fp32,
-// or (spatial bf16) the layer's bf16 bias, widened on load.
+// Weights come in torch Linear layout (out, in); biases fp32, or in bf16
+// the layer's bf16 bias, widened on load.
 //
 // What bounds it on an H100. B7 at 8 clips x 8 frames (64 cells of 197):
 // 7.6 GFLOP of attention and 14.9 GFLOP of projection against ~79 MB read
 // and written: bound by bytes (0.024 ms at 3.35 TB/s). B8 at the same
 // clips: 0.3 GFLOP of attention (T x T per location) and 14.8 GFLOP of
-// projection against ~78 MB: bound by bytes. Neither can carry the
-// projection's cross-head sum from one grid step to the next as the TPU
+// projection against ~78 MB: bound by bytes (0.0234 ms). Neither can carry
+// the projection's cross-head sum from one grid step to the next as the TPU
 // grid does; the designs:
 //   B7, bf16: two launches behind one C call, every product on wgmma:
 //     1. attn_wgmma.cuh under kPSplit (K1's body and plan, one CTA per
@@ -43,18 +43,28 @@
 //     (query-tile group, head, cell) with the cell's fp32 K and V in shared
 //     memory and a warp per 16 query rows running attn_f32.cuh's core,
 //     writing the per-head output into an (M, S, D) scratch; then
-//     row_tile.cuh's projection launch (proj_rows). S <= 256;
-//   B8, one launch per (tile of T x 32/T locations, clip): the heads in
-//     groups of 4, each group's q, k, v staged in shared memory in qkv's
-//     dtype, one warp per (location, head) running temporal_attn.cu's warp
-//     softmax (lanes over the head's channels, lane u keeping score u) and
-//     writing the rounded output into the tile's (32 x D) A tile in shared
-//     memory; then the row-tile GEMM (rows::gemm) of the A tile against
-//     w_eff, so the attention output never reaches device memory. T <= 32.
+//     row_tile.cuh's projection launch (proj_rows). S <= 256, head_dim 64;
+//   B8, bf16: two launches behind one C call (B7's, with K2's attention):
+//     1. K2's body (temporal_attn.cuh, its fast and wide paths): q, k, v
+//        read in place, q scaled in fp32, the exact softmax over T, o / l in
+//        fp32 rounded once into an (R, D) bf16 heads scratch, R = B·T·N —
+//        the TPU kernel's rounding of the per-head output to w_eff's dtype;
+//     2. gemm_wgmma.cuh's kRound: heads · w_effᵀ + b_eff over all D columns
+//        in fp32, rounded once into the (B, T, N, D) output.
+//     T <= 128, head_dim a multiple of 8 up to 128 (K2's limits), D a
+//     multiple of 128 (the GEMM's column tile);
+//   B8, fp32 (a test dtype): one launch per (tile of T x 32/T locations,
+//     clip): the heads in groups of 4, each group's q, k, v staged in shared
+//     memory, one warp per (location, head) running a warp softmax (lanes
+//     over the head's channels, lane u keeping score u) and writing the
+//     output into the tile's (32 x D) A tile in shared memory; then the
+//     row-tile GEMM (rows::gemm) of the A tile against w_eff. T <= 32,
+//     head_dim 64, D in (256, 512, 768, 1024).
 #include "attn_f32.cuh"
 #include "attn_wgmma.cuh"
 #include "gemm_wgmma.cuh"
 #include "row_tile.cuh"
+#include "temporal_attn.cuh"
 
 namespace {
 
@@ -166,7 +176,7 @@ int spatial_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* wproj, const TV*
                                     int(D), stream);
 }
 
-// ---- temporal (B8): one launch ----
+// ---- temporal (B8), fp32: one launch ----
 
 constexpr int kHG = 4;  // heads per staging group
 
@@ -288,13 +298,12 @@ int launch_temporal(const void* qkv, const void* w_eff, const void* b_eff, void*
   return int(cudaGetLastError());
 }
 
-template <typename T>
-int temporal(int D, const void* qkv, const void* w_eff, const void* b_eff, void* out, int B,
-             int Tn, int N, float scale, cudaStream_t st) {
+int temporal_f32(int D, const void* qkv, const void* w_eff, const void* b_eff, void* out, int B,
+                 int Tn, int N, float scale, cudaStream_t st) {
   switch (D) {
 #define ALPRO_TEMPORAL_CASE(NG) \
   case NG * rows::kTile:        \
-    return launch_temporal<T, NG>(qkv, w_eff, b_eff, out, B, Tn, N, scale, st);
+    return launch_temporal<float, NG>(qkv, w_eff, b_eff, out, B, Tn, N, scale, st);
     ALPRO_TEMPORAL_CASE(2)
     ALPRO_TEMPORAL_CASE(4)
     ALPRO_TEMPORAL_CASE(6)
@@ -302,6 +311,21 @@ int temporal(int D, const void* qkv, const void* w_eff, const void* b_eff, void*
 #undef ALPRO_TEMPORAL_CASE
     default: return int(cudaErrorInvalidValue);
   }
+}
+
+// ---- temporal (B8), bf16: K2's body into the heads, then the GEMM ----
+
+// heads: an (R, D) bf16 scratch, R = B·T·N; TV: the bias's dtype
+template <typename TV>
+int temporal_bf16(const __nv_bfloat16* qkv, const __nv_bfloat16* w_eff, const TV* b_eff,
+                  __nv_bfloat16* heads, __nv_bfloat16* out, int B, int Tn, int N, int H, int hd,
+                  float scale, int device, cudaStream_t stream) {
+  namespace gm = alpro::gemm;
+  const int D = H * hd, R = B * Tn * N;
+  int err = alpro::tattn::dispatch<__nv_bfloat16>(qkv, heads, B, Tn, N, H, hd, scale, device,
+                                                  stream);
+  if (err) return err;
+  return gm::launch<gm::kRound, TV>(heads, w_eff, gm::Epilogue{{out}, b_eff, 0}, R, D, D, stream);
 }
 
 }  // namespace
@@ -346,15 +370,34 @@ extern "C" int alpro_spatial_qkv_proj(const void* qkv, const void* wproj, const 
                              device, st);
 }
 
-// qkv (B, T, N, 3D) and out (B, T, N, D) in one dtype, 1 <= T <= 32; w_eff
-// (D, D) in it, b_eff fp32, D = H * 64 in (256, 512, 768, 1024).
+// qkv (B, T, N, 3D) and out (B, T, N, D) in one dtype, D = H * hd, w_eff
+// (D, D) in it. bf16: heads an (B·T·N, D) bf16 scratch, b_eff bf16 (vec_bf16
+// 1) or fp32; 1 <= T <= 128, hd a multiple of 8 up to 128, D a multiple of
+// 128. fp32: heads unused, b_eff fp32; 1 <= T <= 32, hd 64, D in (256, 512,
+// 768, 1024). Every limit is checked before a launch.
 extern "C" int alpro_temporal_qkv_proj(const void* qkv, const void* w_eff, const void* b_eff,
-                                       void* out, int B, int Tn, int N, int H, float scale,
-                                       int is_bf16, int device, void* stream) {
-  if (B < 1 || N < 1 || H < 1 || Tn < 1 || Tn > rows::kTM) return int(cudaErrorInvalidValue);
+                                       void* heads, void* out, int B, int Tn, int N, int H,
+                                       int hd, float scale, int is_bf16, int vec_bf16,
+                                       int device, void* stream) {
+  if (B < 1 || N < 1 || H < 1 || Tn < 1 || long(B) * Tn * N > 0x7fffffffL)
+    return int(cudaErrorInvalidValue);
+  const int D = H * hd;
+  if (is_bf16 ? (Tn > alpro::tattn::kMaxT || hd < 8 || hd > 128 || hd % 8 ||
+                 D % alpro::gemm::kBN)
+              : (vec_bf16 || hd != kHD || Tn > rows::kTM || B > 65535))
+    return int(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? temporal<__nv_bfloat16>(H * kHD, qkv, w_eff, b_eff, out, B, Tn, N, scale, st)
-                 : temporal<float>(H * kHD, qkv, w_eff, b_eff, out, B, Tn, N, scale, st);
+  if (!is_bf16) return temporal_f32(D, qkv, w_eff, b_eff, out, B, Tn, N, scale, st);
+  using bf16 = __nv_bfloat16;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  const bf16* w = static_cast<const bf16*>(w_eff);
+  bf16* hs = static_cast<bf16*>(heads);
+  bf16* o = static_cast<bf16*>(out);
+  if (vec_bf16)
+    return temporal_bf16<bf16>(x, w, static_cast<const bf16*>(b_eff), hs, o, B, Tn, N, H, hd,
+                               scale, device, st);
+  return temporal_bf16<float>(x, w, static_cast<const float*>(b_eff), hs, o, B, Tn, N, H, hd,
+                              scale, device, st);
 }

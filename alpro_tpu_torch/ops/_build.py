@@ -45,6 +45,8 @@ _SIGNATURES = {
     "alpro_spatial_attn_smem": ([_I, _I, _I, _I], _I),
     # qkv, out, B, T, N, H, hd, scale, is_bf16, device, stream
     "alpro_temporal_attn": ([_P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _P], _I),
+    # T, hd, is_bf16, device
+    "alpro_temporal_attn_smem": ([_I, _I, _I, _I], _I),
     # x, ln_scale, ln_bias, w1, b1, w2, b2, out, partial, hidden, normed, R, D,
     # Dh, h_split, eps, residual, is_bf16, device, stream
     "alpro_ln_mlp": ([_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, _I, _P], _I),
@@ -84,8 +86,9 @@ _SIGNATURES = {
     "alpro_spatial_qkv_proj": ([_P] * 5 + [_I] * 4 + [_F, _I, _I, _I, _P], _I),
     # S, is_bf16, device
     "alpro_spatial_qkv_proj_smem": ([_I, _I, _I], _I),
-    # qkv, w_eff, b_eff, out, B, T, N, H, scale, is_bf16, device, stream
-    "alpro_temporal_qkv_proj": ([_P] * 4 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    # qkv, w_eff, b_eff, heads, out, B, T, N, H, hd, scale, is_bf16, vec_bf16,
+    # device, stream
+    "alpro_temporal_qkv_proj": ([_P] * 5 + [_I] * 5 + [_F, _I, _I, _I, _P], _I),
     # x, scale, bias, out, R, D, eps, in_bf16, out_bf16, device, stream
     "alpro_layernorm": ([_P] * 4 + [_I, _I, _F, _I, _I, _I, _P], _I),
     # x, wqkv, bqkv, wproj, bproj, key mask, scratch, out, B, S, H, q_split,

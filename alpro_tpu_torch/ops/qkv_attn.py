@@ -26,9 +26,10 @@ runs the twin only for a CPU tensor; for a CUDA tensor it launches the kernel
 or raises. ``*_launches`` count kernel launches (one per call). K1 (with
 B6) and K2 each have one limit predicate (``spatial_fits``: head_dim 32,
 64 or 128 and a launch that fits shared memory, any S;
-``temporal_fits``: head_dim a multiple of 8 up to 128, T up to 128), which
-their wrappers' checks and the model's ``auto`` read. The temporal kernel
-also carries B16 (``ops/temporal_attn.py``).
+``temporal_fits``: head_dim a multiple of 8 up to 128, T up to 128 and a
+launch that fits shared memory), which their wrappers' checks and the
+model's ``auto`` read; B8's (``temporal_proj_fits``) takes K2's in bf16.
+The temporal kernel also carries B16 (``ops/temporal_attn.py``).
 
 Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), the
 K1/K2 kernel call is a ``torch.autograd.Function`` whose backward is the vjp
@@ -59,9 +60,12 @@ _DTYPES = (torch.bfloat16, torch.float32)
 _MAX_GRID_YZ = 65535
 _PROJ_HEAD_DIM = 64  # csrc/qkv_proj.cu (attn_f32.cuh kHD)
 _PROJ_QUERY_TILE = 64  # csrc/qkv_proj.cu kQT
-_MAX_T = 32  # csrc/qkv_proj.cu: T x 32/T locations per 32-row tile
-_TEMPORAL_MAX_T = 128  # csrc/temporal_attn.cu kMaxT
-_TEMPORAL_MAX_HD = 128  # csrc/temporal_attn.cu: up to 4 channels per lane
+_MAX_T = 32  # csrc/qkv_proj.cu, fp32 B8: T x 32/T locations per 32-row tile
+_GEMM_TILE = 128  # csrc/gemm_wgmma.cuh kBN: B8's bf16 D is a multiple of it
+_TEMPORAL_MAX_T = 128  # csrc/temporal_attn.cuh kMaxT
+_TEMPORAL_MAX_HD = 128  # csrc/temporal_attn.cuh: up to 4 channels per lane (wide path)
+# csrc/temporal_attn.cuh's fast path: kFastMaxT, kRowThreads, kStageBytes
+_TEMPORAL_FAST_MAX_T, _TEMPORAL_ROW_THREADS, _TEMPORAL_STAGE_BYTES = 32, 128, 49152
 
 
 # ---- the limits of K1 and K2: one predicate each, read by the wrappers and
@@ -144,12 +148,43 @@ def _spatial_check(name: str, M: int, S: int, num_heads: int, hd: int, dtype, de
         )
 
 
+def temporal_smem_bytes(T: int, hd: int, dtype: torch.dtype, smem: int) -> int:
+    """Dynamic shared memory of a K2 launch at T frames and head_dim ``hd``
+    (``csrc/temporal_attn.cu`` ``alpro_temporal_attn_smem``) on a device
+    with ``smem`` bytes of opt-in shared memory per block, or 0 where none
+    fits or the shape is outside K2's limits (head_dim a multiple of 8 up to
+    128, 1 <= T <= 128). The fast path (T <= 32, ``csrc/temporal_attn.cuh``
+    ``fast_smem``): 128 bytes of barriers and two stages of a tile's q, k
+    and v boxes, each T x rows x hd values rounded up to 128 bytes, where a
+    tile has rows = 128 // T (location, head) rows, fewer where 3·T·rows·hd
+    values pass 48 KiB, and at least one. Past it, or where that does not
+    fit, the wide path: up to four warps' fp32 K and V (2·T·hd floats
+    each)."""
+    if dtype not in _DTYPES or hd % 8 or not 8 <= hd <= _TEMPORAL_MAX_HD or \
+            not 1 <= T <= _TEMPORAL_MAX_T:
+        return 0
+    if T <= _TEMPORAL_FAST_MAX_T:
+        e = dtype.itemsize
+        rows = max(1, min(_TEMPORAL_ROW_THREADS // T, _TEMPORAL_STAGE_BYTES // (3 * T * hd * e)))
+        fast = 128 + 2 * 3 * (-(-T * rows * hd * e // 128) * 128)
+        if fast <= smem:
+            return fast
+    per_warp = 2 * T * hd * 4
+    return min(4, smem // per_warp) * per_warp if per_warp <= smem else 0
+
+
 def temporal_fits(T: int, hd: int, dtype: torch.dtype, smem: int) -> bool:
-    """Whether K2 (and B16) takes T frames at head_dim ``hd`` in ``dtype``:
-    hd a multiple of 8 up to 128, 1 <= T <= 128, one warp's fp32 K and V in
-    shared memory."""
-    return (dtype in _DTYPES and hd % 8 == 0 and 8 <= hd <= _TEMPORAL_MAX_HD
-            and 1 <= T <= _TEMPORAL_MAX_T and 2 * T * hd * 4 <= smem)
+    """Whether K2 (and B16, B10's and B8's attention) takes T frames at
+    head_dim ``hd`` in ``dtype``: hd a multiple of 8 up to 128, 1 <= T <=
+    128, and a launch that fits shared memory (``temporal_smem_bytes``)."""
+    return temporal_smem_bytes(T, hd, dtype, smem) > 0
+
+
+def temporal_launch_smem(T: int, hd: int, dtype: torch.dtype, device) -> int:
+    """The CUDA side's figure for ``temporal_smem_bytes`` on ``device``."""
+    dev = torch.device(device).index
+    return _build.lib().alpro_temporal_attn_smem(
+        T, hd, int(dtype == torch.bfloat16), torch.cuda.current_device() if dev is None else dev)
 
 
 def _split_heads(qkv: torch.Tensor, num_heads: int):
@@ -364,26 +399,18 @@ def temporal_attention_qkv_proj_plain(qkv, w_eff, b_eff, num_heads: int,
     return _proj_f32(temporal_attention_plain(qkv, num_heads, scale), w_eff, b_eff, qkv.dtype)
 
 
-def _proj_operands(name, qkv, w, b, num_heads, bf16_bias: bool):
-    """Check the shapes (and on CUDA the operands); returns (hd, bias,
-    vec_bf16): on CUDA the bias in fp32, or where ``bf16_bias`` (B7) as
-    ``_build.layer_vectors`` hands it over."""
+def _proj_operands(name, qkv, w, b, num_heads) -> int:
+    """Check the projection's shapes and, on CUDA, the operands (no grad;
+    qkv and w contiguous in one dtype); returns head_dim."""
     D = qkv.shape[-1] // 3
     hd = _head_dim(qkv, num_heads)
     if tuple(w.shape) != (D, D) or tuple(b.shape) != (D,):
         raise ValueError(f"{name}: projection shapes {tuple(w.shape)}, {tuple(b.shape)} for D={D}")
-    if qkv.device.type == "cpu":
-        return hd, b, 0
-    _build.refuse_grad(name, qkv, w, b)
-    _build.check_cuda_operand(qkv, name, _DTYPES)
-    _build.check_cuda_operand(w, f"{name} w", (qkv.dtype,))
-    if hd != _PROJ_HEAD_DIM or D not in _WIDTHS:
-        raise ValueError(f"{name} kernel needs head_dim {_PROJ_HEAD_DIM} and D in {_WIDTHS}; "
-                         f"got head_dim={hd}, D={D}")
-    if bf16_bias:
-        (b,), vec_bf16 = _build.layer_vectors(name, qkv, {"b": b})
-        return hd, b, vec_bf16
-    return hd, _build.f32_vectors(name, {"b": b})[0], 0
+    if qkv.device.type != "cpu":
+        _build.refuse_grad(name, qkv, w, b)
+        _build.check_cuda_operand(qkv, name, _DTYPES)
+        _build.check_cuda_operand(w, f"{name} w", (qkv.dtype,))
+    return hd
 
 
 def _proj_f32_smem(S: int) -> int:
@@ -465,24 +492,28 @@ def spatial_attention_qkv_proj(qkv: torch.Tensor, wproj: torch.Tensor, bproj: to
     limit on S: ``spatial_proj_fits``)."""
     if qkv.dim() != 3:
         raise ValueError(f"expected (M, S, 3D) qkv, got shape {tuple(qkv.shape)}")
-    hd, b, vec_bf16 = _proj_operands("spatial_attention_qkv_proj", qkv, wproj, bproj, num_heads,
-                                     bf16_bias=True)
+    name = "spatial_attention_qkv_proj"
+    hd = _proj_operands(name, qkv, wproj, bproj, num_heads)
     scale = hd ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
-        return spatial_attention_qkv_proj_plain(qkv, wproj, b, num_heads, scale)
+        return spatial_attention_qkv_proj_plain(qkv, wproj, bproj, num_heads, scale)
     M, S, threeD = qkv.shape
+    if hd != _PROJ_HEAD_DIM or threeD // 3 not in _WIDTHS:
+        raise ValueError(f"{name} kernel needs head_dim {_PROJ_HEAD_DIM} and D in {_WIDTHS}; "
+                         f"got head_dim={hd}, D={threeD // 3}")
     smem = _build.smem_optin(qkv.device)
     if not spatial_proj_fits(M, S, threeD // 3, num_heads, qkv.dtype, smem):
-        raise ValueError(f"spatial_attention_qkv_proj kernel takes M <= {_MAX_GRID_YZ} and "
+        raise ValueError(f"{name} kernel takes M <= {_MAX_GRID_YZ} and "
                          f"{seq_limit_text(spatial_proj_max_seq(qkv.dtype, smem))} for "
                          f"{qkv.dtype} on this device; got S={S}, M={M}")
+    (b,), vec_bf16 = _build.layer_vectors(name, qkv, {"b": bproj})
     return _launch_spatial_proj(qkv, wproj, b, vec_bf16, num_heads, scale)
 
 
 def _launch_spatial_proj(qkv, wproj, b, vec_bf16: int, num_heads: int,
                          scale: float) -> torch.Tensor:
-    """One launch of B7 on the checked operands; b as ``_proj_operands``
-    gives it."""
+    """One launch of B7 on the checked operands; b as
+    ``_build.layer_vectors`` gives it."""
     global spatial_proj_launches
     M, S, threeD = qkv.shape
     bf16 = qkv.dtype == torch.bfloat16
@@ -500,28 +531,66 @@ def _launch_spatial_proj(qkv, wproj, b, vec_bf16: int, num_heads: int,
     return out
 
 
+def temporal_proj_fits(B: int, T: int, D: int, num_heads: int, dtype: torch.dtype,
+                       smem: int) -> bool:
+    """Whether B8 takes packed qkv (B, T, N, 3D) in ``dtype`` given ``smem``
+    bytes of opt-in shared memory per block: bf16 the limits of its two
+    launches — K2's body (``temporal_fits``: head_dim a multiple of 8 up to
+    128, 1 <= T <= 128) and the GEMM (D a multiple of 128); fp32 head_dim
+    64, D in (256, 512, 768, 1024), 1 <= T <= 32 and B within the grid."""
+    if dtype not in _DTYPES or num_heads < 1 or D % num_heads or B < 1:
+        return False
+    hd = D // num_heads
+    if dtype == torch.bfloat16:
+        return temporal_fits(T, hd, dtype, smem) and D % _GEMM_TILE == 0
+    return hd == _PROJ_HEAD_DIM and D in _WIDTHS and 1 <= T <= _MAX_T and B <= _MAX_GRID_YZ
+
+
 def temporal_attention_qkv_proj(qkv: torch.Tensor, w_eff: torch.Tensor, b_eff: torch.Tensor,
                                 num_heads: int, *, scale: Optional[float] = None) -> torch.Tensor:
     """``attn_T(qkv)·w_effᵀ + b_eff`` over packed qkv (B, T, N, 3D) → (B, T,
-    N, D), attention over T at each (b, n); w_eff (D, D) in qkv's dtype. The
-    kernel takes head_dim 64, D in (256, 512, 768, 1024) and 1 <= T <= 32."""
-    global temporal_proj_launches
+    N, D), attention over T at each (b, n); w_eff (D, D) in qkv's dtype,
+    b_eff (D,) in bf16 or fp32 (bf16 beside bf16 qkv goes in as it is). The
+    kernel takes the shapes of ``temporal_proj_fits``: in bf16 T up to 128,
+    head_dim a multiple of 8 up to 128 and D a multiple of 128; in fp32
+    head_dim 64, D in (256, 512, 768, 1024) and T up to 32."""
+    name = "temporal_attention_qkv_proj"
     if qkv.dim() != 4:
         raise ValueError(f"expected (B, T, N, 3D) qkv, got shape {tuple(qkv.shape)}")
-    hd, b, _ = _proj_operands("temporal_attention_qkv_proj", qkv, w_eff, b_eff, num_heads,
-                              bf16_bias=False)
+    hd = _proj_operands(name, qkv, w_eff, b_eff, num_heads)
     scale = hd ** -0.5 if scale is None else float(scale)
     if qkv.device.type == "cpu":
-        return temporal_attention_qkv_proj_plain(qkv, w_eff, b, num_heads, scale)
+        return temporal_attention_qkv_proj_plain(qkv, w_eff, b_eff, num_heads, scale)
     B, T, N, threeD = qkv.shape
-    if not 1 <= T <= _MAX_T or B > _MAX_GRID_YZ:
-        raise ValueError(f"temporal_attention_qkv_proj kernel needs 1 <= T <= {_MAX_T} and "
-                         f"B <= {_MAX_GRID_YZ}; got T={T}, B={B}")
+    D = threeD // 3
+    if N < 1 or not temporal_proj_fits(B, T, D, num_heads, qkv.dtype,
+                                       _build.smem_optin(qkv.device)):
+        limit = ("head_dim a multiple of 8 up to 128, 1 <= T <= 128 and D a multiple of 128"
+                 if qkv.dtype == torch.bfloat16 else
+                 f"head_dim {_PROJ_HEAD_DIM}, D in {_WIDTHS}, 1 <= T <= {_MAX_T} and B <= "
+                 f"{_MAX_GRID_YZ}")
+        raise ValueError(f"{name} kernel needs, for {qkv.dtype}, {limit}; got B={B}, T={T}, "
+                         f"N={N}, D={D}, head_dim={D / num_heads:g}")
+    (b,), vec_bf16 = _build.layer_vectors(name, qkv, {"b": b_eff})
+    return _launch_temporal_proj(qkv, w_eff, b, vec_bf16, num_heads, scale)
+
+
+def _launch_temporal_proj(qkv, w_eff, b, vec_bf16: int, num_heads: int, scale: float,
+                          heads: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One launch of B8 on the checked operands; b as
+    ``_build.layer_vectors`` gives it. bf16: ``heads`` (default: a new one),
+    the (B, T, N, D) scratch that the call leaves holding K2's output."""
+    global temporal_proj_launches
+    B, T, N, threeD = qkv.shape
+    bf16 = qkv.dtype == torch.bfloat16
+    if bf16 and heads is None:
+        heads = qkv.new_empty((B, T, N, threeD // 3))
     out = qkv.new_empty((B, T, N, threeD // 3))
     dev, stream = _build.stream_args(qkv)
     err = _build.lib().alpro_temporal_qkv_proj(
-        qkv.data_ptr(), w_eff.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, N, num_heads,
-        scale, int(qkv.dtype == torch.bfloat16), dev, stream,
+        qkv.data_ptr(), w_eff.data_ptr(), b.data_ptr(), heads.data_ptr() if bf16 else None,
+        out.data_ptr(), B, T, N, num_heads, threeD // 3 // num_heads, scale, int(bf16),
+        vec_bf16, dev, stream,
     )
     _build.check(err, "temporal_attention_qkv_proj")
     temporal_proj_launches += 1

@@ -32,7 +32,9 @@ line):
    and QA shapes (64 and 32 frames of 197 tokens) beside a yardstick of the
    PyTorch calls that compute the same chain (``F.layer_norm``,
    ``F.linear``, SDPA on the q/k/v views, ``F.linear``), and at one clip of
-   384² frames (S = 577);
+   384² frames (S = 577); B8 with its device time and its split by launch
+   (K2's body, the GEMM) at the retrieval and QA temporal shapes, and at T
+   = 32 and 48 (K2's wide path);
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -559,12 +561,13 @@ def _opt_in_kernels(res, randn, card) -> None:
     """B6, B7 and B8 at the shapes of one add_videos call of CLIPS_PER_CALL
     clips (main) and of the QA encode (2 clips, T=16); B6 also at 256² and
     384² frames (N = 256, 576), B7 at one clip of 384² frames (S = 577), B8
-    at T=32. B14 at the rows of one add_videos call's spatial input, bf16 →
-    bf16 (main) and fp32 → bf16. Library calls: SDPA over the
-    pre-concatenated [cls; x] packed qkv for B6 (the concat not timed), one
-    ``layer_norm`` for B14; none computes B7 or B8. B7's device time at both
-    video shapes, beside a yardstick (``_spatial_yardstick``); B8's beside
-    one at its main shape (SDPA over T, ``F.linear``)."""
+    at T=32 and 48 (K2's wide path), b_eff bf16. B14 at the rows of one
+    add_videos call's spatial input, bf16 → bf16 (main) and fp32 → bf16.
+    Library calls: SDPA over the pre-concatenated [cls; x] packed qkv for B6
+    (the concat not timed), one ``layer_norm`` for B14; none computes B7 or
+    B8. B7's device time at both video shapes, beside a yardstick
+    (``_spatial_yardstick``); B8's at both, split by launch, beside one at
+    its main shape (SDPA over T, ``F.linear``)."""
     from alpro_tpu_torch.ops import layernorm, qkv_attn
 
     H, hd, T, N, B = 12, 64, FRAMES, PATCHES, CLIPS_PER_CALL
@@ -582,9 +585,8 @@ def _opt_in_kernels(res, randn, card) -> None:
             lambda: qkv_attn.spatial_attention_qkv_cls_plain(qx, qc, H, hd ** -0.5, t), card,
             main, library=lambda: _sdpa(*heads),
             work=(4 * M * H * Sn * Sn * hd, 2 * (qx.numel() + qc.numel()) + 2 * M * Sn * D)))
-    # B7's bias bf16, as the bf16 model passes it (B8 takes it in fp32)
+    # B7's and B8's bias bf16, as the bf16 model passes it
     wp, bp_bf = randn(D, D, std=D ** -0.5), randn(D, std=0.02)
-    bp = bp_bf.float()
     # and one clip of 384² frames (S = 577: the keys streamed in chunks)
     for M, Sx, main in ((B * T, S, True), (2 * 16, S, False), (T, 577, False)):
         x = randn(M, Sx, 3 * D)
@@ -596,16 +598,23 @@ def _opt_in_kernels(res, randn, card) -> None:
                         2 * x.numel() + 2 * M * Sx * D + D * D * 2 + D * 2), device=Sx == S))
         if Sx == S:
             _spatial_yardstick("spatial_qkv_proj", x, None, (wp, bp_bf), card)
-    w_bytes = D * D * 2 + D * 4
-    for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False)):
+    w_bytes = D * D * 2 + D * 2
+    # B8 also at T = 48 (K2's wide path, past the fp32 route's 32); its split
+    # by launch (K2's body, the GEMM) at the two video shapes
+    for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False), (1, 48, False)):
         xt = randn(b, t, N, 3 * D)
         R = b * t * N
+
+        def b8(xt=xt):
+            return qkv_attn.temporal_attention_qkv_proj(xt, wp, bp_bf, H)
+
         res["temporal_qkv_proj"].append(_compare(
-            "temporal_qkv_proj", xt.shape,
-            lambda: qkv_attn.temporal_attention_qkv_proj(xt, wp, bp, H),
-            lambda: qkv_attn.temporal_attention_qkv_proj_plain(xt, wp, bp, H, hd ** -0.5), card,
-            main, work=(4 * b * N * H * t * t * hd + 2 * R * D * D,
-                        2 * xt.numel() + 2 * R * D + w_bytes)))
+            "temporal_qkv_proj", xt.shape, b8,
+            lambda: qkv_attn.temporal_attention_qkv_proj_plain(xt, wp, bp_bf, H, hd ** -0.5),
+            card, main, work=(4 * b * N * H * t * t * hd + 2 * R * D * D,
+                              2 * xt.numel() + 2 * R * D + w_bytes), device=t == 16))
+        if main or t == 16:
+            _print_split("temporal_qkv_proj", xt.shape, b8, card)
         if main:  # a yardstick: SDPA over T on the q/k/v views, then F.linear (R, D)
             qt, kt, vt = (xt.view(b, t, N, 3, H, hd)[:, :, :, i].permute(0, 2, 3, 1, 4)
                           for i in range(3))
@@ -614,7 +623,7 @@ def _opt_in_kernels(res, randn, card) -> None:
                 (f"SDPA over T ({b}, {N}, {H}, {t}, {hd})", lambda: _sdpa(qt, kt, vt),
                  4 * b * N * H * t * t * hd),
                 (f"F.linear ({R}, {D}) x ({D}, {D})^T",
-                 lambda: torch.nn.functional.linear(o, wp, bp.to(o.dtype)), 2 * R * D * D)],
+                 lambda: torch.nn.functional.linear(o, wp, bp_bf), 2 * R * D * D)],
                 card)
     R = B * T * S
     s, sb = 1 + randn(D, std=0.1).float(), randn(D, std=0.1).float()

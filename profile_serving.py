@@ -36,13 +36,16 @@ first:
   residual (then its two GEMMs have two names in the split line), with
   their device time per call by CUDA-graph replay;
 * B11 ``ln_matmul`` at one ``add_videos`` call's spatial rows and QA's
-  (12608 and 6304 rows of 768 → 2304) and the temporal chain
+  (12608 and 6304 rows of 768 → 2304), the temporal chain
   ``fused_temporal_block`` (B10) at its temporal shape (8, 8, 196) and QA's
-  (2, 16, 196), in bf16, every vector bf16, with their device time per call
-  by CUDA-graph replay;
+  (2, 16, 196) and the temporal attention + projection
+  ``temporal_attention_qkv_proj`` (B8) at the same two shapes on the packed
+  qkv, in bf16, every vector bf16, with their device time per call by
+  CUDA-graph replay;
 * the device time per call (CUDA-graph replay, no profile) of the other
   attention kernels at their main shapes: K2 ``temporal_attention_qkv``
-  (8, 8, 196) (its body is B10's), K1 ``spatial_attention_qkv`` (64, 197),
+  (8, 8, 196) (its body is B10's and B8's; also at (2, 16, 196) and (1,
+  32, 196)), K1 ``spatial_attention_qkv`` (64, 197),
   B6 ``spatial_attention_qkv_cls`` (64, 196) + CLS, B13
   ``fused_attention_bshd`` and B12 ``fused_attention`` at (64, 197) with a
   key mask; and a hash of K2's output on a seeded input.
@@ -75,26 +78,29 @@ import chip_smoke as smoke
 
 
 # the bf16 launches of K3/K5 (csrc/ln_mlp.cu), K4 (csrc/bert_attn.cu), B9
-# and B10 (csrc/fused_block.cu), B7 (csrc/qkv_proj.cu) and B11
-# (csrc/ln_matmul.cu), by a substring of the short name; K4's projection is
-# the same instantiation as K3/K5's fc2 (gemm_wgmma<2, 1, float>), K4 and K5
-# share the finalize, B9's qkv and (without the residual) projection GEMMs,
-# B7's projection and, with bf16 vectors, B11's and B10's qkv GEMM are one
-# instantiation, and B10's projection is B9's with the residual, so a call
-# that runs several reads those stages summed. The last seven are the
+# and B10 (csrc/fused_block.cu), B7 and B8 (csrc/qkv_proj.cu), B11
+# (csrc/ln_matmul.cu) and K2's body (csrc/temporal_attn.cuh: K2, B16, B10,
+# B8), by a substring of the short name; K4's projection is the same
+# instantiation as K3/K5's fc2 (gemm_wgmma<2, 1, float>), K4 and K5 share
+# the finalize, B9's qkv and (without the residual) projection GEMMs, B7's
+# and B8's projections and, with bf16 vectors, B11's and B10's qkv GEMM are
+# one instantiation, and B10's projection is B9's with the residual, so a
+# call that runs several reads those stages summed. The last nine are the
 # bodies before their redesign (an older checkout's).
 SPLIT_STAGES = {"LN rows (K3, B9, B10, B11)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
                 "qkv (K4)": "gemm_wgmma<0, 3",
                 "attention (K4)": "attn_wgmma<64, false, true, false",
                 "fp32 tiles (K3/K5 fc2, K4 projection)": "gemm_wgmma<2, 1, float>",
                 "finalize": "_finalize<",
-                "qkv hi/lo (B9), qkv (B10, B11), projection (B7; B9 without residual)":
+                "qkv hi/lo (B9), qkv (B10, B11), projection (B7, B8; B9 without residual)":
                     "gemm_wgmma<0, 1, __nv_bfloat16>",
                 "attention (B9)": "attn_wgmma<64, false, false, true, true>",
                 "attention (B7)": "attn_wgmma<64, false, false, false, true>",
                 "projection + residual (B9, B10)": "gemm_wgmma<2, 1, __nv_bfloat16>",
-                "attention over T (K2's body: K2, B10)": "temporal_attn_kernel",
+                "attention over T (K2's body: K2, B16, B10, B8)": "temporal_attn_tma",
                 "attention over T, wide (K2's body)": "temporal_attn_wide",
+                "attention over T (K2, B10, older body)": "temporal_attn_kernel",
+                "attention + projection (B8, older body)": "temporal_proj",
                 "heads (K4, older body)": "bert_attn_heads",
                 "projection + LN (K4, older body)": "bert_attn_proj_ln",
                 "heads (B9, older body)": "spatial_block_heads",
@@ -337,11 +343,11 @@ def _profile_spatial(iters: int, card: str, randn) -> None:
 
 def _profile_ingest(iters: int, card: str, randn) -> None:
     """B11 ``ln_matmul`` at one add_videos call's spatial rows (64 · 197)
-    and QA's (32 · 197) → 3D, and B10 ``fused_temporal_block`` at one
-    add_videos call's temporal shape (8, 8, 196) and QA's (2, 16, 196), every
-    vector bf16: the profile (50 calls) and the device time per call by
-    CUDA-graph replay."""
-    from alpro_tpu_torch.ops import fused_block, ln_matmul
+    and QA's (32 · 197) → 3D, and B10 ``fused_temporal_block`` and B8
+    ``temporal_attention_qkv_proj`` at one add_videos call's temporal shape
+    (8, 8, 196) and QA's (2, 16, 196), every vector bf16: the profile (50
+    calls) and the device time per call by CUDA-graph replay."""
+    from alpro_tpu_torch.ops import fused_block, ln_matmul, qkv_attn
 
     D, H, S, N = 768, 12, 1 + smoke.PATCHES, smoke.PATCHES
     ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
@@ -357,6 +363,10 @@ def _profile_ingest(iters: int, card: str, randn) -> None:
         calls.append((f"fused_temporal_block (B10) ({B}, {T}, {N}, {D}) bf16",
                       lambda x=x: fused_block.fused_temporal_block(x, *ln, wqkv, bqkv, wo, bo, H,
                                                                    eps=1e-6)))
+    for B, T in ((smoke.CLIPS_PER_CALL, smoke.FRAMES), (2, smoke.QA_FRAMES)):
+        qkv = randn(B, T, N, 3 * D)
+        calls.append((f"temporal_attention_qkv_proj (B8) ({B}, {T}, {N}, {3 * D}) bf16",
+                      lambda qkv=qkv: qkv_attn.temporal_attention_qkv_proj(qkv, wo, bo, H)))
     with torch.no_grad():
         for label, fn in calls:
             dev, why = smoke.graph_ms(fn)
@@ -368,8 +378,10 @@ def _profile_ingest(iters: int, card: str, randn) -> None:
 def _attention_device_times(card: str, randn) -> None:
     """The device time per call (CUDA-graph replay) of K2, K1, B6 and the
     masked attention B13/B12 at their main shapes, bf16: the kernels that
-    share an attention body with B10, B9 and B7. K2's output is also printed
-    as a hash, so two trees' runs show whether it is bit-equal."""
+    share an attention body with B10, B9 and B7; K2 also at QA's (2, 16,
+    196) and at one clip of T = 32 (``configs/msrvtt_ret_longT.json``). K2's
+    output is also printed as a hash, so two trees' runs show whether it is
+    bit-equal."""
     from alpro_tpu_torch.ops import masked_attn, qkv_attn
 
     H, hd, T = 12, 64, smoke.FRAMES
@@ -386,8 +398,11 @@ def _attention_device_times(card: str, randn) -> None:
     print(f"[profile] K2 temporal_attention_qkv {tuple(xt.shape)} bf16 output sha256 {digest}"
           f" (seeded input: equal across two trees means bit-equal outputs) [{card}]",
           flush=True)
+    x16, x32 = randn(2, smoke.QA_FRAMES, N, 3 * D), randn(1, 32, N, 3 * D)
     calls = {f"K2 temporal_attention_qkv {tuple(xt.shape)}": lambda:
                  qkv_attn.temporal_attention_qkv(xt, H),
+             f"K2 {tuple(x16.shape)}": lambda: qkv_attn.temporal_attention_qkv(x16, H),
+             f"K2 {tuple(x32.shape)}": lambda: qkv_attn.temporal_attention_qkv(x32, H),
              f"K1 spatial_attention_qkv ({M}, {1 + N})": lambda: qkv_attn.spatial_attention_qkv(
                  x, H),
              f"B6 spatial_attention_qkv_cls ({M}, {N}) + CLS": lambda:

@@ -30,8 +30,14 @@ and 1 and F 896 and 384 past the old F % 768; B10's bf16 route against
 ``fused_temporal_block_reference`` (q, k, v rounded) within one ulp and
 2^-7, on K2's fast and wide paths (T up to 48); its qkv scratch bit-equal to
 B11's output and its heads to K2's own instantiation; past ``fits`` and
-``temporal_fits`` the C side refuses too. B14, B17, K4, B9, B7, B11 and B10
-launch on the current stream: under ``torch.cuda.stream(s)``
+``temporal_fits`` the C side refuses too. K2's TMA-staged fast path and B16
+at every head_dim (8 to 128) and T (1 to 32) edge, K2's tolerance. B8's
+bf16 route (K2's body into a heads scratch, then the GEMM) within 2e-2 of
+its twin up to T = 128, with a bf16 or fp32 b_eff; its heads bit-equal to
+K2's own launch; its output holding the per-head rounding where a route
+that keeps o in fp32 misses by 10x the kernel's mean miss; past
+``temporal_proj_fits`` the C side refuses. B14, B17, K4, B9, B7, B11, B10,
+K2 and B8 launch on the current stream: under ``torch.cuda.stream(s)``
 (their result ready on s while the default stream still sleeps) and inside
 a CUDA-graph capture (a replay on new inputs).
 The limit predicates that ``auto`` reads agree with what the kernels take:
@@ -872,11 +878,21 @@ def test_spatial_qkv_proj_kernel_matches_twin(cuda, M, S, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,T", [(8, 8), (2, 16), (1, 32), (3, 5)])
-def test_temporal_qkv_proj_kernel_matches_twin(cuda, B, T, dtype):
+_B8_CASES = [(B, T, dtype, torch.float32) for dtype in (torch.bfloat16, torch.float32)
+             for B, T in ((8, 8), (2, 16), (1, 32), (3, 5))] + [
+    (B, T, torch.bfloat16, torch.bfloat16) for B, T in ((8, 8), (2, 16), (1, 32), (3, 5),
+                                                        (1, 48), (1, 128))]
+
+
+@pytest.mark.parametrize("B,T,dtype,bias_dtype", _B8_CASES)
+def test_temporal_qkv_proj_kernel_matches_twin(cuda, B, T, dtype, bias_dtype):
+    """B8 against its twin: bf16 within 2e-2, fp32 within 1e-4; in bf16
+    (K2's body into the heads scratch, then the GEMM's kRound) with b_eff
+    fp32 or bf16 (as the bf16 model passes it), on K2's fast path up to T =
+    32 and its wide path at T = 48 and 128, past the fp32 route's 32."""
     x = _randn((B, T, 196, 3 * 768), B + T, cuda, dtype)
     w, b = _proj_weights(768, cuda, dtype, T)
+    b = b.to(bias_dtype)
     n = qkv_attn.temporal_proj_launches
     got = qkv_attn.temporal_attention_qkv_proj(x, w, b, 12)
     torch.cuda.synchronize()
@@ -884,6 +900,64 @@ def test_temporal_qkv_proj_kernel_matches_twin(cuda, B, T, dtype):
     want = qkv_attn.temporal_attention_qkv_proj_plain(x, w, b, 12, 0.125)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("qk_scale", [1.0, 4.0])
+def test_temporal_qkv_proj_rounds_the_heads_once(cuda, qk_scale):
+    """The TPU kernel rounds the per-head output to w_eff's dtype before the
+    projection (``opart.astype(we_ref.dtype)``), as the twin does. Against
+    the twin the kernel misses only where fp32 sums in another order flip a
+    rounding; a route that kept the per-head output in fp32 into the
+    product misses nearly everywhere, by 10x the kernel's mean miss or more;
+    at q and k scaled by 4 (scores in the tens) too."""
+    x = _randn((8, 8, 196, 3 * 768), 11, cuda, torch.bfloat16)
+    x[..., :2 * 768] *= qk_scale
+    w, b = _proj_weights(768, cuda, torch.bfloat16, 12)
+    b = b.to(torch.bfloat16)
+    got = qkv_attn.temporal_attention_qkv_proj(x, w, b, 12).float()
+    twin = qkv_attn.temporal_attention_qkv_proj_plain(x, w, b, 12, 0.125).float()
+    o = qkv_attn.temporal_attention_plain(x.float(), 12, 0.125)  # never rounded
+    unrounded = (o @ w.float().t() + b.float()).to(torch.bfloat16).float()
+    kernel_miss = float((got - twin).abs().mean())
+    assert 10 * kernel_miss < float((unrounded - twin).abs().mean())
+
+
+@pytest.mark.parametrize("T", [8, 48])
+def test_temporal_qkv_proj_runs_k2_then_the_gemm(cuda, T):
+    """B8's bf16 route leaves K2's output in its heads scratch: bit for bit
+    what ``temporal_attention_qkv`` (csrc/temporal_attn.cu's instantiation of
+    the shared body) gives on the same qkv, on K2's fast path (T = 8) and
+    its wide path (T = 48)."""
+    B, N, D, H = 2, 196, 768, 12
+    x = _randn((B, T, N, 3 * D), T, cuda, torch.bfloat16)
+    w, b = _proj_weights(D, cuda, torch.bfloat16, T)
+    heads = torch.empty(B, T, N, D, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        qkv_attn._launch_temporal_proj(x, w, b.to(torch.bfloat16), 1, H, 0.125, heads)
+        torch.testing.assert_close(heads, qkv_attn.temporal_attention_qkv(x, H), atol=0, rtol=0)
+
+
+def test_temporal_qkv_proj_limits_equal_the_kernel(cuda):
+    """Past ``temporal_proj_fits`` the C side refuses too (an error code
+    before any launch), and at it it launches: bf16 T 128 and 129, head_dim
+    128 and 136, D 1024 and 576 (not a multiple of the GEMM's 128
+    columns), head_dim 32 at D 768; fp32 T 32 and 33, head_dim 32."""
+    smem = _build.smem_optin(cuda)
+    for dtype, T, D, H in ((torch.bfloat16, 128, 768, 12), (torch.bfloat16, 129, 768, 12),
+                           (torch.bfloat16, 8, 1024, 8), (torch.bfloat16, 8, 1088, 8),
+                           (torch.bfloat16, 8, 576, 9), (torch.bfloat16, 8, 768, 24),
+                           (torch.float32, 32, 768, 12), (torch.float32, 33, 768, 12),
+                           (torch.float32, 8, 768, 24)):
+        x = torch.zeros(1, T, 2, 3 * D, device=cuda, dtype=dtype)
+        w, b = torch.zeros(D, D, device=cuda, dtype=dtype), torch.zeros(D, device=cuda)
+        fits = qkv_attn.temporal_proj_fits(1, T, D, H, dtype, smem)
+        with torch.no_grad():
+            if fits:
+                qkv_attn._launch_temporal_proj(x, w, b, 0, H, 0.125)
+            else:
+                with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                    qkv_attn._launch_temporal_proj(x, w, b, 0, H, 0.125)
+    torch.cuda.synchronize()
 
 
 def test_opt_in_serving_kernels_refuse_grad_and_limits(cuda):
@@ -918,6 +992,17 @@ def test_opt_in_serving_kernels_refuse_grad_and_limits(cuda):
         with pytest.raises(ValueError, match="T <= 32"):
             qkv_attn.temporal_attention_qkv_proj(torch.zeros(1, 33, 2, 3 * 768, device=cuda),
                                                  w, b, 12)
+        # bf16: K2's T <= 128 and the GEMM's D % 128, raised before a launch
+        n = qkv_attn.temporal_proj_launches
+        with pytest.raises(ValueError, match="1 <= T <= 128"):
+            qkv_attn.temporal_attention_qkv_proj(
+                torch.zeros(1, 129, 2, 3 * 768, device=cuda, dtype=torch.bfloat16), wb, b, 12)
+        with pytest.raises(ValueError, match="D a multiple of 128"):
+            qkv_attn.temporal_attention_qkv_proj(
+                torch.zeros(1, 8, 2, 3 * 576, device=cuda, dtype=torch.bfloat16),
+                torch.zeros(576, 576, device=cuda, dtype=torch.bfloat16),
+                torch.zeros(576, device=cuda), 9)
+        assert qkv_attn.temporal_proj_launches == n
 
 
 @pytest.mark.parametrize("in_dtype,out_dtype", [(torch.bfloat16, torch.bfloat16),
@@ -986,6 +1071,30 @@ def test_temporal_roll_kernel_envelope_matches_twin(cuda, hd, T, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+_FAST_EDGES = [(hd, T) for hd in (8, 32, 40, 64, 96, 128) for T in (1, 2, 8, 9, 16, 17, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd,T", _FAST_EDGES)
+def test_temporal_fast_path_edges_match_twin(cuda, hd, T, dtype):
+    """K2's fast path (T <= 32, every head_dim a multiple of 8 up to 128)
+    at its edges: T 1, 2, one tile's frames (8, 16, 32) and one past (9,
+    17), head_dim 8 to 128 (one 16-byte chunk to sixteen, and 40 and 96,
+    whose rows are no power of two), H = 3 (tiles of 3 heads), N = 11 (a
+    ragged last tile of locations); K2 and B16 (one body) against their
+    twins, K2's tolerance."""
+    B, N, H = 2, 11, 3
+    x = _randn((B, T, N, 3 * H * hd), T + hd, cuda, dtype)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+    want = qkv_attn.temporal_attention_plain(x, H, hd ** -0.5).float()
+    n, nr = qkv_attn.temporal_launches, temporal_attn.roll_launches
+    torch.testing.assert_close(qkv_attn.temporal_attention_qkv(x, H).float(), want, atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(temporal_attn.temporal_attention_roll(x, H).float(), want,
+                               atol=tol, rtol=tol)
+    assert (qkv_attn.temporal_launches, temporal_attn.roll_launches) == (n + 1, nr + 1)
+
+
 def test_temporal_roll_gradient_matches_twin_autograd(cuda):
     x = _randn((2, 40, 5, 3 * 2 * 40), 7, cuda, torch.float32)
     cot = _randn((2, 40, 5, 2 * 40), 8, cuda, torch.float32)
@@ -1028,6 +1137,10 @@ def test_python_limits_equal_the_kernels(cuda):
                     qkv_attn.spatial_launch_smem(S, hd, dtype, cuda), (S, hd, dtype)
                 assert masked_attn.smem_bytes(S, hd, dtype, smem) == \
                     lib.alpro_masked_attn_smem(S, hd, bf, dev), ("masked", S, hd, dtype)
+        for T in (1, 5, 8, 16, 17, 32, 33, 48, 128, 129):
+            for hd in (0, 8, 36, 40, 64, 96, 128, 136):
+                assert qkv_attn.temporal_smem_bytes(T, hd, dtype, smem) == \
+                    qkv_attn.temporal_launch_smem(T, hd, dtype, cuda), ("temporal", T, hd, dtype)
         for S in (1, 17, 150, 197, 208, 256, 257, 577, 4000, 20481):
             assert fused_block.spatial_smem(S, dtype, smem) == \
                 lib.alpro_fused_spatial_smem(S, bf, dev), ("fused_block", S, dtype)
@@ -1163,13 +1276,21 @@ def _stream_cases(cuda):
     fb = tuple(t.to(torch.bfloat16) for t in _block_weights(cuda, torch.bfloat16, seed=55))
     xs = _randn((64, 197, 768), 56, cuda, torch.bfloat16)
     xq = _randn((64, 197, 3 * 768), 57, cuda, torch.bfloat16)
-    # B11 at one add_videos call's spatial rows, B10 at its temporal shape
+    # B11 at one add_videos call's spatial rows, B10 at its temporal shape;
+    # K2 and B8 on the packed qkv at that shape, b_eff bf16
     xt = _randn((8, 8, 196, 768), 58, cuda, torch.bfloat16)
+    xp = _randn((8, 8, 196, 3 * 768), 59, cuda, torch.bfloat16)
     return {"ln_matmul": ((x,), lambda x: ln_matmul.ln_matmul(x, *fb[:4], eps=1e-6),
                           lambda x: ln_matmul.ln_matmul_plain(x, *fb[:4], 1e-6), 2e-2),
             "temporal_block": ((xt,), lambda x: fused_block.fused_temporal_block(
                 x, *fb, 12, eps=1e-6),
                 lambda x: fused_block.fused_temporal_block_reference(x, *fb, 12, 1e-6), 2e-2),
+            "temporal_attn": ((xp,), lambda x: qkv_attn.temporal_attention_qkv(x, 12),
+                              lambda x: qkv_attn.temporal_attention_plain(x, 12, 0.125), 1e-2),
+            "temporal_qkv_proj": ((xp,), lambda x: qkv_attn.temporal_attention_qkv_proj(
+                x, *fb[4:], 12),
+                lambda x: qkv_attn.temporal_attention_qkv_proj_plain(x, *fb[4:], 12, 0.125),
+                2e-2),
             "layernorm": ((x,), lambda x: layernorm.layernorm(x, s, b, eps=1e-6),
                           lambda x: layernorm.layernorm_plain(x, s, b, 1e-6, torch.bfloat16),
                           2e-2),
@@ -1190,7 +1311,8 @@ def _stream_cases(cuda):
 
 
 @pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn", "fused_block",
-                                    "qkv_proj", "ln_matmul", "temporal_block"])
+                                    "qkv_proj", "ln_matmul", "temporal_block", "temporal_attn",
+                                    "temporal_qkv_proj"])
 def test_kernel_launches_on_the_current_stream(cuda, kernel):
     """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
     stream asleep, its result is complete on s. Inside a CUDA-graph capture
