@@ -1,11 +1,16 @@
 // A bf16 GEMM on Hopper: y = a · wᵀ (+ bias), fp32 accumulation, for B17's
 // two projections (csrc/block_attn.cu), the two products of the MLP kernels
-// K3 and K5 (csrc/ln_mlp.cu), K4's two projections (csrc/bert_attn.cu) and
-// B9's and B7's (csrc/fused_block.cu, csrc/qkv_proj.cu).
+// K3 and K5 (csrc/ln_mlp.cu), K4's two projections (csrc/bert_attn.cu),
+// B9's and B7's (csrc/fused_block.cu, csrc/qkv_proj.cu) and B15's patch
+// embedding (csrc/patchify_embed.cu).
 //
 // a (M, K) and w (N, K) are row-major bf16 (w in torch Linear layout, so
 // both are K-major, as wgmma takes them from shared memory); bias (N) fp32,
 // or (TV = bf16: B9, B7) the layer's bf16 vector widened on load.
+// gemm_wgmma_kn (kRound only: B15) takes w as a (K, N) row-major matrix
+// instead, read in place as an MN-major operand: each stage holds it as two
+// panels of 64 K-rows x 64 columns (128-byte swizzle), one TMA box each,
+// which wgmma reads through MN-major descriptors, as attn_wgmma.cuh reads V.
 // The epilogue mode (kMode) says what becomes of the fp32 sums:
 //   kRound: y + bias rounded to bf16 into one (M, N) output, or (split D,
 //     N = 3D: a packed [q | k | v] projection) into five (M, D) bf16
@@ -98,12 +103,15 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return v * 0.5f * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-template <int kMode, int kSegs = 1, typename TV = float>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
-           const __grid_constant__ Epilogue ep, int M, int N, int K,
-           const __grid_constant__ Segments<kSegs, TV> segs) {
+// One CTA's tile: the body of gemm_wgmma (kWKN false: w (N, K)) and of
+// gemm_wgmma_kn (kWKN true: w (K, N)); the maps and ep are the kernel's
+// __grid_constant__ parameters, so TMA reads the maps where they lie.
+template <int kMode, int kSegs, typename TV, bool kWKN>
+__device__ __forceinline__ void gemm_tile(const CUtensorMap& ma, const CUtensorMap& mw,
+                                          const Epilogue& ep, int M, int N, int K,
+                                          const Segments<kSegs, TV>& segs) {
   static_assert(kSegs == 1 || kMode == kRound, "segments are a kRound launch's");
+  static_assert(!kWKN || (kMode == kRound && kSegs == 1), "a (K, N) w is B15's kRound");
   const TV* bias = static_cast<const TV*>(ep.bias);  // kSegs 1
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
@@ -146,7 +154,13 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
         unsigned char* st = base + s * kStageBytes;
         hp::mbar_expect_tx(&full[s], kStageBytes);
         hp::tma_load_2d(st, &ma, &full[s], (k_lo + k) * kBK, m0);
-        hp::tma_load_2d(st + kABytes, wmap, &full[s], (k_lo + k) * kBK, wrow);
+        if constexpr (kWKN) {  // the K chunk's rows of w, as two 64-column panels
+          hp::tma_load_2d(st + kABytes, &mw, &full[s], n0, (k_lo + k) * kBK);
+          hp::tma_load_2d(st + kABytes + kBBytes / 2, &mw, &full[s], n0 + kBN / 2,
+                          (k_lo + k) * kBK);
+        } else {
+          hp::tma_load_2d(st + kABytes, wmap, &full[s], (k_lo + k) * kBK, wrow);
+        }
       }
     }
     return;
@@ -166,9 +180,14 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
     const unsigned char* w = base + s * kStageBytes + kABytes;
     hp::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      hp::WgmmaSS<kBN>::run<0>(acc, hp::smem_desc<128>(a + kk * 32, 16, 1024),
-                                hp::smem_desc<128>(w + kk * 32, 16, 1024), 1);
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      if constexpr (kWKN)  // MN-major: 16 K-rows down; panels kBBytes / 2 apart
+        hp::WgmmaSS<kBN>::run<1>(acc, hp::smem_desc<128>(a + kk * 32, 16, 1024),
+                                  hp::smem_desc<128>(w + kk * 16 * 128, kBBytes / 2, 1024), 1);
+      else
+        hp::WgmmaSS<kBN>::run<0>(acc, hp::smem_desc<128>(a + kk * 32, 16, 1024),
+                                  hp::smem_desc<128>(w + kk * 32, 16, 1024), 1);
+    }
     hp::wgmma_commit();
     hp::wgmma_wait<1>();
     if (k > 0 && lane == 0) hp::mbar_arrive(&empty[(k - 1) % kStages]);
@@ -293,6 +312,23 @@ gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUten
   }
 }
 
+template <int kMode, int kSegs = 1, typename TV = float>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gemm_wgmma(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
+           const __grid_constant__ Epilogue ep, int M, int N, int K,
+           const __grid_constant__ Segments<kSegs, TV> segs) {
+  gemm_tile<kMode, kSegs, TV, false>(ma, mw, ep, M, N, K, segs);
+}
+
+// kRound with w a (K, N) row-major matrix (B15's JAX-layout kernel)
+template <typename TV>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+gemm_wgmma_kn(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mw,
+              const __grid_constant__ Epilogue ep, int M, int N, int K,
+              const __grid_constant__ Segments<1, TV> segs) {
+  gemm_tile<kRound, 1, TV, true>(ma, mw, ep, M, N, K, segs);
+}
+
 // the 2-D map of a row-major (rows, cols) bf16 matrix, box (kBK, box_rows)
 inline bool encode_matrix(CUtensorMap* map, const void* p, int rows, int cols, int box_rows) {
   const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
@@ -306,9 +342,9 @@ inline bool encode_matrix(CUtensorMap* map, const void* p, int rows, int cols, i
 // y = a (M, K) · w (N, K)ᵀ (+ bias, N values of TV) into ep under kMode; N a
 // multiple of 128 (and of 3 with split = N / 3 a multiple of 128), K a
 // multiple of 64, a and w 16-byte aligned. ep.k_split, a multiple of 64 (0:
-// K), slices K over grid y, for kFloat into partials only. Returns a
-// cudaError_t.
-template <int kMode = kRound, typename TV = float>
+// K), slices K over grid y, for kFloat into partials only. kWKN (kRound):
+// y = a · w with w (K, N) row-major (gemm_wgmma_kn). Returns a cudaError_t.
+template <int kMode = kRound, typename TV = float, bool kWKN = false>
 int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaStream_t stream) {
   if (M < 1 || N < kBN || N % kBN || K < kBK || K % kBK) return int(cudaErrorInvalidValue);
   if (ep.split && (kMode != kRound || ep.split % kBN || N != 3 * ep.split))
@@ -318,16 +354,21 @@ int launch(const void* a, const void* w, Epilogue ep, int M, int N, int K, cudaS
   if (ep.k_split < 0 || ep.k_split % kBK || (ep.k_split < K && !(kMode == kFloat && ep.partial)))
     return int(cudaErrorInvalidValue);
   CUtensorMap ma, mw;
-  if (!encode_matrix(&ma, a, M, K, kBM) || !encode_matrix(&mw, w, N, K, kBN))
+  // w (K, N): boxes of kBK rows x 64 columns (one 128-byte panel row each)
+  if (!encode_matrix(&ma, a, M, K, kBM) ||
+      !(kWKN ? encode_matrix(&mw, w, K, N, kBK) : encode_matrix(&mw, w, N, K, kBN)))
     return int(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(gemm_wgmma<kMode, 1, TV>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  auto kernel = [] {  // only the chosen kernel is instantiated
+    if constexpr (kWKN) return gemm_wgmma_kn<TV>;
+    else return gemm_wgmma<kMode, 1, TV>;
+  }();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return int(err);
   const long tiles = long(N / kBN) * ((M + kBM - 1) / kBM);
   if (tiles > 0x7fffffffL) return int(cudaErrorInvalidValue);
   const dim3 grid(unsigned(tiles), unsigned((K + ep.k_split - 1) / ep.k_split));
-  gemm_wgmma<kMode, 1, TV><<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K,
-                                                              Segments<1, TV>{});
+  kernel<<<grid, kThreads, kSmem, stream>>>(ma, mw, ep, M, N, K, Segments<1, TV>{});
   return int(cudaGetLastError());
 }
 

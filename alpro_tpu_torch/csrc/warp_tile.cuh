@@ -1,20 +1,16 @@
 // Shared device helpers of the port's kernels.
 //
 // WarpTile<T>: one warp's 16x16 fp32 accumulator tile, C += A(16x16) * B(16x16)
-// with A row-major and B row- or column-major. For bf16 operands it is a
-// tensor-core WMMA fragment (bf16 x bf16 products, fp32 accumulation); for
-// fp32 operands the same interface runs on the CUDA cores in full fp32
-// (lane l owns row l/2, columns 8*(l%2)..+8), so each kernel is written once
-// for both dtypes. After store() other lanes may read the tile only after
-// __syncwarp().
+// with A row-major and B row- or column-major, on the CUDA cores in full fp32
+// (lane l owns row l/2, columns 8*(l%2)..+8): the fp32 routes' products (every
+// bf16 product runs on wgmma). After store() other lanes may read the tile
+// only after __syncwarp().
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
-#include <type_traits>
 
 namespace alpro {
 
@@ -48,31 +44,6 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 template <typename T> struct WarpTile;
-
-template <> struct WarpTile<__nv_bfloat16> {
-  nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> c;
-
-  __device__ __forceinline__ void zero() { nvcuda::wmma::fill_fragment(c, 0.0f); }
-  __device__ __forceinline__ void load(const float* p, int ld) {
-    nvcuda::wmma::load_matrix_sync(c, p, ld, nvcuda::wmma::mem_row_major);
-  }
-  __device__ __forceinline__ void store(float* p, int ld) {
-    nvcuda::wmma::store_matrix_sync(p, c, ld, nvcuda::wmma::mem_row_major);
-  }
-  // a, b: 32-byte aligned; lda, ldb: multiples of 8 elements.
-  template <bool kBColMajor>
-  __device__ __forceinline__ void mma(const __nv_bfloat16* a, int lda,
-                                      const __nv_bfloat16* b, int ldb) {
-    using BLayout = typename std::conditional<kBColMajor, nvcuda::wmma::col_major,
-                                              nvcuda::wmma::row_major>::type;
-    nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           nvcuda::wmma::row_major> fa;
-    nvcuda::wmma::fragment<nvcuda::wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb;
-    nvcuda::wmma::load_matrix_sync(fa, a, lda);
-    nvcuda::wmma::load_matrix_sync(fb, b, ldb);
-    nvcuda::wmma::mma_sync(c, fa, fb, c);
-  }
-};
 
 template <> struct WarpTile<float> {
   float c[8];

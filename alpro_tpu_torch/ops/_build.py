@@ -68,9 +68,9 @@ _SIGNATURES = {
     # x, ln_scale, ln_bias, w, b, xn (scratch), out, R, D, F, eps, is_bf16,
     # vec_bf16, device, stream
     "alpro_ln_matmul": ([_P] * 7 + [_I, _I, _I, _F, _I, _I, _I, _P], _I),
-    # raw, kernel, bias, out, frames, H, W, p, D, mean (3), std (3), is_bf16,
-    # device, stream
-    "alpro_patchify_embed": ([_P] * 4 + [_I] * 5 + [_F] * 6 + [_I, _I, _P], _I),
+    # raw, kernel, bias, rows (scratch), out, frames, H, W, p, D, mean (3),
+    # std (3), is_bf16, vec_bf16, device, stream
+    "alpro_patchify_embed": ([_P] * 5 + [_I] * 5 + [_F] * 6 + [_I, _I, _I, _P], _I),
     # x, ln_scale, ln_bias, wqkv, bqkv, wproj, bproj, scratch, out, M, S, H,
     # q_split, scale, eps, residual, is_bf16, vec_bf16, device, stream
     "alpro_fused_spatial_block": ([_P] * 9 + [_I] * 4 + [_F, _F, _I, _I, _I, _I, _P], _I),

@@ -34,7 +34,10 @@ line):
    ``F.linear``, SDPA on the q/k/v views, ``F.linear``), and at one clip of
    384² frames (S = 577); B8 with its device time and its split by launch
    (K2's body, the GEMM) at the retrieval and QA temporal shapes, and at T
-   = 32 and 48 (K2's wide path);
+   = 32 and 48 (K2's wide path); B15 with its device time, its split by
+   launch (the patch rows pass, the GEMM) and its one-ulp contract at both
+   video shapes, beside the normalize + ``F.conv2d`` and ``F.linear`` on
+   its bf16 patch rows;
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -140,7 +143,10 @@ BERT_CONTRACT_TOL = 2e-2
 # per-head output at fp32 values that differ in their last bits, and the few
 # roundings that land one ulp apart reach an output through the projection
 # (|w_eff| · ulp(o)), so one ulp and 2^-7 absolute
-CONTRACT_TOL = {"ln_matmul": (2 ** -8, 2 ** -7), "fused_temporal_block": (2 ** -7, 2 ** -7)}
+# B15's bf16 route rounds where its twin (the JAX function's math) does:
+# the normalized pixels once, the fp32 sums + bias once, so one ulp as B11
+CONTRACT_TOL = {"ln_matmul": (2 ** -8, 2 ** -7), "fused_temporal_block": (2 ** -7, 2 ** -7),
+                "patchify_embed": (2 ** -8, 2 ** -7)}
 # the fused ingest's kernels round where their twins do (the LN output, the
 # per-head output, the outputs), except the temporal chain, which stages q,
 # k, v in bf16 as its TPU kernel does where its twin keeps fp32; the
@@ -646,10 +652,11 @@ def _fused_ingest_kernels(res, randn, ln, card) -> None:
     path), B11 at the temporal rows too, B9 at one clip of 384² frames (S =
     577). At the main shape every LN and bias vector is bf16, as the bf16
     model passes them; B11 and B10 take fp32 LN vectors at their other
-    shapes. No single PyTorch call computes any of the four: B11's, B10's
-    and B9's device time at both video shapes, B11's and B10's split by
-    launch, and a yardstick of PyTorch calls beside each at its main shape
-    (B9's and B7's also at QA's). B11 and B10 are also held to their TPU
+    shapes; B15's bias is bf16 at both. No single PyTorch call computes any
+    of the four: their device time at both video shapes, B11's, B15's and
+    B10's split by launch, and a yardstick of PyTorch calls beside each at
+    its main shape (B9's and B7's also at QA's; B15's also ``F.linear`` on
+    its bf16 patch rows). B11, B15 and B10 are also held to their TPU
     kernels' rounding points (``_contract``, ``CONTRACT_TOL``)."""
     from alpro_tpu_torch.models.timesformer import TimeSformerConfig
     from alpro_tpu_torch.ops import fused_block, ln_matmul, preprocess
@@ -687,16 +694,24 @@ def _fused_ingest_kernels(res, randn, ln, card) -> None:
                  lambda: torch.nn.functional.linear(xn, wqkv, bqkv), 6 * R * D * D)], card)
     mean, std = TimeSformerConfig.pixel_mean, TimeSformerConfig.pixel_std
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    # the bias bf16, as the bf16 model passes it
     kern, kbias = randn(768, D, std=768 ** -0.5), randn(D, std=0.02)
     for b, t, main in ((B, T, True), (2, 16, False)):
         raw = torch.randint(0, 256, (b, t, 224, 224, 3), generator=g, device="cuda",
                             dtype=torch.uint8)
         R = b * t * N
+
+        def b15(raw=raw):
+            return preprocess.patchify_embed(raw, kern, kbias, mean, std)
+
+        def b15_plain(raw=raw):
+            return preprocess.patchify_embed_plain(raw, kern, kbias, mean, std)
+
         res["patchify_embed"].append(_compare(
-            "patchify_embed", raw.shape,
-            lambda: preprocess.patchify_embed(raw, kern, kbias, mean, std),
-            lambda: preprocess.patchify_embed_plain(raw, kern, kbias, mean, std), card, main,
-            work=(2 * R * 768 * D, raw.numel() + 768 * D * 2 + D * 4 + R * D * 2)))
+            "patchify_embed", raw.shape, b15, b15_plain, card, main,
+            work=(2 * R * 768 * D, raw.numel() + 768 * D * 2 + D * 2 + R * D * 2), device=True))
+        _contract("patchify_embed", raw.shape, b15, b15_plain, card)
+        _print_split("patchify_embed", raw.shape, b15, card)
         if main:
             _patchify_yardstick(raw, kern, kbias, mean, std, card)
     for b, t, main in ((B, T, True), (2, 16, False), (1, 32, False), (1, 48, False)):
@@ -735,10 +750,13 @@ def _fused_ingest_kernels(res, randn, ln, card) -> None:
 
 
 def _patchify_yardstick(raw, kern, kbias, mean, std, card) -> None:
-    """A yardstick beside B15, not a library call: the normalize ((x / 255 -
-    mean) / std from uint8 to bf16, elementwise calls) and ``F.conv2d`` with
-    the (D, 3, 16, 16) kernel at stride 16 on the channels-last frames,
-    bf16."""
+    """Two yardsticks beside B15, not library calls: the normalize ((x /
+    255 - mean) / std from uint8 to bf16, elementwise calls) and
+    ``F.conv2d`` with the (D, 3, 16, 16) kernel at stride 16 on the
+    channels-last frames, bf16; and ``F.linear`` on the bf16 patch rows
+    (``preprocess.patch_rows_plain``), the share of B15's GEMM."""
+    from alpro_tpu_torch.ops import preprocess
+
     b, t, hgt, wid, c = raw.shape
     frames = raw.view(b * t, hgt, wid, c)
     m = torch.tensor(mean, device="cuda")
@@ -755,6 +773,12 @@ def _patchify_yardstick(raw, kern, kbias, mean, std, card) -> None:
         (f"normalize ({b * t}, {hgt}, {wid}, {c})", normalize, 0),
         (f"F.conv2d ({b * t}, {c}, {hgt}, {wid}) * ({D}, {c}, 16, 16) / 16",
          lambda: torch.nn.functional.conv2d(x, w4, kbias, stride=16), 2 * R * 768 * D)], card)
+    # the GEMM's share against cuBLAS: F.linear on the bf16 patch rows
+    rows = preprocess.patch_rows_plain(raw, 16, mean, std, torch.bfloat16)
+    wt = kern.t().contiguous()
+    _yardstick("patchify_embed", raw.shape, [
+        (f"F.linear ({R}, 768) x ({D}, 768)^T on the bf16 patch rows",
+         lambda: torch.nn.functional.linear(rows, wt, kbias), 2 * R * 768 * D)], card)
 
 
 def _contract(name, shape, kernel, ref, card) -> None:

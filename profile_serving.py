@@ -40,8 +40,10 @@ first:
   ``fused_temporal_block`` (B10) at its temporal shape (8, 8, 196) and QA's
   (2, 16, 196) and the temporal attention + projection
   ``temporal_attention_qkv_proj`` (B8) at the same two shapes on the packed
-  qkv, in bf16, every vector bf16, with their device time per call by
-  CUDA-graph replay;
+  qkv, in bf16, every vector bf16, and B15 ``patchify_embed`` at one
+  ``add_videos`` call's frames (8, 8, 224, 224, 3) and QA's (2, 16, 224,
+  224, 3) → 768 with the bf16 bias the model passes, with their device time
+  per call by CUDA-graph replay;
 * the device time per call (CUDA-graph replay, no profile) of the other
   attention kernels at their main shapes: K2 ``temporal_attention_qkv``
   (8, 8, 196) (its body is B10's and B8's; also at (2, 16, 196) and (1,
@@ -79,13 +81,14 @@ import chip_smoke as smoke
 
 # the bf16 launches of K3/K5 (csrc/ln_mlp.cu), K4 (csrc/bert_attn.cu), B9
 # and B10 (csrc/fused_block.cu), B7 and B8 (csrc/qkv_proj.cu), B11
-# (csrc/ln_matmul.cu) and K2's body (csrc/temporal_attn.cuh: K2, B16, B10,
-# B8), by a substring of the short name; K4's projection is the same
+# (csrc/ln_matmul.cu), B15 (csrc/patchify_embed.cu) and K2's body
+# (csrc/temporal_attn.cuh: K2, B16, B10, B8), by a substring of the short
+# name; K4's projection is the same
 # instantiation as K3/K5's fc2 (gemm_wgmma<2, 1, float>), K4 and K5 share
 # the finalize, B9's qkv and (without the residual) projection GEMMs, B7's
 # and B8's projections and, with bf16 vectors, B11's and B10's qkv GEMM are
 # one instantiation, and B10's projection is B9's with the residual, so a
-# call that runs several reads those stages summed. The last nine are the
+# call that runs several reads those stages summed. The last ten are the
 # bodies before their redesign (an older checkout's).
 SPLIT_STAGES = {"LN rows (K3, B9, B10, B11)": "ln_rows", "fc1 (K3/K5)": "gemm_wgmma<1",
                 "qkv (K4)": "gemm_wgmma<0, 3",
@@ -99,6 +102,8 @@ SPLIT_STAGES = {"LN rows (K3, B9, B10, B11)": "ln_rows", "fc1 (K3/K5)": "gemm_wg
                 "projection + residual (B9, B10)": "gemm_wgmma<2, 1, __nv_bfloat16>",
                 "attention over T (K2's body: K2, B16, B10, B8)": "temporal_attn_tma",
                 "attention over T, wide (K2's body)": "temporal_attn_wide",
+                "patch rows (B15)": "patch_rows",
+                "GEMM over the patch rows, (K, D) kernel (B15)": "gemm_wgmma_kn",
                 "attention over T (K2, B10, older body)": "temporal_attn_kernel",
                 "attention + projection (B8, older body)": "temporal_proj",
                 "heads (K4, older body)": "bert_attn_heads",
@@ -107,7 +112,8 @@ SPLIT_STAGES = {"LN rows (K3, B9, B10, B11)": "ln_rows", "fc1 (K3/K5)": "gemm_wg
                 "heads (B7, older body)": "spatial_proj_heads",
                 "heads (B10, older body)": "temporal_block_heads",
                 "LN + qkv (B11, older body)": "ln_matmul_kernel",
-                "proj_rows (B9, B7, B10, older body)": "proj_rows"}
+                "proj_rows (B9, B7, B10, older body)": "proj_rows",
+                "row tile (B15, older body)": "patchify_embed_kernel"}
 
 
 def _device_stats(prof, iters: int, top_n: int = 5) -> dict:
@@ -343,11 +349,13 @@ def _profile_spatial(iters: int, card: str, randn) -> None:
 
 def _profile_ingest(iters: int, card: str, randn) -> None:
     """B11 ``ln_matmul`` at one add_videos call's spatial rows (64 · 197)
-    and QA's (32 · 197) → 3D, and B10 ``fused_temporal_block`` and B8
+    and QA's (32 · 197) → 3D, B10 ``fused_temporal_block`` and B8
     ``temporal_attention_qkv_proj`` at one add_videos call's temporal shape
-    (8, 8, 196) and QA's (2, 16, 196), every vector bf16: the profile (50
-    calls) and the device time per call by CUDA-graph replay."""
-    from alpro_tpu_torch.ops import fused_block, ln_matmul, qkv_attn
+    (8, 8, 196) and QA's (2, 16, 196), and B15 ``patchify_embed`` at their
+    frames ((8, 8) and (2, 16) clips of 224²) → D, every vector bf16: the
+    profile (50 calls) and the device time per call by CUDA-graph replay."""
+    from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+    from alpro_tpu_torch.ops import fused_block, ln_matmul, preprocess, qkv_attn
 
     D, H, S, N = 768, 12, 1 + smoke.PATCHES, smoke.PATCHES
     ln = (1 + randn(D, std=0.1), randn(D, std=0.1))
@@ -367,6 +375,14 @@ def _profile_ingest(iters: int, card: str, randn) -> None:
         qkv = randn(B, T, N, 3 * D)
         calls.append((f"temporal_attention_qkv_proj (B8) ({B}, {T}, {N}, {3 * D}) bf16",
                       lambda qkv=qkv: qkv_attn.temporal_attention_qkv_proj(qkv, wo, bo, H)))
+    mean, std = TimeSformerConfig.pixel_mean, TimeSformerConfig.pixel_std
+    g = torch.Generator(device="cuda").manual_seed(smoke.SEED + 4)
+    kern, kb = randn(768, D, std=768 ** -0.5), randn(D, std=0.02)
+    for B, T in ((smoke.CLIPS_PER_CALL, smoke.FRAMES), (2, smoke.QA_FRAMES)):
+        raw = torch.randint(0, 256, (B, T, 224, 224, 3), generator=g, device="cuda",
+                            dtype=torch.uint8)
+        calls.append((f"patchify_embed (B15) ({B}, {T}, 224, 224, 3) -> {D} bf16",
+                      lambda raw=raw: preprocess.patchify_embed(raw, kern, kb, mean, std)))
     with torch.no_grad():
         for label, fn in calls:
             dev, why = smoke.graph_ms(fn)

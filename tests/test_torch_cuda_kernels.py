@@ -595,6 +595,134 @@ def test_patchify_embed_gradient_matches_twin_autograd(cuda):
         torch.testing.assert_close(a, b, atol=1e-3, rtol=1e-4)
 
 
+def _patchify_args(shape, p, D, cuda, seed, bias_dtype=torch.bfloat16):
+    K = 3 * p * p
+    return (_frames(shape, seed, cuda), _randn((K, D), seed + 1, cuda, torch.bfloat16, K ** -0.5),
+            _randn((D,), seed + 2, cuda, torch.float32, 0.02).to(bias_dtype))
+
+
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,p,D", [((8, 8, 224, 224, 3), 16, 768),
+                                       ((2, 16, 224, 224, 3), 16, 768),
+                                       ((1, 2, 232, 216, 3), 16, 768),
+                                       ((2, 4, 224, 224, 3), 8, 768),
+                                       ((2, 4, 224, 224, 3), 16, 256),
+                                       ((2, 4, 224, 224, 3), 16, 1024),
+                                       ((1, 3, 40, 20, 3), 8, 384)])
+def test_patchify_embed_bf16_route_holds_its_contract(cuda, shape, p, D, bias_dtype):
+    """B15's bf16 route (the patch rows pass, then the TMA/wgmma GEMM over
+    the (K, D) kernel in place) against the twin, which is the JAX
+    function's contract, within one output ulp: the three shapes of the
+    test above (W = 216: a frame row of 648 bytes, not a multiple of 16), p
+    = 8 (K = 192), D 256, 1024 and 384 (not a row-tile width), frames not a
+    multiple of p with rows of 60 bytes (byte loads), a bf16 or fp32 bias;
+    one call adds one launch."""
+    from alpro_tpu_torch.ops import preprocess
+
+    raw, kernel, bias = _patchify_args(shape, p, D, cuda, seed=p + D, bias_dtype=bias_dtype)
+    n = preprocess.launches
+    with torch.no_grad():
+        got = preprocess.patchify_embed(raw, kernel, bias, _MEAN, _STD)
+    torch.cuda.synchronize()
+    assert preprocess.launches == n + 1
+    assert got.shape == shape[:2] + ((shape[2] // p) * (shape[3] // p), D)
+    want = preprocess.patchify_embed_plain(raw, kernel, bias, _MEAN, _STD)
+    torch.testing.assert_close(got.float(), want.float(), atol=ULP_ATOL, rtol=ULP_RTOL)
+
+
+@pytest.mark.parametrize("shape,p,offset", [((2, 4, 224, 224, 3), 16, 0),
+                                            ((1, 2, 232, 216, 3), 16, 0),
+                                            ((2, 4, 224, 224, 3), 8, 0),
+                                            ((2, 4, 224, 224, 3), 16, 1),
+                                            ((1, 3, 40, 20, 3), 8, 0)])
+def test_patchify_embed_rows_pass_is_patch_rows_plain(cuda, shape, p, offset):
+    """The rows pass leaves ``patch_rows_plain`` in its scratch bit for bit
+    (the same fp32 divisions, rounded once), computed on the CPU and on the
+    card: 8-byte loads (W = 224 and 216) and byte loads (frames at an odd
+    address, offset 1; W = 20, a frame row of 60 bytes)."""
+    from alpro_tpu_torch.ops import preprocess
+
+    buf = _frames((int(torch.tensor(shape).prod()) + offset,), 7, cuda)
+    raw = buf[offset:].view(shape)
+    _, kernel, bias = _patchify_args(shape, p, 256, cuda, seed=p)
+    B, T, H, W, _ = shape
+    rows = torch.empty(B * T * (H // p) * (W // p), 3 * p * p, device=cuda, dtype=torch.bfloat16)
+    with torch.no_grad():
+        preprocess._launch(raw, kernel, bias, 1, _MEAN, _STD, rows)
+    torch.cuda.synchronize()
+    for dev in ("cpu", cuda):
+        want = preprocess.patch_rows_plain(raw.to(dev), p, _MEAN, _STD, torch.bfloat16)
+        torch.testing.assert_close(rows.cpu(), want.cpu(), atol=0, rtol=0)
+
+
+def test_patchify_embed_folded_route_misses_the_contract(cuda):
+    """``PatchEmbed``'s fold (raw values · the kernel scaled by 1/(255 std),
+    a bf16 product + the folded bias) rounds other values than the JAX
+    function: on the same inputs it misses the one-ulp tolerance that the
+    kernel holds, so the kernel test tells the two rounding points apart."""
+    from alpro_tpu_torch.models.timesformer import PatchEmbed, TimeSformerConfig
+    from alpro_tpu_torch.ops import preprocess
+
+    raw, kernel, bias = _patchify_args((2, 8, 224, 224, 3), 16, 768, cuda, seed=11)
+    pe = PatchEmbed(TimeSformerConfig()).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        pe.kernel.copy_(kernel)
+        pe.bias.copy_(bias)
+        got = preprocess.patchify_embed(raw, kernel, bias, _MEAN, _STD).float()
+        fold = pe(preprocess._patches(raw, 16), torch.bfloat16, uint8_norm=True).float()
+    want = preprocess.patchify_embed_plain(raw, kernel, bias, _MEAN, _STD).float()
+    tol = ULP_ATOL + ULP_RTOL * want.abs()
+    assert int(((got - want).abs() > tol).sum()) == 0
+    assert int(((fold.reshape(want.shape) - want).abs() > tol).sum()) > 0
+    assert 10 * float((got - want).abs().mean()) < float((fold.reshape(want.shape)
+                                                          - want).abs().mean())
+
+
+def test_patchify_embed_takes_a_bf16_bias_without_a_cast(cuda):
+    """One call of the bf16 route with the model's bf16 bias launches the
+    rows pass and the GEMM and no ``direct_copy`` (cast) kernel."""
+    from alpro_tpu_torch.ops import preprocess
+
+    raw, kernel, bias = _patchify_args((2, 4, 224, 224, 3), 16, 768, cuda, seed=5)
+    with torch.no_grad():
+        preprocess.patchify_embed(raw, kernel, bias, _MEAN, _STD)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            preprocess.patchify_embed(raw, kernel, bias, _MEAN, _STD)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0]
+    assert not [n for n in names if "direct_copy" in n], names
+    assert sum("patch_rows" in n for n in names) == 1, names
+    assert sum("gemm_wgmma_kn" in n for n in names) == 1, names
+
+
+def test_patchify_embed_limits_equal_the_kernel(cuda):
+    """Past ``preprocess.fits`` the C side refuses too (an error code before
+    any launch), and at it it launches: bf16 p 8 and 16 (K 192, 768), p 4
+    and 12 (K 48, 432: not multiples of 64), D 128 and 1152, 192 and 200;
+    frames of p and p - 1 pixels; fp32 D 768 and 896."""
+    from alpro_tpu_torch.ops import preprocess
+
+    bf = torch.bfloat16
+    for p, D, H, W, dtype in ((8, 128, 8, 8, bf), (16, 1152, 16, 32, bf), (4, 128, 8, 8, bf),
+                              (12, 128, 12, 12, bf), (8, 192, 8, 8, bf), (8, 200, 8, 8, bf),
+                              (8, 128, 7, 8, bf), (8, 128, 8, 7, bf),
+                              (16, 768, 16, 16, torch.float32), (16, 896, 16, 16, torch.float32)):
+        raw = torch.zeros(1, 2, H, W, 3, device=cuda, dtype=torch.uint8)
+        kernel = torch.zeros(3 * p * p, D, device=cuda, dtype=dtype)
+        bias = torch.zeros(D, device=cuda, dtype=dtype)
+        with torch.no_grad():
+            if preprocess.fits(p, D, H, W, dtype):
+                out = preprocess._launch(raw, kernel, bias, int(dtype == bf), _MEAN, _STD)
+                assert out.shape == (1, 2, (H // p) * (W // p), D)
+            else:
+                with pytest.raises(RuntimeError, match="CUDA launch failed"):
+                    preprocess._launch(raw, kernel, bias, int(dtype == bf), _MEAN, _STD)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,T", [(8, 8), (2, 16), (1, 32), (3, 5)])
 def test_fused_temporal_block_kernel_matches_twin(cuda, B, T, dtype):
@@ -1264,7 +1392,7 @@ def test_gemm_bf16_matches_fp32_product(cuda, M, N, K, split):
 
 
 def _stream_cases(cuda):
-    from alpro_tpu_torch.ops import layernorm, ln_matmul
+    from alpro_tpu_torch.ops import layernorm, ln_matmul, preprocess
 
     x = _randn((12608, 768), 50, cuda, torch.bfloat16, 2.0)
     s, b = 1 + _randn((768,), 51, cuda, torch.float32, 0.1), _randn((768,), 52, cuda,
@@ -1280,7 +1408,13 @@ def _stream_cases(cuda):
     # K2 and B8 on the packed qkv at that shape, b_eff bf16
     xt = _randn((8, 8, 196, 768), 58, cuda, torch.bfloat16)
     xp = _randn((8, 8, 196, 3 * 768), 59, cuda, torch.bfloat16)
-    return {"ln_matmul": ((x,), lambda x: ln_matmul.ln_matmul(x, *fb[:4], eps=1e-6),
+    # B15 at one add_videos call's frames, its bias bf16
+    raw = _frames((8, 8, 224, 224, 3), 60, cuda)
+    kp, bp = fb[4].t().contiguous(), fb[5]
+    return {"patchify_embed": ((raw,), lambda r: preprocess.patchify_embed(r, kp, bp, _MEAN, _STD),
+                               lambda r: preprocess.patchify_embed_plain(r, kp, bp, _MEAN, _STD),
+                               2e-2),
+            "ln_matmul": ((x,), lambda x: ln_matmul.ln_matmul(x, *fb[:4], eps=1e-6),
                           lambda x: ln_matmul.ln_matmul_plain(x, *fb[:4], 1e-6), 2e-2),
             "temporal_block": ((xt,), lambda x: fused_block.fused_temporal_block(
                 x, *fb, 12, eps=1e-6),
@@ -1312,7 +1446,7 @@ def _stream_cases(cuda):
 
 @pytest.mark.parametrize("kernel", ["layernorm", "block_attn", "bert_attn", "fused_block",
                                     "qkv_proj", "ln_matmul", "temporal_block", "temporal_attn",
-                                    "temporal_qkv_proj"])
+                                    "temporal_qkv_proj", "patchify_embed"])
 def test_kernel_launches_on_the_current_stream(cuda, kernel):
     """Under ``torch.cuda.stream(s)`` the launch lands on s: with the default
     stream asleep, its result is complete on s. Inside a CUDA-graph capture
