@@ -22,6 +22,8 @@ from alpro_tpu_torch.checkpoint.from_jax import alpro_state_dict
 
 _CONV_W = "patch_embed.proj.weight"
 _CONV_B = "patch_embed.proj.bias"
+_KERNEL = "patch_embed.kernel"
+_BIAS = "patch_embed.bias"
 
 
 def _to_port_keys(sd: Mapping) -> dict:
@@ -33,10 +35,28 @@ def _to_port_keys(sd: Mapping) -> dict:
         if key.endswith(_CONV_W):
             D, C, p, _ = t.shape
             t = t.permute(2, 3, 1, 0).reshape(p * p * C, D)
-            key = key[: -len(_CONV_W)] + "patch_embed.kernel"
+            key = key[: -len(_CONV_W)] + _KERNEL
         elif key.endswith(_CONV_B):
-            key = key[: -len(_CONV_B)] + "patch_embed.bias"
+            key = key[: -len(_CONV_B)] + _BIAS
         out[key] = t
+    return out
+
+
+def alpro_state_dict_of(model: nn.Module) -> dict:
+    """The model's parameters in the ALPRO key space (detached tensors as
+    stored, the patch embedding as the (D, C, p, p) conv weight): what
+    ``torch.save`` writes as a ``.pt`` that ALPRO's loaders, this package's
+    and the JAX package's read."""
+    out = {}
+    for key, value in model.state_dict().items():
+        if key.endswith(_KERNEL):
+            K, D = value.shape
+            p = int(round((K / 3) ** 0.5))
+            value = value.reshape(p, p, 3, D).permute(3, 2, 0, 1)
+            key = key[: -len(_KERNEL)] + _CONV_W
+        elif key.endswith(_BIAS):
+            key = key[: -len(_BIAS)] + _CONV_B
+        out[key] = value.detach().contiguous()
     return out
 
 

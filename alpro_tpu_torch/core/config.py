@@ -1,0 +1,164 @@
+"""Config system with the reference's JSON-overlay-over-argparse semantics.
+
+The port's own copy of ``alpro_tpu/core/config.py``: a JSON config file fills
+any flag that was not explicitly passed on the command line, CLI flags always
+win, and int flags declared as booleans (0/1) are coerced to bool.
+
+Differences from the JAX parser: only the flags that the inference path
+reads are declared (the training flags, the mesh, profiling and
+rematerialisation come with training, ROADMAP A14; the TPU-only
+``--xla_compiler_options`` and ``--scan_blocks`` never do);
+and ``--device`` (default ``cuda``) takes the place of the JAX package's
+``ALPRO_PLATFORM``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from typing import Any, List, Optional
+
+
+class Config(dict):
+    """A dict with attribute access (stand-in for easydict.EasyDict)."""
+
+    def __getattr__(self, name: str) -> Any:
+        try:
+            val = self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+        return val
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        self[name] = value
+
+    @staticmethod
+    def _wrap(value: Any) -> Any:
+        if isinstance(value, dict) and not isinstance(value, Config):
+            return Config({k: Config._wrap(v) for k, v in value.items()})
+        if isinstance(value, list):
+            return [Config._wrap(v) for v in value]
+        return value
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        for k, v in list(self.items()):
+            self[k] = Config._wrap(v)
+
+
+def load_json_config(path: str) -> Config:
+    with open(path) as f:
+        return Config(json.load(f))
+
+
+def parse_with_config(
+    parser: argparse.ArgumentParser, argv: Optional[List[str]] = None
+) -> Config:
+    """Parse args; if --config is given, JSON values override argparse defaults
+    but explicit CLI flags override the JSON (explicit flags are found by
+    scanning argv for ``--key``)."""
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    parsed = parser.parse_args(argv)
+    args = Config(vars(parsed))
+    if getattr(parsed, "config", None):
+        config_args = load_json_config(parsed.config)
+        override_keys = {
+            arg[2:].split("=")[0] for arg in argv if arg.startswith("--")
+        }
+        for k, v in config_args.items():
+            if k not in override_keys:
+                args[k] = Config._wrap(v)
+    del args["config"]
+    return _coerce_bool_flags(args)
+
+
+# flags that the reference declares as 0/1 ints but uses as booleans
+_BOOL_FLAGS = (
+    "do_inference",
+    "pin_mem",
+    "use_itm",
+    "use_mlm",
+    "use_itc",
+    "use_mpm",
+    "fp16",
+    "debug",
+    "albef_init",
+)
+
+
+def _coerce_bool_flags(args: Config) -> Config:
+    for k in _BOOL_FLAGS:
+        if k in args and isinstance(args[k], int):
+            args[k] = bool(args[k])
+    return args
+
+
+def shared_inference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags of the task CLIs that the inference path reads. Training
+    flags are not declared until training is ported (ROADMAP A14): passing
+    one on the command line is an argparse error, not a silent no-op. A
+    config file's other keys still come through the JSON overlay."""
+    parser.add_argument("--config", type=str, default=None, help="JSON config path")
+    parser.add_argument("--output_dir", type=str, default=None)
+    parser.add_argument("--debug", type=int, default=0)
+    parser.add_argument("--model_config", type=str, default=None)
+    parser.add_argument("--visual_model_cfg", type=str, default=None)
+    parser.add_argument("--tokenizer_dir", type=str, default=None)
+    parser.add_argument("--e2e_weights_path", type=str, default=None)
+    parser.add_argument("--max_txt_len", type=int, default=40)
+    parser.add_argument("--crop_img_size", type=int, default=224)
+    parser.add_argument("--resize_size", type=int, default=256)
+    parser.add_argument("--img_pixel_mean", type=float, nargs=3, default=None)
+    parser.add_argument("--img_pixel_std", type=float, nargs=3, default=None)
+    parser.add_argument("--num_frm", type=int, default=8)
+    parser.add_argument("--val_batch_size", type=int, default=8)
+    parser.add_argument("--fp16", type=int, default=0)
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--n_workers", type=int, default=4)
+    parser.add_argument("--do_inference", type=int, default=0)
+    parser.add_argument("--inference_model_step", type=str, default="")
+    # direct path to an ALPRO-key .pt checkpoint to run inference with
+    parser.add_argument("--inference_model_ckpt", type=str, default=None)
+    parser.add_argument("--inference_txt_db", type=str, default=None)
+    parser.add_argument("--inference_img_db", type=str, default=None)
+    parser.add_argument("--inference_batch_size", type=int, default=64)
+    parser.add_argument("--inference_n_clips", type=int, default=1)
+    parser.add_argument("--attn_impl", type=str, default="auto",
+                        choices=["auto", "xla", "pallas"])
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"])
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device the model runs on; 'cpu' only when "
+                             "asked for (with no GPU the default raises)")
+    parser.add_argument("--val_datasets", type=json.loads, default=None)
+    return parser
+
+
+def get_video_retrieval_args(argv=None) -> Config:
+    parser = argparse.ArgumentParser("video retrieval")
+    shared_inference_args(parser)
+    parser.add_argument(
+        "--eval_rerank_topk", type=int, default=0,
+        help="0 (default): the exact reference protocol — VTM-score every "
+             "(video, text) pair. K>0: VTM-rerank only each text's K best "
+             "VTC candidates (non-candidates rank below by VTC sim); exact "
+             "whenever the protocol's own top ranks fall inside the VTC "
+             "top-K. With 0<K<V the video2text direction is an "
+             "approximation (only texts that shortlisted the video get VTM "
+             "ranks)")
+    return parse_with_config(parser, argv)
+
+
+def get_video_qa_args(argv=None) -> Config:
+    parser = argparse.ArgumentParser("video qa")
+    shared_inference_args(parser)
+    parser.add_argument("--task", type=str, default="msrvtt_qa")
+    # multi-choice (action/transition) option count
+    parser.add_argument("--n_options", type=int, default=5)
+    parser.add_argument("--ans2label_path", type=str, default=None)
+    parser.add_argument("--num_labels", type=int, default=1500)
+    parser.add_argument("--cls_hidden_scale", type=int, default=2)
+    parser.add_argument("--score_agg_func", type=str, default="mean",
+                        choices=["mean", "max", "lse"])
+    return parse_with_config(parser, argv)

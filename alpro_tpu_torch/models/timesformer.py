@@ -87,7 +87,7 @@ from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.fused_block import fused_spatial_block, fused_temporal_block
 from alpro_tpu_torch.ops.ln_matmul import ln_matmul
 from alpro_tpu_torch.ops.ln_mlp import ln_mlp, ln_mlp_fits
-from alpro_tpu_torch.ops.preprocess import patchify_embed
+from alpro_tpu_torch.ops.preprocess import _normalize, patchify_embed
 from alpro_tpu_torch.ops.qkv_attn import (
     spatial_attention_qkv,
     spatial_attention_qkv_cls,
@@ -438,15 +438,14 @@ class TimeSformer(nn.Module):
         fold = cfg.fold_uint8_norm == "on" or (
             cfg.fold_uint8_norm == "auto" and dt == torch.bfloat16
         )
-        mean = torch.tensor(cfg.pixel_mean, device=pixels.device)
-        std = torch.tensor(cfg.pixel_std, device=pixels.device)
         if pixels.dim() == 4:  # pre-patchified (B, T, N, p·p·C)
             side = int(round(pixels.shape[2] ** 0.5))
             if pixels.dtype == torch.uint8:
                 if fold:
                     return self.patch_embed(pixels, dt, uint8_norm=True), side, side
                 # per-column stats: column k ↔ channel k % C
-                v = (pixels.float() / 255.0 - mean.repeat(p * p)) / std.repeat(p * p)
+                v = _normalize(pixels, tuple(cfg.pixel_mean) * (p * p),
+                               tuple(cfg.pixel_std) * (p * p))
                 return self.patch_embed(v, dt), side, side
             return self.patch_embed(pixels, dt), side, side
         if pixels.dim() != 5:
@@ -461,7 +460,7 @@ class TimeSformer(nn.Module):
                                    cfg.pixel_std), hp, wp)
         uint8_fold = pixels.dtype == torch.uint8 and fold
         if pixels.dtype == torch.uint8 and not fold:
-            pixels = (pixels.float() / 255.0 - mean) / std
+            pixels = _normalize(pixels, cfg.pixel_mean, cfg.pixel_std)
         # patch extraction in (ph, pw, c) order (the reference's strided conv)
         v = pixels.reshape(B, T, hp, p, wp, p, C).permute(0, 1, 2, 4, 3, 5, 6)
         v = v.reshape(B, T, hp * wp, p * p * C)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
 retrieval and the video QA serving paths, their finetuning steps, the video
-tower's opt-in serving forms and ``LayerNorm(impl='pallas')`` at full
-ALPRO-base width.
+tower's opt-in serving forms, ``LayerNorm(impl='pallas')`` and the retrieval
+and QA eval protocols of the inference CLIs at full ALPRO-base width.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,9 @@ line):
    calls captured in one CUDA graph, replays timed, so the host's share of
    a call drops out; a wrapper that cannot be captured says why), for the
    MLP kernels K3/K5 at their small shapes too and for the BERT attention
-   chain K4 at all four of its shapes, and beside them at the main shape a
+   chain K4 at all five of its shapes (the eval protocol's fusion call of 8
+   videos × 64 texts, (512, 237), the largest; K5 there too), and beside
+   them at the main shape a
    yardstick: ``F.linear`` at fc1's and fc2's shapes; for K4, ``F.linear``
    at the q/k/v and output projections' shapes, SDPA with the key mask on
    the same q/k/v views and ``F.layer_norm``; K4 also against the TPU
@@ -95,7 +97,29 @@ line):
    BERT S = 20 481 in bf16, head_dim 48 for K1, which has no S limit, and D =
    384 for the MLP tail, at narrow widths): each equals the forward with
    that call site set to ``plain`` and launches none of the kernel
-   concerned, while the same model at the limit launches it.
+   concerned, while the same model at the limit launches it;
+10. eval protocols — the inference CLIs' ``start_inference`` on the card
+   (``device='cuda'``): phase 4's and phase 5's bf16 weights saved as
+   ALPRO-key ``.pt`` files (``inference_model_ckpt`` must load them back bit
+   for bit), a synthetic retrieval set (32 ``.npy`` clips of 12 frames at
+   240 × 320, resized to 256 and center-cropped to 224, each with a planted
+   feature of its own so that the towers tell them apart; 64 captions) and
+   QA set (8 planted clips of 16 × 2 frames, 16 questions over ``ans{i}``),
+   a ``make_test_vocab`` vocab; retrieval (``configs/msrvtt_ret.json``) at K
+   = 0 (8 videos × 64 texts = 512 pairs a fusion call), ``eval_rerank_topk``
+   8 (512 pairs a rerank call) and ``eval_vtc_only``, QA
+   (``configs/msrvtt_qa.json``) at ``inference_n_clips`` 2; each once on
+   ``auto`` and once with the CLI's model on phase 4's plain path, with
+   exact launch counts (per video batch 12 K1, 12 K2, 24 K3; per text chunk
+   or fusion call 6 K4 and 6 K5; none on the plain runs); the kernel run
+   held to the plain run at fixed tolerances (sims, P(match), top-K
+   memberships, pooled answers; ranks within the bounds their near ties
+   allow, R@k equal on the rows those bounds decide, and a least share of
+   rows, video pairs, memberships and answers decided, so that a text
+   scored against the wrong video fails); K4/K5's limits at the fusion
+   call's (512, 237), and finite output on all-zero padded text rows;
+   seconds per protocol, pairs/s of the fusion half, texts/s and the share
+   of the protocol outside the towers.
 
 Then one JSON line with the kernels, the ``nvidia-smi`` line, and last the
 result line ``{"ok": true, "device": {...}}``. There is no CPU path.
@@ -404,7 +428,8 @@ def phase_kernels(card: str) -> dict:
     too for the temporal kernel, QA's frame count; R=B cls rows without the
     residual for the MLP tail) and at the shapes of one add_videos call of
     CLIPS_PER_CALL clips (main); the BERT kernels at one text query, a
-    batch of 8 texts, the fusion of 8 (main) and 16 candidates."""
+    batch of 8 texts, the fusion of 8 (main) and 16 candidates, and the eval
+    protocol's fusion call of 8 videos x 64 texts."""
     from alpro_tpu_torch.ops import bert_block, ln_mlp, qkv_attn
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
@@ -457,8 +482,9 @@ def phase_kernels(card: str) -> dict:
     # every bias and LN vector bf16, as the bf16 model passes them
     wa = [t for _ in range(4) for t in (randn(D, D, std=D ** -0.5), randn(D, std=0.02))]
     lna = tuple(t.to(bf) for t in ln)
+    # (512, 237): the eval protocol's fusion call (phase 10), 8 videos x 64 texts
     for M, S, main in ((1, 40, False), (8, 40, False), (8, 40 + 1 + N, True),
-                       (16, 40 + 1 + N, False)):
+                       (16, 40 + 1 + N, False), (8 * 64, 40 + 1 + N, False)):
         xa, mask = randn(M, S, D), _text_mask(M, S)
         res["bert_attn"].append(_compare(
             "bert_attn", xa.shape,
@@ -472,13 +498,14 @@ def phase_kernels(card: str) -> dict:
         if M * S in (40, 8 * (40 + 1 + N)):
             _bert_attn_contract(xa, mask, [t * 4 if t.dim() == 2 else t for t in wa], lna, card)
     for R, main in ((40, False), (8 * 40, False), (8 * (40 + 1 + N), True),
-                    (16 * (40 + 1 + N), False)):
+                    (16 * (40 + 1 + N), False), (8 * 64 * (40 + 1 + N), False)):
         xr = randn(R, D, std=2.0)
         res["bert_mlp"].append(_compare(
             "bert_mlp", (R, D),
             lambda: bert_block.bert_mlp_block(xr, *w, *ln, eps=1e-12),
             lambda: bert_block.bert_mlp_block_plain(xr, *w, *ln, 1e-12),
-            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes), device=R <= 8 * 40))
+            card, main, work=(4 * R * D * Dh, 2 * R * D * 2 + w_bytes),
+            device=R <= 8 * 40 or R == 8 * 64 * (40 + 1 + N)))
         if main:
             _mlp_yardstick("bert_mlp", xr, w, card)
     _masked_attn_kernels(res, randn, card)
@@ -1981,6 +2008,492 @@ def phase_finetune(card: str) -> dict:
     return launches
 
 
+# ---- phase 10: the retrieval and QA eval protocols (the inference CLIs) ----
+EVAL_VIDEOS, EVAL_TEXTS, EVAL_SRC_FRAMES, EVAL_HW = 32, 64, 12, (240, 320)
+QA_EVAL_VIDEOS, QA_EVAL_QUESTIONS, QA_EVAL_CLIPS = 8, 16, 2
+EVAL_VID_BSZ, EVAL_TXT_BSZ, EVAL_PAIR_BSZ, EVAL_TOPK, QA_EVAL_BSZ = 8, 64, 512, 8, 8
+EVAL_WORDS = ["a", "the", "person", "dog", "cat", "runs", "jumps", "video", "man", "woman",
+              "is", "playing", "ball", "red", "blue", "green", "frisbee", "kitchen"]
+ANSWER_TYPES = ["what", "who", "how", "where", "when"]
+# kernel run vs plain run of one eval protocol on the planted set, 12 bf16
+# blocks apart: P(match), the VTC similarity (a cosine over the temperature
+# 0.07) and the pooled QA log-probabilities, each about twice the largest
+# difference measured on the card (H100: 7.8e-3, 4.8e-2 and 1.5e-2). Two
+# entries of a query row are a near tie when their plain scores lie within
+# twice the tolerance: only near ties can change order between the runs.
+EVAL_PROB_TOL, EVAL_SIM_TOL, EVAL_QA_LOGP_TOL = 2e-2, 1e-1, 3e-2
+# the least share that these fixed windows must decide — text→video rows at
+# each k of R@k, pairs of videos in a text's row, top-K memberships and QA
+# top-1 answers — so that the comparison has power: a text scored against
+# the wrong video moves its score past the tolerance
+EVAL_MIN_DECIDED = 0.4
+
+
+class _TowerClock:
+    """Inside a protocol run: the wall time of ``AlproModel``'s
+    ``embed_video``, ``embed_text`` and ``fuse`` (each call between two
+    ``torch.cuda.synchronize``; the protocol moves every result to the host
+    right after the call anyway), the fusion pairs, and the QA classifier's
+    logits (fp32, in call order)."""
+
+    METHODS = ("embed_video", "embed_text", "fuse", "classify")
+
+    def __enter__(self):
+        from alpro_tpu_torch.models.alpro import AlproModel
+
+        self.seconds = {m: 0.0 for m in self.METHODS[:3]}
+        self.pairs, self.logits, self._saved = 0, [], {}
+        for name in self.METHODS:
+            orig = getattr(AlproModel, name)
+            self._saved[name] = orig
+            setattr(AlproModel, name, self._wrap(name, orig))
+        return self
+
+    def _wrap(self, name, orig):
+        def timed(model, *args, **kwargs):
+            if name == "classify":
+                out = orig(model, *args, **kwargs)
+                self.logits.append(out.float().cpu().numpy())
+                return out
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(model, *args, **kwargs)
+            torch.cuda.synchronize()
+            self.seconds[name] += time.perf_counter() - t0
+            if name == "fuse":
+                self.pairs += args[0].shape[0]
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        from alpro_tpu_torch.models.alpro import AlproModel
+
+        for name, orig in self._saved.items():
+            setattr(AlproModel, name, orig)
+
+
+def _planted_clip(rng, frames: int) -> np.ndarray:
+    """(frames, 240, 320, 3) uint8 with a feature of its own, so that the
+    towers tell the clips apart (on i.i.d. noise every clip looks alike to
+    them and every score is a near tie): a base colour, a colour gradient
+    whose direction drifts over the frames, and ±24 levels of noise."""
+    h, w = EVAL_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32) / max(h, w)
+    base, angle = rng.uniform(48, 208, 3), rng.uniform(0, 2 * np.pi)
+    slope, drift = rng.uniform(-80, 80, 3), rng.uniform(-0.5, 0.5)
+    out = []
+    for t in range(frames):
+        a = angle + drift * t / frames
+        img = base + slope * (np.cos(a) * xx + np.sin(a) * yy)[..., None]
+        img = img + rng.uniform(-24, 24, (h, w, 3))
+        out.append(np.clip(np.rint(img), 0, 255).astype(np.uint8))
+    return np.stack(out)
+
+
+def _write_eval_data(root: Path, vocab_words) -> dict:
+    """The synthetic eval sets: retrieval (EVAL_VIDEOS planted .npy clips of
+    EVAL_SRC_FRAMES frames at 240 × 320, two captions a video with txt_ids)
+    and QA (QA_EVAL_VIDEOS planted clips of num_frm · n_clips frames,
+    questions with answer types over ``ans{i}``), a vocab file from
+    ``make_test_vocab`` and an ``ans2label`` of 1500 answers."""
+    from alpro_tpu_torch.data.tokenization import make_test_vocab
+
+    rng = np.random.RandomState(SEED + 20)
+    paths = {}
+    for name, n_videos, frames in (("ret", EVAL_VIDEOS, EVAL_SRC_FRAMES),
+                                   ("qa", QA_EVAL_VIDEOS, QA_FRAMES * QA_EVAL_CLIPS)):
+        vid_dir = root / name / "videos"
+        vid_dir.mkdir(parents=True)
+        for i in range(n_videos):
+            np.save(vid_dir / f"{name}{i:03d}.npy", _planted_clip(rng, frames))
+        paths[name] = str(vid_dir)
+    with open(root / "ret.jsonl", "w") as f:
+        for j in range(EVAL_TEXTS):
+            words = rng.choice(vocab_words, size=int(rng.randint(3, 12)))
+            f.write(json.dumps({"vid_id": f"ret{j // 2:03d}", "txt_id": f"t{j}",
+                                "txt": " ".join(words)}) + "\n")
+    with open(root / "qa.jsonl", "w") as f:
+        for q in range(QA_EVAL_QUESTIONS):
+            f.write(json.dumps({
+                "question_id": q, "vid_id": f"qa{q % QA_EVAL_VIDEOS:03d}",
+                "question": f"{ANSWER_TYPES[q % 5]} is the {' '.join(rng.choice(vocab_words, 4))}",
+                "answer": f"ans{int(rng.randint(0, 1500))}", "answer_type": ANSWER_TYPES[q % 5],
+            }) + "\n")
+    (root / "ans2label.json").write_text(json.dumps({f"ans{i}": i for i in range(1500)}))
+    (root / "vocab.txt").write_text("".join(t + "\n" for t in make_test_vocab(vocab_words)))
+    return {"ret_ann": str(root / "ret.jsonl"), "ret_videos": paths["ret"],
+            "qa_ann": str(root / "qa.jsonl"), "qa_videos": paths["qa"],
+            "ans2label": str(root / "ans2label.json"), "vocab": str(root / "vocab.txt")}
+
+
+def _save_weights(model, path: Path, cfg: dict, task: str) -> None:
+    """The model's bf16 weights as an ALPRO-key ``.pt``; the CLI's
+    ``inference_model_ckpt`` must load every one back bit for bit."""
+    from alpro_tpu_torch.checkpoint.load import alpro_state_dict_of
+    from alpro_tpu_torch.cli import common
+    from alpro_tpu_torch.core.config import Config
+
+    torch.save({k: v.cpu() for k, v in alpro_state_dict_of(model).items()}, path)
+    loaded = common.load_inference_params(common.build_model_from_cfg(Config(cfg), task),
+                                          Config(cfg))
+    want = dict(model.named_parameters())
+    bad = [k for k, p in loaded.named_parameters() if not torch.equal(p, want[k].float())]
+    fail_if(bool(bad) or len(want) != len(dict(loaded.named_parameters())),
+            f"{task}: inference_model_ckpt did not load {bad[:5]} back bit for bit")
+    print(f"[eval] {task}: {len(want)} bf16 tensors saved to an ALPRO-key .pt "
+          f"({path.stat().st_size / 1e6:.1f} MB), inference_model_ckpt loads them back bit for bit",
+          flush=True)
+    del loaded
+    torch.cuda.empty_cache()
+
+
+def _eval_run(cli, cfg: dict, want: dict, what: str, plain: bool = False) -> dict:
+    """``cli.start_inference`` on ``cfg`` with the launch counts set to 0
+    just before and read just after (they must equal ``want``); the towers'
+    clock; the protocol's own seconds (its ``inference_*`` function). With
+    ``plain``, the CLI's model is put on the plain path of phase 4
+    (``_plain_cfgs``) right after it is built."""
+    from alpro_tpu_torch.cli import common
+    from alpro_tpu_torch.core.config import Config
+
+    name = "inference_qa" if cli.__name__.endswith("qa") else "inference_retrieval"
+    protocol, build, spent = getattr(cli, name), common.build_model_from_cfg, {}
+
+    def timed(*args):
+        t0 = time.perf_counter()
+        out = protocol(*args)
+        spent["protocol"] = time.perf_counter() - t0
+        return out
+
+    def build_plain(*args, **kwargs):
+        model = build(*args, **kwargs)
+        _set_path(model, *_plain_cfgs(model))
+        return model
+
+    setattr(cli, name, timed)
+    if plain:
+        common.build_model_from_cfg = build_plain
+    try:
+        with _TowerClock() as clock:
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = cli.start_inference(Config(cfg))
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            counts = _counts()
+    finally:
+        setattr(cli, name, protocol)
+        common.build_model_from_cfg = build
+    fail_if(counts != want, f"{what}: launch counts {counts} != {want}")
+    out_file = "qa_results.json" if name == "inference_qa" else "results.json"
+    saved = json.loads((Path(cfg["output_dir"]) / out_file).read_text())
+    towers = sum(clock.seconds.values())
+    run = dict(metrics=metrics, results=saved["results"], counts=counts, total_s=total,
+               protocol_s=spent["protocol"], towers=dict(clock.seconds), pairs=clock.pairs,
+               logits=clock.logits, outside=1 - towers / spent["protocol"])
+    fail_if(not all(np.isfinite(r.get("score", 0.0)) and np.isfinite(r.get("sim", 0.0))
+                    for r in run["results"]), f"{what}: non-finite scores")
+    return run
+
+
+def _eval_launches(video_calls: int, text_calls: int) -> dict:
+    """Per video tower call 12 K1, 12 K2, 24 K3; per text chunk or fusion
+    call 6 K4 and 6 K5."""
+    want = _launches(video_calls=video_calls)
+    want["bert_attn"] = want["bert_mlp"] = 6 * text_calls
+    return want
+
+
+def _matrix(results, key):
+    vids = sorted({r["vid_id"] for r in results})
+    txts = sorted({r["txt_id"] for r in results}, key=lambda t: int(t[1:]))
+    m = np.zeros((len(vids), len(txts)))
+    vi, ti = {v: i for i, v in enumerate(vids)}, {t: j for j, t in enumerate(txts)}
+    for r in results:
+        m[vi[r["vid_id"]], ti[r["txt_id"]]] = r[key]
+    return m, vids, txts
+
+
+def _rank(row, gts) -> int:
+    """The best 0-based position of the ground-truth entries ``gts`` in the
+    row's stable descending order (``evals/retrieval.py``'s rank, less 1)."""
+    pos = np.empty(len(row), np.int64)
+    pos[np.argsort(-row, kind="stable")] = np.arange(len(row))
+    return int(pos[gts].min())
+
+
+def _rank_bounds(p_row, gts, tol: float) -> tuple:
+    """(lo, hi): where the best 0-based rank of the ground truths ``gts`` in
+    ``p_row`` can go when every score moves by at most ``tol``. An entry more
+    than 2·tol above a ground truth stays above it, one more than 2·tol below
+    stays below, and only the near ties between can pass it."""
+    others = np.setdiff1d(np.arange(len(p_row)), gts)
+    lo = min(int((p_row[others] > p_row[g] + 2 * tol).sum()) for g in gts)
+    hi = min(int((p_row[others] >= p_row[g] - 2 * tol).sum()) for g in gts)
+    return lo, hi
+
+
+def _pairs_apart(m, tol: float) -> float:
+    """The share of pairs of entries within a column of ``m`` (a text's
+    videos) whose scores differ by more than 2·tol: swapping such a pair
+    moves both scores past the tolerance."""
+    i, j = np.triu_indices(m.shape[0], 1)
+    return float((np.abs(m[i] - m[j]) > 2 * tol).mean())
+
+
+def _rank_checks(kern: dict, plain: dict, tol: float, what: str, unstable) -> None:
+    """The kernel run's ranks against the plain run's, every score within
+    ``tol``. In a query row (a text for text→video, a video for
+    video→text) the rank must lie within ``_rank_bounds``; a row is decided
+    at k when those bounds put it on one side of k, and on decided rows
+    R@k must be equal; where every row's bounds meet, all the metrics must
+    be. Rows holding an ``unstable`` entry (one that changed band) are left
+    out. At least EVAL_MIN_DECIDED of the text→video rows must be decided
+    at each k."""
+    ks, vids, txts = _matrix(kern["results"], "score")
+    ps, _, _ = _matrix(plain["results"], "score")
+    gt_col = np.asarray([vids.index(f"ret{int(t[1:]) // 2:03d}") for t in txts])
+    notes = []
+    for direction, k_rows, p_rows, u_rows, gts in (
+            ("text2video", ks.T, ps.T, unstable.T, [np.asarray([g]) for g in gt_col]),
+            ("video2text", ks, ps, unstable,
+             [np.nonzero(gt_col == v)[0] for v in range(len(vids))])):
+        held = exact = 0
+        hits = {k: [0, 0, 0] for k in (1, 5, 10)}  # decided rows, kernel hits, plain hits
+        for k_row, p_row, u_row, gt in zip(k_rows, p_rows, u_rows, gts):
+            if u_row.any():
+                continue
+            held += 1
+            lo, hi = _rank_bounds(p_row, gt, tol)
+            got = _rank(k_row, gt)
+            fail_if(not lo <= got <= hi,
+                    f"{what} {direction}: rank {got} outside its bounds [{lo}, {hi}]")
+            exact += lo == hi
+            for k, h in hits.items():
+                if lo >= k or hi < k:
+                    h[0] += 1
+                    h[1] += got < k
+                    h[2] += _rank(p_row, gt) < k
+        for k, (n, kh, ph) in hits.items():
+            fail_if(kh != ph, f"{what} {direction}: R@{k} differs on its {n} decided rows")
+            if direction == "text2video":
+                fail_if(n < EVAL_MIN_DECIDED * len(gts),
+                        f"{what}: only {n}/{len(gts)} text2video rows decided at R@{k}")
+        if exact == len(gts):
+            fail_if(kern["metrics"][direction] != plain["metrics"][direction],
+                    f"{what} {direction}: metrics differ with every rank decided")
+        notes.append(f"{direction}: {held}/{len(gts)} rows within their bounds, {exact} exact; "
+                     "decided at R@1/5/10 " + "/".join(str(h[0]) for h in hits.values())
+                     + ", hits there equal (" + "/".join(str(h[1]) for h in hits.values()) + ")"
+                     + ("; metrics equal" if exact == len(gts) else ""))
+    print(f"[eval] {what} (near ties within 2 x {tol:.3e}): " + "; ".join(notes), flush=True)
+
+
+def _retrieval_checks(kern: dict, plain: dict, mode: str) -> None:
+    """VTC sims within EVAL_SIM_TOL and P(match) (or, ranking by the sims,
+    the scores) within EVAL_PROB_TOL of the plain run. At K = 0 and VTC
+    only, at least EVAL_MIN_DECIDED of the pairs of videos in a text's row
+    lie apart (``_pairs_apart``). Under top-K every video whose plain sim is
+    surely among a text's K best (fewer than K others within 2·tol above or
+    higher) is a candidate, every one surely outside is not, and at least
+    EVAL_MIN_DECIDED of the memberships are so decided; candidates'
+    P(match) and the others' sim band within tolerance. Then the ranks
+    (``_rank_checks``), the window the scores' own tolerance."""
+    (ksim, _, _), (psim, _, _) = _matrix(kern["results"], "sim"), _matrix(plain["results"], "sim")
+    kscore, _, _ = _matrix(kern["results"], "score")
+    pscore, _, _ = _matrix(plain["results"], "score")
+    sim_err = float(np.abs(ksim - psim).max())
+    fail_if(sim_err > EVAL_SIM_TOL, f"{mode}: VTC sims differ by {sim_err}")
+    line = f"VTC sim max_abs {sim_err:.3e} (tol {EVAL_SIM_TOL})"
+    unstable = np.zeros(kscore.shape, bool)
+    if mode == "topk":
+        kc, pc = kscore > 1.0, pscore > 1.0  # the reranked candidates, per text column
+        fail_if(not (kc.sum(0) == EVAL_TOPK).all(), f"{mode}: not {EVAL_TOPK} candidates a text")
+        others = np.eye(psim.shape[0]) == 0
+        gap = psim[None, :, :] - psim[:, None, :]  # [i, i', text]: sim of i' above i's
+        surely_in = ((gap >= -2 * EVAL_SIM_TOL) & others[..., None]).sum(1) < EVAL_TOPK
+        surely_out = ((gap > 2 * EVAL_SIM_TOL) & others[..., None]).sum(1) >= EVAL_TOPK
+        fail_if(bool((surely_in & ~kc).any() or (surely_out & kc).any()),
+                f"{mode}: a candidate set differs where the sims decide it")
+        decided = float((surely_in | surely_out).mean())
+        fail_if(decided < EVAL_MIN_DECIDED, f"{mode}: only {decided:.2f} of memberships decided")
+        unstable = kc != pc
+        prob_err = float(np.abs(kscore - pscore)[kc & pc].max())
+        band_err = float(np.abs(kscore - pscore)[~kc & ~pc].max())
+        line += (f"; top-{EVAL_TOPK} memberships decided by the sims {100 * decided:.1f}%, all "
+                 f"equal, {int(unstable.any(0).sum())} texts with another set; P(match) of shared "
+                 f"candidates max_abs {prob_err:.3e} (tol {EVAL_PROB_TOL}), sim band "
+                 f"{band_err:.3e} (tol {EVAL_SIM_TOL / np.pi:.3e})")
+        fail_if(prob_err > EVAL_PROB_TOL, f"{mode}: P(match) differs by {prob_err}")
+        fail_if(band_err > EVAL_SIM_TOL / np.pi, f"{mode}: sim band differs by {band_err}")
+        tol = max(EVAL_PROB_TOL, EVAL_SIM_TOL / np.pi)
+    else:
+        tol = EVAL_SIM_TOL if mode == "vtc_only" else EVAL_PROB_TOL
+        err = float(np.abs(kscore - pscore).max())
+        apart = _pairs_apart(pscore, tol)
+        line += (f"; score max_abs {err:.3e} (tol {tol}); {100 * apart:.1f}% of the pairs of "
+                 f"videos in a text's row more than 2 tol apart")
+        fail_if(err > tol, f"{mode}: scores differ by {err}")
+        fail_if(apart < EVAL_MIN_DECIDED, f"{mode}: only {apart:.2f} of video pairs apart")
+    print(f"[eval] retrieval {mode}, kernel vs plain run: {line}", flush=True)
+    _rank_checks(kern, plain, tol, f"retrieval {mode}", unstable)
+
+
+def _qa_checks(kern: dict, plain: dict, qid2data: dict) -> None:
+    """Pooled answer distributions (the mean of the clips' logits,
+    softmaxed) within phase 5's QA_PLAIN_TOL['prob'] and log-probabilities
+    within EVAL_QA_LOGP_TOL; the same top-1 wherever the plain run's top-1
+    log-probability margin exceeds 2·EVAL_QA_LOGP_TOL (so no pair of
+    answers could swap), which at least EVAL_MIN_DECIDED of the questions
+    must; ``evaluate_qa`` equal on those questions, and on all where every
+    one is."""
+    from alpro_tpu_torch.evals.qa import evaluate_qa
+
+    def pooled(run):
+        per_call = np.stack(run["logits"]).reshape(-1, QA_EVAL_CLIPS, QA_EVAL_BSZ, 1500)
+        logits = torch.from_numpy(per_call.mean(axis=1).reshape(-1, 1500))
+        return logits.softmax(-1).numpy(), logits.log_softmax(-1).numpy(), logits.numpy()
+
+    (kp, kl, klogits), (pp, pl, _) = pooled(kern), pooled(plain)
+    worst = {"prob": float(np.abs(kp - pp).max()), "logp": float(np.abs(kl - pl).max())}
+    top2 = np.sort(pl, axis=-1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    clear = margin > 2 * EVAL_QA_LOGP_TOL
+    same = [k["answer"] == p["answer"] for k, p in zip(kern["results"], plain["results"])]
+    fail_if(any(c and not s for c, s in zip(clear, same)), "QA: a clear top-1 answer differs")
+    fail_if(any(int(np.argmax(a)) != r["answer"] for a, r in zip(klogits, kern["results"])),
+            "QA: the recorded logits are not the answers'")
+    fail_if(clear.mean() < EVAL_MIN_DECIDED, f"QA: only {int(clear.sum())} clear margins")
+    label2ans = {i: f"ans{i}" for i in range(1500)}
+    on_clear = [evaluate_qa([r for r, c in zip(run["results"], clear) if c], qid2data, label2ans)
+                for run in (kern, plain)]
+    fail_if(on_clear[0] != on_clear[1], "QA: accuracy differs on the clear questions")
+    if clear.all():
+        fail_if(kern["metrics"] != plain["metrics"], "QA: accuracy differs with every margin clear")
+    print(f"[eval] qa, kernel vs plain run: pooled prob max_abs {worst['prob']:.3e} (tol "
+          f"{QA_PLAIN_TOL['prob']}), log-prob max_abs {worst['logp']:.3e} (tol "
+          f"{EVAL_QA_LOGP_TOL}); top-1 equal for the {int(clear.sum())}/{clear.size} questions "
+          f"whose margin exceeds 2 tol, accuracy there equal ({on_clear[0]['overall_acc']}); "
+          f"{sum(same)}/{len(same)} answers equal"
+          + ("; metrics equal" if clear.all() else ""), flush=True)
+    fail_if(worst["prob"] > QA_PLAIN_TOL["prob"], f"QA: prob differs by {worst['prob']:.3e}")
+    fail_if(worst["logp"] > EVAL_QA_LOGP_TOL, f"QA: logp differs by {worst['logp']:.3e}")
+
+
+def _padded_rows_check(model, tok) -> None:
+    """The protocol pads its last text chunk with all-zero ids and masks
+    (every key bias of such a row is −10000): the text half's K4 and the
+    fusion at EVAL_VID_BSZ × EVAL_TXT_BSZ pairs give finite output there
+    too, though the protocol slices those rows off before scoring."""
+    from alpro_tpu_torch.ops import bert_block
+    from alpro_tpu_torch.serving.inference import make_fusion_score_pairs_fn, make_text_encode_fn
+
+    enc = tok(TEXTS * (EVAL_TXT_BSZ // len(TEXTS) - 1), max_length=40)
+    ids = torch.zeros(EVAL_TXT_BSZ, 40, dtype=torch.int32, device="cuda")
+    mask = torch.zeros_like(ids)
+    n = len(enc["input_ids"])
+    ids[:n], mask[:n] = (torch.from_numpy(enc[k]).cuda() for k in ("input_ids", "attention_mask"))
+    videos = torch.randn(EVAL_VID_BSZ, 1 + PATCHES, 768, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(SEED + 21))
+    before = bert_block.attn_launches
+    te, tf = make_text_encode_fn(model)({"text_input_ids": ids, "text_input_mask": mask})
+    logits = make_fusion_score_pairs_fn(model)(te, mask, videos.to(torch.bfloat16))
+    torch.cuda.synchronize()
+    fail_if(bert_block.attn_launches - before != 12, "padded rows: K4 did not run")
+    fail_if(not (torch.isfinite(te[n:].float()).all() and torch.isfinite(logits).all()),
+            "padded rows: non-finite text embeds or fusion logits")
+    print(f"[eval] {EVAL_TXT_BSZ - n} all-zero padded text rows: finite text embeds and "
+          f"finite logits at ({EVAL_VID_BSZ} x {EVAL_TXT_BSZ}) pairs through K4/K5", flush=True)
+
+
+def phase_eval(card: str, ret: dict, qa: dict) -> dict:
+    """The retrieval and QA eval protocols through the inference CLIs'
+    ``start_inference`` on the card (``device='cuda'``), at ALPRO-base width
+    and depth (``configs/msrvtt_ret.json``, ``configs/msrvtt_qa.json``) with
+    phase 4's and phase 5's seeded weights written as ALPRO-key ``.pt``
+    files, on synthetic ``.npy`` sets. Retrieval K = 0 (8 × 64 = 512 pairs a
+    fusion call), ``eval_rerank_topk`` 8 (512 pairs a rerank call) and
+    ``eval_vtc_only``; QA at T = 16 × 2 clips. Each on ``auto`` and on the
+    plain path, with exact launch counts, the kernel run held to the plain
+    run (``_retrieval_checks``, ``_qa_checks``), and the seconds, pairs/s
+    and texts/s of each. Returns the launch counts of the kernel runs,
+    summed."""
+    import tempfile
+
+    from alpro_tpu_torch.cli import run_video_qa, run_video_retrieval
+    from alpro_tpu_torch.ops import bert_block, _build
+    from alpro_tpu_torch.ops.ln_mlp import ln_mlp_fits
+
+    smem = _build.smem_optin(torch.device("cuda"))
+    R = EVAL_VID_BSZ * EVAL_TXT_BSZ
+    fail_if(not (bert_block.attention_fits(R, 40 + 1 + PATCHES, 768, 12, torch.bfloat16, smem)
+                 and ln_mlp_fits(768, 3072, torch.bfloat16)),
+            f"K4/K5 limits refuse the fusion call's ({R}, {40 + 1 + PATCHES}, 768)")
+    _set_path(ret["model"], *ret["kernel_cfgs"])
+    _padded_rows_check(ret["model"], ret["tok"])
+    total = {k: 0 for k in KERNEL_TOL}
+    with tempfile.TemporaryDirectory(prefix="alpro_eval_") as tmp:
+        root = Path(tmp)
+        data = _write_eval_data(root, EVAL_WORDS)
+        shared = dict(model_config=str(REPO / "configs" / "base_model.json"),
+                      tokenizer_dir=data["vocab"], device="cuda", do_inference=True,
+                      e2e_weights_path=None, inference_txt_db=None, inference_img_db=None)
+        ret_cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
+        ret_cfg.update(shared, visual_model_cfg=str(REPO / "configs" / Path(
+            ret_cfg["visual_model_cfg"]).name),
+            val_datasets=[{"name": "synthetic", "txt": data["ret_ann"],
+                           "img": data["ret_videos"]}],
+            inference_batch_size=EVAL_TXT_BSZ, eval_video_batch_size=EVAL_VID_BSZ,
+            eval_pair_batch_size=EVAL_PAIR_BSZ, inference_model_ckpt=str(root / "ret.pt"))
+        qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+        qa_cfg.update(shared, visual_model_cfg=str(REPO / "configs" / Path(
+            qa_cfg["visual_model_cfg"]).name),
+            val_datasets=[{"name": "synthetic", "txt": data["qa_ann"], "img": data["qa_videos"]}],
+            ans2label_path=data["ans2label"], inference_batch_size=QA_EVAL_BSZ,
+            inference_n_clips=QA_EVAL_CLIPS, inference_model_ckpt=str(root / "qa.pt"))
+        _save_weights(ret["model"], root / "ret.pt", ret_cfg, "retrieval")
+        _save_weights(qa["model"], root / "qa.pt", qa_cfg, "qa")
+
+        n_vb = -(-EVAL_VIDEOS // EVAL_VID_BSZ)
+        n_tc = -(-EVAL_TEXTS // EVAL_TXT_BSZ)
+        n_rerank = -(-EVAL_TEXTS * EVAL_TOPK // EVAL_PAIR_BSZ)
+        n_qa = -(-QA_EVAL_QUESTIONS // QA_EVAL_BSZ) * QA_EVAL_CLIPS
+        modes = {"k0": ({}, _eval_launches(n_vb, n_tc + n_vb * n_tc)),
+                 "topk": ({"eval_rerank_topk": EVAL_TOPK}, _eval_launches(n_vb, n_tc + n_rerank)),
+                 "vtc_only": ({"eval_vtc_only": True}, _eval_launches(n_vb, n_tc))}
+        runs, zero = {}, {k: 0 for k in KERNEL_TOL}
+        for mode, (extra, want) in modes.items():
+            for path, expect in (("kernels", want), ("plain", zero)):
+                cfg = dict(ret_cfg, **extra, output_dir=str(root / "out" / mode / path))
+                runs[mode, path] = _eval_run(run_video_retrieval, cfg, expect,
+                                             f"retrieval {mode} ({path})", path == "plain")
+            _retrieval_checks(runs[mode, "kernels"], runs[mode, "plain"], mode)
+        for path, expect in (("kernels", _eval_launches(n_qa, 2 * n_qa)), ("plain", zero)):
+            cfg = dict(qa_cfg, output_dir=str(root / "out" / "qa" / path))
+            runs["qa", path] = _eval_run(run_video_qa, cfg, expect, f"qa ({path})",
+                                         path == "plain")
+        qid2data = {r["question_id"]: r for r in
+                    map(json.loads, Path(data["qa_ann"]).read_text().splitlines())}
+        _qa_checks(runs["qa", "kernels"], runs["qa", "plain"], qid2data)
+
+    for (mode, path), run in runs.items():
+        tw = run["towers"]
+        n_texts = QA_EVAL_QUESTIONS if mode == "qa" else EVAL_TEXTS
+        pairs = (f"; fusion {run['pairs']} pairs in {tw['fuse']:.3f} s = "
+                 f"{run['pairs'] / tw['fuse']:.1f} pairs/s" if tw["fuse"] else "")
+        print(f"[eval] {mode} ({path}): start_inference {run['total_s']:.3f} s, protocol "
+              f"{run['protocol_s']:.3f} s ({n_texts / run['protocol_s']:.1f} texts/s); towers: "
+              f"video {tw['embed_video']:.3f} s, text {tw['embed_text']:.3f} s, fusion "
+              f"{tw['fuse']:.3f} s{pairs}; outside the towers {100 * run['outside']:.1f}% of the "
+              f"protocol; metrics {json.dumps(run['metrics'])} [{card}]", flush=True)
+        if path == "kernels":
+            print(f"[eval] {mode} (kernels) launches {run['counts']}", flush=True)
+            for k, v in run["counts"].items():
+                total[k] += v
+    return total
+
+
 def main() -> int:
     card = phase_device()
     phase_build()
@@ -1995,6 +2508,8 @@ def main() -> int:
     launches["layernorm"] = phase_layernorm(card)
     # the last two kernels' own counts (no model path reaches them)
     launches.update(phase_last(card, res, ret))
+    # the eval protocols' own counts (K1-K5 again), summed over their kernel runs
+    eval_launches = phase_eval(card, ret, qa)
     del ret, qa
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
@@ -2042,6 +2557,7 @@ def main() -> int:
             "library_ms": main_shape["library_ms"], "shape": main_shape["shape"],
             "device_ms": main_shape["device_ms"],
             "library_device_ms": main_shape["library_device_ms"],
+            "eval_launches": eval_launches[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

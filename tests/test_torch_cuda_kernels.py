@@ -1488,3 +1488,32 @@ def test_kernel_launches_on_the_current_stream(cuda, kernel):
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), twin(fresh).float(), atol=tol, rtol=tol)
     torch.testing.assert_close(out, fn(fresh), atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("form", ["frames", "patches"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfolded_uint8_normalize_is_the_cpus_bit_for_bit(cuda, form, dtype):
+    """The video tower's unfolded uint8 normalize (``fold_uint8_norm='off'``,
+    the fp32 default's path) gives the patch embedding the same fp32 values
+    on the card as on the CPU, bit for bit, on raw frames and on
+    pre-patchified rows: IEEE divisions, where a division by the Python
+    scalar 255 is a multiply by its reciprocal on CUDA, one bit off at some
+    v / 255. Every (value, channel) pair of the 768 occurs."""
+    from alpro_tpu_torch.models.timesformer import TimeSformer, TimeSformerConfig
+
+    cfg = TimeSformerConfig(img_size=32, num_frames=2, embed_dim=128, depth=1, num_heads=2,
+                            fold_uint8_norm="off", drop_path_rate=0.0, attn_impl="plain",
+                            temporal_attn_impl="plain", mlp_impl="plain")
+    frames = (torch.arange(2 * 2 * 32 * 32 * 3) % 256).to(torch.uint8).view(2, 2, 32, 32, 3)
+    if form == "patches":
+        frames = frames.view(2, 2, 2, 16, 2, 16, 3).permute(0, 1, 2, 4, 3, 5, 6).reshape(
+            2, 2, 4, 768)
+    seen = []
+    for dev in ("cpu", cuda):
+        tower = TimeSformer(cfg, dtype).to(dev)
+        tower.patch_embed.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+        with torch.no_grad():
+            tower(frames.to(dev))
+    cpu, card = seen
+    assert card.dtype == torch.float32 and card.device.type == "cuda"
+    torch.testing.assert_close(card.cpu(), cpu, atol=0, rtol=0)

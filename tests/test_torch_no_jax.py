@@ -1,10 +1,13 @@
 """The port stands alone: no module of ``alpro_tpu_torch`` and neither
 ``chip_smoke.py``, ``profile_serving.py`` nor ``profile_train.py`` imports jax or anything of the JAX package ``alpro_tpu``
 (not even a module there that does not import jax), anywhere in its source —
-including imports inside functions, which only an AST scan sees. And the
-port loads in a fresh interpreter with ``ALPRO_PLATFORM`` unset without
-importing jax, flax, optax, PIL or ``alpro_tpu`` (the machine with the GPU
-has none of the first four), and builds no kernel at import."""
+including imports inside functions, which only an AST scan sees. No port
+module imports PIL or pandas at module level (the machine with the GPU has
+neither; an optional dependency is imported inside the function that needs
+it, as ``transformers`` is). And the port loads in a fresh interpreter with
+``ALPRO_PLATFORM`` unset without importing jax, flax, optax, PIL, pandas,
+``transformers`` or ``alpro_tpu`` (the machine with the GPU has none of the
+first six), and builds no kernel at import."""
 
 import ast
 import os
@@ -16,6 +19,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 _FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "alpro_tpu"}
+_NOT_AT_MODULE_LEVEL = {"PIL", "pandas"}
 _SOURCES = sorted((REPO / "alpro_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "profile_serving.py", REPO / "profile_train.py"]
 
@@ -28,6 +32,50 @@ def _imported_roots(path: Path):
                 yield node.lineno, alias.name.split(".")[0]
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             yield node.lineno, node.module.split(".")[0]
+
+
+def _module_level_roots(path: Path):
+    """(line, top-level module) of every absolute import that runs when
+    ``path`` is imported: not inside a function or lambda body."""
+    def walk(node):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+                continue
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield child.lineno, alias.name.split(".")[0]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                yield child.lineno, child.module.split(".")[0]
+            yield from walk(child)
+
+    return list(walk(ast.parse(path.read_text(), filename=str(path))))
+
+
+_PORT = sorted((REPO / "alpro_tpu_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", _PORT, ids=lambda p: str(p.relative_to(REPO)))
+def test_module_imports_no_pil_or_pandas_at_module_level(path):
+    bad = [f"{path.relative_to(REPO)}:{line} imports {root} at module level"
+           for line, root in _module_level_roots(path) if root in _NOT_AT_MODULE_LEVEL]
+    assert not bad, bad
+
+
+def test_module_level_scan_skips_function_bodies(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import PIL.Image\ntry:\n    import pandas\nexcept ImportError:\n"
+                     "    pass\nclass A:\n    import numpy\ndef f():\n    import torch\n")
+    assert sorted(r for _, r in _module_level_roots(probe)) == ["PIL", "numpy", "pandas"]
+
+
+def test_the_scans_cover_the_eval_path_modules():
+    """The new packages of the eval path are under the scans' ``rglob``."""
+    names = {str(p.relative_to(REPO / "alpro_tpu_torch")) for p in _PORT}
+    assert {"core/config.py", "core/logging.py", "data/tokenization.py", "data/transforms.py",
+            "data/datasets.py", "data/loader.py", "media/__init__.py", "cli/common.py",
+            "cli/run_video_retrieval.py", "cli/run_video_qa.py", "evals/retrieval.py",
+            "checkpoint/reference.py"} <= names
+    assert set(_PORT) <= set(_SOURCES)
 
 
 @pytest.mark.parametrize("path", _SOURCES, ids=lambda p: str(p.relative_to(REPO)))
@@ -56,8 +104,11 @@ import alpro_tpu_torch.ops.ln_matmul, alpro_tpu_torch.ops.preprocess, alpro_tpu_
 import alpro_tpu_torch.ops.layernorm, alpro_tpu_torch.ops.temporal_attn, alpro_tpu_torch.ops.block_attn
 import alpro_tpu_torch.objectives.vtc, alpro_tpu_torch.objectives.vtm
 import alpro_tpu_torch.train.optimizer, alpro_tpu_torch.train.state, alpro_tpu_torch.train.step
+import alpro_tpu_torch.cli.run_video_retrieval, alpro_tpu_torch.cli.run_video_qa
+import alpro_tpu_torch.checkpoint.reference, alpro_tpu_torch.evals.retrieval
+import alpro_tpu_torch.data.loader, alpro_tpu_torch.data.transforms
 heavy = sorted({m.split('.')[0] for m in sys.modules}
-               & {'jax', 'flax', 'optax', 'PIL', 'alpro_tpu'})
+               & {'jax', 'flax', 'optax', 'PIL', 'pandas', 'alpro_tpu', 'transformers'})
 from alpro_tpu_torch.ops import _build
 assert _build._lib is None, 'kernel library loaded at import'
 print('HEAVY', heavy)
