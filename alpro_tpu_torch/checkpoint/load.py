@@ -42,13 +42,12 @@ def _to_port_keys(sd: Mapping) -> dict:
     return out
 
 
-def alpro_state_dict_of(model: nn.Module) -> dict:
-    """The model's parameters in the ALPRO key space (detached tensors as
-    stored, the patch embedding as the (D, C, p, p) conv weight): what
-    ``torch.save`` writes as a ``.pt`` that ALPRO's loaders, this package's
-    and the JAX package's read."""
+def to_alpro_keys(sd: Mapping) -> dict:
+    """Tensors named by the port's parameters → the ALPRO key space (the
+    patch embedding's (p·p·C, D) kernel as the (D, C, p, p) conv weight):
+    the inverse of ``_to_port_keys``, bit for bit, in each tensor's dtype."""
     out = {}
-    for key, value in model.state_dict().items():
+    for key, value in sd.items():
         if key.endswith(_KERNEL):
             K, D = value.shape
             p = int(round((K / 3) ** 0.5))
@@ -58,6 +57,14 @@ def alpro_state_dict_of(model: nn.Module) -> dict:
             key = key[: -len(_BIAS)] + _CONV_B
         out[key] = value.detach().contiguous()
     return out
+
+
+def alpro_state_dict_of(model: nn.Module) -> dict:
+    """The model's parameters in the ALPRO key space (detached tensors as
+    stored, the patch embedding as the (D, C, p, p) conv weight): what
+    ``torch.save`` writes as a ``.pt`` that ALPRO's loaders, this package's
+    and the JAX package's read."""
+    return to_alpro_keys(model.state_dict())
 
 
 @torch.no_grad()

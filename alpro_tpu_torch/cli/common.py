@@ -1,27 +1,36 @@
-"""Shared CLI machinery of the inference protocols: environment, device,
-model construction and the inference checkpoint.
+"""Shared CLI machinery (the port's counterpart of ``alpro_tpu/cli/common.py``):
+environment, device, model construction, the weights to start from, the
+training setup and loop, and the deploy and resume checkpoints.
 
-The inference half of ``alpro_tpu/cli/common.py``. The model runs on
-``cfg.device`` (default ``cuda``, the counterpart of the JAX package's
-``ALPRO_PLATFORM``): with no CUDA device the default raises, and the CPU is
-used only when ``device`` says ``cpu``. The port runs one process: the
-multi-host striping and gathers of the JAX CLIs are not ported (ROADMAP
-A12), nor is training (``setup_training``, the train loop and the orbax
-restorer: A13, A14).
+The model runs on ``cfg.device`` (default ``cuda``, the counterpart of the
+JAX package's ``ALPRO_PLATFORM``): with no CUDA device the default raises,
+and the CPU is used only when ``device`` says ``cpu``. The port runs one
+process on one device: the JAX CLIs' mesh, multi-host striping, restore
+check and jit shardings are not ported (ROADMAP A12). The blocks are not
+scanned, so unlike the JAX CLI the port turns no gradient checkpointing on
+by itself: a tower checkpoints its blocks when its model config sets
+``gradient_checkpointing``, keeping what ``remat_policy`` keeps.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import json
+import math
 import os
-import random
+import time
+from typing import Callable, Dict, Optional
 
-import numpy as np
 import torch
 
 from alpro_tpu_torch.checkpoint.reference import load_reference_checkpoint, merge_state_dict
+from alpro_tpu_torch.checkpoint.restore import TrainingRestorer, load_params, save_params
 from alpro_tpu_torch.core.config import Config, load_json_config
-from alpro_tpu_torch.core.logging import LOGGER, add_log_to_file
+from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, RunningMeter, add_log_to_file
+from alpro_tpu_torch.core.misc import maybe_profile, save_training_meta, set_random_seed
+from alpro_tpu_torch.data.loader import DevicePrefetcher, stage_batch
 from alpro_tpu_torch.data.transforms import IMAGE_MEAN_CLIP, IMAGE_STD_CLIP
 from alpro_tpu_torch.models.alpro import (
     AlproModel,
@@ -31,6 +40,9 @@ from alpro_tpu_torch.models.alpro import (
 )
 from alpro_tpu_torch.models.bert import BertConfig
 from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
+from alpro_tpu_torch.train.state import TrainState
+
 
 def resolve_device(cfg: Config) -> torch.device:
     """``cfg.device`` (default ``cuda``); raises when it names CUDA and no
@@ -45,16 +57,20 @@ def resolve_device(cfg: Config) -> torch.device:
 
 
 def setup_environment(cfg: Config) -> None:
-    """Check the device, seed the host RNGs and torch, and log to
-    ``output_dir/log/log.txt`` when an output directory is given."""
+    """Check the device and seed the host RNGs and torch. With an output
+    directory: log to ``output_dir/log/log.txt``, write the scalars to
+    ``output_dir/log/metrics.jsonl`` and, for a training run, snapshot the
+    config to ``output_dir/log/args.json`` (an inference run reads that file
+    back and leaves it as it is). Without one, no scalars are written."""
     resolve_device(cfg)
-    seed = cfg.get("seed", 42)
-    np.random.seed(seed)
-    random.seed(seed)
-    torch.manual_seed(seed)
+    set_random_seed(cfg.get("seed", 42))
+    TB_LOGGER.close()
     if cfg.get("output_dir"):
         os.makedirs(cfg.output_dir, exist_ok=True)
         add_log_to_file(os.path.join(cfg.output_dir, "log", "log.txt"))
+        TB_LOGGER.create(os.path.join(cfg.output_dir, "log"))
+        if not cfg.get("do_inference"):
+            save_training_meta(cfg.output_dir, cfg)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -72,8 +88,10 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
     ``crop_img_size`` and ``num_frm``, with fp32 parameters on
     ``resolve_device(cfg)`` drawn by ``init_random_`` from a
     ``torch.Generator`` seeded with ``seed``, computing in
-    ``compute_dtype(cfg)``. ``attn_impl`` sets both towers' attention and
-    ``fused_patchify`` the video tower's, as in the JAX CLI."""
+    ``compute_dtype(cfg)``. ``attn_impl`` sets both towers' attention,
+    ``remat_policy`` (default ``dots_ln``) what their checkpointed blocks
+    keep, and ``fused_patchify`` the video tower's patch embedding, as in
+    the JAX CLI."""
     if task in ("pretrain", "prompter"):
         raise NotImplementedError(
             f"task {task!r}: the pretraining and prompter models are not ported yet "
@@ -83,9 +101,10 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
         raise ValueError(task)
     device = resolve_device(cfg)
     attn_impl = cfg.get("attn_impl") or "auto"
+    remat_policy = cfg.get("remat_policy") or "dots_ln"
     bert_dict = dict(load_json_config(cfg.model_config))
     bert_dict.setdefault("attn_impl", attn_impl)
-    bert = BertConfig.from_json_dict(bert_dict)
+    bert = dataclasses.replace(BertConfig.from_json_dict(bert_dict), remat_policy=remat_policy)
     vis_dict = dict(load_json_config(cfg.visual_model_cfg))
     vis = TimeSformerConfig(
         img_size=cfg.crop_img_size,
@@ -99,6 +118,7 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
         drop_path_rate=vis_dict.get("drop_path_rate", 0.1),
         attn_impl=attn_impl,
         gradient_checkpointing=bool(vis_dict.get("gradient_checkpointing", False)),
+        remat_policy=remat_policy,
         pixel_mean=tuple(cfg.get("img_pixel_mean") or IMAGE_MEAN_CLIP),
         pixel_std=tuple(cfg.get("img_pixel_std") or IMAGE_STD_CLIP),
         fused_patchify=cfg.get("fused_patchify") or "auto",
@@ -115,37 +135,46 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
     return model.eval()
 
 
-def load_inference_params(model: AlproModel, cfg: Config) -> AlproModel:
-    """The inference weights, as the JAX CLI resolves them:
-    ``inference_model_ckpt`` (an ALPRO-key ``.pt``, which must exist), else
-    ``e2e_weights_path`` (a missing file leaves the init, with a warning),
-    merged non-strictly over the model's init. ``inference_model_step``
-    names a run's own orbax checkpoint, which the port cannot read yet
-    (ROADMAP A13)."""
-    step = str(cfg.get("inference_model_step", "") or "")
-    if step:
-        raise NotImplementedError(
-            f"inference_model_step={step!r}: the run-local training checkpoints "
-            "(the orbax restorer) are not ported yet (ROADMAP A13); pass "
-            "inference_model_ckpt=<ALPRO .pt> instead"
-        )
-    path = cfg.get("inference_model_ckpt")
-    if path:
-        if not os.path.exists(path):
-            raise FileNotFoundError(f"inference_model_ckpt not found: {path}")
-    else:
-        path = cfg.get("e2e_weights_path")
-        if not path:
-            return model
-        if not os.path.exists(path):
-            LOGGER.warning("e2e_weights_path %s not found; running from init", path)
-            return model
+def maybe_load_e2e_weights(model: AlproModel, cfg: Config) -> AlproModel:
+    """Merge the ALPRO-key ``.pt`` at ``e2e_weights_path`` non-strictly over
+    the model's init (keys the file lacks keep their values; a missing file
+    leaves the init, with a warning). Either text-encoder prefix is read, so
+    the JAX CLI's ``remove_text_encoder_prefix`` needs no counterpart."""
+    path = cfg.get("e2e_weights_path")
+    if not path:
+        return model
+    if not os.path.exists(path):
+        LOGGER.warning("e2e_weights_path %s not found; running from init", path)
+        return model
     vis = model.visual_encoder.model.cfg
     sd, _prompter = load_reference_checkpoint(path, num_patches=vis.num_patches,
                                               num_frames=vis.num_frames)
     merge_state_dict(model, sd)
-    LOGGER.info("loaded inference params from %s", path)
+    LOGGER.info("loaded weights from %s", path)
     return model
+
+
+def load_inference_params(model: AlproModel, cfg: Config) -> AlproModel:
+    """The inference weights, as the JAX CLI resolves them:
+    ``inference_model_step`` N reads the run's own deploy checkpoint
+    ``output_dir/ckpt/model_step_N.pt`` (every key; ``FileNotFoundError``
+    naming the path when it is missing); else ``inference_model_ckpt`` (an
+    ALPRO-key ``.pt``, which must exist) or ``e2e_weights_path``, merged
+    non-strictly over the model's init."""
+    step = str(cfg.get("inference_model_step", "") or "")
+    if step and cfg.get("output_dir"):
+        path = os.path.join(cfg.output_dir, "ckpt", f"model_step_{step}.pt")
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"inference_model_step={step}: no checkpoint {path}")
+        load_params(path, model)
+        LOGGER.info("loaded inference params from %s", path)
+        return model
+    path = cfg.get("inference_model_ckpt")
+    if path:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"inference_model_ckpt not found: {path}")
+        cfg = Config(dict(cfg, e2e_weights_path=path))
+    return maybe_load_e2e_weights(model, cfg)
 
 
 def merge_stored_args(cfg: Config, keep=("output_dir",)) -> None:
@@ -164,3 +193,144 @@ def merge_stored_args(cfg: Config, keep=("output_dir",)) -> None:
 
 def model_device(model: AlproModel) -> torch.device:
     return next(model.parameters()).device
+
+
+def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_per_epoch: int):
+    """The optimizer, the start state and the train step of ``model``, as
+    the JAX CLI sizes them → (step, state, num_train_steps, restorer).
+
+    ``num_train_steps`` = ceil(``num_train_epochs`` · ``steps_per_epoch``)
+    micro-steps; the schedule runs over ceil(num_train_steps /
+    ``gradient_accumulation_steps``) optimizer steps (an epoch of
+    ``steps_per_epoch // accum`` of them for ``multi_step``); ``AdamW``
+    accumulates over ``accum`` calls. The model starts from
+    ``e2e_weights_path`` when given. With an ``output_dir``, the restorer
+    saves every max(1, ``save_steps_ratio`` · num_train_steps) steps and the
+    state resumes from its newest slot. ``make_step(model, optimizer)``
+    builds the step."""
+    mesh = cfg.get("mesh_shape")
+    if mesh is not None and math.prod(int(n) for n in mesh) > 1:
+        raise NotImplementedError(f"mesh_shape={list(mesh)}: a device mesh (multi-GPU) is not "
+                                  "ported yet (ROADMAP A12)")
+    if cfg.get("optim", "adamw") != "adamw":
+        raise ValueError(f"optim={cfg.optim!r}: only adamw exists")
+    accum = int(cfg.get("gradient_accumulation_steps", 1))
+    num_train_steps = int(math.ceil(cfg.num_train_epochs * steps_per_epoch))
+    num_opt_steps = int(math.ceil(num_train_steps / accum))
+    if cfg.get("transformer_lr_mul", 1.0) != 1.0:
+        # parsed for flag compatibility; the reference parses it too and
+        # never reads it (ROADMAP C3)
+        LOGGER.warning("transformer_lr_mul is accepted but has no effect "
+                       "(unused in the reference as well)")
+    sched = get_lr_schedule(
+        cfg.get("decay", "linear"), cfg.learning_rate, num_opt_steps,
+        warmup_ratio=cfg.get("warmup_ratio", 0.1),
+        decay_epochs=cfg.get("step_decay_epochs") or (),
+        steps_per_epoch=max(1, int(steps_per_epoch // accum)),
+    )
+    optimizer = build_optimizer(
+        sched, betas=tuple(cfg.get("betas", (0.9, 0.98))),
+        weight_decay=cfg.get("weight_decay", 0.0),
+        apply_weight_decay=bool(cfg.get("apply_weight_decay", False)),
+        grad_norm=cfg.get("grad_norm", None), accum_steps=accum,
+        mu_dtype=cfg.get("adam_mu_dtype") or None, nu_dtype=cfg.get("adam_nu_dtype") or None,
+    )
+    if cfg.get("e2e_weights_path"):
+        maybe_load_e2e_weights(model, cfg)
+    elif cfg.get("visual_weights_path"):
+        raise NotImplementedError(
+            f"visual_weights_path={cfg.visual_weights_path!r}: the imagenet, CLIP and Kinetics "
+            "visual-tower converters are not ported yet (ROADMAP A11); pass e2e_weights_path")
+    state = TrainState.create(model, optimizer)
+    restorer = None
+    if cfg.get("output_dir"):
+        save_steps = max(1, int(cfg.get("save_steps_ratio", 0.05) * num_train_steps))
+        restorer = TrainingRestorer(cfg.output_dir, save_steps)
+        if restorer.restore(state) is not None:
+            LOGGER.info("resumed from step %d", state.step)
+    return make_step(model, optimizer), state, num_train_steps, restorer
+
+
+def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter,
+                   num_train_steps: int, restorer: Optional[TrainingRestorer] = None,
+                   validate_fn: Optional[Callable] = None,
+                   save_model_fn: Optional[Callable] = None) -> TrainState:
+    """The JAX CLI's training loop from ``state.step`` to ``num_train_steps``.
+
+    Host batches from ``train_iter`` are staged on the model's device by a
+    ``DevicePrefetcher`` thread (``prefetch_depth`` batches ahead; 0 stages
+    each batch in the loop). Each step is ``step_fn(state, batch, seed)``
+    with the config's ``seed``. The metrics are read to the host only every
+    ``log_interval`` steps (into ``RunningMeter`` EWMAs, logged and written
+    to ``TB_LOGGER``); every ``valid_steps`` (about ``num_valid`` times,
+    rounded up to a multiple of ``min_valid_steps``) ``validate_fn`` and
+    ``save_model_fn`` run; a resume checkpoint is saved where
+    ``restorer.due``. ``debug`` validates every step and stops after four;
+    ``profile`` traces steps [start+2, start+7). On the way out the last
+    async save is committed and the prefetcher closed."""
+    device = model_device(state.model)
+    stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+    put = functools.partial(stage_batch, device=device, stream=stream)
+    depth = int(cfg.get("prefetch_depth", 2))
+    prefetcher = DevicePrefetcher(train_iter, put, depth=depth) if depth > 0 else None
+    staged = prefetcher if prefetcher is not None else map(put, train_iter)
+
+    seed = cfg.get("seed", 42)
+    start_step = int(state.step)
+    meters: Dict[str, RunningMeter] = {}
+    log_interval = cfg.get("log_interval", 100)
+    min_valid = max(int(cfg.get("min_valid_steps", 1)), 1)
+    valid_steps = max(
+        math.ceil(num_train_steps / max(cfg.get("num_valid", 10), 1) / min_valid) * min_valid, 1)
+    debug = bool(cfg.get("debug", False))
+    profile = bool(cfg.get("profile")) and bool(cfg.get("output_dir"))
+    t0 = time.time()
+    try:
+        with contextlib.ExitStack() as profiling:
+            for global_step in range(start_step, num_train_steps):
+                if profile and global_step == start_step + 2:
+                    profiling.enter_context(maybe_profile(cfg.output_dir, True))
+                elif profile and global_step == start_step + 7:
+                    profiling.close()
+                batch = next(staged).wait()
+                state, metrics = step_fn(state, batch, seed)
+                # metrics stay on the device between log steps: reading them
+                # every step would wait for the device every step
+                if (global_step + 1) % log_interval == 0 or debug:
+                    for k, v in metrics.items():
+                        meters.setdefault(k, RunningMeter(k))(float(v))
+                if (global_step + 1) % log_interval == 0:
+                    rate = (global_step + 1 - start_step) / (time.time() - t0)
+                    LOGGER.info("step %d/%d (%.2f it/s): %s", global_step + 1, num_train_steps,
+                                rate, "  ".join(str(m) for m in meters.values()))
+                    TB_LOGGER.global_step = global_step + 1
+                    TB_LOGGER.log_scalar_dict({m.name: m.val for m in meters.values()},
+                                              prefix="train")
+                if (global_step + 1) % valid_steps == 0 or debug:
+                    if validate_fn is not None:
+                        validate_fn(state, global_step + 1)
+                    if save_model_fn is not None:
+                        save_model_fn(state, global_step + 1)
+                if restorer is not None and restorer.due(global_step + 1):
+                    restorer.save(state)
+                if debug and global_step - start_step >= 3:
+                    LOGGER.info("debug mode: stopping after %d steps", global_step + 1)
+                    break
+        if restorer is not None:
+            restorer.wait_until_finished()  # commit the last async save
+    finally:
+        if prefetcher is not None:
+            prefetcher.close()
+    return state
+
+
+def default_save_model_fn(cfg: Config, model: AlproModel) -> Callable:
+    """``save(state, step)``: the deploy checkpoint
+    ``output_dir/ckpt/model_step_{step}.pt`` (when there is an output
+    directory)."""
+
+    def save(state, step):
+        if cfg.get("output_dir"):
+            save_params(cfg.output_dir, step, model)
+
+    return save

@@ -1,10 +1,18 @@
-"""Text↔video retrieval inference: the eval protocol behind R@1/5/10.
+"""Text↔video retrieval: finetuning, and the eval protocol behind R@1/5/10.
 
-The port's counterpart of the inference half of
-``alpro_tpu/cli/run_video_retrieval.py``:
+The port's counterpart of ``alpro_tpu/cli/run_video_retrieval.py``:
 
     python -m alpro_tpu_torch.cli.run_video_retrieval --config configs/msrvtt_ret.json \
-        --output_dir out/ --do_inference 1 --inference_model_ckpt model.pt [--device cpu]
+        --output_dir out/ [--device cpu]
+    python -m alpro_tpu_torch.cli.run_video_retrieval --config configs/msrvtt_ret.json \
+        --output_dir out/ --do_inference 1 [--inference_model_step N | \
+        --inference_model_ckpt model.pt] [--device cpu]
+
+Finetuning (``--do_inference 0``) trains VTC + VTM on the first training
+dataset's (clip, caption) pairs from ``e2e_weights_path``, validates with
+the eval protocol and writes a deploy checkpoint ``ckpt/model_step_N.pt``
+every validation interval, resume checkpoints in ``restore/``, and a last
+validation and deploy checkpoint at the end (``cli/common.py``).
 
 Every text is scored against every video. The text tower runs once per text
 and each video's tower once; only the fusion half runs per (video, text)
@@ -16,7 +24,7 @@ The similarities, the candidate choice and the score bands are computed on
 the host in numpy, where the JAX CLI computes them, so both packages pick
 the same candidates from the same similarities. One process: the JAX CLI's
 video striping across hosts and its result gather are not ported (ROADMAP
-A12). Training (``--do_inference 0``) is not ported yet (ROADMAP A14).
+A12).
 """
 
 from __future__ import annotations
@@ -31,8 +39,14 @@ import torch
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_video_retrieval_args
-from alpro_tpu_torch.core.logging import LOGGER
-from alpro_tpu_torch.data.datasets import RetrievalEvalDataset, load_datalist
+from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
+from alpro_tpu_torch.data.datasets import (
+    RetrievalCollator,
+    RetrievalDataset,
+    RetrievalEvalDataset,
+    load_datalist,
+)
+from alpro_tpu_torch.data.loader import BatchLoader, InfiniteIterator
 from alpro_tpu_torch.data.tokenization import build_tokenizer
 from alpro_tpu_torch.evals.retrieval import eval_retrieval
 from alpro_tpu_torch.serving.inference import (
@@ -41,6 +55,33 @@ from alpro_tpu_torch.serving.inference import (
     make_text_encode_fn,
     make_video_embed_fn,
 )
+from alpro_tpu_torch.train.step import make_retrieval_train_step
+
+
+def _mk_datasets(cfg: Config, tokenizer):
+    """(the shuffled training ``BatchLoader`` over the first training
+    dataset — its first ``data_ratio`` share of rows, ``train_batch_size``
+    pairs a batch, ``n_workers`` threads —, the first val dataset's
+    ``RetrievalEvalDataset``)."""
+    train_rows = load_datalist(cfg.train_datasets[0]["txt"])
+    if cfg.get("data_ratio", 1.0) < 1.0:
+        train_rows = train_rows[: max(1, int(len(train_rows) * cfg.data_ratio))]
+    train_ds = RetrievalDataset(
+        train_rows, cfg.train_datasets[0]["img"], num_frm=cfg.num_frm,
+        frm_sampling_strategy=cfg.get("frm_sampling_strategy", "rand"),
+        resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
+        seed=cfg.get("seed", 42), fps=cfg.get("fps", -1),
+    )
+    train_loader = BatchLoader(
+        train_ds, RetrievalCollator(tokenizer, cfg.max_txt_len), cfg.train_batch_size,
+        shuffle=True, seed=cfg.get("seed", 42), num_workers=int(cfg.get("n_workers", 4)),
+    )
+    eval_ds = RetrievalEvalDataset(
+        load_datalist(cfg.val_datasets[0]["txt"]), cfg.val_datasets[0]["img"],
+        num_frm=cfg.num_frm, resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
+        fps=cfg.get("fps", -1),
+    )
+    return train_loader, eval_ds
 
 
 def _encode_texts(model, eval_ds, tokenizer, cfg: Config, device):
@@ -195,6 +236,56 @@ def _inference_retrieval_topk(model, eval_ds, tokenizer, cfg: Config, K: int) ->
             for bi in range(n_local) for j in range(n_text)]
 
 
+def validate(model, eval_ds, tokenizer, cfg: Config, step) -> dict:
+    """The eval protocol on ``eval_ds`` with the model as it stands at
+    ``step``: R@k logged and written to ``TB_LOGGER`` as ``val_t2v_*``
+    (``debug`` scores 5 videos, and the metrics cover their texts). A
+    protocol that cannot be scored is logged and gives {}."""
+    results = inference_retrieval(model, eval_ds, tokenizer, cfg)
+    if cfg.get("debug"):
+        vids_scored = {r["vid_id"] for r in results}
+        keep_txt = {r["txt_id"] for r in results}
+        gt = {t: v for t, v in eval_ds.gt_txt_id2vid_id.items()
+              if t in keep_txt and v in vids_scored}
+        results = [r for r in results if r["txt_id"] in gt]
+    else:
+        gt = eval_ds.gt_txt_id2vid_id
+    try:
+        metrics = eval_retrieval(results, gt)
+    except (AssertionError, IndexError) as e:
+        LOGGER.warning("retrieval eval skipped: %s", e)
+        return {}
+    LOGGER.info("step %s retrieval: %s", step, json.dumps(metrics))
+    TB_LOGGER.log_scalar_dict({f"t2v_{k}": v for k, v in metrics["text2video"].items()},
+                              prefix="val")
+    return metrics
+
+
+def start_training(cfg: Config):
+    """Finetune the retrieval model (``cli/common.py``'s setup and loop,
+    ``vtm_negative_blocks`` blocks of hard negatives), validate once more at
+    the end and write the last deploy checkpoint. Returns the train state."""
+    common.setup_environment(cfg)
+    tokenizer = build_tokenizer(cfg.tokenizer_dir)
+    model = common.build_model_from_cfg(cfg, "retrieval", seed=cfg.get("seed", 42))
+    train_loader, eval_ds = _mk_datasets(cfg, tokenizer)
+    step_fn, state, num_steps, restorer = common.setup_training(
+        cfg, model,
+        lambda m, opt: make_retrieval_train_step(
+            m, opt, num_local_blocks=cfg.get("vtm_negative_blocks", 1)),
+        steps_per_epoch=len(train_loader),
+    )
+    LOGGER.info("training retrieval for %d steps on %s", num_steps, common.model_device(model))
+    state = common.run_train_loop(
+        cfg, step_fn, state, InfiniteIterator(train_loader), num_steps, restorer=restorer,
+        validate_fn=lambda s, gs: validate(model, eval_ds, tokenizer, cfg, gs),
+        save_model_fn=common.default_save_model_fn(cfg, model),
+    )
+    validate(model, eval_ds, tokenizer, cfg, "final")
+    common.default_save_model_fn(cfg, model)(state, state.step)
+    return state
+
+
 def start_inference(cfg: Config) -> dict:
     """Build the model, load the inference weights, run the protocol over
     ``inference_txt_db``/``inference_img_db`` (default the first val
@@ -235,12 +326,9 @@ def start_inference(cfg: Config) -> dict:
 
 def main(argv=None):
     cfg = get_video_retrieval_args(argv)
-    if not cfg.get("do_inference"):
-        raise NotImplementedError(
-            "retrieval finetuning (--do_inference 0) is not ported yet (ROADMAP A14); "
-            "run with --do_inference 1"
-        )
-    return start_inference(cfg)
+    if cfg.get("do_inference"):
+        return start_inference(cfg)
+    return start_training(cfg)
 
 
 if __name__ == "__main__":

@@ -4,12 +4,13 @@ The port's own copy of ``alpro_tpu/core/config.py``: a JSON config file fills
 any flag that was not explicitly passed on the command line, CLI flags always
 win, and int flags declared as booleans (0/1) are coerced to bool.
 
-Differences from the JAX parser: only the flags that the inference path
-reads are declared (the training flags, the mesh, profiling and
-rematerialisation come with training, ROADMAP A14; the TPU-only
-``--xla_compiler_options`` and ``--scan_blocks`` never do);
-and ``--device`` (default ``cuda``) takes the place of the JAX package's
-``ALPRO_PLATFORM``.
+Differences from the JAX parser: only the flags that the port's paths read
+are declared; the TPU-only ``--xla_compiler_options`` and ``--scan_blocks``
+never are, and ``--mesh_shape`` is declared only to be refused (multi-GPU is
+ROADMAP A12). Keys that the JAX CLIs read from a config file with a default
+(``apply_weight_decay``, ``prefetch_depth``, ``vtm_negative_blocks``) are
+declared here with that default. ``--device`` (default ``cuda``) takes the
+place of the JAX package's ``ALPRO_PLATFORM``.
 """
 
 from __future__ import annotations
@@ -94,25 +95,65 @@ def _coerce_bool_flags(args: Config) -> Config:
     return args
 
 
-def shared_inference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The flags of the task CLIs that the inference path reads. Training
-    flags are not declared until training is ported (ROADMAP A14): passing
-    one on the command line is an argparse error, not a silent no-op. A
-    config file's other keys still come through the JSON overlay."""
+class _RefuseMeshShape(argparse.Action):
+    """``--mesh_shape``: a device mesh is multi-GPU work, not ported."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} {' '.join(map(str, values))}: a device mesh (multi-GPU) "
+                     "is not ported yet (ROADMAP A12)")
+
+
+def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The flags of the task CLIs that the port's inference and finetuning
+    paths read, with the JAX parser's names and defaults. A flag the port
+    does not read is not declared: on the command line it is an argparse
+    error, not a silent no-op (a config file's other keys still come
+    through the JSON overlay)."""
+    from alpro_tpu_torch.models.remat import REMAT_POLICIES
+
     parser.add_argument("--config", type=str, default=None, help="JSON config path")
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--debug", type=int, default=0)
+    parser.add_argument("--data_ratio", type=float, default=1.0)
     parser.add_argument("--model_config", type=str, default=None)
     parser.add_argument("--visual_model_cfg", type=str, default=None)
     parser.add_argument("--tokenizer_dir", type=str, default=None)
     parser.add_argument("--e2e_weights_path", type=str, default=None)
+    parser.add_argument("--visual_weights_path", type=str, default=None)
     parser.add_argument("--max_txt_len", type=int, default=40)
     parser.add_argument("--crop_img_size", type=int, default=224)
     parser.add_argument("--resize_size", type=int, default=256)
     parser.add_argument("--img_pixel_mean", type=float, nargs=3, default=None)
     parser.add_argument("--img_pixel_std", type=float, nargs=3, default=None)
     parser.add_argument("--num_frm", type=int, default=8)
+    parser.add_argument("--frm_sampling_strategy", type=str, default="uniform")
+    parser.add_argument("--train_n_clips", type=int, default=1)
+    parser.add_argument("--train_batch_size", type=int, default=8)
     parser.add_argument("--val_batch_size", type=int, default=8)
+    parser.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    parser.add_argument("--learning_rate", type=float, default=5e-5)
+    parser.add_argument("--log_interval", type=int, default=100)
+    parser.add_argument("--num_valid", type=int, default=20)
+    parser.add_argument("--min_valid_steps", type=int, default=100)
+    parser.add_argument("--save_steps_ratio", type=float, default=0.01)
+    parser.add_argument("--num_train_epochs", type=int, default=10)
+    parser.add_argument("--optim", type=str, default="adamw", choices=["adamw"])
+    parser.add_argument("--betas", type=float, nargs=2, default=[0.9, 0.98])
+    parser.add_argument("--decay", type=str, default="linear")
+    parser.add_argument("--weight_decay", type=float, default=1e-3)
+    # read by the JAX CLI from a config file only (default off: the
+    # reference never forwards its weight decay)
+    parser.add_argument("--apply_weight_decay", type=int, default=0)
+    parser.add_argument("--grad_norm", type=float, default=2.0)
+    parser.add_argument("--warmup_ratio", type=float, default=0.1)
+    parser.add_argument("--transformer_lr_mul", type=float, default=1.0)
+    parser.add_argument("--step_decay_epochs", type=int, nargs="+", default=None)
+    parser.add_argument("--adam_mu_dtype", type=str, default=None,
+                        choices=["bfloat16", "float32"],
+                        help="AdamW first-moment storage dtype (default fp32)")
+    parser.add_argument("--adam_nu_dtype", type=str, default=None,
+                        choices=["bfloat16", "float32"],
+                        help="AdamW second-moment storage dtype (default fp32)")
     parser.add_argument("--fp16", type=int, default=0)
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--n_workers", type=int, default=4)
@@ -124,20 +165,36 @@ def shared_inference_args(parser: argparse.ArgumentParser) -> argparse.ArgumentP
     parser.add_argument("--inference_img_db", type=str, default=None)
     parser.add_argument("--inference_batch_size", type=int, default=64)
     parser.add_argument("--inference_n_clips", type=int, default=1)
+    parser.add_argument("--mesh_shape", type=int, nargs="+", default=None,
+                        action=_RefuseMeshShape, help="not ported (ROADMAP A12)")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
+    parser.add_argument("--profile", type=int, default=0,
+                        help="trace train steps [start+2, start+7) with torch.profiler")
+    parser.add_argument("--remat_policy", type=str, default="dots_ln",
+                        choices=list(REMAT_POLICIES),
+                        help="what per-block gradient checkpointing keeps "
+                             "(models/remat.py): 'dots_ln' the matrix products' and "
+                             "the LayerNorms' outputs, 'nothing' a full recompute")
+    # read by the JAX CLI from a config file only, with these defaults
+    parser.add_argument("--prefetch_depth", type=int, default=2,
+                        help="batches staged on the device ahead of the step "
+                             "(0: staged in the loop)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device the model runs on; 'cpu' only when "
                              "asked for (with no GPU the default raises)")
+    parser.add_argument("--train_datasets", type=json.loads, default=None)
     parser.add_argument("--val_datasets", type=json.loads, default=None)
     return parser
 
 
 def get_video_retrieval_args(argv=None) -> Config:
     parser = argparse.ArgumentParser("video retrieval")
-    shared_inference_args(parser)
+    shared_args(parser)
+    # read by the JAX CLI from a config file only, with this default
+    parser.add_argument("--vtm_negative_blocks", type=int, default=1)
     parser.add_argument(
         "--eval_rerank_topk", type=int, default=0,
         help="0 (default): the exact reference protocol — VTM-score every "
@@ -152,7 +209,7 @@ def get_video_retrieval_args(argv=None) -> Config:
 
 def get_video_qa_args(argv=None) -> Config:
     parser = argparse.ArgumentParser("video qa")
-    shared_inference_args(parser)
+    shared_args(parser)
     parser.add_argument("--task", type=str, default="msrvtt_qa")
     # multi-choice (action/transition) option count
     parser.add_argument("--n_options", type=int, default=5)

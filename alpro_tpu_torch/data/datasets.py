@@ -1,15 +1,19 @@
-"""Eval datasets and collators of retrieval and video QA.
+"""Datasets and collators of retrieval and video QA, for finetuning and eval.
 
-The port's counterpart of the eval half of ``alpro_tpu/data/datasets.py``:
-annotation jsonl/json files with {vid_id, txt} rows, decode with retry, the
-retrieval eval protocol's video iteration over the full text bank (with a
-zero clip for a video that fails to decode, so the id→score protocol stays
-whole), the QA dataset (open-ended and multi-choice) and the collators that
-tokenize. Batches are plain numpy dicts; the pixels are normalized on the
-device inside the model.
+The port's counterpart of ``alpro_tpu/data/datasets.py``'s retrieval and QA
+half: annotation jsonl/json files with {vid_id, txt} rows, decode with retry
+(a failed training decode resamples another example), the retrieval
+training pairs (frames sampled by ``frm_sampling_strategy``, a random square
+crop, one caption drawn from a list), the retrieval eval protocol's video
+iteration over the full text bank (with a zero clip for a video that fails
+to decode, so the id→score protocol stays whole), the QA dataset
+(open-ended and multi-choice; ``is_train`` gives the training split's
+sampling and random crops) and the collators that tokenize. Every draw comes
+from the dataset's ``ThreadSafeRng``, in the JAX module's order. Batches are
+plain numpy dicts; the pixels are normalized on the device inside the model.
 
-Not ported (ROADMAP A17/A11): the training and pretraining datasets, the
-pretrain collator, MLM masking and random erase, RandAugment.
+Not ported (ROADMAP A17/A11): the pretraining datasets, the pretrain
+collator, MLM masking and random erase, RandAugment, ``mk_input_group``.
 """
 
 from __future__ import annotations
@@ -162,6 +166,19 @@ class VideoDatasetBase:
         raise RuntimeError(
             f"failed to decode any video after {self.max_retries} retries"
         )
+
+
+class RetrievalDataset(VideoDatasetBase):
+    """Training rows {vid_id, txt}: one (clip, caption) example per row; a
+    ``txt`` list gives one caption drawn at random in training (the first in
+    eval)."""
+
+    def __getitem__(self, index: int) -> Dict:
+        ex = self.get_with_retry(index)
+        txt = ex["txt"]
+        if isinstance(txt, list):
+            txt = txt[int(self.rng.integers(0, len(txt)))] if self.is_train else txt[0]
+        return {"vid_id": ex["vid_id"], "caption": txt, "clip": ex["clip"]}
 
 
 class RetrievalEvalDataset(VideoDatasetBase):

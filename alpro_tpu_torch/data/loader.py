@@ -1,15 +1,25 @@
-"""Batching of the eval protocols: ``BatchLoader`` (the port's copy of
-``alpro_tpu/data/loader.py::BatchLoader``), shuffled or in order, collated,
-optionally built ahead in a thread pool. The device prefetcher, the task
-mixer and the endless iterator serve training and are not ported (ROADMAP
-A14, A11).
+"""Batching and prefetch (the port's counterpart of ``alpro_tpu/data/loader.py``).
+
+  * ``BatchLoader`` — shuffled or ordered epochs, collated, optionally built
+    ahead in a thread pool;
+  * ``InfiniteIterator`` — endless epoch cycling;
+  * ``DevicePrefetcher`` — a thread that stages batch k+1 on the device while
+    step k runs, through a bounded queue; with ``stage_batch`` as its
+    ``put``, each batch's arrays go to pinned host memory and are copied on
+    a side CUDA stream (the reference's PrefetchLoader role).
+
+The task mixer ``MetaLoader`` comes with pretraining, its only user (ROADMAP
+A11).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, List
+import queue as queue_mod
+import threading
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
+import torch
 
 
 class BatchLoader:
@@ -99,3 +109,123 @@ class BatchLoader:
                 if nxt is not None:
                     pending.append(pool.submit(self._make, nxt))
                 yield batch
+
+
+class InfiniteIterator:
+    """Cycles ``loader``'s epochs without end (each epoch a new ``iter``)."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self._it = iter(loader)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._it)
+        except StopIteration:
+            self._it = iter(self.loader)
+            return next(self._it)
+
+
+class StagedBatch:
+    """A batch of device tensors whose copy may still be running on a side
+    stream; ``wait`` hands it to the consumer's current stream."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], event=None, device=None):
+        self.tensors = tensors
+        self.event = event
+        self.device = device
+
+    def wait(self) -> Dict[str, torch.Tensor]:
+        """Make the current stream wait for the copy, and tell the caching
+        allocator that the current stream uses the tensors (so that their
+        memory is not reused while a step still reads them)."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(self.event)
+            for t in self.tensors.values():
+                t.record_stream(stream)
+        return self.tensors
+
+
+def stage_batch(batch: Dict, device: torch.device,
+                stream: Optional["torch.cuda.Stream"] = None) -> StagedBatch:
+    """The batch's numpy arrays (other entries are dropped, as the JAX loop
+    drops them) as tensors on ``device``: on the CPU ``torch.from_numpy``;
+    on a card each array is copied into pinned host memory, then to the
+    card with ``non_blocking=True`` on ``stream`` (a side stream), with an
+    event recorded after the copies."""
+    arrays = {k: v for k, v in batch.items()
+              if isinstance(v, np.ndarray) and v.dtype != object}
+    if device.type != "cuda":
+        return StagedBatch({k: torch.from_numpy(v) for k, v in arrays.items()})
+    stream = stream or torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        tensors = {k: torch.from_numpy(v).pin_memory().to(device, non_blocking=True)
+                   for k, v in arrays.items()}
+        event = torch.cuda.Event()
+        event.record(stream)
+    return StagedBatch(tensors, event, device)
+
+
+class DevicePrefetcher:
+    """Wraps an iterator of host batches; a thread applies ``put`` (the
+    staging) to batch k+1 while the consumer runs step k, and keeps at most
+    ``depth`` staged batches in a queue. An error in the iterator or in
+    ``put`` reaches the consumer; ``close`` stops the thread and drops what
+    is staged."""
+
+    def __init__(self, it: Iterator, put: Callable, depth: int = 2):
+        self._it = iter(it)
+        self._put = put
+        self._q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        self._done = object()
+        self._err: Optional[BaseException] = None
+        self._closed = False
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+
+    def _worker(self):
+        try:
+            for item in self._it:
+                staged = self._put(item)
+                if self._closed:
+                    break
+                self._q.put(staged)
+        except BaseException as e:  # delivered to the consumer, not swallowed
+            self._err = e
+        finally:
+            while not self._closed:  # delivered unless closed
+                try:
+                    self._q.put(self._done, timeout=0.5)
+                    break
+                except queue_mod.Full:
+                    continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is self._done:
+            if self._err is not None:
+                raise RuntimeError("prefetch worker failed (decode/collate/staging)") from self._err
+            raise StopIteration
+        return item
+
+    def close(self):
+        """Stop the worker and drop the staged batches (else the producer
+        blocks on the full queue, holding ``depth`` device batches)."""
+        self._closed = True
+        self._drain()
+        self._thread.join(timeout=30.0)
+        self._drain()  # what the producer put in during the join
+
+    def _drain(self):
+        try:
+            while True:
+                self._q.get_nowait()
+        except queue_mod.Empty:
+            pass

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from alpro_tpu_torch.models.remat import resolve_remat_policy
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.bert_block import attention_fits, bert_attention_block, bert_mlp_block
@@ -60,11 +61,13 @@ class BertConfig:
     initializer_range: float = 0.02
     attn_impl: str = "auto"
     block_impl: str = "auto"
-    # per-layer torch.utils.checkpoint in training, saving nothing inside a
-    # layer (the JAX package's remat_policy='nothing'; no other policy is ported)
+    # per-layer torch.utils.checkpoint in training, keeping what remat_policy
+    # keeps (models/remat.py: 'nothing' or 'dots_ln')
     gradient_checkpointing: bool = False
+    remat_policy: str = "nothing"
 
     def __post_init__(self):
+        resolve_remat_policy(self.remat_policy)
         if self.block_impl not in ("auto", "fused", "plain", "xla"):
             raise ValueError(
                 f"block_impl={self.block_impl!r}: expected 'auto', 'fused', 'plain' or 'xla'"
@@ -220,10 +223,12 @@ class BertModel(nn.Module):
         if fused:  # the kernels read an fp32 mask: convert once, not per layer
             attention_mask = attention_mask.float()
         remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
+        context_fn = resolve_remat_policy(cfg.remat_policy) if remat else None
         for layer in self.encoder.layer[lo:hi]:
             if remat:
                 x = checkpoint(lambda h, layer=layer: layer(h, attention_mask, self.dtype, fused,
-                                                            cfg, generator), generator, x)
+                                                            cfg, generator), generator, x,
+                               context_fn=context_fn)
             else:
                 x = layer(x, attention_mask, self.dtype, fused, cfg, generator)
         return x

@@ -74,6 +74,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from alpro_tpu_torch.models.remat import resolve_remat_policy
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
 from alpro_tpu_torch.ops.layers import (
     LayerNorm,
@@ -139,11 +140,13 @@ class TimeSformerConfig:
     # 'on'; 'auto' | 'off' → the unfused path
     fused_patchify: str = "auto"
     # per-block torch.utils.checkpoint in training (the reference's
-    # per-block CheckpointFunction), saving nothing inside a block (the JAX
-    # package's remat_policy='nothing'; its 'dots' and 'names' are not ported)
+    # per-block CheckpointFunction), keeping what remat_policy keeps
+    # (models/remat.py: 'nothing' or 'dots_ln')
     gradient_checkpointing: bool = False
+    remat_policy: str = "nothing"
 
     def __post_init__(self):
+        resolve_remat_policy(self.remat_policy)
         for field, kernels in _KERNEL_IMPL.items():
             value = getattr(self, field)
             allowed = ("auto", "plain", "xla", *kernels, *_PLAIN_FORMS.get(field, ()))
@@ -494,11 +497,12 @@ class TimeSformer(nn.Module):
         cls = dropout(cls, cfg.drop_rate, generator, train)
         x = dropout(x + te[:, :, None, :].to(x.dtype), cfg.drop_rate, generator, train)
         remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
+        context_fn = resolve_remat_policy(cfg.remat_policy) if remat else None
         for blk, rate in zip(self.blocks, cfg.drop_path_rates()):
             if remat:
                 cls, x = checkpoint(
                     lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator),
-                    generator, cls, x)
+                    generator, cls, x, context_fn=context_fn)
             else:
                 cls, x = blk(cls, x, cfg, dt, rate, generator)
         cls = self.norm(cls, dt)

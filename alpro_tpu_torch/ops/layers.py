@@ -17,6 +17,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from alpro_tpu_torch.models.remat import layernorm_region
 from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
 from alpro_tpu_torch.ops.layernorm import layernorm
 
@@ -28,8 +29,11 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
 
 def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float, out_dtype: torch.dtype) -> torch.Tensor:
-    """Functional LN with one-pass fp32 statistics, cast to ``out_dtype``."""
-    return ln_rows_f32(x, scale, bias, eps).to(out_dtype)
+    """Functional LN with one-pass fp32 statistics, cast to ``out_dtype``
+    (inside ``layernorm_region``: ``remat_policy='dots_ln'`` keeps its
+    statistics)."""
+    with layernorm_region():
+        return ln_rows_f32(x, scale, bias, eps).to(out_dtype)
 
 
 class LayerNorm(nn.Module):
@@ -97,15 +101,18 @@ def drop_path(x: torch.Tensor, rate: float, mask_shape, generator: Optional[torc
     return x * keep / torch.tensor(keep_prob, dtype=x.dtype, device=x.device)
 
 
-def checkpoint(fn, generator: Optional[torch.Generator], *args):
-    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant; nothing
-    inside ``fn`` is saved, the JAX package's ``remat_policy='nothing'``).
-    The recompute in the backward pass draws its dropout and drop-path masks
-    from ``generator`` as the forward did: its state at the forward's start
-    is restored for the recompute, and the state the step had reached is put
-    back after it (checkpoint itself preserves only the global RNG)."""
+def checkpoint(fn, generator: Optional[torch.Generator], *args, context_fn=None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), keeping
+    what the selective-checkpoint ``context_fn`` of ``models/remat.py``
+    keeps (None: nothing inside ``fn``, the JAX package's
+    ``remat_policy='nothing'``). The recompute in the backward pass draws its
+    dropout and drop-path masks from ``generator`` as the forward did: its
+    state at the forward's start is restored for the recompute, and the
+    state the step had reached is put back after it (checkpoint itself
+    preserves only the global RNG)."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
     if generator is None:
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
     start = generator.get_state()
     first = [True]
 
@@ -120,4 +127,4 @@ def checkpoint(fn, generator: Optional[torch.Generator], *args):
         finally:
             generator.set_state(resume)
 
-    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, **kw)

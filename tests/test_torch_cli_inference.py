@@ -14,8 +14,9 @@ tolerance, the port's ``eval_retrieval`` on JAX's results gives JAX's
 metrics; QA answers equal wherever JAX's top-1 margin exceeds twice the
 logit tolerance. Also the reference ``.pt`` loader (module resizes, the
 prefix, the non-strict merge), the config parser on the shipped configs, and
-the CLIs' refusals: ``inference_model_step`` (ROADMAP A13), training (A14),
-and the ``cuda`` default without a card.
+the CLIs' refusals: ``--mesh_shape`` (ROADMAP A12), the ``remat_policy``
+values that are not ported (A18), a pretraining model (A11), and the
+``cuda`` default without a card.
 """
 
 import json
@@ -224,19 +225,28 @@ def test_cli_main_runs_on_the_cpu(retrieval_setup, tmp_path):
 
 
 def test_cli_refusals(retrieval_setup, tmp_path):
-    """``inference_model_step`` names ROADMAP A13 (the orbax restorer), a run
-    without ``--do_inference`` names A14, a pretraining model A11, and the
-    default device is ``cuda``: with no card the CLI raises unless
+    """``--mesh_shape`` names ROADMAP A12 (an argparse error), a
+    ``remat_policy`` that is not ported A18, a pretraining model A11, and
+    the default device is ``cuda``: with no card the CLI raises unless
     ``device='cpu'``."""
     from alpro_tpu_torch.cli import common, run_video_qa, run_video_retrieval
+    from alpro_tpu_torch.core import config as pcfg
 
     _, cfg = retrieval_setup
-    with pytest.raises(NotImplementedError, match="A13"):
-        run_video_retrieval.start_inference(Config(dict(cfg, device="cpu",
-                                                        inference_model_step="100")))
     for mod in (run_video_retrieval, run_video_qa):
-        with pytest.raises(NotImplementedError, match="A14"):
-            mod.main(["--config", cfg["model_config"], "--device", "cpu"])
+        with pytest.raises(SystemExit):
+            mod.main(["--config", cfg["model_config"], "--device", "cpu", "--mesh_shape", "1",
+                      "4"])
+    with pytest.raises(SystemExit):
+        pcfg.get_video_retrieval_args(["--remat_policy", "everything"])
+    for name in ("dots", "dots_all", "dots_rng", "names", "dots_names", "dots_ln_names",
+                 "dots_ln_offload"):
+        assert pcfg.get_video_retrieval_args(["--remat_policy", name])["remat_policy"] == name
+        with pytest.raises(ValueError, match="A18"):
+            common.build_model_from_cfg(Config(dict(cfg, device="cpu", remat_policy=name)),
+                                        "retrieval")
+    with pytest.raises(NotImplementedError, match="A12"):
+        common.setup_training(Config(dict(cfg, mesh_shape=[2])), None, None, 1)
     with pytest.raises(NotImplementedError, match="A11"):
         common.build_model_from_cfg(Config(dict(cfg, device="cpu")), "pretrain")
     assert Config(cfg).get("device") is None
@@ -252,26 +262,37 @@ def test_cli_refusals(retrieval_setup, tmp_path):
                                          ("msrvtt_qa.json", "get_video_qa_args")])
 def test_shipped_configs_parse_as_in_jax(name, parser):
     """``configs/msrvtt_{ret,qa}.json`` parse unchanged: every key of the
-    port's result has JAX's value, plus ``device='cuda'``; the port declares
-    only the flags its inference path reads, so the keys it leaves out are
-    JAX's undeclared flags (training, mesh, profiling, the TPU-only ones),
-    and such a flag on the command line is refused, not ignored."""
+    port's result has JAX's value, but ``device='cuda'`` and the keys that
+    the JAX CLIs read from a config file only, which the port declares with
+    the JAX CLIs' defaults; the keys it leaves out are JAX's flags that
+    nothing reads or that are TPU-only, and such a flag on the command line
+    is refused, not ignored (``--mesh_shape`` with ROADMAP A12)."""
     import alpro_tpu.core.config as jcfg
     import alpro_tpu_torch.core.config as pcfg
 
-    argv = ["--config", str(REPO / "configs" / name), "--do_inference", "1"]
+    argv = ["--config", str(REPO / "configs" / name)]
     want = dict(getattr(jcfg, parser)(argv))
     got = dict(getattr(pcfg, parser)(argv))
     assert got.pop("device") == "cuda"
-    assert got == {k: want[k] for k in got}
     config_keys = set(json.loads((REPO / "configs" / name).read_text()))
+    defaults = {"apply_weight_decay": 0, "prefetch_depth": 2, "vtm_negative_blocks": 1}
+    for key, value in defaults.items():
+        if key not in config_keys and key in got:
+            assert key not in want and got.pop(key) == value
+    assert got == {k: want[k] for k in got}
     assert config_keys <= set(got)
-    dropped = {"mesh_shape", "profile", "remat_policy", "learning_rate", "xla_compiler_options",
-               "scan_blocks"} - config_keys
+    assert {"learning_rate", "profile", "remat_policy", "num_train_epochs", "log_interval",
+            "train_datasets", "frm_sampling_strategy"} <= set(got)
+    dropped = {"xla_compiler_options", "scan_blocks", "num_workers", "dropout"} - config_keys
     assert dropped and dropped <= set(want) - set(got)
-    for flag in (["--mesh_shape", "1", "4"], ["--profile", "1"], ["--learning_rate", "1e-4"]):
+    for flag in (["--mesh_shape", "1", "4"], ["--xla_compiler_options", "a=b"],
+                 ["--scan_blocks", "0"]):
         with pytest.raises(SystemExit):
             getattr(pcfg, parser)(argv + flag)
+    for flag, key, value in ((["--profile", "1"], "profile", 1),
+                             (["--learning_rate", "1e-4"], "learning_rate", 1e-4)):
+        assert getattr(pcfg, parser)(argv + flag)[key] == getattr(jcfg, parser)(argv + flag)[key] \
+            == value
 
 
 def test_reference_checkpoint_loader(tmp_path):

@@ -224,3 +224,95 @@ def test_batch_loader_order_matches_jax(shuffle, drop_last, shards, workers):
         assert len(got) == len(want)
         for _ in range(2):  # two epochs: the shuffle's seed moves with the epoch
             assert list(got) == list(want)
+
+
+def test_retrieval_training_dataset_matches_jax(tmp_path):
+    """``RetrievalDataset`` in training (``rand`` frames, random crops, a
+    caption drawn from a list, a failed decode resampling another row):
+    every item of two passes equal to the JAX module's for the same seed,
+    and the shuffled loader's collated batches too."""
+    root = str(tmp_path)
+    ann, vid_dir, _ = write_video_dataset(root, n_videos=5, t=8, h=48, w=64)
+    rows = jds.load_datalist(ann)
+    rows[1] = dict(rows[1], txt=["a first caption", "a second one", "a third"])
+    rows.append({"vid_id": "missing", "txt": "no such clip"})
+    kw = dict(num_frm=3, frm_sampling_strategy="rand", resize_size=40, crop_size=32, seed=7)
+    got, want = pds.RetrievalDataset(rows, vid_dir, **kw), jds.RetrievalDataset(rows, vid_dir, **kw)
+    for _ in range(2):
+        _same_tree([got[i] for i in range(len(got))], [want[i] for i in range(len(want))])
+    tok = jtok.WordPieceTokenizer(jtok.make_test_vocab())
+    loaders = [mod.BatchLoader(ds, mod_ds.RetrievalCollator(tok, 12), 2, seed=3)
+               for mod, mod_ds, ds in ((ploader, pds, got), (jloader, jds, want))]
+    _same_tree(list(loaders[0]), list(loaders[1]))
+
+
+@pytest.mark.parametrize("task", ["msrvtt_qa", "action"])
+def test_qa_training_split_matches_jax(tmp_path, task):
+    """``VideoQADataset`` with ``is_train`` (``rand`` frames over 2 clips'
+    worth, random crops, labels) equal to the JAX module's for the same
+    seed."""
+    root = str(tmp_path)
+    if task == "action":
+        ann, vid_dir, _ = write_multichoice_qa_dataset(root, n=5, t=6, h=48, w=64, n_options=3)
+        ans2label = {}
+    else:
+        ann, vid_dir, _, ans2label = write_qa_dataset(root, n=5, t=8, h=48, w=64)
+    kw = dict(num_frm=4, frm_sampling_strategy="rand", resize_size=40, crop_size=32,
+              is_train=True, seed=11, return_label=True, task_type=task)
+    got = pds.VideoQADataset(pds.load_datalist(ann), vid_dir, ans2label, **kw)
+    want = jds.VideoQADataset(jds.load_datalist(ann), vid_dir, ans2label, **kw)
+    for _ in range(2):
+        _same_tree([got[i] for i in range(len(got))], [want[i] for i in range(len(want))])
+
+
+def test_infinite_iterator_matches_jax():
+    """Three epochs and a half of a shuffled loader, epoch after epoch."""
+    data = list(range(7))
+    got = ploader.InfiniteIterator(ploader.BatchLoader(data, list, 2, seed=1))
+    want = jloader.InfiniteIterator(jloader.BatchLoader(data, list, 2, seed=1))
+    assert [next(got) for _ in range(11)] == [next(want) for _ in range(11)]
+
+
+def _batches(n):
+    for i in range(n):
+        yield {"x": np.full((2, 3), i, np.int32), "ids": [f"q{i}"]}
+
+
+def test_prefetcher_keeps_order_and_stages_on_the_cpu():
+    """On the CPU the staging is ``torch.from_numpy`` of the arrays (the
+    list entry dropped, as the JAX loop drops it); the batches come out in
+    order, and the iterator ends."""
+    import torch
+
+    put = lambda b: ploader.stage_batch(b, torch.device("cpu"))  # noqa: E731
+    pf = ploader.DevicePrefetcher(_batches(9), put, depth=2)
+    got = [staged.wait() for staged in pf]
+    assert [sorted(b) for b in got] == [["x"]] * 9
+    assert [int(b["x"][0, 0]) for b in got] == list(range(9))
+    assert all(b["x"].dtype == torch.int32 for b in got)
+    pf.close()
+
+
+def test_prefetcher_delivers_a_worker_error():
+    def failing():
+        yield from _batches(2)
+        raise ValueError("bad clip")
+
+    pf = ploader.DevicePrefetcher(failing(), lambda b: b, depth=4)
+    assert [int(next(pf)["x"][0, 0]) for _ in range(2)] == [0, 1]
+    with pytest.raises(RuntimeError, match="prefetch worker failed") as err:
+        next(pf)
+    assert isinstance(err.value.__cause__, ValueError)
+    pf.close()
+
+
+def test_prefetcher_close_drains_and_stops():
+    """Closed while the producer blocks on a full queue over an endless
+    iterator: the thread ends and nothing is left queued."""
+    import itertools
+
+    pf = ploader.DevicePrefetcher(({"i": i} for i in itertools.count()), lambda b: b, depth=2)
+    assert next(pf) == {"i": 0}
+    pf.close()
+    assert not pf._thread.is_alive()
+    assert pf._q.empty()

@@ -69,12 +69,14 @@ def test_module_level_scan_skips_function_bodies(tmp_path):
 
 
 def test_the_scans_cover_the_eval_path_modules():
-    """The new packages of the eval path are under the scans' ``rglob``."""
+    """The new packages of the eval and finetuning paths are under the
+    scans' ``rglob``."""
     names = {str(p.relative_to(REPO / "alpro_tpu_torch")) for p in _PORT}
     assert {"core/config.py", "core/logging.py", "data/tokenization.py", "data/transforms.py",
             "data/datasets.py", "data/loader.py", "media/__init__.py", "cli/common.py",
             "cli/run_video_retrieval.py", "cli/run_video_qa.py", "evals/retrieval.py",
-            "checkpoint/reference.py"} <= names
+            "checkpoint/reference.py", "checkpoint/restore.py", "core/misc.py",
+            "models/remat.py"} <= names
     assert set(_PORT) <= set(_SOURCES)
 
 
@@ -107,6 +109,7 @@ import alpro_tpu_torch.train.optimizer, alpro_tpu_torch.train.state, alpro_tpu_t
 import alpro_tpu_torch.cli.run_video_retrieval, alpro_tpu_torch.cli.run_video_qa
 import alpro_tpu_torch.checkpoint.reference, alpro_tpu_torch.evals.retrieval
 import alpro_tpu_torch.data.loader, alpro_tpu_torch.data.transforms
+import alpro_tpu_torch.checkpoint.restore, alpro_tpu_torch.core.misc, alpro_tpu_torch.models.remat
 heavy = sorted({m.split('.')[0] for m in sys.modules}
                & {'jax', 'flax', 'optax', 'PIL', 'pandas', 'alpro_tpu', 'transformers'})
 from alpro_tpu_torch.ops import _build

@@ -12,7 +12,10 @@ atol 1e-5; every parameter's gradient, mapped to the port's names through
 
 Then, port only: with dropout and drop-path on, the gradients are the same
 with and without per-block gradient checkpointing (the recompute must draw
-the masks the forward drew) and change with the seed.
+the masks the forward drew) and change with the seed; under both ported
+``remat_policy`` values, ``nothing`` and ``dots_ln``, and ``attn_impl``
+'xla' and 'pallas', exactly, ``dots_ln`` keeping the products and the
+LayerNorm statistics it names.
 """
 
 import copy
@@ -232,3 +235,49 @@ def test_smoke_gradient_check_catches_a_dropped_key_gradient(monkeypatch):
     assert gap["whole"] < chip_smoke.FT_GRAD_TOL
     assert gap["qkv"][0][1] > chip_smoke.FT_QKV_GRAD_TOL
     assert gap["params"][0][1] > chip_smoke.FT_PARAM_GRAD_TOL
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_remat_policies_keep_the_gradients(attn_impl, monkeypatch):
+    """Dropout (0.1 on BERT's hidden states and attention probabilities,
+    the video tower's tokens) and drop-path 0.1 on: one retrieval step's
+    gradients under per-block checkpointing of both towers with
+    ``remat_policy`` 'nothing' and 'dots_ln' equal those without
+    checkpointing bit for bit, and ``dots_ln`` keeps ``aten.mm``/``addmm``
+    outputs and the LayerNorms' ``aten.mean`` statistics in the forward,
+    and nothing else."""
+    import dataclasses
+
+    from alpro_tpu_torch.models import remat
+    from alpro_tpu_torch.models.alpro import init_random_
+
+    port = build_retrieval_model(BertConfig(**BERT, attn_impl=attn_impl),
+                                 TimeSformerConfig(**VIS, attn_impl=attn_impl, drop_rate=0.1,
+                                                   drop_path_rate=0.1),
+                                 img_size=32, num_frm=2)
+    init_random_(port, torch.Generator().manual_seed(4))
+    saved = []
+    policy = remat._dots_ln
+
+    def recording(ctx, op, *args, **kwargs):
+        decision = policy(ctx, op, *args, **kwargs)
+        if ctx.is_recompute is False and decision.name == "MUST_SAVE":
+            saved.append(op)
+        return decision
+
+    monkeypatch.setattr(remat, "_dots_ln", recording)
+    grads = {}
+    for name in (None, "nothing", "dots_ln"):
+        model = copy.deepcopy(port)
+        if name is not None:
+            for sub in (model.visual_encoder.model, model.text_encoder.bert):
+                sub.cfg = dataclasses.replace(sub.cfg, gradient_checkpointing=True,
+                                              remat_policy=name)
+        grads[name] = _port_grads(model, seed=5)
+    aten = torch.ops.aten
+    assert {aten.addmm.default, aten.mean.dim} <= set(saved) <= {
+        aten.mm.default, aten.addmm.default, aten.mean.dim}
+    for name in ("nothing", "dots_ln"):
+        for key, g in grads[None].items():
+            assert torch.equal(grads[name][key], g), (name, key)
+    assert max(float(g.abs().max()) for g in grads[None].values()) > 1e-3
