@@ -3,10 +3,12 @@
 The port's own copy of the mapping in
 ``alpro_tpu/checkpoint/export_torch.py::export_reference_state_dict``, so
 that the port imports nothing of the JAX package. It covers the TimeSformer,
-the BERT encoder, ``vision_proj`` / ``text_proj`` / ``itm_head``, ``temp``
-and the QA classifier (``classifier.0.*`` / ``classifier.2.*``). The MLM and
-MPM heads have no module in the port yet (ROADMAP A11): a tree holding them
-raises ``KeyError`` rather than loading without them.
+the BERT encoder, ``vision_proj`` / ``text_proj`` / ``itm_head``, ``temp``,
+the QA classifier (``classifier.0.*`` / ``classifier.2.*``) and the
+pretraining heads: the MLM head (``text_encoder.cls.predictions.*``, the
+decoder's bias also as ``predictions.bias``) and the MPM head
+(``mpm_head.0.*`` / ``mpm_head.2.*``). A tree holding any other top-level
+subtree raises ``KeyError`` rather than loading without it.
 
 Arrays may be numpy or JAX arrays (``np.asarray`` reads either without
 importing JAX). Dense kernels (in, out) become torch Linear weights (out,
@@ -22,7 +24,8 @@ import numpy as np
 
 _HEADS = ("vision_proj", "text_proj", "itm_head")
 _KNOWN = {"visual_encoder", "text_encoder", "temp", "classifier_hidden",
-          "classifier_out", *_HEADS}
+          "classifier_out", "mlm_head", "mpm_hidden", "mpm_out", *_HEADS}
+_MLM = "text_encoder.cls.predictions."
 
 
 def _t(w) -> np.ndarray:
@@ -106,7 +109,16 @@ def alpro_state_dict(params: dict) -> Dict[str, np.ndarray]:
         _put_dense(sd, name + ".", tree[name])
     if "temp" in tree:
         sd["temp"] = np.asarray(tree["temp"])
+    if "mlm_head" in tree:
+        h = tree["mlm_head"]
+        _put_dense(sd, _MLM + "transform.dense.", h["transform_dense"])
+        _put_ln(sd, _MLM + "transform.LayerNorm.", h["transform_layernorm"])
+        _put_dense(sd, _MLM + "decoder.", h["decoder"])
+        sd[_MLM + "bias"] = np.asarray(h["decoder"]["bias"])
     if "classifier_hidden" in tree:
         _put_dense(sd, "classifier.0.", tree["classifier_hidden"])
         _put_dense(sd, "classifier.2.", tree["classifier_out"])
+    if "mpm_hidden" in tree:
+        _put_dense(sd, "mpm_head.0.", tree["mpm_hidden"])
+        _put_dense(sd, "mpm_head.2.", tree["mpm_out"])
     return sd

@@ -7,7 +7,11 @@ and an official ALPRO ``.pt`` state dict load through the same function.
 Nothing is transposed here that the export already transposed; the one
 conversion is the strided-conv patch embedding ``patch_embed.proj.weight``
 (D, C, p, p), which becomes the (p·p·C, D) matmul kernel of ``PatchEmbed``
-with rows in (ph, pw, c) order.
+with rows in (ph, pw, c) order. The MLM head's decoder bias has two keys in
+an ALPRO checkpoint, ``cls.predictions.decoder.bias`` and
+``cls.predictions.bias`` (one tensor in ALPRO's module): a load reads the
+first and falls back to the second, and ``alpro_state_dict_of`` writes both,
+equal, as the JAX export does.
 """
 
 from __future__ import annotations
@@ -24,11 +28,18 @@ _CONV_W = "patch_embed.proj.weight"
 _CONV_B = "patch_embed.proj.bias"
 _KERNEL = "patch_embed.kernel"
 _BIAS = "patch_embed.bias"
+_MLM_BIAS = "cls.predictions.bias"
+_DECODER_BIAS = "cls.predictions.decoder.bias"
 
 
 def _to_port_keys(sd: Mapping) -> dict:
     out = {}
     for key, value in sd.items():
+        if key.endswith(_MLM_BIAS):  # the decoder's bias under its second name
+            decoder = key[: -len(_MLM_BIAS)] + _DECODER_BIAS
+            if decoder in sd:
+                continue
+            key = decoder
         t = value if isinstance(value, torch.Tensor) else torch.from_numpy(
             np.array(value, copy=True)
         )
@@ -45,9 +56,12 @@ def _to_port_keys(sd: Mapping) -> dict:
 def to_alpro_keys(sd: Mapping) -> dict:
     """Tensors named by the port's parameters → the ALPRO key space (the
     patch embedding's (p·p·C, D) kernel as the (D, C, p, p) conv weight):
-    the inverse of ``_to_port_keys``, bit for bit, in each tensor's dtype."""
+    the inverse of ``_to_port_keys``, bit for bit, in each tensor's dtype
+    (the MLM decoder's bias under both its names)."""
     out = {}
     for key, value in sd.items():
+        if key.endswith(_DECODER_BIAS):
+            out[key[: -len(_DECODER_BIAS)] + _MLM_BIAS] = value.detach().clone()
         if key.endswith(_KERNEL):
             K, D = value.shape
             p = int(round((K / 3) ** 0.5))

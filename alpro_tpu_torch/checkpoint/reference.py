@@ -15,6 +15,12 @@ converted but what the model's shapes need:
     it) is read as the port's ``text_encoder.bert.*``; a checkpoint with
     ``text_encoder.bert.*`` keys is read as it is (the JAX converter reads
     either prefix whatever its flag);
+  * an ALBEF checkpoint (a plain-ViT visual tower under ``visual_encoder.*``
+    with no ``visual_encoder.model.*`` keys; or ``albef=True``, the
+    ``albef_init`` flag) has its spatial keys read as the TimeSformer's
+    ``visual_encoder.model.*``, 1:1; its temporal keys (``temporal_attn``,
+    ``temporal_norm1``, ``temporal_fc``, ``time_embed``) are missing and
+    keep their init, as ALPRO's non-strict load leaves them;
   * the spatial ``pos_embed`` and the temporal ``time_embed`` are resized by
     the JAX converter's 1-D nearest rule when the patch or frame count
     differs (the CLS position kept);
@@ -38,6 +44,10 @@ _POS = "visual_encoder.model.pos_embed"
 _TIME = "visual_encoder.model.time_embed"
 _TEXT = "text_encoder."
 _BERT = "text_encoder.bert."
+_MLM = "text_encoder.cls."
+_VIS = "visual_encoder."
+_TOWER = "visual_encoder.model."
+_TEMPORAL = ("temporal_attn", "temporal_norm1", "temporal_fc", "time_embed")
 
 
 def _nearest_1d(x: torch.Tensor, new_len: int) -> torch.Tensor:
@@ -60,18 +70,37 @@ def resize_temporal_embedding(time_embed: torch.Tensor, num_frames: int) -> torc
 
 def text_encoder_as_bert(sd: Mapping) -> Dict:
     """A bare-BertModel text encoder's ``text_encoder.*`` keys as the port's
-    ``text_encoder.bert.*``; a state dict that has ``text_encoder.bert.*``
-    keys comes back as it is."""
+    ``text_encoder.bert.*`` (the MLM head's ``text_encoder.cls.*`` as they
+    are); a state dict that has ``text_encoder.bert.*`` keys comes back as
+    it is."""
     if any(k.startswith(_BERT) for k in sd):
         return dict(sd)
-    return {(_BERT + k[len(_TEXT):] if k.startswith(_TEXT) else k): v for k, v in sd.items()}
+    return {(_BERT + k[len(_TEXT):] if k.startswith(_TEXT) and not k.startswith(_MLM) else k): v
+            for k, v in sd.items()}
+
+
+def albef_visual_as_timesformer(sd: Mapping) -> Dict:
+    """An ALBEF plain-ViT tower's ``visual_encoder.*`` keys as the
+    TimeSformer's ``visual_encoder.model.*``, its temporal keys dropped
+    (they keep the model's init)."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith(_VIS) and not k.startswith(_TOWER):
+            if any(t in k for t in _TEMPORAL):
+                continue
+            k = _TOWER + k[len(_VIS):]
+        out[k] = v
+    return out
 
 
 def load_reference_checkpoint(path: str, *, num_patches: int = None,
-                              num_frames: int = None) -> Tuple[Dict, Dict]:
+                              num_frames: int = None, albef: bool = False) -> Tuple[Dict, Dict]:
     """Read an ALPRO ``.pt`` → (state dict in the port's ALPRO keys, with
     ``pos_embed``/``time_embed`` resized to ``num_patches``/``num_frames``
-    where given; the ``prompter.*`` sub-dict, prefix removed)."""
+    where given; the ``prompter.*`` sub-dict, prefix removed). ``albef``
+    (or a checkpoint with ``visual_encoder.pos_embed`` and no
+    ``visual_encoder.model.pos_embed``) reads the visual tower as ALBEF's
+    plain ViT."""
     raw = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(raw, dict) and isinstance(raw.get("model"), dict):
         raw = raw["model"]
@@ -79,6 +108,8 @@ def load_reference_checkpoint(path: str, *, num_patches: int = None,
           for k, v in raw.items()}
     prompter = {k[len("prompter."):]: v for k, v in sd.items() if k.startswith("prompter.")}
     main = text_encoder_as_bert({k: v for k, v in sd.items() if not k.startswith("prompter.")})
+    if albef or (_POS not in main and _VIS + "pos_embed" in main):
+        main = albef_visual_as_timesformer(main)
     if num_patches is not None and _POS in main and main[_POS].shape[1] != num_patches + 1:
         main[_POS] = resize_spatial_embedding(main[_POS], num_patches)
     if num_frames is not None and _TIME in main and main[_TIME].shape[1] != num_frames:

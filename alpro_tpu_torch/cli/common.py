@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import functools
 import json
 import math
 import os
@@ -27,6 +26,7 @@ import torch
 
 from alpro_tpu_torch.checkpoint.reference import load_reference_checkpoint, merge_state_dict
 from alpro_tpu_torch.checkpoint.restore import TrainingRestorer, load_params, save_params
+from alpro_tpu_torch.checkpoint.visual_init import load_visual_weights
 from alpro_tpu_torch.core.config import Config, load_json_config
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, RunningMeter, add_log_to_file
 from alpro_tpu_torch.core.misc import maybe_profile, save_training_meta, set_random_seed
@@ -34,6 +34,8 @@ from alpro_tpu_torch.data.loader import DevicePrefetcher, stage_batch
 from alpro_tpu_torch.data.transforms import IMAGE_MEAN_CLIP, IMAGE_STD_CLIP
 from alpro_tpu_torch.models.alpro import (
     AlproModel,
+    build_pretrain_model,
+    build_prompter_model,
     build_qa_model,
     build_retrieval_model,
     init_random_,
@@ -83,8 +85,10 @@ def compute_dtype(cfg: Config) -> torch.dtype:
 
 
 def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
-    """The ``retrieval`` or ``qa`` model of ``cfg.model_config`` (a BERT
-    json) and ``cfg.visual_model_cfg`` (a TimeSformer json) at
+    """The ``retrieval``, ``qa``, ``pretrain`` (the MLM head and the MPM
+    head over ``num_entities``, default 1000) or ``prompter`` model of
+    ``cfg.model_config`` (a BERT json) and ``cfg.visual_model_cfg`` (a
+    TimeSformer json) at
     ``crop_img_size`` and ``num_frm``, with fp32 parameters on
     ``resolve_device(cfg)`` drawn by ``init_random_`` from a
     ``torch.Generator`` seeded with ``seed``, computing in
@@ -92,12 +96,7 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
     ``remat_policy`` (default ``dots_ln``) what their checkpointed blocks
     keep, and ``fused_patchify`` the video tower's patch embedding, as in
     the JAX CLI."""
-    if task in ("pretrain", "prompter"):
-        raise NotImplementedError(
-            f"task {task!r}: the pretraining and prompter models are not ported yet "
-            "(ROADMAP A11)"
-        )
-    if task not in ("retrieval", "qa"):
+    if task not in ("retrieval", "qa", "pretrain", "prompter"):
         raise ValueError(task)
     device = resolve_device(cfg)
     attn_impl = cfg.get("attn_impl") or "auto"
@@ -127,9 +126,14 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
     with torch.device("meta"):
         if task == "retrieval":
             model = build_retrieval_model(bert, vis, dtype=dtype)
-        else:
+        elif task == "qa":
             model = build_qa_model(bert, vis, num_labels=cfg.num_labels,
                                    cls_hidden_scale=cfg.get("cls_hidden_scale", 2), dtype=dtype)
+        elif task == "pretrain":
+            model = build_pretrain_model(bert, vis, num_entities=cfg.get("num_entities", 1000),
+                                         dtype=dtype)
+        else:
+            model = build_prompter_model(bert, vis, dtype=dtype)
     model = model.to_empty(device=device)
     init_random_(model, torch.Generator(device=device).manual_seed(seed))
     return model.eval()
@@ -139,7 +143,8 @@ def maybe_load_e2e_weights(model: AlproModel, cfg: Config) -> AlproModel:
     """Merge the ALPRO-key ``.pt`` at ``e2e_weights_path`` non-strictly over
     the model's init (keys the file lacks keep their values; a missing file
     leaves the init, with a warning). Either text-encoder prefix is read, so
-    the JAX CLI's ``remove_text_encoder_prefix`` needs no counterpart."""
+    the JAX CLI's ``remove_text_encoder_prefix`` needs no counterpart;
+    ``albef_init`` reads the visual tower as ALBEF's plain ViT."""
     path = cfg.get("e2e_weights_path")
     if not path:
         return model
@@ -148,7 +153,8 @@ def maybe_load_e2e_weights(model: AlproModel, cfg: Config) -> AlproModel:
         return model
     vis = model.visual_encoder.model.cfg
     sd, _prompter = load_reference_checkpoint(path, num_patches=vis.num_patches,
-                                              num_frames=vis.num_frames)
+                                              num_frames=vis.num_frames,
+                                              albef=bool(cfg.get("albef_init", False)))
     merge_state_dict(model, sd)
     LOGGER.info("loaded weights from %s", path)
     return model
@@ -204,7 +210,9 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
     ``gradient_accumulation_steps``) optimizer steps (an epoch of
     ``steps_per_epoch // accum`` of them for ``multi_step``); ``AdamW``
     accumulates over ``accum`` calls. The model starts from
-    ``e2e_weights_path`` when given. With an ``output_dir``, the restorer
+    ``e2e_weights_path`` when given, else its video tower from
+    ``visual_weights_path`` when given (``checkpoint/visual_init.py``). With
+    an ``output_dir``, the restorer
     saves every max(1, ``save_steps_ratio`` · num_train_steps) steps and the
     state resumes from its newest slot. ``make_step(model, optimizer)``
     builds the step."""
@@ -238,9 +246,7 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
     if cfg.get("e2e_weights_path"):
         maybe_load_e2e_weights(model, cfg)
     elif cfg.get("visual_weights_path"):
-        raise NotImplementedError(
-            f"visual_weights_path={cfg.visual_weights_path!r}: the imagenet, CLIP and Kinetics "
-            "visual-tower converters are not ported yet (ROADMAP A11); pass e2e_weights_path")
+        load_visual_weights(model, cfg.visual_weights_path)
     state = TrainState.create(model, optimizer)
     restorer = None
     if cfg.get("output_dir"):
@@ -259,9 +265,11 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
 
     Host batches from ``train_iter`` are staged on the model's device by a
     ``DevicePrefetcher`` thread (``prefetch_depth`` batches ahead; 0 stages
-    each batch in the loop). Each step is ``step_fn(state, batch, seed)``
-    with the config's ``seed``. The metrics are read to the host only every
-    ``log_interval`` steps (into ``RunningMeter`` EWMAs, logged and written
+    each batch in the loop). An item of ``train_iter`` is a batch dict or a
+    (batch, extras) tuple, whose extras (the pretraining batch's task type)
+    travel beside the staged batch. Each step is ``step_fn(state, batch,
+    seed, *extras)`` with the config's ``seed``. The metrics are read to the
+    host only every ``log_interval`` steps (into ``RunningMeter`` EWMAs, logged and written
     to ``TB_LOGGER``); every ``valid_steps`` (about ``num_valid`` times,
     rounded up to a multiple of ``min_valid_steps``) ``validate_fn`` and
     ``save_model_fn`` run; a resume checkpoint is saved where
@@ -270,7 +278,11 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
     async save is committed and the prefetcher closed."""
     device = model_device(state.model)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-    put = functools.partial(stage_batch, device=device, stream=stream)
+
+    def put(item):
+        batch, extras = item if isinstance(item, tuple) else (item, ())
+        return stage_batch(batch, device, stream), extras
+
     depth = int(cfg.get("prefetch_depth", 2))
     prefetcher = DevicePrefetcher(train_iter, put, depth=depth) if depth > 0 else None
     staged = prefetcher if prefetcher is not None else map(put, train_iter)
@@ -292,8 +304,8 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
                     profiling.enter_context(maybe_profile(cfg.output_dir, True))
                 elif profile and global_step == start_step + 7:
                     profiling.close()
-                batch = next(staged).wait()
-                state, metrics = step_fn(state, batch, seed)
+                staged_batch, extras = next(staged)
+                state, metrics = step_fn(state, staged_batch.wait(), seed, *extras)
                 # metrics stay on the device between log steps: reading them
                 # every step would wait for the device every step
                 if (global_step + 1) % log_interval == 0 or debug:

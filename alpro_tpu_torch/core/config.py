@@ -8,8 +8,9 @@ Differences from the JAX parser: only the flags that the port's paths read
 are declared; the TPU-only ``--xla_compiler_options`` and ``--scan_blocks``
 never are, and ``--mesh_shape`` is declared only to be refused (multi-GPU is
 ROADMAP A12). Keys that the JAX CLIs read from a config file with a default
-(``apply_weight_decay``, ``prefetch_depth``, ``vtm_negative_blocks``) are
-declared here with that default. ``--device`` (default ``cuda``) takes the
+(``apply_weight_decay``, ``prefetch_depth``, ``vtm_negative_blocks``, and
+for pretraining ``prompt_chunk_size`` and ``num_val_batches``) are declared
+here with that default. ``--device`` (default ``cuda``) takes the
 place of the JAX package's ``ALPRO_PLATFORM``.
 """
 
@@ -104,8 +105,8 @@ class _RefuseMeshShape(argparse.Action):
 
 
 def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The flags of the task CLIs that the port's inference and finetuning
-    paths read, with the JAX parser's names and defaults. A flag the port
+    """The flags of the task CLIs that the port's inference, finetuning and
+    pretraining paths read, with the JAX parser's names and defaults. A flag the port
     does not read is not declared: on the command line it is an argparse
     error, not a silent no-op (a config file's other keys still come
     through the JSON overlay)."""
@@ -218,4 +219,30 @@ def get_video_qa_args(argv=None) -> Config:
     parser.add_argument("--cls_hidden_scale", type=int, default=2)
     parser.add_argument("--score_agg_func", type=str, default="mean",
                         choices=["mean", "max", "lse"])
+    return parse_with_config(parser, argv)
+
+
+def get_pretraining_args(argv=None) -> Config:
+    """The pretraining and prompter CLIs' flags: the shared ones, the
+    objectives (``use_itc``, ``use_itm``, ``use_mlm``, ``use_mpm``), the
+    teacher, the entity list and ``albef_init``, with the JAX parser's
+    defaults."""
+    parser = argparse.ArgumentParser("pretrain")
+    shared_args(parser)
+    parser.add_argument("--use_itm", type=int, default=1)
+    parser.add_argument("--use_mlm", type=int, default=1)
+    parser.add_argument("--use_itc", type=int, default=1)
+    parser.add_argument("--use_mpm", type=int, default=1)
+    parser.add_argument("--model_type", type=str, default="pretrain")
+    parser.add_argument("--teacher_weights_path", type=str, default=None)
+    parser.add_argument("--entity_file_path", type=str, default=None)
+    parser.add_argument("--num_entities", type=int, default=1000)
+    parser.add_argument("--fps", type=float, default=0.5)
+    parser.add_argument("--albef_init", type=int, default=0)
+    # read by the JAX CLIs from a config file only, with these defaults
+    parser.add_argument("--vtm_negative_blocks", type=int, default=1)
+    parser.add_argument("--prompt_chunk_size", type=int, default=512,
+                        help="prompts per teacher text call when building the prompt banks")
+    parser.add_argument("--num_val_batches", type=int, default=2,
+                        help="batches of each val dataset per validation")
     return parse_with_config(parser, argv)

@@ -1,19 +1,21 @@
-"""Datasets and collators of retrieval and video QA, for finetuning and eval.
+"""Datasets and collators of retrieval, video QA and pretraining.
 
-The port's counterpart of ``alpro_tpu/data/datasets.py``'s retrieval and QA
-half: annotation jsonl/json files with {vid_id, txt} rows, decode with retry
+The port's counterpart of ``alpro_tpu/data/datasets.py``: annotation
+jsonl/json files with {vid_id, txt} rows, decode with retry
 (a failed training decode resamples another example), the retrieval
 training pairs (frames sampled by ``frm_sampling_strategy``, a random square
 crop, one caption drawn from a list), the retrieval eval protocol's video
 iteration over the full text bank (with a zero clip for a video that fails
 to decode, so the id→score protocol stays whole), the QA dataset
 (open-ended and multi-choice; ``is_train`` gives the training split's
-sampling and random crops) and the collators that tokenize. Every draw comes
-from the dataset's ``ThreadSafeRng``, in the JAX module's order. Batches are
-plain numpy dicts; the pixels are normalized on the device inside the model.
-
-Not ported (ROADMAP A17/A11): the pretraining datasets, the pretrain
-collator, MLM masking and random erase, RandAugment, ``mk_input_group``.
+sampling and random crops), the pretraining datasets (WebVid-style clips
+with the temporally consistent RandAugment, CC3M-style ``.npy`` images
+through ``random_resized_crop``, ``random_hflip`` and RandAugment, repeated
+to ``num_frm`` frames), the collators that tokenize and ``PretrainCollator``,
+which adds the MLM ids and labels and the random-erase views of MPM. Every
+draw comes from the dataset's or the collator's ``ThreadSafeRng``, in the
+JAX module's order. Batches are plain numpy dicts; the pixels are
+normalized on the device inside the model.
 """
 
 from __future__ import annotations
@@ -25,9 +27,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from alpro_tpu_torch.data.masking import mask_batch_text_tokens, random_erase
+from alpro_tpu_torch.data.randaugment import RandomAugment, TemporalConsistentRandomAugment
 from alpro_tpu_torch.data.rng import ThreadSafeRng
 from alpro_tpu_torch.data.transforms import (
     center_square_crop,
+    random_hflip,
+    random_resized_crop,
     random_square_crop,
     resize_shorter_side,
 )
@@ -46,8 +52,8 @@ def load_json(path: str):
 
 def load_datalist(path: str) -> List[dict]:
     """Annotation loader: .jsonl rows or .json lists; rows normalize to
-    {vid_id, txt, ...}. The pandas ``.pkl`` WebVid datalists of pretraining
-    are not read (ROADMAP A11)."""
+    {vid_id, txt, ...}. The pandas ``.pkl`` WebVid datalists are not read:
+    pandas is not a dependency of the port (ROADMAP A17)."""
     if path.endswith(".jsonl"):
         return [_normalize_row(r) for r in load_jsonl(path)]
     if path.endswith(".json"):
@@ -57,7 +63,7 @@ def load_datalist(path: str) -> List[dict]:
     if path.endswith(".pkl"):
         raise NotImplementedError(
             f"{path}: pandas .pkl datalists (WebVid pretraining) are not read "
-            "by the port yet (ROADMAP A11)"
+            "by the port yet (ROADMAP A17); convert the rows to .jsonl"
         )
     raise ValueError(f"unsupported annotation format: {path}")
 
@@ -79,6 +85,31 @@ def _normalize_row(row: dict) -> dict:
                 out["txt"] = out[k]
                 break
     return out
+
+
+def mk_input_group(key_txt_pairs: Sequence[tuple], max_n_example_per_group: int = 2,
+                   is_train: bool = True,
+                   rng: Optional[np.random.Generator] = None) -> List[tuple]:
+    """Group (key, example) pairs by key into chunks of at most
+    ``max_n_example_per_group`` (training: each key's examples shuffled
+    first); eval keeps one example per group."""
+    rng = rng or np.random.default_rng()
+    by_key: Dict = {}
+    for k, ex in key_txt_pairs:
+        by_key.setdefault(k, []).append(ex)
+    groups: List[tuple] = []
+    for k, examples in by_key.items():
+        if is_train:
+            examples = list(examples)
+            rng.shuffle(examples)
+            for start in range(0, len(examples), max_n_example_per_group):
+                groups.append((k, examples[start: start + max_n_example_per_group]))
+        else:
+            groups.extend((k, [ex]) for ex in examples)
+    n_in, n_out = len(key_txt_pairs), sum(len(exs) for _, exs in groups)
+    if n_in != n_out:
+        raise AssertionError(f"group-by dropped examples: {n_in} -> {n_out}")
+    return groups
 
 
 def _find_video(vid_dir: str, vid_id: str) -> Optional[str]:
@@ -273,6 +304,85 @@ class VideoQADataset(VideoDatasetBase):
         )
 
 
+class PretrainVideoDataset(VideoDatasetBase):
+    """WebVid-style (video, caption) rows. Training applies the temporally
+    consistent RandAugment (N 2, M 5) after the crop."""
+
+    def __init__(self, *args, use_randaug: bool = True, **kw):
+        super().__init__(*args, **kw)
+        self.randaug = None
+        if use_randaug and self.is_train:
+            self.randaug = TemporalConsistentRandomAugment(N=2, M=5, rng=self.rng)
+
+    def __getitem__(self, index: int) -> Dict:
+        ex = self.get_with_retry(index)
+        clip = ex["clip"]
+        if self.randaug is not None:
+            clip = self.randaug(clip)
+        return {"caption": ex["txt"], "clip": clip, "type": "video"}
+
+
+class PretrainImageDataset:
+    """CC3M-style (image, caption) rows, each image a ``.npy``/``.npz``
+    array (H, W, 3), or (T, H, W, 3) of which the first frame is taken.
+    Training: ``random_resized_crop`` (bicubic) → ``random_hflip`` →
+    RandAugment (N 2, M 7, ``IMAGE_AUGS``), then the image repeated to
+    ``num_frm`` frames; eval: repeated, resized and centre-cropped. A row
+    that fails to load is replaced by a random other, up to 5 tries."""
+
+    IMAGE_AUGS = ["Identity", "Brightness", "Sharpness", "ShearX", "ShearY",
+                  "TranslateX", "TranslateY", "Rotate"]
+
+    def __init__(self, datalist, img_dir, num_frm=4, resize_size=256,
+                 crop_size=224, seed=0, is_train=True, use_randaug=True):
+        self.datalist = datalist
+        self.img_dir = img_dir
+        self.num_frm = num_frm
+        self.resize_size = resize_size
+        self.crop_size = crop_size
+        self.is_train = is_train
+        self.rng = ThreadSafeRng(seed)  # per-thread under BatchLoader workers
+        self.randaug = None
+        if is_train and use_randaug:
+            self.randaug = RandomAugment(N=2, M=7, augs=self.IMAGE_AUGS, rng=self.rng)
+
+    def __len__(self):
+        return len(self.datalist)
+
+    @staticmethod
+    def _load(path: str) -> Optional[np.ndarray]:
+        if not path.endswith((".npy", ".npz")):
+            raise NotImplementedError(
+                f"{path}: only .npy/.npz images are read by the port; decoding image "
+                "files is the media binding's work (ROADMAP A17)")
+        try:  # a corrupt or short file is replaced by another row
+            arr = np.load(path)
+            img = arr["frames"] if hasattr(arr, "files") else arr
+            return img[0] if img.ndim == 4 else img
+        except Exception:
+            return None
+
+    def __getitem__(self, index: int) -> Dict:
+        for _ in range(5):
+            item = self.datalist[index]
+            path = _find_video(self.img_dir, item["vid_id"])
+            img = None if path is None else self._load(path)
+            if img is not None:
+                if self.is_train:
+                    img = random_resized_crop(img, self.crop_size, self.rng)
+                    img = random_hflip(img, self.rng)
+                    if self.randaug is not None:
+                        img = self.randaug(np.ascontiguousarray(img))
+                    frames = np.repeat(img[None], self.num_frm, axis=0)
+                else:
+                    frames = np.repeat(img[None], self.num_frm, axis=0)
+                    frames = resize_shorter_side(frames, self.resize_size)
+                    frames = center_square_crop(frames, self.crop_size)
+                return {"caption": item["txt"], "clip": frames, "type": "image"}
+            index = int(self.rng.integers(0, len(self.datalist)))
+        raise RuntimeError("failed to load any image")
+
+
 # --------------------------------------------------------------------------
 # collators
 # --------------------------------------------------------------------------
@@ -345,3 +455,42 @@ class QACollator:
         if self.return_label and "label" in examples[0]:
             out["labels"] = np.asarray([e["label"] for e in examples], np.int32)
         return out
+
+
+class PretrainCollator:
+    """Tokenize, then BERT MLM masking (``mlm_text_input_ids``,
+    ``mlm_labels``) and the MPM random-erase views of every clip
+    (``crop_visual_inputs``, ``mpm_mask``, ``context_visual_inputs``), drawn
+    from the collator's ``ThreadSafeRng``; ``type`` is the first example's
+    (``video`` or ``image``)."""
+
+    def __init__(self, tokenizer, max_txt_len=30, mlm: bool = True,
+                 mpm: bool = True, patch_size: int = 16, seed: int = 0):
+        self.tokenizer = tokenizer
+        self.max_txt_len = max_txt_len
+        self.mlm = mlm
+        self.mpm = mpm
+        self.patch_size = patch_size
+        self.rng = ThreadSafeRng(seed)  # per-thread under BatchLoader workers
+
+    def __call__(self, examples: Sequence[dict]) -> Dict[str, np.ndarray]:
+        enc = self.tokenizer([e["caption"] for e in examples], max_length=self.max_txt_len)
+        ids = np.asarray(enc["input_ids"], np.int32)
+        mask = np.asarray(enc["attention_mask"], np.int32)
+        clips = np.stack([e["clip"] for e in examples])
+        batch = {
+            "visual_inputs": clips,
+            "text_input_ids": ids,
+            "text_input_mask": mask,
+            "type": examples[0].get("type", "video"),
+        }
+        if self.mlm:
+            masked_ids, labels = mask_batch_text_tokens(ids, self.tokenizer, rng=self.rng)
+            batch["mlm_text_input_ids"] = masked_ids.astype(np.int32)
+            batch["mlm_labels"] = labels.astype(np.int32)
+        if self.mpm:
+            views = [random_erase(clip, self.patch_size, rng=self.rng) for clip in clips]
+            batch["crop_visual_inputs"] = np.stack([v[0] for v in views])
+            batch["mpm_mask"] = np.stack([v[1] for v in views])
+            batch["context_visual_inputs"] = np.stack([v[2] for v in views])
+        return batch

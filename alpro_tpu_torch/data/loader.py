@@ -3,13 +3,12 @@
   * ``BatchLoader`` — shuffled or ordered epochs, collated, optionally built
     ahead in a thread pool;
   * ``InfiniteIterator`` — endless epoch cycling;
+  * ``MetaLoader`` — the pretraining task mixer: (task, batch) from one of
+    several loaders, the task drawn ∝ loader length;
   * ``DevicePrefetcher`` — a thread that stages batch k+1 on the device while
     step k runs, through a bounded queue; with ``stage_batch`` as its
     ``put``, each batch's arrays go to pinned host memory and are copied on
     a side CUDA stream (the reference's PrefetchLoader role).
-
-The task mixer ``MetaLoader`` comes with pretraining, its only user (ROADMAP
-A11).
 """
 
 from __future__ import annotations
@@ -127,6 +126,36 @@ class InfiniteIterator:
         except StopIteration:
             self._it = iter(self.loader)
             return next(self._it)
+
+
+class MetaLoader:
+    """Yields (task_name, batch): the task drawn ∝ loader length from
+    ``np.random.default_rng(seed)`` and held for ``accum_steps`` calls, the
+    batch from that task's ``InfiniteIterator``."""
+
+    def __init__(self, loaders: Dict[str, object], accum_steps: int = 1, seed: int = 0):
+        self.names: List[str] = list(loaders.keys())
+        self.iters = {k: InfiniteIterator(v) for k, v in loaders.items()}
+        weights = np.asarray([len(loaders[k]) for k in self.names], dtype=np.float64)
+        if not weights.sum() > 0:
+            raise ValueError(
+                "every loader has zero weight (empty dataset or batch_size > "
+                f"len(dataset) with drop_last?): {dict(zip(self.names, weights))}")
+        self.probs = weights / weights.sum()
+        self.accum_steps = accum_steps
+        self.rng = np.random.default_rng(seed)
+        self._pending = 0
+        self._task: Optional[str] = None
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._pending == 0:
+            self._task = self.names[int(self.rng.choice(len(self.names), p=self.probs))]
+            self._pending = self.accum_steps
+        self._pending -= 1
+        return self._task, next(self.iters[self._task])
 
 
 class StagedBatch:

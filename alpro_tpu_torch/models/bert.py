@@ -232,3 +232,22 @@ class BertModel(nn.Module):
             else:
                 x = layer(x, attention_mask, self.dtype, fused, cfg, generator)
         return x
+
+
+class BertMLMHead(nn.Module):
+    """The ``cls.predictions`` head: transform (dense → exact GELU →
+    LayerNorm), then the decoder to ``vocab_size`` logits. The decoder is
+    its own weight, not tied to the word embeddings (as in the JAX head);
+    its bias is the checkpoint's ``cls.predictions.bias`` too
+    (``checkpoint/load.py``)."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        D = cfg.hidden_size
+        self.transform = container(dense=nn.Linear(D, D),
+                                   LayerNorm=LayerNorm(D, cfg.layer_norm_eps))
+        self.decoder = nn.Linear(D, cfg.vocab_size)
+
+    def forward(self, hidden: torch.Tensor, dtype) -> torch.Tensor:
+        x = gelu_exact(linear(hidden, self.transform.dense, dtype))
+        return linear(self.transform.LayerNorm(x, dtype), self.decoder, dtype)

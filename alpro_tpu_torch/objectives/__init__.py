@@ -1,1 +1,2 @@
-"""Finetuning objectives: VTC (contrastive) and VTM (matching with hard negatives)."""
+"""Training objectives: VTC (contrastive), VTM (matching with hard negatives),
+MLM (masked language modelling) and PEM/MPM (prompting entity modelling)."""

@@ -2,8 +2,9 @@
 """Smoke run of alpro_tpu_torch on one CUDA card: kernels, then the
 retrieval and the video QA serving paths, their finetuning steps, the video
 tower's opt-in serving forms, ``LayerNorm(impl='pallas')``, the retrieval
-and QA eval protocols of the inference CLIs and finetuning through the same
-CLIs at full ALPRO-base width.
+and QA eval protocols of the inference CLIs, finetuning through the same
+CLIs, and pretraining and the prompter through theirs, at full ALPRO-base
+width.
 
     python3 chip_smoke.py
 
@@ -139,16 +140,40 @@ line):
    the async ones; MSRVTT-QA (T = 16, its checkpointed video tower, B = 4, 4
    steps, one ``validate``) with its counts. Train clips/s (median step of
    3-8), the loop's share outside the steps, peak memory, the saves'
-   blocking seconds and size and each ``validate``'s seconds.
+   blocking seconds and size and each ``validate``'s seconds;
+12. pretraining through the CLIs — ``main(["--config", file])`` of
+   ``run_prompter`` (``configs/pretrain_prompter.json``) and
+   ``run_pretrain`` (``configs/pretrain_alpro.json``) on the card at
+   ALPRO-base width (4 frames of 224², ``max_txt_len`` 30, 1000 entities,
+   fp32 parameters, bf16 compute, dropout and drop-path 0), B = 16, 8
+   steps, lr 2e-4, one hard-negative block, on 64 planted clips and 64
+   planted ``.npy`` images, ``validate`` at the end over 2 batches of phase
+   10's set: the prompter under ``--attn_impl pallas`` and on the plain
+   path (18 B13 a step), its ``model_step_8.pt`` the teacher; pretraining
+   (video + image mixed, all four objectives) under pallas and on the plain
+   path with exact counts (36 B13 a step in the student; the teacher's crop
+   forward 12 B13, 12 K2, 24 K3; each bank 24 chunks of 512 prompts, 6 K4
+   and 6 K5 a chunk; ``validate`` 24 B13, 24 K2, 48 K3, 24 K4, 24 K5 a
+   batch), each step's itc_loss and mlm_loss, the banks and the
+   pseudo-label argmax held to the plain run; step 8's resume slot removed
+   and the CLI run again: step 4's slot restored bit for bit, the teacher and
+   the banks rebuilt bit-equal; ``run_video_retrieval`` finetuning 2 steps
+   from the pretraining ``model_step_8.pt``, loading its tensors bit for bit
+   and skipping the MLM and MPM heads. Train clips/s, the teacher's share of
+   a step, the banks' seconds, the loop's share outside the steps, the
+   MetaLoader mix, the MPM rows ignored, peak memory and ``validate``'s
+   seconds.
 
 Then one JSON line with the kernels (``launches`` from the main paths,
 ``eval_launches`` from phase 10's kernel runs, ``cli_train_launches`` from
-phase 11's), the ``nvidia-smi`` line, and last the
-result line ``{"ok": true, "device": {...}}``. There is no CPU path.
+phase 11's, ``pretrain_launches`` from phase 12's prompter, pretraining and
+resumed pretraining runs), the ``nvidia-smi`` line, and last the result
+line ``{"ok": true, "device": {...}}``. There is no CPU path.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import re
@@ -2551,15 +2576,20 @@ class _LoopClock:
         from alpro_tpu_torch.checkpoint import restore
         from alpro_tpu_torch.cli import common
 
-        qa = self.cli.__name__.endswith("qa")
+        kind = self.cli.__name__.rsplit(".", 1)[-1]
         self.steps, self.metrics, self.validates, self.results = [], [], [], []
         self.deploy_s, self.resume_s, self.loop, self.restored = [], [], (0.0, 0.0), None
-        make = "make_qa_train_step" if qa else "make_retrieval_train_step"
-        infer = "inference_qa" if qa else "inference_retrieval"
-        patches = [(self.cli, make, self._make(getattr(self.cli, make))),
-                   (self.cli, "validate", self._timed(self.cli.validate, self.validates)),
-                   (self.cli, infer, self._recording(getattr(self.cli, infer))),
-                   (common, "save_params", self._timed(common.save_params, self.deploy_s)),
+        self.extras = []
+        make = {"run_video_qa": "make_qa_train_step", "run_pretrain": "make_pretrain_train_step",
+                "run_prompter": "make_prompter_train_step"}.get(kind, "make_retrieval_train_step")
+        patches = [(self.cli, make, self._make(getattr(self.cli, make)))]
+        if kind in ("run_video_qa", "run_video_retrieval"):
+            infer = "inference_qa" if kind == "run_video_qa" else "inference_retrieval"
+            patches += [(self.cli, "validate", self._timed(self.cli.validate, self.validates)),
+                        (self.cli, infer, self._recording(getattr(self.cli, infer)))]
+        elif kind == "run_pretrain":  # validate's averages are its results
+            patches.append((self.cli, "make_validate", self._validating(self.cli.make_validate)))
+        patches += [(common, "save_params", self._timed(common.save_params, self.deploy_s)),
                    (common, "run_train_loop", self._loop(common.run_train_loop)),
                    (restore.TrainingRestorer, "save",
                     self._timed(restore.TrainingRestorer.save, self.resume_s)),
@@ -2578,12 +2608,13 @@ class _LoopClock:
         def timed_make(*args, **kwargs):
             step = make(*args, **kwargs)
 
-            def run(state, batch, seed):
+            def run(state, batch, seed, *extras):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, metrics = step(state, batch, seed)
+                state, metrics = step(state, batch, seed, *extras)
                 torch.cuda.synchronize()
                 self.steps.append(time.perf_counter() - t0)
+                self.extras.append(extras)
                 self.metrics.append({k: v.detach().clone() for k, v in metrics.items()})
                 return state, metrics
             return run
@@ -2606,6 +2637,11 @@ class _LoopClock:
             self.results.append(out)
             return out
         return recording
+
+    def _validating(self, make):
+        def made(*args, **kwargs):
+            return self._recording(self._timed(make(*args, **kwargs), self.validates))
+        return made
 
     def _loop(self, fn):
         def timed(*args, **kwargs):
@@ -2991,6 +3027,394 @@ def phase_finetune_cli(card: str) -> dict:
     return total
 
 
+# ---- phase 12: pretraining and the prompter through their CLIs ----
+# configs/pretrain_alpro.json at one card's share: B 16 (256 over 16 GPUs
+# published), 8 steps, one hard-negative block (16 published), lr 2e-4 (twice
+# the config's), 4 frames of 224², 1000 entities (12 000 prompts a bank)
+PT_VIDEOS, PT_IMAGES, PT_BATCH, PT_STEPS, PT_LR = 64, 64, 16, 8, 2e-4
+PT_ENTITIES, PT_CHUNK, PT_VAL_BATCHES = 1000, 512, 2
+# launches a step under --attn_impl pallas: the prompter's 12 spatial + 6
+# text B13; the student's 12 spatial + 6 text + 6 VTM fusion + 6 MLM text + 6
+# MLM fusion B13; the teacher's crop forward (eval) 12 B13, 12 K2 and 24 K3
+PT_PROMPTER_B13, PT_STUDENT_B13 = 18, 36
+# kernel run vs plain run of the same steps (same data, seed, init and hard
+# negatives; dropout and drop-path 0). Measured (NVIDIA H100 80GB HBM3 at
+# 700 W, two runs in one call, bit-equal): step 1's itc_loss 1.67e-3 and
+# mlm_loss 3.9e-4 apart; from a random init at lr 2e-4 the trajectory is
+# chaotic (itc 2.8, 3.9, 6.3, ...), so over 8 steps 1.25e-1 and 7.3e-3; the
+# banks 6.0e-4; the teacher's soft labels 3.8e-6. Each tolerance about
+# twice its reading. With an 8-step teacher the 1000 soft labels are
+# near-uniform (the largest 1.0e-3, every row under the 0.2 threshold) and
+# the argmax agreed on 25.6% of the rows: it must agree on every row whose
+# plain labels decide it (top-1 over top-2 by more than twice PT_SOFT_TOL,
+# which no error within the tolerance can flip) and on a least
+# PT_ARGMAX_SHARE of all rows. Since every row is ignored, the step's
+# mpm_loss is 0 on both paths; ``mpm_all``, the MPM loss with no row
+# ignored (each step's and each validate batch's), holds the MPM head, the
+# erased rows' mean and the soft cross entropy instead. Measured in one
+# call before these two were fixed: itm_loss 9.2e-5 at step 1, 1.80e-2 over
+# 8 steps; mpm_all 6.2e-6 and 5.2e-5 (over the 8 steps and 2 batches)
+PT_STEP1_TOL = {"itc_loss": 3.5e-3, "itm_loss": 2e-4, "mlm_loss": 8e-4, "mpm_all": 1.3e-5}
+PT_TRAJ_TOL = {"itc_loss": 0.25, "itm_loss": 4e-2, "mlm_loss": 1.5e-2, "mpm_all": 1.1e-4}
+PT_BANK_TOL, PT_SOFT_TOL, PT_ARGMAX_SHARE = 1.2e-3, 8e-6, 0.2
+
+
+def _entity_words(n: int) -> list:
+    """n distinct letter-only words ('entaa', 'entab', ...)."""
+    return ["ent" + chr(97 + i // 26 % 26) + chr(97 + i % 26) + chr(97 + i // 676)
+            for i in range(n)]
+
+
+def _write_pretrain_data(root: Path, data: dict) -> dict:
+    """The pretraining sets beside phases 10-11's: PT_VIDEOS planted clips
+    (EVAL_SRC_FRAMES frames at 240 × 320) and PT_IMAGES planted .npy images
+    (240 × 320), one caption each over EVAL_WORDS and the entities; an
+    entity file of PT_ENTITIES words (``word count`` lines), which the vocab
+    holds too."""
+    from alpro_tpu_torch.data.tokenization import make_test_vocab
+
+    rng = np.random.RandomState(SEED + 40)
+    entities = _entity_words(PT_ENTITIES)
+    words = EVAL_WORDS + entities[:200]
+    (root / "unigrams.txt").write_text("".join(f"{e} {PT_ENTITIES - i}\n"
+                                               for i, e in enumerate(entities)))
+    (root / "pt_vocab.txt").write_text("".join(t + "\n" for t in
+                                               make_test_vocab(EVAL_WORDS + entities)))
+    out = {}
+    for name, n, frames in (("pt_videos", PT_VIDEOS, EVAL_SRC_FRAMES), ("pt_images", PT_IMAGES, 1)):
+        d = root / name
+        d.mkdir()
+        with open(root / f"{name}.jsonl", "w") as f:
+            for i in range(n):
+                clip = _planted_clip(rng, frames)
+                np.save(d / f"{name[3]}{i:03d}.npy", clip if frames > 1 else clip[0])
+                caption = " ".join(rng.choice(words, size=int(rng.randint(4, 14))))
+                f.write(json.dumps({"vid_id": f"{name[3]}{i:03d}", "txt": caption}) + "\n")
+        out[name] = {"name": name, "ann": str(root / f"{name}.jsonl"), "img": str(d),
+                     "type": "video" if frames > 1 else "image"}
+    return dict(data, pt_video=out["pt_videos"], pt_image=out["pt_images"],
+                entities=str(root / "unigrams.txt"), pt_vocab=str(root / "pt_vocab.txt"))
+
+
+class _PretrainProbe:
+    """Inside a pretraining CLI run: the banks (host copies) and the
+    seconds to build them, the teacher's weights as built, each call of the
+    teacher's pseudo-labelling (its seconds between two synchronizes, its
+    soft labels and its ignore mask), and each MPM loss's value with no row
+    ignored (``mpm_all``: the student's MPM logits against the soft labels
+    of every row, computed beside the step's own loss, outside its graph)."""
+
+    def __enter__(self):
+        from alpro_tpu_torch.cli import run_pretrain
+        from alpro_tpu_torch.train import step as train_step
+
+        self.banks, self.bank_s, self.teacher, self.labels, self.teacher_s = {}, 0.0, None, [], []
+        self.mpm_all = []
+        self._saved = [(run_pretrain, "setup_prompt_banks"), (run_pretrain, "build_teacher"),
+                       (train_step, "_teacher_pseudo_labels"), (train_step, "mpm_loss")]
+        self._saved = [(m, n, getattr(m, n)) for m, n in self._saved]
+        banks, build, label, mpm = (f for _, _, f in self._saved)
+
+        def timed_banks(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = banks(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.bank_s = time.perf_counter() - t0
+            self.banks = {k: v.detach().float().cpu() for k, v in out.items()}
+            return out
+
+        def built(*args, **kwargs):
+            teacher = build(*args, **kwargs)
+            self.teacher = {k: v.detach().cpu().clone() for k, v in teacher.state_dict().items()}
+            return teacher
+
+        def labelling(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            soft, ignore = label(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.teacher_s.append(time.perf_counter() - t0)
+            self.labels.append((soft.float().cpu(), ignore.cpu()))
+            return soft, ignore
+
+        def mpm_kept(logits, soft, ignore):
+            with torch.no_grad():
+                self.mpm_all.append(mpm(logits, soft, torch.zeros_like(ignore)))
+            return mpm(logits, soft, ignore)
+
+        for (m, n, _), fn in zip(self._saved, (timed_banks, built, labelling, mpm_kept)):
+            setattr(m, n, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, fn in self._saved:
+            setattr(m, n, fn)
+
+
+def _pretrain_launches(steps: int, val_batches: int, banks: int) -> dict:
+    """A pretraining CLI run under attn_impl='pallas': per step
+    PT_STUDENT_B13 + the teacher's 12 B13, 12 K2, 24 K3; per eval batch
+    (every tower in eval) the student's and the teacher's video towers (12
+    B13, 12 K2, 24 K3 each) and the student's text, VTM fusion, MLM text and
+    MLM fusion calls (6 K4 and 6 K5 each); per bank 6 K4 and 6 K5 a chunk of
+    PT_CHUNK prompts."""
+    want = {k: 0 for k in KERNEL_TOL}
+    chunks = -(-12 * PT_ENTITIES // PT_CHUNK)
+    want["masked_attn_bshd"] = steps * (PT_STUDENT_B13 + 12) + val_batches * 24
+    want["temporal_attn"] = steps * 12 + val_batches * 24
+    want["ln_mlp"] = steps * 24 + val_batches * 48
+    want["bert_attn"] = want["bert_mlp"] = banks * chunks * 6 + val_batches * 24
+    return want
+
+
+def _pretrain_cfgs(data: dict) -> tuple:
+    """(prompter, pretrain) configs: the shipped pretraining configs with
+    the cuts of this phase, dropout and drop-path 0, --attn_impl pallas."""
+    common = dict(model_config=data["bert_nodrop"], visual_model_cfg=data["vis_nodrop"],
+                  tokenizer_dir=data["pt_vocab"], device="cuda", attn_impl="pallas",
+                  train_batch_size=PT_BATCH, learning_rate=PT_LR, save_steps_ratio=0.5,
+                  num_valid=1, min_valid_steps=1, log_interval=1, n_workers=0,
+                  e2e_weights_path=None)
+    prompter = json.loads((REPO / "configs" / "pretrain_prompter.json").read_text())
+    prompter.update(common, num_train_epochs=PT_STEPS * PT_BATCH // PT_VIDEOS,
+                    train_datasets=[data["pt_video"]], val_datasets=[])
+    pretrain = json.loads((REPO / "configs" / "pretrain_alpro.json").read_text())
+    pretrain.update(common, num_train_epochs=1, vtm_negative_blocks=1,
+                    entity_file_path=data["entities"], num_entities=PT_ENTITIES,
+                    prompt_chunk_size=PT_CHUNK, num_val_batches=PT_VAL_BATCHES,
+                    train_datasets=[data["pt_video"], data["pt_image"]],
+                    val_datasets=[{"name": "val", "ann": data["ret_ann"],
+                                   "img": data["ret_videos"], "type": "video"}])
+    return prompter, pretrain
+
+
+def _pt_line(what: str, run: dict, probe, card: str) -> str:
+    c = run["clock"]
+    mix = collections.Counter(extras[0] if extras else "video" for extras in c.extras)
+    out = _run_line(what, run, PT_BATCH, card) + f"; MetaLoader mix {dict(mix)}"
+    if probe is not None and probe.teacher_s:
+        share = [t / s for t, s in zip(probe.teacher_s, c.steps)]
+        ignored = torch.cat([ig for _, ig in probe.labels[:len(c.steps)]]).float().mean()
+        out += (f"; teacher's crop forward {statistics.median(share) * 100:.1f}% of a step "
+                f"(median of {len(share)}); banks {probe.bank_s:.3f} s; MPM rows ignored "
+                f"{float(ignored) * 100:.1f}%; validate s "
+                + ", ".join(f"{t:.3f}" for t in _LoopClock.seconds(c.validates)))
+    return out
+
+
+def _pt_run(cli, cfg: dict, want: dict, what: str, plain: bool = False, negatives=None):
+    with _PretrainProbe() as probe:
+        run = _train_run(cli, cfg, want, what, plain=plain, negatives=negatives)
+    return run, probe
+
+
+def phase_pretrain_cli(card: str) -> dict:
+    """Pretraining through the CLIs on the card at ALPRO-base width
+    (``configs/pretrain_prompter.json`` and ``configs/pretrain_alpro.json``
+    with this phase's cuts). (a) The prompter, 8 steps at B = 16, under
+    ``--attn_impl pallas`` and on the plain path: exact counts, finite
+    losses; its ``model_step_8.pt`` is the teacher. (b) Pretraining (video +
+    image, all four objectives, 1000 entities), 8 steps, ``validate`` at the
+    end over 2 batches, resume saves at 4 and 8, under pallas and on the
+    plain path (the hard negatives replayed): exact counts, finite losses,
+    each step's itc_loss, itm_loss, mlm_loss and MPM loss with no row
+    ignored within PT_STEP1_TOL at step 1 and PT_TRAJ_TOL after, the
+    banks within PT_BANK_TOL, the pseudo-label argmax agreeing on
+    PT_ARGMAX_SHARE of the rows. (c) Resume: step 8's slot removed, the CLI
+    run again: step 4's slot restored bit for bit, the teacher and the banks
+    rebuilt bit-equal, the run ends at 8. (d) ``run_video_retrieval``
+    finetunes 2 steps from the pretraining ``model_step_8.pt``: the tensors
+    it loads equal the saved ones bit for bit, the MLM and MPM keys
+    skipped. Returns the pretraining CLIs' kernel runs' counts, summed."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="alpro_pretrain_") as tmp:
+        root = Path(tmp)
+        data = _write_eval_data(root, EVAL_WORDS)
+        data = _write_pretrain_data(root, _write_train_data(root, EVAL_WORDS, data))
+        total = _pretrain_cli_runs(card, data, root)
+    print(f"[pretrain] phase 12: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return total
+
+
+def _pretrain_cli_runs(card: str, data: dict, root: Path) -> dict:
+    from alpro_tpu_torch.checkpoint.reference import load_reference_checkpoint
+    from alpro_tpu_torch.cli import common, run_pretrain, run_prompter, run_video_retrieval
+
+    total = {k: 0 for k in KERNEL_TOL}
+    zero = {k: 0 for k in KERNEL_TOL}
+    prompter_cfg, pretrain_cfg = _pretrain_cfgs(data)
+    out_p, out = str(root / "pt_out" / "prompter"), str(root / "pt_out" / "pretrain")
+
+    # ---- (a) the prompter ----
+    want = {**zero, "masked_attn_bshd": PT_STEPS * PT_PROMPTER_B13}
+    kern = _train_run(run_prompter, dict(prompter_cfg, output_dir=out_p), want,
+                      "prompter (kernels)")
+    plain = _train_run(run_prompter, dict(prompter_cfg, output_dir=None), zero,
+                       "prompter (plain)", plain=True)
+    for k, v in kern["counts"].items():
+        total[k] += v
+    teacher_pt = Path(out_p) / "ckpt" / f"model_step_{PT_STEPS}.pt"
+    fail_if(kern["state"].step != PT_STEPS or not teacher_pt.exists(),
+            f"prompter: {kern['state'].step} steps, {teacher_pt.name} written: "
+            f"{teacher_pt.exists()}")
+    loss = [(m["loss"], p["loss"]) for m, p in zip(kern["metrics"], plain["metrics"])]
+    print("[pretrain] prompter loss per step, kernels / plain: "
+          + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in loss)
+          + f"; max |diff| {max(abs(a - b) for a, b in loss):.3e}", flush=True)
+    for what, run in (("kernels", kern), ("plain", plain)):
+        print(_pt_line(f"prompter ({what})", run, None, card), flush=True)
+    del kern["state"], plain["state"]
+    torch.cuda.empty_cache()
+
+    # ---- (b) pretraining, kernels and plain ----
+    pretrain_cfg["teacher_weights_path"] = str(teacher_pt)
+    negatives = []
+    want = _pretrain_launches(PT_STEPS, PT_VAL_BATCHES, 2)
+    kern, kprobe = _pt_run(run_pretrain, dict(pretrain_cfg, output_dir=out), want,
+                           "pretrain (kernels)", negatives=negatives)
+    n_neg = len(negatives)
+    plain, pprobe = _pt_run(run_pretrain, dict(pretrain_cfg, output_dir=None), zero,
+                            "pretrain (plain)", plain=True, negatives=negatives)
+    fail_if(n_neg != PT_STEPS + PT_VAL_BATCHES, f"{n_neg} hard-negative draws")
+    for k, v in kern["counts"].items():
+        total[k] += v
+    fail_if(kern["state"].step != PT_STEPS or len(kern["metrics"]) != PT_STEPS,
+            f"pretrain: {kern['state'].step} steps")
+    logged = _logged(out, "train_")
+    keys = {k for _, k, _ in logged}
+    fail_if(keys != {"train_itc_loss", "train_itm_loss", "train_mlm_loss", "train_mpm_loss",
+                     "train_loss"} or len(logged) != 5 * PT_STEPS
+            or not all(np.isfinite(v) for *_, v in logged), f"pretrain: logged losses {logged}")
+    late = []  # the comparisons' failures, raised once everything is printed
+    for key, tol in PT_TRAJ_TOL.items():
+        if key == "mpm_all":  # each step's, then each validate batch's
+            pairs = [(float(a), float(b)) for a, b in zip(kprobe.mpm_all, pprobe.mpm_all)]
+            n_want = PT_STEPS + PT_VAL_BATCHES
+        else:
+            pairs = [(m[key], p[key]) for m, p in zip(kern["metrics"], plain["metrics"])]
+            n_want = PT_STEPS
+        worst, first = max(abs(a - b) for a, b in pairs), abs(pairs[0][0] - pairs[0][1])
+        print(f"[pretrain] {key} per step, kernels / plain: "
+              + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in pairs)
+              + f"; step 1 |diff| {first:.3e} (tol {PT_STEP1_TOL[key]}), max {worst:.3e} "
+              f"(tol {tol})", flush=True)
+        if (worst > tol or first > PT_STEP1_TOL[key] or len(pairs) != n_want
+                or not all(np.isfinite(a) and a > 0 for pair in pairs for a in pair)):
+            late.append(f"pretrain: {key} kernel vs plain differs by {first} at step 1, {worst} "
+                        f"over {len(pairs)} of {n_want}")
+    print("[pretrain] kernels: mpm_loss (rows ignored as the step ignores them) "
+          + ", ".join(f"{m['mpm_loss']:.5f}" for m in kern["metrics"]), flush=True)
+    bank_gap = max(float((kprobe.banks[k] - pprobe.banks[k]).abs().max()) for k in kprobe.banks)
+    if sorted(kprobe.banks) != ["image", "video"] or bank_gap > PT_BANK_TOL or any(
+            tuple(b.shape) != (PT_ENTITIES, 256) for b in kprobe.banks.values()):
+        late.append(f"banks: kernel vs plain {bank_gap} (tol {PT_BANK_TOL})")
+    ksoft = torch.cat([soft for soft, _ in kprobe.labels])
+    psoft = torch.cat([soft for soft, _ in pprobe.labels])
+    soft_gap = float((ksoft - psoft).abs().max())
+    agree = ksoft.argmax(dim=1) == psoft.argmax(dim=1)
+    top2 = psoft.topk(2, dim=1).values
+    decided = top2[:, 0] - top2[:, 1] > 2 * PT_SOFT_TOL  # no kernel error can flip these
+    share = float(agree.float().mean())
+    print(f"[pretrain] banks kernel vs plain max |diff| {bank_gap:.3e} (tol {PT_BANK_TOL}); "
+          f"soft labels max |diff| {soft_gap:.3e} (tol {PT_SOFT_TOL}), largest "
+          f"{float(psoft.max()):.4f}; pseudo-label argmax agreeing on {share * 100:.1f}% of "
+          f"{agree.numel()} rows (least {PT_ARGMAX_SHARE * 100:.0f}%), on "
+          f"{int(agree[decided].sum())} of the {int(decided.sum())} rows the plain labels "
+          f"decide; validate {json.dumps(kern['clock'].results)}", flush=True)
+    if soft_gap > PT_SOFT_TOL or share < PT_ARGMAX_SHARE or not bool(agree[decided].all()):
+        late.append(f"pseudo-labels: soft labels differ by {soft_gap}, argmax agrees on {share}")
+    fail_if(len(kern["clock"].results) != 1 or not all(
+        np.isfinite(v) for v in kern["clock"].results[0].values()), "pretrain: validate")
+    for what, run, probe in (("kernels", kern, kprobe), ("plain", plain, pprobe)):
+        print(_pt_line(f"pretrain ({what})", run, probe, card), flush=True)
+    print(f"[pretrain] pretrain (kernels) launches {kern['counts']}", flush=True)
+    fail_if(bool(late), "; ".join(late))
+    del kern["state"], plain["state"]
+    torch.cuda.empty_cache()
+
+    # ---- (c) resume from step 4's slot ----
+    slot8, slot4 = _slot_of(out, PT_STEPS), _slot_of(out, PT_STEPS // 2)
+    (Path(out) / "restore" / f"{slot8}.done").unlink()
+    (Path(out) / "restore" / f"{slot8}.pt").unlink()
+    saved4 = torch.load(Path(out) / "restore" / f"{slot4}.pt", map_location="cpu",
+                        weights_only=True)
+    res, rprobe = _pt_run(run_pretrain, dict(pretrain_cfg, output_dir=out),
+                          _pretrain_launches(PT_STEPS // 2, PT_VAL_BATCHES, 2), "pretrain resumed")
+    for k, v in res["counts"].items():
+        total[k] += v
+    snap, devices = res["clock"].restored
+    bad = _same_snapshot(snap, saved4)
+    fail_if(bool(bad) or devices != {"cuda"},
+            f"resume: restored state differs from slot {slot4} at {bad[:5]} ({devices})")
+    rebuilt = [k for k, v in kprobe.teacher.items() if not torch.equal(v, rprobe.teacher[k])]
+    rebuilt += [k for k, v in kprobe.banks.items() if not torch.equal(v, rprobe.banks[k])]
+    fail_if(bool(rebuilt) or len(rprobe.teacher) != len(kprobe.teacher),
+            f"resume: teacher or banks rebuilt differently: {rebuilt[:5]}")
+    fail_if(res["state"].step != PT_STEPS or len(res["metrics"]) != PT_STEPS // 2
+            or not (Path(out) / "ckpt" / f"model_step_{PT_STEPS}.pt").exists(),
+            f"resume: ended at {res['state'].step} after {len(res['metrics'])} steps")
+    print(f"[pretrain] resumed from slot {slot4} (step {snap['step']}): {len(saved4['params'])} "
+          f"parameters, mu and nu bit-equal on the card; teacher ({len(rprobe.teacher)} tensors) "
+          f"and both banks rebuilt bit-equal; ran steps {snap['step'] + 1}-{res['state'].step}",
+          flush=True)
+    print(_pt_line("pretrain resumed", res, rprobe, card), flush=True)
+    del res["state"]
+    torch.cuda.empty_cache()
+
+    # ---- (d) retrieval finetuning from the pretraining checkpoint ----
+    pt_ckpt = Path(out) / "ckpt" / f"model_step_{PT_STEPS}.pt"
+    ret_cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
+    ret_cfg.update(
+        model_config=data["bert_nodrop"], visual_model_cfg=data["vis_nodrop"],
+        tokenizer_dir=data["vocab"], device="cuda", do_inference=False,
+        e2e_weights_path=str(pt_ckpt), attn_impl="pallas", train_batch_size=CLI_TRAIN_BATCH,
+        vtm_negative_blocks=1, num_train_epochs=1, learning_rate=CLI_TRAIN_LR,
+        data_ratio=2 * CLI_TRAIN_BATCH / CLI_TRAIN_VIDEOS, num_valid=1, min_valid_steps=100,
+        log_interval=1, frm_sampling_strategy="rand", n_workers=0,
+        inference_batch_size=EVAL_TXT_BSZ, eval_video_batch_size=EVAL_VID_BSZ,
+        inference_txt_db=None, inference_img_db=None, output_dir=None,
+        train_datasets=[{"name": "synthetic", "txt": data["ret_train"],
+                         "img": data["ret_train_videos"]}],
+        val_datasets=[{"name": "synthetic", "txt": data["ret_ann"], "img": data["ret_videos"]}])
+    merge, merged = common.merge_state_dict, []
+
+    def recording_merge(model, sd):
+        report = merge(model, sd)
+        merged.append((report, {k: v.detach().cpu().clone() for k, v in
+                                model.named_parameters()}))
+        return report
+
+    n_vb, n_tc = -(-EVAL_VIDEOS // EVAL_VID_BSZ), -(-EVAL_TEXTS // EVAL_TXT_BSZ)
+    common.merge_state_dict = recording_merge
+    try:
+        ft = _train_run(run_video_retrieval, ret_cfg,
+                        _cli_train_launches(2, 24, n_vb, n_tc + n_vb * n_tc),
+                        "finetune from pretraining")
+    finally:
+        common.merge_state_dict = merge
+    (report, start), = merged
+    saved, _ = load_reference_checkpoint(str(pt_ckpt), num_patches=PATCHES, num_frames=8)
+    from alpro_tpu_torch.checkpoint.load import _to_port_keys
+
+    saved = _to_port_keys(saved)
+    heads = sorted(k for k in saved if k.startswith(("text_encoder.cls.", "mpm_head.")))
+    skipped = sorted(s.split(" ")[0] for s in report["skipped"])
+    differ = [k for k, v in start.items() if not torch.equal(v, saved[k].to(v.dtype))]
+    fail_if(skipped != heads or report["missing"] or differ,
+            f"finetune load: skipped {skipped[:4]} (heads {heads[:4]}), missing "
+            f"{report['missing'][:4]}, differ {differ[:4]}")
+    fail_if(ft["state"].step != 2, f"finetune: {ft['state'].step} steps")
+    print(f"[pretrain] finetune from model_step_{PT_STEPS}.pt: {len(start)} tensors loaded bit for "
+          f"bit (time_embed resized 4 -> 8 frames), {len(heads)} MLM/MPM keys skipped and "
+          f"logged; losses " + ", ".join(f"{m['loss']:.5f}" for m in ft["metrics"]), flush=True)
+    del ft["state"]
+    torch.cuda.empty_cache()
+    return total
+
+
 def _gt_of(results) -> dict:
     """Ground truth of the planted retrieval set: text t{j} is video ret{j//2}."""
     return {r["txt_id"]: f"ret{int(r['txt_id'][1:]) // 2:03d}" for r in results}
@@ -3016,6 +3440,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the finetuning CLIs' own counts (B13, K2-K5), summed over their kernel runs
     cli_train_launches = phase_finetune_cli(card)
+    # the pretraining CLIs' own counts (B13 and the teacher's and banks' K2-K5)
+    pretrain_launches = phase_pretrain_cli(card)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -3064,6 +3490,7 @@ def main() -> int:
             "library_device_ms": main_shape["library_device_ms"],
             "eval_launches": eval_launches[name],
             "cli_train_launches": cli_train_launches[name],
+            "pretrain_launches": pretrain_launches[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

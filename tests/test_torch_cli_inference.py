@@ -247,8 +247,13 @@ def test_cli_refusals(retrieval_setup, tmp_path):
                                         "retrieval")
     with pytest.raises(NotImplementedError, match="A12"):
         common.setup_training(Config(dict(cfg, mesh_shape=[2])), None, None, 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        common.build_model_from_cfg(Config(dict(cfg, device="cpu")), "pretrain")
+    pretrain = common.build_model_from_cfg(Config(dict(cfg, device="cpu", num_entities=7)),
+                                           "pretrain")
+    assert pretrain.cfg.with_mlm_head and pretrain.mpm_head[2].out_features == 7
+    assert pretrain.text_encoder.cls.predictions.decoder.out_features == \
+        pretrain.cfg.bert.vocab_size
+    assert not common.build_model_from_cfg(Config(dict(cfg, device="cpu")),
+                                           "prompter").cfg.with_mlm_head
     assert Config(cfg).get("device") is None
     if torch.cuda.is_available():
         assert common.resolve_device(Config(cfg)).type == "cuda"
@@ -259,9 +264,12 @@ def test_cli_refusals(retrieval_setup, tmp_path):
 
 
 @pytest.mark.parametrize("name,parser", [("msrvtt_ret.json", "get_video_retrieval_args"),
-                                         ("msrvtt_qa.json", "get_video_qa_args")])
+                                         ("msrvtt_qa.json", "get_video_qa_args"),
+                                         ("pretrain_alpro.json", "get_pretraining_args"),
+                                         ("pretrain_prompter.json", "get_pretraining_args")])
 def test_shipped_configs_parse_as_in_jax(name, parser):
-    """``configs/msrvtt_{ret,qa}.json`` parse unchanged: every key of the
+    """``configs/msrvtt_{ret,qa}.json`` and ``configs/pretrain_{alpro,
+    prompter}.json`` parse unchanged: every key of the
     port's result has JAX's value, but ``device='cuda'`` and the keys that
     the JAX CLIs read from a config file only, which the port declares with
     the JAX CLIs' defaults; the keys it leaves out are JAX's flags that
@@ -275,7 +283,8 @@ def test_shipped_configs_parse_as_in_jax(name, parser):
     got = dict(getattr(pcfg, parser)(argv))
     assert got.pop("device") == "cuda"
     config_keys = set(json.loads((REPO / "configs" / name).read_text()))
-    defaults = {"apply_weight_decay": 0, "prefetch_depth": 2, "vtm_negative_blocks": 1}
+    defaults = {"apply_weight_decay": 0, "prefetch_depth": 2, "vtm_negative_blocks": 1,
+                "prompt_chunk_size": 512, "num_val_batches": 2}
     for key, value in defaults.items():
         if key not in config_keys and key in got:
             assert key not in want and got.pop(key) == value

@@ -155,7 +155,7 @@ def test_datalists_match_jax(tmp_path):
     (tmp_path / "a.jsonl").write_text("".join(json.dumps(r) + "\n\n" for r in rows))
     for name in ("a.json", "a.jsonl"):
         assert pds.load_datalist(str(tmp_path / name)) == jds.load_datalist(str(tmp_path / name))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A17"):
         pds.load_datalist(str(tmp_path / "train.pkl"))
     with pytest.raises(ValueError):
         pds.load_datalist(str(tmp_path / "a.csv"))

@@ -191,5 +191,5 @@ def test_port_mapping_equals_jax_exporter(kind):
             "classifier.0.weight", "classifier.0.bias", "classifier.2.weight",
             "classifier.2.bias"}
         load_alpro_state_dict(port, got)
-    with pytest.raises(KeyError, match="mlm_head"):
-        alpro_state_dict({"params": {**params["params"], "mlm_head": {}}})
+    with pytest.raises(KeyError, match="sop_head"):  # a subtree the port does not map
+        alpro_state_dict({"params": {**params["params"], "sop_head": {}}})

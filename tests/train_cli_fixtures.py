@@ -136,3 +136,72 @@ def check_run(dirs, last_step, n_val_rows, skip=()):
     port_sd = port_deploy_params(dirs["alpro_tpu_torch"], last_step)
     assert set(port_sd) == set(jax_sd)
     check_params(jax_sd, port_sd, skip)
+
+
+ENTITIES = ["dog", "cat", "ball", "person"]
+
+
+def pretrain_cfg(root, **kw):
+    """The pretraining CLIs' shared config over ``toy_cfg``: 8 fixture clips
+    (48 × 64, 4 frames, ``headtail`` sampling of 2) and 8 ``.npy`` images
+    (48²), both cropped to 32; an entity file of ``ENTITIES``; the banks in
+    chunks of 8 prompts; ``max_txt_len`` 10. The train and val sets are the
+    video set, and with ``mixed`` (the default) also the image set."""
+    from fixtures import write_image_dataset, write_video_dataset
+
+    v_ann, v_dir, _ = write_video_dataset(root, n_videos=8, t=4, h=48, w=64)
+    i_ann, i_dir, _ = write_image_dataset(root, n=8, h=48, w=48)
+    ents = os.path.join(root, "unigrams.txt")
+    with open(ents, "w") as f:
+        f.writelines(e + "\n" for e in ENTITIES)
+    video = {"name": "webvid", "ann": v_ann, "img": v_dir, "type": "video"}
+    image = {"name": "cc3m", "ann": i_ann, "img": i_dir, "type": "image"}
+    mixed = kw.pop("mixed", True)
+    cfg = toy_cfg(root, train_datasets=[video, image] if mixed else [video],
+                  val_datasets=[video], frm_sampling_strategy="headtail", max_txt_len=10,
+                  entity_file_path=ents, num_entities=len(ENTITIES), prompt_chunk_size=8,
+                  use_itc=True, use_itm=True, use_mlm=True, use_mpm=True, num_val_batches=2,
+                  vtm_negative_blocks=1, albef_init=False, fps=0.5, model_type="pretrain")
+    cfg.update(kw)
+    return cfg
+
+
+def prompter_cfg(root, **kw):
+    """``pretrain_cfg`` for the prompter: VTC alone, the video set alone."""
+    return pretrain_cfg(root, mixed=False, use_itm=False, use_mlm=False, use_mpm=False,
+                        model_type="prompter", **kw)
+
+
+def record_pretrain_validation(monkeypatch):
+    """Wrap both pretraining CLIs' eval function so that the metrics of each
+    eval batch are recorded (JAX's through ``jax.debug.callback``, its
+    function being jitted) → {package: [metrics dict per eval batch]}."""
+    import jax
+
+    from alpro_tpu.train import step as jax_step
+    from alpro_tpu_torch.cli import run_pretrain
+
+    seen = {"alpro_tpu": [], "alpro_tpu_torch": []}
+
+    def jax_make(*args, _make=jax_step.make_pretrain_eval_fn, **kwargs):
+        fn = _make(*args, **kwargs)
+
+        def recording(*a, **k):
+            out = fn(*a, **k)
+            jax.debug.callback(lambda m: seen["alpro_tpu"].append(
+                {key: float(v) for key, v in m.items()}), out)
+            return out
+        return recording
+
+    def port_make(*args, _make=run_pretrain.make_pretrain_eval_fn, **kwargs):
+        fn = _make(*args, **kwargs)
+
+        def recording(*a, **k):
+            out = fn(*a, **k)
+            seen["alpro_tpu_torch"].append({key: float(v) for key, v in out.items()})
+            return out
+        return recording
+
+    monkeypatch.setattr(jax_step, "make_pretrain_eval_fn", jax_make)
+    monkeypatch.setattr(run_pretrain, "make_pretrain_eval_fn", port_make)
+    return seen
