@@ -10,7 +10,9 @@ decoder's bias also as ``predictions.bias``) and the MPM head
 (``mpm_head.0.*`` / ``mpm_head.2.*``). A tree holding any other top-level
 subtree raises ``KeyError`` rather than loading without it.
 
-Arrays may be numpy or JAX arrays (``np.asarray`` reads either without
+A TimeSformer block of the joint or space-only attention types (JAX
+``JointBlock``) has no ``temporal_norm1``, ``temporal_attn`` or
+``temporal_fc``, and maps without them. Arrays may be numpy or JAX arrays (``np.asarray`` reads either without
 importing JAX). Dense kernels (in, out) become torch Linear weights (out,
 in); the (p·p·C, D) patch-embed kernel becomes the (D, C, p, p) conv weight
 of the ALPRO checkpoint.
@@ -61,12 +63,14 @@ def timesformer_state_dict(tree: dict,
     while f"blocks_{i}" in tree:
         b = tree[f"blocks_{i}"]
         bp = f"{p}blocks.{i}."
-        for ln in ("norm1", "norm2", "temporal_norm1"):
+        temporal = "temporal_attn" in b  # a joint or space-only block has none
+        for ln in ("norm1", "norm2", "temporal_norm1")[: 3 if temporal else 2]:
             _put_ln(sd, bp + ln + ".", b[ln])
-        for attn in ("attn", "temporal_attn"):
+        for attn in ("attn", "temporal_attn")[: 2 if temporal else 1]:
             _put_dense(sd, bp + f"{attn}.qkv.", b[attn]["qkv"])
             _put_dense(sd, bp + f"{attn}.proj.", b[attn]["proj"])
-        _put_dense(sd, bp + "temporal_fc.", b["temporal_fc"])
+        if temporal:
+            _put_dense(sd, bp + "temporal_fc.", b["temporal_fc"])
         _put_dense(sd, bp + "mlp.fc1.", b["mlp"]["fc1"])
         _put_dense(sd, bp + "mlp.fc2.", b["mlp"]["fc2"])
         i += 1

@@ -84,8 +84,10 @@ def alpro_state_dict_of(model: nn.Module) -> dict:
 @torch.no_grad()
 def load_alpro_state_dict(model: nn.Module, sd: Mapping) -> nn.Module:
     """Copy ``sd`` (ALPRO keys → numpy arrays or tensors) into ``model``'s
-    parameters, converting dtype and device. Raises ``KeyError`` on any
-    missing or unexpected key and ``ValueError`` on a shape mismatch."""
+    parameters, converting dtype and device. The key set is the model's own:
+    a video tower of the joint or space-only ``attention_type`` has no
+    ``temporal_*`` keys. Raises ``KeyError`` on any missing or unexpected
+    key and ``ValueError`` on a shape mismatch."""
     src = _to_port_keys(sd)
     own = dict(model.named_parameters())
     missing = sorted(own.keys() - src.keys())

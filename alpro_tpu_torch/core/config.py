@@ -177,8 +177,9 @@ def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--remat_policy", type=str, default="dots_ln",
                         choices=list(REMAT_POLICIES),
                         help="what per-block gradient checkpointing keeps "
-                             "(models/remat.py): 'dots_ln' the matrix products' and "
-                             "the LayerNorms' outputs, 'nothing' a full recompute")
+                             "(models/remat.py): 'dots_ln' the matrix products' "
+                             "outputs and the LayerNorms' statistics, 'nothing' a "
+                             "full recompute, the other JAX policies as there")
     # read by the JAX CLI from a config file only, with these defaults
     parser.add_argument("--prefetch_depth", type=int, default=2,
                         help="batches staged on the device ahead of the step "

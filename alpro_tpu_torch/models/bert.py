@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from alpro_tpu_torch.models.remat import resolve_remat_policy
+from alpro_tpu_torch.models.remat import BERT_ATTN, checkpoint_name, resolve_remat_policy
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.bert_block import attention_fits, bert_attention_block, bert_mlp_block
@@ -62,7 +62,7 @@ class BertConfig:
     attn_impl: str = "auto"
     block_impl: str = "auto"
     # per-layer torch.utils.checkpoint in training, keeping what remat_policy
-    # keeps (models/remat.py: 'nothing' or 'dots_ln')
+    # keeps (models/remat.py: any of REMAT_POLICIES)
     gradient_checkpointing: bool = False
     remat_policy: str = "nothing"
 
@@ -153,10 +153,10 @@ class BertLayer(nn.Module):
         sa = self.attention.self
         q, k, v = (linear(x, lin, dtype).reshape(B, L, H, D // H)
                    for lin in (sa.query, sa.key, sa.value))
-        ctx = multi_head_attention_bshd(
+        ctx = checkpoint_name(BERT_ATTN, lambda: multi_head_attention_bshd(
             q, k, v, key_mask=attention_mask, impl=cfg.attn_impl,
             dropout_rate=cfg.attention_probs_dropout_prob, generator=generator, training=train,
-        ).reshape(B, L, D)
+        ).reshape(B, L, D))
         out = self.attention.output
         attn = dropout(linear(ctx, out.dense, dtype), cfg.hidden_dropout_prob, generator, train)
         x = out.LayerNorm(attn + x, dtype)

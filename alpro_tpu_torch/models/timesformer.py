@@ -1,4 +1,5 @@
-"""TimeSformer video encoder with divided space-time attention.
+"""TimeSformer video encoder: divided space-time attention, and the joint
+and space-only attention types.
 
 Counterpart of ``alpro_tpu/models/timesformer.py``, with its layouts:
 channels-last video (B, T, H, W, 3), tokens as (B, T, N, D) with the CLS
@@ -12,7 +13,17 @@ default); ``train()`` is the JAX ``deterministic=False``: dropout
 ``drop_path_rate``, depth); masks (B, 1, N, 1) on the temporal branch,
 (B, T, 1, 1) on the spatial branch, one per sample on the MLP tail) drawn
 from the ``generator`` passed to ``forward``, and per-block gradient
-checkpointing when ``gradient_checkpointing`` is set.
+checkpointing when ``gradient_checkpointing`` is set (divided blocks only:
+the joint and space-only types train without it, as in JAX).
+
+``attention_type`` (JAX ``TimeSformerConfig.attention_type``):
+``divided_space_time`` runs the ``DividedSTBlock`` below;
+``joint_space_time`` runs ``JointBlock``, a pre-norm ViT block, over [cls;
+all T·N patches] (K1 at S = 1 + T·N in eval where it fits);
+``space_only`` runs ``JointBlock`` per frame over [cls; N] (B·T rows), adds
+no ``time_embed``, and ends with the mean over frames of every token, CLS
+included, so T becomes 1. ``forward``'s ``pooling`` ('temporal', 'spatial',
+'none') shapes the output as JAX's does.
 
 Per block, the three ``*_impl`` fields pick the kernel or the plain path,
 by the JAX package's rules in both modes:
@@ -74,7 +85,12 @@ from typing import Optional
 import torch
 from torch import nn
 
-from alpro_tpu_torch.models.remat import resolve_remat_policy
+from alpro_tpu_torch.models.remat import (
+    TS_SPATIAL_ATTN,
+    TS_TEMPORAL_ATTN,
+    checkpoint_name,
+    resolve_remat_policy,
+)
 from alpro_tpu_torch.ops.attention import multi_head_attention_bshd
 from alpro_tpu_torch.ops.layers import (
     LayerNorm,
@@ -110,6 +126,8 @@ _KERNEL_IMPL = {
 }
 # field → plain-torch forms other than 'plain' (no kernel; 'auto' never picks them)
 _PLAIN_FORMS = {"temporal_attn_impl": ("packed", "circulant")}
+ATTENTION_TYPES = ("divided_space_time", "joint_space_time", "space_only")
+POOLINGS = ("temporal", "spatial", "none")
 _TEMPORAL_FORMS = {"fused_qkv": temporal_attention_qkv, "packed": temporal_attention_packed,
                    "circulant": temporal_attention_circulant}
 
@@ -141,12 +159,19 @@ class TimeSformerConfig:
     fused_patchify: str = "auto"
     # per-block torch.utils.checkpoint in training (the reference's
     # per-block CheckpointFunction), keeping what remat_policy keeps
-    # (models/remat.py: 'nothing' or 'dots_ln')
+    # (models/remat.py: any of REMAT_POLICIES)
     gradient_checkpointing: bool = False
     remat_policy: str = "nothing"
+    # 'divided_space_time' (DividedSTBlock), 'joint_space_time' (one
+    # JointBlock attention over [cls; T·N]) or 'space_only' (JointBlock per
+    # frame over [cls; N], then the mean over frames)
+    attention_type: str = "divided_space_time"
 
     def __post_init__(self):
         resolve_remat_policy(self.remat_policy)
+        if self.attention_type not in ATTENTION_TYPES:
+            raise ValueError(f"attention_type={self.attention_type!r}: expected one of "
+                             + ", ".join(map(repr, ATTENTION_TYPES)))
         for field, kernels in _KERNEL_IMPL.items():
             value = getattr(self, field)
             allowed = ("auto", "plain", "xla", *kernels, *_PLAIN_FORMS.get(field, ()))
@@ -180,14 +205,15 @@ class TimeSformerConfig:
 
     def kernel_fits(self, field: str, shape, dtype: torch.dtype, smem: int) -> bool:
         """Whether the kernel ``auto`` gives for ``field`` takes the block's
-        tokens of ``shape`` (B, T, N, D) with compute dtype ``dtype`` on a
+        tokens of ``shape`` (B, T, N, D; for the MLP tail any shape ending
+        in D) with compute dtype ``dtype`` on a
         device with ``smem`` bytes of opt-in shared memory per block: the
         kernel's own limit predicate at that call site (K2 on the packed
         temporal qkv, K1 on the per-frame [cls; x] qkv, K3 on the rows)."""
+        if field == "mlp_impl":
+            return ln_mlp_fits(shape[-1], int(shape[-1] * self.mlp_ratio), dtype)
         B, T, N, D = shape
         H = self.num_heads
-        if field == "mlp_impl":
-            return ln_mlp_fits(D, int(D * self.mlp_ratio), dtype)
         if D % H:
             return False
         if field == "temporal_attn_impl":
@@ -222,6 +248,27 @@ class TimeSformerConfig:
         if field == "attn_impl" and value != "cls_sideband" and self.attn_drop_rate == 0:
             return "fused_qkv"
         return "plain"
+
+    def joint_attn_impl(self, y: torch.Tensor, training: bool, dtype=None) -> str:
+        """What a ``JointBlock``'s attention over tokens ``y`` (M, S, D)
+        resolves to, by JAX ``VitAttention``'s rules on ``attn_impl``:
+        ``fused_qkv`` (the spatial kernel K1 on the packed qkv, with its
+        backward in training, but plain under attention dropout),
+        ``pallas`` (the masked-attention kernel) or ``plain`` (every other
+        value, which JAX hands to its plain attention). ``auto`` gives K1
+        only in eval on a CUDA tensor where ``spatial_fits`` takes (M, S)
+        at the compute dtype ``dtype`` (default y's), else plain."""
+        value = self.attn_impl
+        if value == "auto":
+            M, S, D = y.shape
+            H = self.num_heads
+            use = (y.device.type == "cuda" and not training and D % H == 0
+                   and spatial_fits(M, S, H, D // H, y.dtype if dtype is None else dtype,
+                                    _build.smem_optin(y.device)))
+            return "fused_qkv" if use else "plain"
+        if value == "fused_qkv":
+            return "plain" if training and self.attn_drop_rate > 0 else value
+        return value if value == "pallas" else "plain"
 
     def drop_path_rates(self) -> list:
         """Per-block stochastic-depth rates, linspace(0, drop_path_rate, depth)."""
@@ -319,16 +366,19 @@ class DividedSTBlock(nn.Module):
             x = x + torch.nn.functional.linear(
                 t_att, *self._folded_temporal_proj(dtype)).to(x.dtype)
         else:
-            xt = tn(x, dtype)
-            if t_impl in _TEMPORAL_FORMS:  # the kernel or a plain form, unfolded projections
-                t_att = _TEMPORAL_FORMS[t_impl](linear(xt, tqkv, dtype), H)
-                t_out = linear(t_att, self.temporal_attn.proj, dtype)
-            else:
-                xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
-                t_out = self.temporal_attn.plain(xt, H, dtype, "xla", cfg.attn_drop_rate,
-                                                 generator, train)
-                t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
-            t_out = dropout(t_out, cfg.drop_rate, generator, train)
+            def temporal():
+                xt = tn(x, dtype)
+                if t_impl in _TEMPORAL_FORMS:  # the kernel or a plain form, unfolded projections
+                    t_att = _TEMPORAL_FORMS[t_impl](linear(xt, tqkv, dtype), H)
+                    t_out = linear(t_att, self.temporal_attn.proj, dtype)
+                else:
+                    xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
+                    t_out = self.temporal_attn.plain(xt, H, dtype, "xla", cfg.attn_drop_rate,
+                                                     generator, train)
+                    t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
+                return dropout(t_out, cfg.drop_rate, generator, train)
+
+            t_out = checkpoint_name(TS_TEMPORAL_ATTN, temporal)
             t_out = drop_path(t_out, dp_rate, (B, 1, N, 1), generator, train)
             x = x + linear(t_out, self.temporal_fc, dtype)
 
@@ -346,25 +396,30 @@ class DividedSTBlock(nn.Module):
             return self._mlp_tail(cls, x, cfg, dtype, dp_rate, generator)
         cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
         xs = torch.cat([cls_rep, x], dim=2).reshape(B * T, 1 + N, D)
-        if s_impl == "fused_qkv_proj":
-            qkv = linear(n1(xs, dtype), sqkv, dtype)
-            s_out = spatial_attention_qkv_proj(qkv, proj.weight.to(dtype), proj.bias.to(dtype), H)
-        elif s_impl == "fused_block":
-            s_out = fused_spatial_block(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
-                                        sqkv.bias.to(dtype), proj.weight.to(dtype),
-                                        proj.bias.to(dtype), H, eps=eps)
-        elif s_impl in ("fused_qkv", "fused_ln_qkv"):
-            if s_impl == "fused_ln_qkv":
-                qkv = ln_matmul(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
-                                sqkv.bias.to(dtype), eps=eps)
-            else:
+
+        def spatial():
+            if s_impl == "fused_qkv_proj":
                 qkv = linear(n1(xs, dtype), sqkv, dtype)
-            s_out = linear(spatial_attention_qkv(qkv, H), proj, dtype)
-        else:
-            s_out = self.attn.plain(n1(xs, dtype), H, dtype,
-                                    "pallas" if s_impl == "pallas" else "xla",
-                                    cfg.attn_drop_rate, generator, train)
-        s_out = dropout(s_out, cfg.drop_rate, generator, train).reshape(B, T, 1 + N, D)
+                s_out = spatial_attention_qkv_proj(qkv, proj.weight.to(dtype),
+                                                   proj.bias.to(dtype), H)
+            elif s_impl == "fused_block":
+                s_out = fused_spatial_block(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
+                                            sqkv.bias.to(dtype), proj.weight.to(dtype),
+                                            proj.bias.to(dtype), H, eps=eps)
+            elif s_impl in ("fused_qkv", "fused_ln_qkv"):
+                if s_impl == "fused_ln_qkv":
+                    qkv = ln_matmul(xs, n1.weight, n1.bias, sqkv.weight.to(dtype),
+                                    sqkv.bias.to(dtype), eps=eps)
+                else:
+                    qkv = linear(n1(xs, dtype), sqkv, dtype)
+                s_out = linear(spatial_attention_qkv(qkv, H), proj, dtype)
+            else:
+                s_out = self.attn.plain(n1(xs, dtype), H, dtype,
+                                        "pallas" if s_impl == "pallas" else "xla",
+                                        cfg.attn_drop_rate, generator, train)
+            return dropout(s_out, cfg.drop_rate, generator, train).reshape(B, T, 1 + N, D)
+
+        s_out = checkpoint_name(TS_SPATIAL_ATTN, spatial)
         s_out = drop_path(s_out, dp_rate, (B, T, 1, 1), generator, train)
         cls = cls + s_out[:, :, 0, :].mean(dim=1, keepdim=True)
         x = x + s_out[:, :, 1:, :]
@@ -392,6 +447,46 @@ class DividedSTBlock(nn.Module):
             mlp_cls = mlp_cls * keep
             mlp_x = mlp_x * keep[:, :, None, :]
         return cls + mlp_cls, x + mlp_x
+
+
+class JointBlock(nn.Module):
+    """The pre-norm ViT block of the joint and space-only attention types
+    (JAX ``JointBlock``) on tokens y (M, S, D): y + drop_path(attn(norm1(y))),
+    then y + drop_path(mlp(norm2(y))), one drop-path mask per row of M for
+    each. The attention resolves by ``TimeSformerConfig.joint_attn_impl``;
+    the MLP tail by ``mlp_impl`` as the divided block's does (K3 in eval
+    where ``ln_mlp_fits``; it computes exactly that tail), where JAX's
+    ``JointBlock`` runs its plain MLP whatever ``mlp_impl`` says."""
+
+    def __init__(self, cfg: TimeSformerConfig):
+        super().__init__()
+        D = cfg.embed_dim
+        self.norm1 = LayerNorm(D, cfg.ln_eps)
+        self.attn = Attention(D)
+        self.norm2 = LayerNorm(D, cfg.ln_eps)
+        self.mlp = Mlp(D, int(D * cfg.mlp_ratio))
+
+    def forward(self, y, cfg: TimeSformerConfig, dtype, dp_rate: float = 0.0, generator=None):
+        M, S, D = y.shape
+        H, train = cfg.num_heads, self.training
+        impl = cfg.joint_attn_impl(y, train, dtype)
+        yn = self.norm1(y, dtype)
+        if impl == "fused_qkv":
+            a = linear(spatial_attention_qkv(linear(yn, self.attn.qkv, dtype), H), self.attn.proj,
+                       dtype)
+        else:
+            a = self.attn.plain(yn, H, dtype, "pallas" if impl == "pallas" else "xla",
+                                cfg.attn_drop_rate, generator, train)
+        a = dropout(a, cfg.drop_rate, generator, train)
+        y = y + drop_path(a, dp_rate, (M, 1, 1), generator, train).to(y.dtype)
+        if cfg.impl("mlp_impl", y, train, dtype) == "fused":
+            mlp = self.mlp
+            return ln_mlp(y.reshape(M * S, D), self.norm2.weight, self.norm2.bias,
+                          mlp.fc1.weight.to(dtype), mlp.fc1.bias.to(dtype),
+                          mlp.fc2.weight.to(dtype), mlp.fc2.bias.to(dtype),
+                          eps=cfg.ln_eps).reshape(M, S, D)
+        m = self.mlp(self.norm2(y, dtype), dtype, cfg.drop_rate, generator, train)
+        return y + drop_path(m, dp_rate, (M, 1, 1), generator, train).to(y.dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -430,7 +525,8 @@ class TimeSformer(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, D))
         self.time_embed = nn.Parameter(torch.zeros(1, cfg.num_frames, D))
-        self.blocks = nn.ModuleList(DividedSTBlock(cfg) for _ in range(cfg.depth))
+        block = DividedSTBlock if cfg.attention_type == "divided_space_time" else JointBlock
+        self.blocks = nn.ModuleList(block(cfg) for _ in range(cfg.depth))
         self.norm = LayerNorm(D, cfg.ln_eps)
         self.eval()  # deterministic until train(), as the JAX default
 
@@ -469,13 +565,18 @@ class TimeSformer(nn.Module):
         v = v.reshape(B, T, hp * wp, p * p * C)
         return self.patch_embed(v, dt, uint8_norm=uint8_fold), hp, wp
 
-    def forward(self, pixels: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, pixels: torch.Tensor, generator: Optional[torch.Generator] = None,
+                pooling: str = "temporal") -> torch.Tensor:
         """pixels: (B, T, H, W, 3) uint8 or normalized float, or pre-patchified
-        (B, T, N, p·p·3) uint8/float. Returns the temporally pooled tokens
-        (B, 1+N, D): the final LN runs before the pooling. In training,
-        dropout and drop-path masks come from ``generator`` (on the
-        activations' device)."""
+        (B, T, N, p·p·3) uint8/float. After the final LN, ``pooling``
+        'temporal' returns (B, 1+N, D) (the patches' mean over frames),
+        'spatial' (B, 1+T, D) (each frame's mean over patches) and 'none'
+        (B, T, 1+N, D) (the CLS repeated per frame); under ``space_only``
+        the blocks' frame mean leaves T = 1. In training, dropout and
+        drop-path masks come from ``generator`` (on the activations'
+        device)."""
+        if pooling not in POOLINGS:
+            raise ValueError(f"pooling={pooling!r}: expected one of {POOLINGS}")
         cfg, dt, train = self.cfg, self.dtype, self.training
         D = cfg.embed_dim
         x, hp, wp = self._embed_patches(pixels)
@@ -495,16 +596,36 @@ class TimeSformer(nn.Module):
         cls = (self.cls_token + pos_cls).to(dt).expand(B, 1, D).contiguous()
         x = dropout(x + pos_patch[:, None].to(x.dtype), cfg.drop_rate, generator, train)
         cls = dropout(cls, cfg.drop_rate, generator, train)
-        x = dropout(x + te[:, :, None, :].to(x.dtype), cfg.drop_rate, generator, train)
-        remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
-        context_fn = resolve_remat_policy(cfg.remat_policy) if remat else None
-        for blk, rate in zip(self.blocks, cfg.drop_path_rates()):
-            if remat:
-                cls, x = checkpoint(
-                    lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator),
-                    generator, cls, x, context_fn=context_fn)
-            else:
-                cls, x = blk(cls, x, cfg, dt, rate, generator)
+        if cfg.attention_type != "space_only":
+            x = dropout(x + te[:, :, None, :].to(x.dtype), cfg.drop_rate, generator, train)
+        rates = cfg.drop_path_rates()
+        if cfg.attention_type == "joint_space_time":
+            y = torch.cat([cls.to(x.dtype), x.reshape(B, T * N, D)], dim=1)
+            for blk, rate in zip(self.blocks, rates):
+                y = blk(y, cfg, dt, rate, generator)
+            cls, x = y[:, :1], y[:, 1:].reshape(B, T, N, D)
+        elif cfg.attention_type == "space_only":
+            # each frame alone, then the mean over frames of every token, CLS included
+            cls_rep = cls[:, None].expand(B, T, 1, D).to(x.dtype)
+            y = torch.cat([cls_rep, x], dim=2).reshape(B * T, 1 + N, D)
+            for blk, rate in zip(self.blocks, rates):
+                y = blk(y, cfg, dt, rate, generator)
+            y = y.reshape(B, T, 1 + N, D).mean(dim=1)
+            cls, x, T = y[:, :1], y[:, None, 1:], 1
+        else:
+            remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
+            context_fn = resolve_remat_policy(cfg.remat_policy) if remat else None
+            for blk, rate in zip(self.blocks, rates):
+                if remat:
+                    cls, x = checkpoint(
+                        lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator),
+                        generator, cls, x, context_fn=context_fn)
+                else:
+                    cls, x = blk(cls, x, cfg, dt, rate, generator)
         cls = self.norm(cls, dt)
         x = self.norm(x, dt)
-        return torch.cat([cls, x.mean(dim=1)], dim=1)
+        if pooling == "temporal":
+            return torch.cat([cls, x.mean(dim=1)], dim=1)
+        if pooling == "spatial":
+            return torch.cat([cls, x.mean(dim=2)], dim=1)
+        return torch.cat([cls[:, None].expand(B, T, 1, D), x], dim=2)

@@ -76,7 +76,10 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
 def _keep_mask(shape, rate: float, generator: torch.Generator, device) -> torch.Tensor:
     if generator is None:
         raise ValueError(f"a dropout or drop-path rate of {rate} in training needs a generator")
-    return torch.empty(shape, device=device).bernoulli_(1.0 - rate, generator=generator).bool()
+    # out of place (aten.bernoulli.p, bernoulli_'s draws): an op whose output
+    # remat_policy='dots_rng' can keep
+    return torch.bernoulli(torch.empty(shape, device=device), 1.0 - rate,
+                           generator=generator).bool()
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
@@ -106,10 +109,12 @@ def checkpoint(fn, generator: Optional[torch.Generator], *args, context_fn=None)
     what the selective-checkpoint ``context_fn`` of ``models/remat.py``
     keeps (None: nothing inside ``fn``, the JAX package's
     ``remat_policy='nothing'``). The recompute in the backward pass draws its
-    dropout and drop-path masks from ``generator`` as the forward did: its
-    state at the forward's start is restored for the recompute, and the
-    state the step had reached is put back after it (checkpoint itself
-    preserves only the global RNG)."""
+    dropout and drop-path masks from ``generator`` as the forward did, under
+    every policy: its state at the forward's start is restored for the
+    recompute, and the state the step had reached is put back after it
+    (checkpoint itself preserves only the global RNG); under ``dots_rng``
+    the recompute reads the kept draws instead and the restored state goes
+    unused."""
     kw = {} if context_fn is None else {"context_fn": context_fn}
     if generator is None:
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)

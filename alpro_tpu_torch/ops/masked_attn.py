@@ -25,13 +25,17 @@ The kernel takes the key mask and computes the bias ``(1-mask)·-10000`` as
 ``key_bias`` does, so a call launches nothing else. The gradient is
 ``_fused_attention_bwd`` / ``_fab_bwd``: a plain fp32 recompute of p, then
 dv, dp, ds, dq and dk, each cast to its input's dtype (the JAX package's
-custom_vjp backward is XLA einsums, not a kernel). The key mask takes no
-gradient; where no input needs one, the call skips the autograd Function.
+custom_vjp backward is XLA einsums, not a kernel), on either device: a
+call under grad is the ``torch.library`` custom op
+``alpro_tpu_torch::masked_attention`` (an op that the checkpointing policies
+of ``models/remat.py`` see). The key mask takes no gradient; where no input
+needs one, the call skips the custom op.
 
 A wrapper runs the twin only for CPU tensors; for CUDA tensors it launches
 the kernel or raises. ``bshd_launches`` and ``bhsd_launches`` count kernel
-launches, one per forward call (a recompute under gradient checkpointing is a
-launch too).
+launches, one per launch: a recompute under gradient checkpointing launches
+again, except under the names family of ``models/remat.py``, which keeps
+the output of a launch on a tagged route and launches nothing there.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from alpro_tpu_torch.models.remat import keep_output
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.qkv_attn import attn_wgmma_smem
 
@@ -215,33 +220,42 @@ def _forward(q, k, v, mask, scale: float, num_heads: Optional[int]) -> torch.Ten
     return out
 
 
-class _MaskedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask, scale, num_heads):
-        ctx.save_for_backward(q, k, v, mask)
-        ctx.scale, ctx.num_heads = scale, num_heads
-        return _forward(q, k, v, mask, scale, num_heads)
+@torch.library.custom_op("alpro_tpu_torch::masked_attention", mutates_args=())
+def _masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: Optional[torch.Tensor], scale: float,
+                      num_heads: Optional[int]) -> torch.Tensor:
+    return keep_output(lambda: _forward(q, k, v, mask, scale, num_heads), q.device)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, mask = ctx.saved_tensors
-        H = ctx.num_heads
-        if H is not None:
-            q, k, v, g = (_heads(t, H) for t in (q, k, v, g))
-        bias = key_bias(mask, k.shape[0], k.shape[2], k.device)
-        grads = attention_grads(q, k, v, bias, g, ctx.scale)
-        if H is not None:
-            grads = (d.transpose(1, 2).flatten(2) for d in grads)
-        return (*grads, None, None, None)
+
+def _masked_attention_setup(ctx, inputs, output):
+    q, k, v, mask, scale, num_heads = inputs
+    ctx.save_for_backward(q, k, v, mask)
+    ctx.scale, ctx.num_heads = scale, num_heads
+
+
+def _masked_attention_backward(ctx, g):
+    q, k, v, mask = ctx.saved_tensors
+    H = ctx.num_heads
+    if H is not None:
+        q, k, v, g = (_heads(t, H) for t in (q, k, v, g))
+    bias = key_bias(mask, k.shape[0], k.shape[2], k.device)
+    grads = attention_grads(q, k, v, bias, g, ctx.scale)
+    if H is not None:
+        grads = (d.transpose(1, 2).flatten(2) for d in grads)
+    return (*grads, None, None, None)
+
+
+_masked_attention.register_autograd(_masked_attention_backward,
+                                    setup_context=_masked_attention_setup)
 
 
 def _attend(q, k, v, key_mask, scale: float, num_heads: Optional[int]) -> torch.Tensor:
-    """The forward, through the autograd Function only where a gradient is
-    wanted (its bookkeeping is a good share of a call's host time)."""
+    """The forward, through the custom op only where a gradient is wanted
+    (its bookkeeping is a good share of a call's host time)."""
     mask = None if key_mask is None else \
         key_mask.to(device=q.device, dtype=torch.float32).contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _MaskedAttention.apply(q, k, v, mask, scale, num_heads)
+        return torch.ops.alpro_tpu_torch.masked_attention(q, k, v, mask, scale, num_heads)
     return _forward(q, k, v, mask, scale, num_heads)
 
 

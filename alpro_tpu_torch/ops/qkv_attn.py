@@ -31,10 +31,12 @@ launch that fits shared memory), which their wrappers' checks and the
 model's ``auto`` read; B8's (``temporal_proj_fits``) takes K2's in bf16.
 The temporal kernel also carries B16 (``ops/temporal_attn.py``).
 
-Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), the
-K1/K2 kernel call is a ``torch.autograd.Function`` whose backward is the vjp
-of the plain twin, recomputed from the saved packed qkv. On a CPU tensor the
-twin is differentiated directly, which is the same vjp. The CLS-sideband and
+Gradient: as the JAX custom_vjp (``_spatial_bwd`` / ``_temporal_bwd``), a
+K1/K2 call under grad is the ``torch.library`` custom op
+``alpro_tpu_torch::qkv_attention`` whose backward is the vjp of the plain
+twin, recomputed from the saved packed qkv (an op that the checkpointing
+policies of ``models/remat.py`` see). On a CPU tensor the twin is
+differentiated directly, which is the same vjp. The CLS-sideband and
 projection kernels have no backward (the JAX model reaches them only at
 serving): their wrappers raise when grad mode is on and an input requires
 grad.
@@ -47,6 +49,7 @@ from typing import Optional
 
 import torch
 
+from alpro_tpu_torch.models.remat import keep_output
 from alpro_tpu_torch.ops import _build
 from alpro_tpu_torch.ops.ln_mlp import _WIDTHS  # the D values row_tile.cuh's kernels take
 
@@ -236,20 +239,41 @@ def _twin_vjp(twin, qkv, g, num_heads: int, scale: float) -> torch.Tensor:
     return dx
 
 
-class _KernelAttention(torch.autograd.Function):
-    """kernel(qkv) forward, vjp of the plain twin backward."""
+# kind → (launch, twin) of the kernels whose gradient is the twin's vjp: K1,
+# K2 and (``ops/temporal_attn.py`` adds it) B16
+KERNELS = {}
 
-    @staticmethod
-    def forward(ctx, qkv, num_heads, scale, kernel, twin):
-        ctx.save_for_backward(qkv)
-        ctx.args = (num_heads, scale, twin)
-        return kernel(qkv, num_heads, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
-        num_heads, scale, twin = ctx.args
-        return _twin_vjp(twin, qkv, g, num_heads, scale), None, None, None, None
+@torch.library.custom_op("alpro_tpu_torch::qkv_attention", mutates_args=())
+def _kernel_attention(qkv: torch.Tensor, num_heads: int, scale: float, kind: str) -> torch.Tensor:
+    launch = KERNELS[kind][0]
+    return keep_output(lambda: launch(qkv, num_heads, scale), qkv.device)
+
+
+def _kernel_attention_setup(ctx, inputs, output):
+    qkv, num_heads, scale, kind = inputs
+    ctx.save_for_backward(qkv)
+    ctx.args = (num_heads, scale, KERNELS[kind][1])
+
+
+def _kernel_attention_backward(ctx, g):
+    (qkv,) = ctx.saved_tensors
+    num_heads, scale, twin = ctx.args
+    return _twin_vjp(twin, qkv, g, num_heads, scale), None, None, None
+
+
+_kernel_attention.register_autograd(_kernel_attention_backward,
+                                    setup_context=_kernel_attention_setup)
+
+
+def kernel_attention(qkv: torch.Tensor, num_heads: int, scale: float, kind: str) -> torch.Tensor:
+    """One launch of kernel ``kind`` on CUDA qkv: under grad, through the
+    custom op ``alpro_tpu_torch::qkv_attention`` (its backward the vjp of the
+    twin, recomputed from the saved qkv; a launch that a checkpointing policy
+    sees, ``models/remat.py::keep_output``); else the launch alone."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return torch.ops.alpro_tpu_torch.qkv_attention(qkv, num_heads, scale, kind)
+    return KERNELS[kind][0](qkv, num_heads, scale)
 
 
 def spatial_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
@@ -262,8 +286,7 @@ def spatial_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
         scale = hd ** -0.5
     if qkv.device.type == "cpu":
         return spatial_attention_plain(qkv, num_heads, float(scale))
-    return _KernelAttention.apply(qkv, num_heads, float(scale), _spatial_launch,
-                                  spatial_attention_plain)
+    return kernel_attention(qkv, num_heads, float(scale), "spatial")
 
 
 def _spatial_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
@@ -296,8 +319,7 @@ def temporal_attention_qkv(qkv: torch.Tensor, num_heads: int, *,
         scale = hd ** -0.5
     if qkv.device.type == "cpu":
         return temporal_attention_plain(qkv, num_heads, float(scale))
-    return _KernelAttention.apply(qkv, num_heads, float(scale), _temporal_launch,
-                                  temporal_attention_plain)
+    return kernel_attention(qkv, num_heads, float(scale), "temporal")
 
 
 def temporal_kernel(qkv: torch.Tensor, num_heads: int, scale: float,
@@ -327,6 +349,10 @@ def _temporal_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.T
     out = temporal_kernel(qkv, num_heads, scale)
     temporal_launches += 1
     return out
+
+
+KERNELS.update(spatial=(_spatial_launch, spatial_attention_plain),
+               temporal=(_temporal_launch, temporal_attention_plain))
 
 
 # ---- CLS sideband (B6) ----------------------------------------------------

@@ -29,8 +29,9 @@ from __future__ import annotations
 import torch
 
 from alpro_tpu_torch.ops.qkv_attn import (
-    _KernelAttention,
+    KERNELS,
     _head_dim,
+    kernel_attention,
     temporal_attention_plain,
     temporal_kernel,
 )
@@ -52,6 +53,9 @@ def _roll_launch(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tenso
     return out
 
 
+KERNELS["roll"] = (_roll_launch, temporal_attention_plain)
+
+
 def temporal_attention_roll(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Attention over T at each (b, n) and head: (B, T, N, 3D) → (B, T, N,
     D), bf16 or fp32."""
@@ -60,8 +64,7 @@ def temporal_attention_roll(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     scale = _head_dim(qkv, num_heads) ** -0.5
     if qkv.device.type == "cpu":
         return temporal_attention_plain(qkv, num_heads, scale)
-    return _KernelAttention.apply(qkv, num_heads, scale, _roll_launch,
-                                  temporal_attention_plain)
+    return kernel_attention(qkv, num_heads, scale, "roll")
 
 
 def _split(qkv: torch.Tensor, num_heads: int):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from alpro_tpu_torch.evals.qa import pool_clip_logits
+from alpro_tpu_torch.ops.quant import quantize_tree
 from alpro_tpu_torch.serving.inference import make_qa_inference_fn, make_qa_video_encode_fn
 
 Answer = Tuple[str, float]  # (answer, probability)
@@ -39,13 +40,13 @@ class VideoQAPredictor:
                  max_txt_len: int = 25, pool: str = "mean", weights: str = "bf16"):
         """``model`` (built by ``build_qa_model``) must already live on
         ``device``. ``weights``: 'bf16' serves the model's weights as they
-        are; 'int8' weight storage is not ported yet (ROADMAP A9)."""
-        if weights == "int8":
-            raise NotImplementedError(
-                "weights='int8' is not ported yet (ROADMAP A9: int8 weight storage)"
-            )
-        if weights != "bf16":
+        are; 'int8' serves a copy with per-channel int8 weight storage,
+        dequantized as each call reads them (``ops/quant.py::quantize_tree``;
+        ``model`` itself is unchanged)."""
+        if weights not in ("bf16", "int8"):
             raise ValueError(f"weights must be 'bf16' or 'int8', got {weights!r}")
+        if weights == "int8":
+            model = quantize_tree(model)
         self.model = model
         self.tokenizer = tokenizer
         self.device = torch.device(device)

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alpro_tpu_torch.ops.quant import quantize_tree
 from alpro_tpu_torch.serving.inference import (
     make_fusion_score_fn,
     make_text_encode_fn,
@@ -44,14 +45,13 @@ class RetrievalIndex:
     def __init__(self, model, tokenizer, device, max_txt_len: int = 40,
                  topk: int = 16, weights: str = "bf16"):
         """``model`` must already live on ``device``. ``weights``: 'bf16'
-        serves the model's weights as they are; 'int8' weight storage is not
-        ported yet (ROADMAP A9)."""
-        if weights == "int8":
-            raise NotImplementedError(
-                "weights='int8' is not ported yet (ROADMAP A9: int8 weight storage)"
-            )
-        if weights != "bf16":
+        serves the model's weights as they are; 'int8' serves a copy with
+        per-channel int8 weight storage, dequantized as each call reads them
+        (``ops/quant.py::quantize_tree``; ``model`` itself is unchanged)."""
+        if weights not in ("bf16", "int8"):
             raise ValueError(f"weights must be 'bf16' or 'int8', got {weights!r}")
+        if weights == "int8":
+            model = quantize_tree(model)
         self.model = model
         self.tokenizer = tokenizer
         self.device = torch.device(device)

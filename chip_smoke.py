@@ -3,7 +3,8 @@
 retrieval and the video QA serving paths, their finetuning steps, the video
 tower's opt-in serving forms, ``LayerNorm(impl='pallas')``, the retrieval
 and QA eval protocols of the inference CLIs, finetuning through the same
-CLIs, and pretraining and the prompter through theirs, at full ALPRO-base
+CLIs, pretraining and the prompter through theirs, and int8 serving, the
+joint and space-only towers and the remat policies, at full ALPRO-base
 width.
 
     python3 chip_smoke.py
@@ -164,11 +165,30 @@ line):
    MetaLoader mix, the MPM rows ignored, peak memory and ``validate``'s
    seconds.
 
+13. variants — (a) ``RetrievalIndex(weights='int8')`` against 'bf16' at
+   ALPRO-base: the weights' bytes at rest (``memory_allocated`` around each
+   build; int8 below 0.6 of bf16), each call's peak bytes, a gallery of 64
+   planted clips, the top-8 ids (equal wherever the bf16 similarities
+   decide them), VTC similarities and P(match) within ``tests/test_quant.py``'s
+   0.05, exact launches per call, clips/s and query ms; int8 with its
+   kernels against int8 on the plain path; ``VideoQAPredictor(weights=
+   'int8')`` against 'bf16' on the MSRVTT-QA model, answers and launches;
+   (b) the ``joint_space_time`` and ``space_only`` towers (TimeSformer-B/16,
+   8 x 224², bf16) with K1 and K3 against their plain path, 12 K1 and 12 K3
+   a forward, the three poolings' shapes, and K1 alone at the joint tower's
+   (2, 1569, 2304) against its twin with its device time, bound and SDPA;
+   (c) one QA finetuning step (``--attn_impl pallas``, dropout on, the
+   checkpointed video tower at depth 2, BERT at 2 layers) under each of the
+   nine ``remat_policy`` values against the step without checkpointing:
+   loss and gradients, B13's launches (the names family keeps B13's output:
+   no relaunch in the recompute), peak bytes.
+
 Then one JSON line with the kernels (``launches`` from the main paths,
 ``eval_launches`` from phase 10's kernel runs, ``cli_train_launches`` from
 phase 11's, ``pretrain_launches`` from phase 12's prompter, pretraining and
-resumed pretraining runs), the ``nvidia-smi`` line, and last the result
-line ``{"ok": true, "device": {...}}``. There is no CPU path.
+resumed pretraining runs, ``variant_launches`` from phase 13's counted
+calls), the ``nvidia-smi`` line, and last the result line ``{"ok": true,
+"device": {...}}``. There is no CPU path.
 """
 
 from __future__ import annotations
@@ -3415,6 +3435,340 @@ def _pretrain_cli_runs(card: str, data: dict, root: Path) -> dict:
     return total
 
 
+# ---- phase 13: int8 weights, the joint and space-only towers, the remat policies ----
+# int8 against bf16: tests/test_quant.py's envelope for VTC similarities and
+# P(match); the gallery's top-k ids must agree where the bf16 similarities
+# leave the k-th candidate apart from the (k+1)-th by more than twice it
+INT8_TOL, INT8_GALLERY, INT8_TOPK = 0.05, 64, 8
+# QA: int8 against bf16 answers (pooled over 2 clips, 1500 near-uniform
+# labels), fixed from one measurement call on the H100 (prob 2.4e-5, log-prob
+# 2.8e-2 there)
+INT8_QA_TOL = {"prob": 1e-4, "logp": 1e-1}
+# joint and space-only towers (12 bf16 blocks) with K1 and K3 against the
+# plain path: the largest difference over the largest entry
+VARIANT_TOL = 5e-2
+# remat: one QA step (video tower depth 2, checkpointed; BERT 2 layers)
+# under each policy against the step without checkpointing: the recompute
+# replays the forward's ops on the same inputs, so the loss and the whole
+# gradient may differ only by this (relative L2)
+REMAT_DEPTH, REMAT_GRAD_TOL = 2, 1e-5
+
+
+def _planted_224(rng, n: int, frames: int) -> np.ndarray:
+    """n planted clips (``_planted_clip``) cropped to 224², uint8."""
+    return np.stack([_planted_clip(rng, frames)[:, 8:232, 48:272] for _ in range(n)])
+
+
+def _peak_bytes(fn):
+    """(fn(), the call's peak device bytes above what was allocated before it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _counted(fn, want: dict, what: str, into: dict):
+    """fn() with the counts set to 0 just before it and read just after;
+    they must equal ``want`` and are added to ``into``."""
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = _counts()
+    fail_if(got != want, f"{what}: launch counts {got} != {want}")
+    for k, n in got.items():
+        into[k] = into.get(k, 0) + n
+    return out
+
+
+def _topk_agrees(got: set, sims: dict, k: int, tol: float, what: str) -> bool:
+    """int8's top-k ids against the bf16 similarities of the whole gallery:
+    every id that bf16 puts more than 2·tol above the (k+1)-th is in it,
+    none more than 2·tol below the k-th. Returns whether the sets are equal."""
+    ranked = sorted(sims, key=lambda v: -sims[v])
+    kth, next_ = sims[ranked[k - 1]], sims[ranked[k]]
+    sure_in = {v for v in ranked if sims[v] > next_ + 2 * tol}
+    sure_out = {v for v in ranked if sims[v] < kth - 2 * tol}
+    fail_if(not sure_in <= got or got & sure_out,
+            f"{what}: top-{k} {sorted(got)} misses {sorted(sure_in - got)} or holds "
+            f"{sorted(got & sure_out)}")
+    return got == set(ranked[:k])
+
+
+def _int8_retrieval(card: str, launches: dict) -> dict:
+    """RetrievalIndex with weights='int8' against 'bf16' at ALPRO-base: the
+    weights' bytes at rest, each call's peak, a 64-clip planted gallery's
+    top-k, VTC similarities and P(match), the launches per call, times; and
+    int8 with its kernels against int8 on the plain path."""
+    import gc
+
+    from alpro_tpu_torch.models.alpro import build_retrieval_model
+    from alpro_tpu_torch.ops.quant import quantized_weights
+    from alpro_tpu_torch.serving.retrieval import RetrievalIndex
+
+    vis_json = "timesformer_divst_8x32_224_k600.json"
+    gc.collect()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    model = _build_model(build_retrieval_model, vis_json, FRAMES)
+    bf16_bytes = torch.cuda.memory_allocated() - m0
+    n_params = sum(p.numel() for p in model.parameters())
+    n_quant = sum(getattr(dict(model.named_modules())[m], p).numel()
+                  for m, p, _ in quantized_weights(model))
+    tok = HashTokenizer(model.cfg.bert.vocab_size)
+    m1 = torch.cuda.memory_allocated()
+    src = _build_model(build_retrieval_model, vis_json, FRAMES)  # the same seeded weights
+    idx8 = RetrievalIndex(src, tok, "cuda", max_txt_len=40, topk=INT8_TOPK, weights="int8")
+    del src
+    gc.collect()
+    int8_bytes = torch.cuda.memory_allocated() - m1
+    fail_if(any(p.dtype not in (torch.int8, torch.bfloat16) for p in idx8.model.parameters()),
+            "int8 model: a parameter neither int8 nor bf16")
+    print(f"[int8] weights at rest: bf16 {bf16_bytes / 2 ** 30:.4f} GiB, int8 "
+          f"{int8_bytes / 2 ** 30:.4f} GiB ({int8_bytes / bf16_bytes:.3f} of bf16); "
+          f"{n_quant / 1e6:.2f} M of {n_params / 1e6:.2f} M parameters quantized [{card}]",
+          flush=True)
+    fail_if(int8_bytes >= 0.6 * bf16_bytes, f"int8 at rest {int8_bytes} >= 0.6 x {bf16_bytes}")
+
+    idx16 = RetrievalIndex(model, tok, "cuda", max_txt_len=40, topk=INT8_TOPK)
+    clips = _planted_224(np.random.RandomState(SEED + 13), INT8_GALLERY, FRAMES)
+    ids = [f"g{i:02d}" for i in range(INT8_GALLERY)]
+    out = {}
+    for name, idx in (("bf16", idx16), ("int8", idx8)):
+        _warm(idx.model, (idx.model.visual_encoder.model.cfg, idx.model.text_encoder.bert.cfg),
+              tok, clips)
+        _, add_peak = _peak_bytes(lambda: _counted(
+            lambda: idx.add_videos(clips[:CLIPS_PER_CALL], ids[:CLIPS_PER_CALL]),
+            _launches(video_calls=1), f"{name} add_videos", launches))
+        t0 = time.perf_counter()
+        _counted(lambda: [idx.add_videos(clips[lo:lo + CLIPS_PER_CALL], ids[lo:lo + CLIPS_PER_CALL])
+                          for lo in range(CLIPS_PER_CALL, INT8_GALLERY, CLIPS_PER_CALL)],
+                 _launches(video_calls=INT8_GALLERY // CLIPS_PER_CALL - 1),
+                 f"{name} add_videos", launches)
+        clips_per_s = (INT8_GALLERY - CLIPS_PER_CALL) / (time.perf_counter() - t0)
+        idx.query(TEXTS[0])
+        top, q_peak = _peak_bytes(lambda: _counted(lambda: [idx.query(t) for t in TEXTS],
+                                                   _launches(text_calls=len(TEXTS)),
+                                                   f"{name} query", launches))
+        full = _counted(lambda: [idx.query(t, topk=INT8_GALLERY) for t in TEXTS],
+                        _launches(text_calls=len(TEXTS)), f"{name} query (whole gallery)",
+                        launches)
+        q_ms = _query_ms(idx)
+        out[name] = dict(top=top, full=full, feats=idx._banks()[0])
+        print(f"[int8] {name}: add_videos {clips_per_s:.2f} clips/s, peak {add_peak / 2 ** 20:.1f} "
+              f"MiB a call ({CLIPS_PER_CALL} clips); query p50 {statistics.median(q_ms):.2f} ms, "
+              f"peak {q_peak / 2 ** 20:.1f} MiB over {len(TEXTS)} calls (topk {INT8_TOPK}, gallery "
+              f"{INT8_GALLERY}) [{card}]", flush=True)
+    sim_err = prob_err = 0.0
+    exact = 0
+    for t, a, b, fa, fb in zip(TEXTS, out["int8"]["top"], out["bf16"]["top"],
+                               out["int8"]["full"], out["bf16"]["full"]):
+        s8, s16 = {v: s for v, _, s in fa}, {v: s for v, _, s in fb}
+        p8, p16 = {v: p for v, p, _ in fa}, {v: p for v, p, _ in fb}
+        sim_err = max(sim_err, max(abs(s8[v] - s16[v]) for v in s16))
+        prob_err = max(prob_err, max(abs(p8[v] - p16[v]) for v in p16))
+        exact += _topk_agrees({v for v, _, _ in a}, s16, INT8_TOPK, INT8_TOL, f"int8 {t!r}")
+    feat_err = float((out["int8"]["feats"] - out["bf16"]["feats"]).abs().max())
+    print(f"[int8] int8 vs bf16: VTC similarity max_abs {sim_err:.3e}, P(match) max_abs "
+          f"{prob_err:.3e} (tol {INT8_TOL}), VTC feature max_abs {feat_err:.3e}; top-{INT8_TOPK} "
+          f"ids equal for {exact} of {len(TEXTS)} texts", flush=True)
+    fail_if(sim_err > INT8_TOL or prob_err > INT8_TOL, "int8 outside the envelope of bf16")
+
+    # int8 with its kernels against int8 on the plain path
+    kernel_cfgs = (idx8.model.visual_encoder.model.cfg, idx8.model.text_encoder.bert.cfg)
+    _set_path(idx8.model, *_plain_cfgs(idx8.model))
+    plain = RetrievalIndex(idx8.model, tok, "cuda", max_txt_len=40, topk=INT8_TOPK)
+    before = _counts()
+    _fill(plain, clips, ids)
+    plain_full = [plain.query(t, topk=INT8_GALLERY) for t in TEXTS]
+    fail_if(_counts() != before, "int8 plain path launched kernels")
+    _set_path(idx8.model, *kernel_cfgs)
+    pfeat_err = float((out["int8"]["feats"] - plain._banks()[0]).abs().max())
+    pprob_err = max(abs(dict((v, p) for v, p, _ in a)[v] - p)
+                    for a, b in zip(out["int8"]["full"], plain_full) for v, p, _ in b)
+    print(f"[int8] int8 kernels vs int8 plain path: VTC feature max_abs {pfeat_err:.3e} (tol "
+          f"{PLAIN_FEAT_TOL}), P(match) max_abs {pprob_err:.3e} (tol {PLAIN_PROB_TOL})",
+          flush=True)
+    fail_if(pfeat_err > PLAIN_FEAT_TOL or pprob_err > PLAIN_PROB_TOL,
+            "int8 kernels differ from int8 plain")
+    return {"bf16_bytes": bf16_bytes, "int8_bytes": int8_bytes}
+
+
+def _int8_qa(card: str, launches: dict) -> None:
+    """VideoQAPredictor with weights='int8' against 'bf16' on the MSRVTT-QA
+    model: answers, exact launches, peaks and times."""
+    from alpro_tpu_torch.models.alpro import build_qa_model
+    from alpro_tpu_torch.serving.qa import VideoQAPredictor
+
+    qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+    L = qa_cfg["num_labels"]
+    model = _build_model(build_qa_model, Path(qa_cfg["visual_model_cfg"]).name, QA_FRAMES,
+                         num_labels=L, cls_hidden_scale=qa_cfg["cls_hidden_scale"])
+    labels = {f"ans{i}": i for i in range(L)}
+    tok = HashTokenizer(model.cfg.bert.vocab_size)
+    clips = _planted_224(np.random.RandomState(SEED + 14), QA_CLIPS, QA_FRAMES)
+    dists = {}
+    for name in ("bf16", "int8"):
+        qa = VideoQAPredictor(model, tok, labels, "cuda", max_txt_len=QA_TXT_LEN, weights=name)
+        for _ in range(2):
+            qa.predict_batch(qa.encode_video(clips), QUESTIONS)
+        feats, enc_peak = _peak_bytes(lambda: _counted(
+            lambda: qa.encode_video(clips), _launches(video_calls=1), f"{name} encode_video",
+            launches))
+        cached = _counted(lambda: [qa.predict(feats, q, topk=L) for q in QUESTIONS],
+                          _launches(text_calls=len(QUESTIONS)), f"{name} predict", launches)
+        batched = _counted(lambda: qa.predict_batch(feats, QUESTIONS, topk=L),
+                           _launches(text_calls=1), f"{name} predict_batch", launches)
+        dists[name] = [_answer_dists(a, labels) for a in cached]
+        _check_answers([_answer_dists(a, labels) for a in batched], dists[name], QA_BATCH_TOL,
+                       f"{name} predict_batch vs predict")
+        med = statistics.median
+        print(f"[int8] QA {name}: encode_video {med(_host_ms(lambda: qa.encode_video(clips), 5)):.2f}"
+              f" ms (peak {enc_peak / 2 ** 20:.1f} MiB), cached predict p50 "
+              f"{med(_host_ms(lambda: qa.predict(feats, QUESTIONS[0]), 10)):.2f} ms [{card}]",
+              flush=True)
+    _check_answers(dists["int8"], dists["bf16"], INT8_QA_TOL, "QA int8 vs bf16")
+
+
+def _attention_types(card: str, res: dict, launches: dict) -> None:
+    """The joint and space-only towers (TimeSformer-B/16, 8 x 224², bf16)
+    with K1 and K3 against their plain path, exact launches, the poolings'
+    shapes; K1 alone at the joint tower's (2, 1569, 2304) against its twin."""
+    from alpro_tpu_torch.models.timesformer import TimeSformer, TimeSformerConfig
+    from alpro_tpu_torch.ops import qkv_attn
+
+    vis = json.loads((REPO / "configs" / "timesformer_divst_8x32_224_k600.json").read_text())
+    clips = torch.from_numpy(_planted_224(np.random.RandomState(SEED + 15), 2, FRAMES)).cuda()
+    for at, seq in (("joint_space_time", 1 + FRAMES * PATCHES), ("space_only", 1 + PATCHES)):
+        cfg = TimeSformerConfig.from_reference_cfg(vis, 224, FRAMES, attention_type=at)
+        tower = _seeded_(TimeSformer(cfg, dtype=torch.bfloat16).cuda(), SEED + 16)
+        want = {k: 0 for k in KERNEL_TOL}
+        want.update(spatial_attn=12, ln_mlp=12)
+        with torch.no_grad():
+            tower(clips)
+            out = _counted(lambda: tower(clips), want, f"{at} forward", launches)
+            ms = statistics.median(_host_ms(lambda: tower(clips), 3))
+            shapes = {p: tuple(_counted(lambda: tower(clips, pooling=p), want, f"{at} {p}",
+                                        launches).shape) for p in ("spatial", "none")}
+            tower.cfg = dataclasses.replace(cfg, attn_impl="plain", mlp_impl="plain")
+            before = _counts()
+            ref = tower(clips)
+            plain_ms = statistics.median(_host_ms(lambda: tower(clips), 3))
+            fail_if(_counts() != before, f"{at} plain path launched kernels")
+        T = 1 if at == "space_only" else FRAMES
+        fail_if(tuple(out.shape) != (2, 1 + PATCHES, 768) or shapes != {
+            "spatial": (2, 1 + T, 768), "none": (2, T, 1 + PATCHES, 768)}, f"{at}: shapes "
+            f"{tuple(out.shape)}, {shapes}")
+        err = float((out.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
+        print(f"[variants] {at}: K1 at S = {seq} (12) and K3 (12) a forward; vs the plain path "
+              f"max_abs / max|plain| {err:.3e} (tol {VARIANT_TOL}); poolings {shapes}; forward "
+              f"{ms:.2f} ms, plain {plain_ms:.2f} ms (2 clips) [{card}]", flush=True)
+        fail_if(not bool(torch.isfinite(out.float()).all()) or err > VARIANT_TOL,
+                f"{at}: kernel path differs from plain by {err}")
+        del tower
+    H, hd, M, S = 12, 64, 2, 1 + FRAMES * PATCHES
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    x = torch.randn((M, S, 3 * H * hd), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = (x[..., i * H * hd:(i + 1) * H * hd].unflatten(-1, (H, hd)).transpose(1, 2)
+               for i in range(3))
+    res["spatial_attn"].append(_compare(
+        "spatial_attn", x.shape, lambda: qkv_attn.spatial_attention_qkv(x, H),
+        lambda: qkv_attn.spatial_attention_plain(x, H, hd ** -0.5), card,
+        library=lambda: _sdpa(q, k, v), work=(4 * M * H * S * S * hd, 2 * x.numel() * 4 // 3),
+        device=True))
+
+
+def _remat_policies(card: str, launches: dict) -> None:
+    """One QA finetuning step's loss and backward (``train/step.py``
+    ``qa_loss``, ``--attn_impl pallas``, dropout on) at ALPRO-base width,
+    the video tower at depth REMAT_DEPTH and checkpointed, BERT at 2 layers,
+    under each policy against the same step without checkpointing: loss,
+    gradients, B13's launches, peak bytes."""
+    from alpro_tpu_torch.models.alpro import build_qa_model
+    from alpro_tpu_torch.models.remat import REMAT_POLICIES
+    from alpro_tpu_torch.train.step import qa_loss, step_generator
+
+    qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+    from alpro_tpu_torch.models.alpro import init_random_
+    from alpro_tpu_torch.models.bert import BertConfig
+    from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+
+    vis_json = json.loads((REPO / "configs" / Path(qa_cfg["visual_model_cfg"]).name).read_text())
+    fail_if(not vis_json.get("gradient_checkpointing"), "the QA video tower is not checkpointed")
+    bert = BertConfig.from_json_dict(dict(
+        json.loads((REPO / "configs" / "base_model.json").read_text()),
+        num_hidden_layers=2, fusion_layer=1))
+    vis_cfg = TimeSformerConfig.from_reference_cfg(vis_json, 224, QA_FRAMES, depth=REMAT_DEPTH)
+    with torch.device("meta"):
+        model = build_qa_model(bert, vis_cfg, num_labels=qa_cfg["num_labels"], img_size=224,
+                               num_frm=QA_FRAMES, dtype=torch.bfloat16, attn_impl="pallas")
+    model = init_random_(model.to_empty(device="cuda"),
+                         torch.Generator(device="cuda").manual_seed(SEED))
+    vis = model.visual_encoder.model
+    B = QA_TRAIN_BATCH
+    rng = np.random.RandomState(SEED + 18)
+    tok = HashTokenizer(model.cfg.bert.vocab_size)(
+        [QUESTIONS[i % len(QUESTIONS)] for i in range(B)], max_length=QA_TXT_LEN)
+    batch = {"visual_inputs": torch.from_numpy(rng.randint(
+                 0, 256, (B, QA_FRAMES, 224, 224, 3), dtype=np.uint8)).cuda(),
+             "text_input_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
+             "text_input_mask": torch.from_numpy(tok["attention_mask"]).long().cuda(),
+             "labels": torch.from_numpy(rng.randint(0, qa_cfg["num_labels"], B)).cuda()}
+
+    def step(policy):
+        vis.cfg = dataclasses.replace(vis.cfg, gradient_checkpointing=policy is not None,
+                                      remat_policy=policy or "nothing")
+        model.train()
+        model.zero_grad(set_to_none=True)
+        loss, _ = qa_loss(model, batch, step_generator(SEED, 0, "cuda"))
+        loss.backward()
+        model.eval()
+        return loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+    step(None)
+    step("dots_ln")  # warm
+    (ref_loss, ref), ref_peak = _peak_bytes(lambda: step(None))
+    layers = model.cfg.bert.num_hidden_layers
+    print(f"[remat] no checkpointing: loss {ref_loss:.6f}, peak {ref_peak / 2 ** 20:.1f} MiB "
+          f"(QA step, video depth {REMAT_DEPTH}, BERT {layers} layers, B = {B}, "
+          f"{QA_FRAMES} x 224², attn_impl 'pallas') [{card}]", flush=True)
+    for policy in REMAT_POLICIES:
+        names = policy in ("names", "dots_names", "dots_ln_names", "dots_ln_offload")
+        want = {k: 0 for k in KERNEL_TOL}
+        # B13: each spatial attention once, again in the recompute unless kept; BERT's
+        want["masked_attn_bshd"] = REMAT_DEPTH * (1 if names else 2) + layers
+        (loss, grads), peak = _peak_bytes(lambda: _counted(
+            lambda: step(policy), want, f"remat {policy}", launches))
+        gap = grad_gaps(grads, ref)
+        same = loss == ref_loss and all(torch.equal(grads[n], g) for n, g in ref.items())
+        print(f"[remat] {policy}: loss {loss:.6f} (|diff| {abs(loss - ref_loss):.3e}), whole "
+              f"gradient rel L2 {gap['whole']:.3e}, worst parameter "
+              f"{gap['params'][0][1] if gap['params'] else 0.0:.3e} (tol {REMAT_GRAD_TOL}; "
+              f"bit-equal {same}); B13 launches {want['masked_attn_bshd']}; peak "
+              f"{peak / 2 ** 20:.1f} MiB [{card}]", flush=True)
+        fail_if(set(grads) != set(ref), f"remat {policy}: gradients of other parameters")
+        fail_if(abs(loss - ref_loss) > REMAT_GRAD_TOL * abs(ref_loss)
+                or gap["whole"] > REMAT_GRAD_TOL, f"remat {policy}: step differs")
+
+
+def phase_variants(card: str, res: dict) -> dict:
+    """Phase 13; returns its launches summed over every counted call."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    _int8_retrieval(card, launches)
+    torch.cuda.empty_cache()
+    _int8_qa(card, launches)
+    torch.cuda.empty_cache()
+    _attention_types(card, res, launches)
+    torch.cuda.empty_cache()
+    _remat_policies(card, launches)
+    torch.cuda.empty_cache()
+    print(f"[variants] phase 13 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def _gt_of(results) -> dict:
     """Ground truth of the planted retrieval set: text t{j} is video ret{j//2}."""
     return {r["txt_id"]: f"ret{int(r['txt_id'][1:]) // 2:03d}" for r in results}
@@ -3442,6 +3796,8 @@ def main() -> int:
     cli_train_launches = phase_finetune_cli(card)
     # the pretraining CLIs' own counts (B13 and the teacher's and banks' K2-K5)
     pretrain_launches = phase_pretrain_cli(card)
+    # int8 serving, the joint and space-only towers, the remat policies (K1-K5, B13)
+    variant_launches = phase_variants(card, res)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -3491,6 +3847,7 @@ def main() -> int:
             "eval_launches": eval_launches[name],
             "cli_train_launches": cli_train_launches[name],
             "pretrain_launches": pretrain_launches[name],
+            "variant_launches": variant_launches.get(name, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

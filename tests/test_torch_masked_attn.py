@@ -85,12 +85,12 @@ def test_gradients_match_jax_custom_vjp(layout, masked):
 
 
 def test_backward_is_the_jax_recompute_not_the_twins_autograd():
-    """The Function's backward gives the fp32 recompute of ``_fab_bwd``; in
+    """The custom op's backward gives the fp32 recompute of ``_fab_bwd``; in
     fp32 it agrees with autograd through the twin to rounding."""
     q, k, v, mask = _inputs("bshd", True, seed=3)
     ts = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
     out = masked_attn.fused_attention_bshd(*ts, H, key_mask=torch.from_numpy(mask))
-    assert out.grad_fn is not None and "MaskedAttention" in type(out.grad_fn).__name__
+    assert out.grad_fn is not None and "masked_attention" in type(out.grad_fn).__name__
     g = torch.ones_like(out)
     grads = torch.autograd.grad(out, ts, g)
     heads = [t.detach().unflatten(-1, (H, HD)).transpose(1, 2).requires_grad_(True) for t in ts]

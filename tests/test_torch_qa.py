@@ -162,9 +162,19 @@ def test_predict_batch_tokenizes_each_question_once(qa):
 
 
 def test_int8_weights_not_ported_and_bad_inputs(qa):
+    """Int8 weight storage is ported: ``weights='int8'`` answers as the bf16
+    predictor does, within ``tests/test_quant.py``'s envelope (0.05), from
+    pixels and from its cached tokens (``tests/test_torch_quant.py`` holds
+    it to JAX's int8 predictor); bad inputs raise."""
     _, pqa, clips = qa
-    with pytest.raises(NotImplementedError, match="A9"):
-        VideoQAPredictor(pqa.model, pqa.tokenizer, ANS2LABEL, device="cpu", weights="int8")
+    q8 = VideoQAPredictor(pqa.model, pqa.tokenizer, ANS2LABEL, device="cpu", max_txt_len=8,
+                          weights="int8")
+    feats = q8.encode_video(clips)
+    for question in QUESTIONS:
+        want = pqa.predict(clips, question, topk=5)
+        for got in (q8.predict(clips, question, topk=5), q8.predict(feats, question, topk=5)):
+            np.testing.assert_allclose([dict(got)[a] for a, _ in want], [p for _, p in want],
+                                       atol=0.05)
     with pytest.raises(ValueError, match="clips"):
         pqa.predict(clips[0], "what")
     with pytest.raises(ValueError, match="clips"):

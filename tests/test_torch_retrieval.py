@@ -111,8 +111,20 @@ def test_empty_index_raises_before_topk(pair):
 
 
 def test_int8_weights_not_ported(pair):
-    with pytest.raises(NotImplementedError, match="int8"):
-        RetrievalIndex(pair[2], pair[4].tokenizer, "cpu", weights="int8")
+    """Int8 weight storage is ported: ``weights='int8'`` serves the gallery
+    with the bf16 index's ranking within ``tests/test_quant.py``'s envelope
+    (0.05), and any other value raises (``tests/test_torch_quant.py`` holds
+    it to JAX's int8 index)."""
+    port, pidx = pair[2], pair[4]
+    idx8 = RetrievalIndex(port, pidx.tokenizer, "cpu", max_txt_len=8, topk=3, weights="int8")
+    clips = np.random.RandomState(0).randint(0, 255, (5, 2, 32, 32, 3), np.uint8)
+    idx8.add_videos(clips, ids=[f"v{i}" for i in range(5)])
+    for text in TEXTS:
+        got, want = idx8.query(text), pidx.query(text)
+        assert [g[0] for g in got] == [w[0] for w in want], (got, want)
+        np.testing.assert_allclose([g[1:] for g in got], [w[1:] for w in want], atol=0.05)
+    with pytest.raises(ValueError, match="weights"):
+        RetrievalIndex(port, pidx.tokenizer, "cpu", weights="fp8")
 
 
 def test_from_jax_params_covers_every_parameter(pair):
