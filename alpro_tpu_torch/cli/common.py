@@ -4,9 +4,14 @@ training setup and loop, and the deploy and resume checkpoints.
 
 The model runs on ``cfg.device`` (default ``cuda``, the counterpart of the
 JAX package's ``ALPRO_PLATFORM``): with no CUDA device the default raises,
-and the CPU is used only when ``device`` says ``cpu``. The port runs one
-process on one device: the JAX CLIs' mesh, multi-host striping, restore
-check and jit shardings are not ported (ROADMAP A12). The blocks are not
+and the CPU is used only when ``device`` says ``cpu``. Several processes,
+one per GPU, run as one job when the environment names a rendezvous
+(``core/distributed.py``: ``torchrun``'s variables with
+``ALPRO_DISTRIBUTED=1``, or ``ALPRO_COORDINATOR``), NCCL on CUDA and gloo on
+the CPU. The train step then runs over the ``dp`` axis of ``mesh_shape``
+(default: every process), each process loads its stripe of the data,
+rank 0's start state is broadcast, the processes agree on the resumed step,
+and rank 0 alone writes logs, metrics and checkpoints. The blocks are not
 scanned, so unlike the JAX CLI the port turns no gradient checkpointing on
 by itself: a tower checkpoints its blocks when its model config sets
 ``gradient_checkpointing``, keeping what ``remat_policy`` keeps.
@@ -17,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import math
 import os
 import time
@@ -28,7 +34,9 @@ from alpro_tpu_torch.checkpoint.reference import load_reference_checkpoint, merg
 from alpro_tpu_torch.checkpoint.restore import TrainingRestorer, load_params, save_params
 from alpro_tpu_torch.checkpoint.visual_init import load_visual_weights
 from alpro_tpu_torch.core.config import Config, load_json_config
-from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, RunningMeter, add_log_to_file
+from alpro_tpu_torch.core.distributed import is_primary, maybe_initialize, process_info
+from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, NoOp, RunningMeter, add_log_to_file
+from alpro_tpu_torch.core.mesh import make_mesh, replicate
 from alpro_tpu_torch.core.misc import maybe_profile, save_training_meta, set_random_seed
 from alpro_tpu_torch.data.loader import DevicePrefetcher, stage_batch
 from alpro_tpu_torch.data.transforms import IMAGE_MEAN_CLIP, IMAGE_STD_CLIP
@@ -42,8 +50,10 @@ from alpro_tpu_torch.models.alpro import (
 )
 from alpro_tpu_torch.models.bert import BertConfig
 from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+from alpro_tpu_torch.parallel.host_sync import all_gather_list, barrier
 from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
 from alpro_tpu_torch.train.state import TrainState
+from alpro_tpu_torch.train.step import shard_step
 
 
 def resolve_device(cfg: Config) -> torch.device:
@@ -59,20 +69,29 @@ def resolve_device(cfg: Config) -> torch.device:
 
 
 def setup_environment(cfg: Config) -> None:
-    """Check the device and seed the host RNGs and torch. With an output
-    directory: log to ``output_dir/log/log.txt``, write the scalars to
-    ``output_dir/log/metrics.jsonl`` and, for a training run, snapshot the
+    """Open the process group when the environment asks for one (first: the
+    reference's ``hvd.init()`` slot), check the device and seed the host
+    RNGs and torch. With an output directory, rank 0 logs to
+    ``output_dir/log/log.txt``, writes the scalars to
+    ``output_dir/log/metrics.jsonl`` and, for a training run, snapshots the
     config to ``output_dir/log/args.json`` (an inference run reads that file
-    back and leaves it as it is). Without one, no scalars are written."""
-    resolve_device(cfg)
+    back and leaves it as it is); the other processes log warnings only and
+    write nothing. Without one, no scalars are written."""
+    device = resolve_device(cfg)
+    distributed = maybe_initialize(device)
     set_random_seed(cfg.get("seed", 42))
     TB_LOGGER.close()
+    if not is_primary():
+        LOGGER.setLevel(logging.WARNING)
+        return
     if cfg.get("output_dir"):
         os.makedirs(cfg.output_dir, exist_ok=True)
         add_log_to_file(os.path.join(cfg.output_dir, "log", "log.txt"))
         TB_LOGGER.create(os.path.join(cfg.output_dir, "log"))
         if not cfg.get("do_inference"):
             save_training_meta(cfg.output_dir, cfg)
+    if distributed:
+        LOGGER.info("distributed: process 0 of %d on %s", process_info()[1], device)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -215,11 +234,11 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
     an ``output_dir``, the restorer
     saves every max(1, ``save_steps_ratio`` · num_train_steps) steps and the
     state resumes from its newest slot. ``make_step(model, optimizer)``
-    builds the step."""
-    mesh = cfg.get("mesh_shape")
-    if mesh is not None and math.prod(int(n) for n in mesh) > 1:
-        raise NotImplementedError(f"mesh_shape={list(mesh)}: a device mesh (multi-GPU) is not "
-                                  "ported yet (ROADMAP A12)")
+    builds the step, which runs over the ``dp`` axis of ``mesh_shape``
+    (``train/step.py::shard_step``; its product must be the number of
+    processes). Every process starts from rank 0's state and resumes from
+    the same step, or the run stops."""
+    mesh = make_mesh(train_mesh_shape(cfg))
     if cfg.get("optim", "adamw") != "adamw":
         raise ValueError(f"optim={cfg.optim!r}: only adamw exists")
     accum = int(cfg.get("gradient_accumulation_steps", 1))
@@ -248,13 +267,34 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
     elif cfg.get("visual_weights_path"):
         load_visual_weights(model, cfg.visual_weights_path)
     state = TrainState.create(model, optimizer)
+    replicate(model, state.opt_state)
     restorer = None
     if cfg.get("output_dir"):
         save_steps = max(1, int(cfg.get("save_steps_ratio", 0.05) * num_train_steps))
         restorer = TrainingRestorer(cfg.output_dir, save_steps)
-        if restorer.restore(state) is not None:
+        restored = restorer.restore(state)
+        steps = all_gather_list(-1 if restored is None else int(state.step))
+        if len(set(steps)) != 1:
+            # the reference broadcasts rank 0's restore; a disagreement here
+            # means output_dir is not one shared directory
+            raise RuntimeError(f"inconsistent restore across processes (steps={steps}); "
+                               "output_dir must be a shared filesystem")
+        if restored is not None:
             LOGGER.info("resumed from step %d", state.step)
-    return make_step(model, optimizer), state, num_train_steps, restorer
+    return shard_step(make_step(model, optimizer), mesh), state, num_train_steps, restorer
+
+
+def train_mesh_shape(cfg: Config) -> list:
+    """``mesh_shape`` as the train step's mesh: N (dp), or DP 1; default
+    every process on dp. DP SP with SP > 1 is ROADMAP A19."""
+    shape = cfg.get("mesh_shape")
+    if shape is None:
+        return [process_info()[1]]
+    shape = [int(n) for n in shape]
+    if len(shape) == 2 and shape[1] > 1:
+        raise NotImplementedError(f"mesh_shape={shape}: a 2D mesh with sp > 1 (the model's "
+                                  "sequence-parallel layout) is not ported yet (ROADMAP A19)")
+    return shape
 
 
 def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter,
@@ -295,7 +335,8 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
     valid_steps = max(
         math.ceil(num_train_steps / max(cfg.get("num_valid", 10), 1) / min_valid) * min_valid, 1)
     debug = bool(cfg.get("debug", False))
-    profile = bool(cfg.get("profile")) and bool(cfg.get("output_dir"))
+    profile = bool(cfg.get("profile")) and bool(cfg.get("output_dir")) and is_primary()
+    tb = TB_LOGGER if is_primary() else NoOp()
     t0 = time.time()
     try:
         with contextlib.ExitStack() as profiling:
@@ -315,21 +356,23 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
                     rate = (global_step + 1 - start_step) / (time.time() - t0)
                     LOGGER.info("step %d/%d (%.2f it/s): %s", global_step + 1, num_train_steps,
                                 rate, "  ".join(str(m) for m in meters.values()))
-                    TB_LOGGER.global_step = global_step + 1
-                    TB_LOGGER.log_scalar_dict({m.name: m.val for m in meters.values()},
-                                              prefix="train")
+                    tb.global_step = global_step + 1
+                    tb.log_scalar_dict({m.name: m.val for m in meters.values()}, prefix="train")
                 if (global_step + 1) % valid_steps == 0 or debug:
                     if validate_fn is not None:
                         validate_fn(state, global_step + 1)
                     if save_model_fn is not None:
                         save_model_fn(state, global_step + 1)
                 if restorer is not None and restorer.due(global_step + 1):
-                    restorer.save(state)
+                    if is_primary():
+                        restorer.save(state)
+                    barrier("resume-save")
                 if debug and global_step - start_step >= 3:
                     LOGGER.info("debug mode: stopping after %d steps", global_step + 1)
                     break
         if restorer is not None:
             restorer.wait_until_finished()  # commit the last async save
+            barrier("resume-save-done")
     finally:
         if prefetcher is not None:
             prefetcher.close()
@@ -339,10 +382,12 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
 def default_save_model_fn(cfg: Config, model: AlproModel) -> Callable:
     """``save(state, step)``: the deploy checkpoint
     ``output_dir/ckpt/model_step_{step}.pt`` (when there is an output
-    directory)."""
+    directory), written by rank 0 while the others wait at a barrier."""
 
     def save(state, step):
         if cfg.get("output_dir"):
-            save_params(cfg.output_dir, step, model)
+            if is_primary():
+                save_params(cfg.output_dir, step, model)
+            barrier("deploy-save")
 
     return save

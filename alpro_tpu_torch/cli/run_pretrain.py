@@ -39,6 +39,7 @@ from alpro_tpu_torch.cli.prompts import (
     load_entities,
 )
 from alpro_tpu_torch.core.config import Config, get_pretraining_args
+from alpro_tpu_torch.core.distributed import data_shards, local_batch_size
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     PretrainCollator,
@@ -49,6 +50,7 @@ from alpro_tpu_torch.data.datasets import (
 from alpro_tpu_torch.data.loader import BatchLoader, MetaLoader, stage_batch
 from alpro_tpu_torch.data.tokenization import build_tokenizer
 from alpro_tpu_torch.objectives.pem import build_prompt_bank
+from alpro_tpu_torch.parallel.host_sync import all_gather_list
 from alpro_tpu_torch.train.step import make_pretrain_eval_fn, make_pretrain_train_step
 
 # collated for MPM but read by no step: kept on the host
@@ -96,8 +98,9 @@ def setup_prompt_banks(cfg: Config, teacher, tokenizer) -> dict:
 
 
 def build_pretrain_loaders(cfg: Config, tokenizer, use_mpm: bool) -> dict:
-    """One ``BatchLoader`` per ``train_datasets`` entry, sharing one
-    ``PretrainCollator``."""
+    """One ``BatchLoader`` per ``train_datasets`` entry over this process's
+    stripe of it, this process's rows of ``train_batch_size`` a batch,
+    sharing one ``PretrainCollator``."""
     collator = PretrainCollator(tokenizer, cfg.get("max_txt_len", 30),
                                 mlm=bool(cfg.get("use_mlm", True)), mpm=use_mpm,
                                 patch_size=16, seed=cfg.get("seed", 42))
@@ -116,8 +119,10 @@ def build_pretrain_loaders(cfg: Config, tokenizer, use_mpm: bool) -> dict:
                 frm_sampling_strategy=cfg.get("frm_sampling_strategy", "headtail"),
                 resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
                 seed=cfg.get("seed", 42))
-        loaders[spec["name"]] = BatchLoader(ds, collator, cfg.train_batch_size,
-                                            seed=cfg.get("seed", 42),
+        num_shards, shard_id = data_shards()
+        loaders[spec["name"]] = BatchLoader(ds, collator, local_batch_size(cfg.train_batch_size),
+                                            seed=cfg.get("seed", 42), num_shards=num_shards,
+                                            shard_id=shard_id,
                                             num_workers=int(cfg.get("n_workers", 4)))
     return loaders
 
@@ -132,9 +137,10 @@ def mixed_batches(meta: MetaLoader):
 
 def make_validate(cfg: Config, model, teacher, banks: dict, tokenizer, use_mpm: bool):
     """``validate(state, step)``: the eval function over the first
-    ``num_val_batches`` batches of each ``val_datasets`` loader, each
-    ``val_*`` metric averaged over the batches, logged and written to the
-    metrics file. Returns the averages (an empty dict without val sets)."""
+    ``num_val_batches`` batches of each ``val_datasets`` loader (each process
+    its stripe), each ``val_*`` metric averaged over every process's
+    batches, logged and written to the metrics file. Returns the averages
+    (an empty dict without val sets)."""
     eval_fn = make_pretrain_eval_fn(
         model, use_itc=bool(cfg.get("use_itc", True)), use_itm=bool(cfg.get("use_itm", True)),
         use_mlm=bool(cfg.get("use_mlm", True)), use_mpm=use_mpm, teacher=teacher,
@@ -156,6 +162,10 @@ def make_validate(cfg: Config, model, teacher, banks: dict, tokenizer, use_mpm: 
                 for k, v in metrics.items():
                     sums[k] = sums.get(k, 0.0) + float(v)
                 n += 1
+        parts = all_gather_list((sums, n))
+        keys = set().union(*(p[0] for p in parts))
+        sums = {k: sum(p[0].get(k, 0.0) for p in parts) for k in keys}
+        n = sum(p[1] for p in parts)
         if not n:
             return {}
         means = {k: v / n for k, v in sorted(sums.items())}

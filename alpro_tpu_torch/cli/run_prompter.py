@@ -7,7 +7,8 @@ The port's counterpart of ``alpro_tpu/cli/run_prompter.py``:
 
 Trains the bare ALPRO model by VTC on the first training dataset's (clip,
 caption) pairs (the video pretraining dataset, its RandAugment included),
-through ``cli/common.py``'s setup and loop, and writes deploy checkpoints
+each process on its stripe of them, through ``cli/common.py``'s setup and
+loop, and writes deploy checkpoints
 ``ckpt/model_step_N.pt`` (the teacher ``run_pretrain`` reads as
 ``teacher_weights_path``) and resume checkpoints in ``restore/``.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_pretraining_args
+from alpro_tpu_torch.core.distributed import data_shards, local_batch_size
 from alpro_tpu_torch.core.logging import LOGGER
 from alpro_tpu_torch.data.datasets import PretrainCollator, PretrainVideoDataset, load_datalist
 from alpro_tpu_torch.data.loader import BatchLoader, InfiniteIterator
@@ -44,7 +46,9 @@ def start_training(cfg: Config):
         resize_size=cfg.resize_size, crop_size=cfg.crop_img_size, seed=cfg.get("seed", 42),
     )
     collator = PretrainCollator(tokenizer, cfg.get("max_txt_len", 30), mlm=False, mpm=False)
-    loader = BatchLoader(ds, collator, cfg.train_batch_size, seed=cfg.get("seed", 42),
+    num_shards, shard_id = data_shards()
+    loader = BatchLoader(ds, collator, local_batch_size(cfg.train_batch_size),
+                         seed=cfg.get("seed", 42), num_shards=num_shards, shard_id=shard_id,
                          num_workers=int(cfg.get("n_workers", 4)))
     step_fn, state, num_steps, restorer = common.setup_training(
         cfg, model, make_prompter_train_step, steps_per_epoch=len(loader))

@@ -21,8 +21,9 @@ logits are pooled by ``score_agg_func`` (mean, max or lse) and the answer is
 their argmax. Open-ended tasks classify over ``num_labels`` answers;
 multi-choice tasks (``action``, ``transition``) score each option as
 question + option and pick the best of ``n_options``. Accuracy, overall and
-per answer type, comes from ``evals/qa.py::evaluate_qa``. One process (the
-JAX CLI's loader sharding across hosts and its gather are ROADMAP A12).
+per answer type, comes from ``evals/qa.py::evaluate_qa``. Across processes
+each loads its stripe of the questions and the results are merged by
+``all_gather_list``, as in the JAX CLI; rank 0 writes ``qa_results.json``.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_video_qa_args
+from alpro_tpu_torch.core.distributed import data_shards, is_primary, local_batch_size
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     MULTI_CHOICE_QA,
@@ -47,6 +49,7 @@ from alpro_tpu_torch.data.datasets import (
 from alpro_tpu_torch.data.loader import BatchLoader, InfiniteIterator
 from alpro_tpu_torch.data.tokenization import build_tokenizer
 from alpro_tpu_torch.evals.qa import pool_clip_logits
+from alpro_tpu_torch.parallel.host_sync import all_gather_list
 from alpro_tpu_torch.serving.inference import make_qa_inference_fn
 from alpro_tpu_torch.train.step import make_qa_train_step
 
@@ -122,9 +125,11 @@ def inference_qa(model, ds, tokenizer, cfg: Config) -> List[dict]:
     forward per clip, the clips' logits pooled."""
     infer = make_qa_inference_fn(model, n_options=_effective_n_options(cfg))
     device = common.model_device(model)
+    num_shards, shard_id = data_shards()
     loader = BatchLoader(
         ds, _qa_collator(cfg, tokenizer), cfg.get("inference_batch_size", cfg.val_batch_size),
-        shuffle=False, drop_last=False, num_workers=int(cfg.get("n_workers", 4)),
+        shuffle=False, drop_last=False, num_shards=num_shards, shard_id=shard_id,
+        num_workers=int(cfg.get("n_workers", 4)),
     )
     num_clips = int(cfg.get("inference_n_clips", 1))
     num_frm = cfg.num_frm
@@ -145,7 +150,7 @@ def inference_qa(model, ds, tokenizer, cfg: Config) -> List[dict]:
             results.append({"question_id": qid, "answer": int(p)})
         if cfg.get("debug") and len(results) >= 2 * B:
             break
-    return results
+    return [r for shard in all_gather_list(results) for r in shard]
 
 
 def validate(model, ds, tokenizer, cfg: Config, step) -> dict:
@@ -167,9 +172,11 @@ def start_training(cfg: Config):
     tokenizer = build_tokenizer(cfg.tokenizer_dir)
     n_options = _effective_n_options(cfg)  # may force num_labels=1 (multi-choice)
     model = common.build_model_from_cfg(cfg, "qa", seed=cfg.get("seed", 42))
+    num_shards, shard_id = data_shards()
     train_loader = BatchLoader(
-        _mk_datasets(cfg, "train"), _qa_collator(cfg, tokenizer), cfg.train_batch_size,
-        seed=cfg.get("seed", 42), num_workers=int(cfg.get("n_workers", 4)),
+        _mk_datasets(cfg, "train"), _qa_collator(cfg, tokenizer),
+        local_batch_size(cfg.train_batch_size), seed=cfg.get("seed", 42),
+        num_shards=num_shards, shard_id=shard_id, num_workers=int(cfg.get("n_workers", 4)),
     )
     val_ds = _mk_datasets(cfg, "val")
     train_n_clips = int(cfg.get("train_n_clips", 1))
@@ -203,7 +210,7 @@ def start_inference(cfg: Config) -> dict:
     results = inference_qa(model, ds, tokenizer, cfg)
     metrics = ds.evaluate_qa(results)
     LOGGER.info("inference qa: %s", json.dumps(metrics))
-    if cfg.get("output_dir"):
+    if cfg.get("output_dir") and is_primary():
         with open(os.path.join(cfg.output_dir, "qa_results.json"), "w") as f:
             json.dump({"metrics": metrics, "results": results}, f)
     return metrics

@@ -22,9 +22,9 @@ carried alongside; ``eval_vtc_only`` ranks by the similarity alone and
 ``eval_rerank_topk`` K > 0 reranks only each text's K best VTC candidates.
 The similarities, the candidate choice and the score bands are computed on
 the host in numpy, where the JAX CLI computes them, so both packages pick
-the same candidates from the same similarities. One process: the JAX CLI's
-video striping across hosts and its result gather are not ported (ROADMAP
-A12).
+the same candidates from the same similarities. Across processes the
+videos are striped by rank and the results merged by ``all_gather_list``,
+as in the JAX CLI; rank 0 writes ``results.json``.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ import torch
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_video_retrieval_args
+from alpro_tpu_torch.core.distributed import data_shards, is_primary, local_batch_size
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     RetrievalCollator,
@@ -49,6 +50,7 @@ from alpro_tpu_torch.data.datasets import (
 from alpro_tpu_torch.data.loader import BatchLoader, InfiniteIterator
 from alpro_tpu_torch.data.tokenization import build_tokenizer
 from alpro_tpu_torch.evals.retrieval import eval_retrieval
+from alpro_tpu_torch.parallel.host_sync import all_gather_list
 from alpro_tpu_torch.serving.inference import (
     make_fusion_rerank_bank_fn,
     make_fusion_score_pairs_fn,
@@ -59,10 +61,10 @@ from alpro_tpu_torch.train.step import make_retrieval_train_step
 
 
 def _mk_datasets(cfg: Config, tokenizer):
-    """(the shuffled training ``BatchLoader`` over the first training
-    dataset — its first ``data_ratio`` share of rows, ``train_batch_size``
-    pairs a batch, ``n_workers`` threads —, the first val dataset's
-    ``RetrievalEvalDataset``)."""
+    """(the shuffled training ``BatchLoader`` over this process's stripe of
+    the first training dataset — its first ``data_ratio`` share of rows,
+    this process's rows of ``train_batch_size`` pairs a batch, ``n_workers``
+    threads —, the first val dataset's ``RetrievalEvalDataset``)."""
     train_rows = load_datalist(cfg.train_datasets[0]["txt"])
     if cfg.get("data_ratio", 1.0) < 1.0:
         train_rows = train_rows[: max(1, int(len(train_rows) * cfg.data_ratio))]
@@ -72,9 +74,11 @@ def _mk_datasets(cfg: Config, tokenizer):
         resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
         seed=cfg.get("seed", 42), fps=cfg.get("fps", -1),
     )
+    num_shards, shard_id = data_shards()
     train_loader = BatchLoader(
-        train_ds, RetrievalCollator(tokenizer, cfg.max_txt_len), cfg.train_batch_size,
-        shuffle=True, seed=cfg.get("seed", 42), num_workers=int(cfg.get("n_workers", 4)),
+        train_ds, RetrievalCollator(tokenizer, cfg.max_txt_len),
+        local_batch_size(cfg.train_batch_size), shuffle=True, seed=cfg.get("seed", 42),
+        num_shards=num_shards, shard_id=shard_id, num_workers=int(cfg.get("n_workers", 4)),
     )
     eval_ds = RetrievalEvalDataset(
         load_datalist(cfg.val_datasets[0]["txt"]), cfg.val_datasets[0]["img"],
@@ -114,25 +118,35 @@ def _temperature(model) -> float:
 
 def _video_batches(eval_ds, cfg: Config):
     """(videos, clips padded to ``eval_video_batch_size`` by repeating the
-    last) per batch of the videos this process scores: all of them, or 5
-    under ``debug``."""
+    last) per batch of the videos this process scores: its stripe (every
+    ``num_shards``-th from ``shard_id``) of all of them, or of 5 under
+    ``debug``."""
     vid_bsz = int(cfg.get("eval_video_batch_size", 8))
     n_videos = len(eval_ds) if not cfg.get("debug") else min(5, len(eval_ds))
-    for vstart in range(0, n_videos, vid_bsz):
-        videos = [eval_ds.get_video(vi) for vi in range(vstart, min(vstart + vid_bsz, n_videos))]
+    num_shards, shard_id = data_shards()
+    mine = list(range(shard_id, n_videos, num_shards))
+    for vstart in range(0, len(mine), vid_bsz):
+        videos = [eval_ds.get_video(vi) for vi in mine[vstart:vstart + vid_bsz]]
         clips = np.stack([v["clip"] for v in videos])
         if clips.shape[0] < vid_bsz:  # one shape for every call
             clips = np.concatenate([clips, np.repeat(clips[-1:], vid_bsz - clips.shape[0], 0)])
         yield videos, clips
 
 
+def _merged(results: List[dict]) -> List[dict]:
+    """Every process's results, in rank order."""
+    return [r for shard in all_gather_list(results) for r in shard]
+
+
 def inference_retrieval(model, eval_ds, tokenizer, cfg: Config) -> List[dict]:
     """The retrieval eval protocol → [{vid_id, txt_id, score, sim}] for every
     (video, text) pair: ``score`` is P(match) (K = 0), the VTC similarity
-    (``eval_vtc_only``) or the top-K band score (``eval_rerank_topk``)."""
+    (``eval_vtc_only``) or the top-K band score (``eval_rerank_topk``, over
+    each process's own videos, as the JAX CLI ranks them). Every process
+    gets every process's results."""
     rerank_topk = int(cfg.get("eval_rerank_topk", 0))
     if rerank_topk > 0 and not cfg.get("eval_vtc_only", False):
-        return _inference_retrieval_topk(model, eval_ds, tokenizer, cfg, rerank_topk)
+        return _merged(_inference_retrieval_topk(model, eval_ds, tokenizer, cfg, rerank_topk))
     device = common.model_device(model)
     eval_bsz = int(cfg.get("inference_batch_size", 64))
     embed_video = make_video_embed_fn(model)
@@ -167,7 +181,7 @@ def inference_retrieval(model, eval_ds, tokenizer, cfg: Config) -> List[dict]:
         scored += len(videos)
         if (scored % 50) < len(videos):
             LOGGER.info("scored %d videos (%.1fs)", scored, time.time() - st)
-    return results
+    return _merged(results)
 
 
 def _inference_retrieval_topk(model, eval_ds, tokenizer, cfg: Config, K: int) -> List[dict]:
@@ -198,7 +212,7 @@ def _inference_retrieval_topk(model, eval_ds, tokenizer, cfg: Config, K: int) ->
         vfeat_rows.append(vfeat.cpu().numpy()[: len(videos)])
         vid_ids.extend(v["vid_id"] for v in videos)
     n_local = len(vid_ids)
-    if n_local == 0:  # no video to score (an empty eval set)
+    if n_local == 0:  # no video to score here (an empty set, or stripe)
         return []
     bank = torch.cat(embed_blocks)  # (V, 1+N, D) on the device
     sims = np.concatenate(vfeat_rows) @ text_feat_all.T / temp  # (V, n_text)
@@ -316,7 +330,7 @@ def start_inference(cfg: Config) -> dict:
         results = [r for r in results if r["txt_id"] in gt]
     metrics = eval_retrieval(results, gt)
     LOGGER.info("inference retrieval: %s", json.dumps(metrics))
-    if cfg.get("output_dir"):
+    if cfg.get("output_dir") and is_primary():
         out = os.path.join(cfg.output_dir, "results.json")
         with open(out, "w") as f:
             json.dump({"metrics": metrics, "results": results}, f)

@@ -6,8 +6,9 @@ win, and int flags declared as booleans (0/1) are coerced to bool.
 
 Differences from the JAX parser: only the flags that the port's paths read
 are declared; the TPU-only ``--xla_compiler_options`` and ``--scan_blocks``
-never are, and ``--mesh_shape`` is declared only to be refused (multi-GPU is
-ROADMAP A12). Keys that the JAX CLIs read from a config file with a default
+never are, and ``--mesh_shape`` takes the 1-D ``N`` and the 2-D ``DP 1``
+(``DP SP`` with SP > 1, the model's sequence-parallel layout, is refused:
+ROADMAP A19). Keys that the JAX CLIs read from a config file with a default
 (``apply_weight_decay``, ``prefetch_depth``, ``vtm_negative_blocks``, and
 for pretraining ``prompt_chunk_size`` and ``num_val_batches``) are declared
 here with that default. ``--device`` (default ``cuda``) takes the
@@ -96,12 +97,17 @@ def _coerce_bool_flags(args: Config) -> Config:
     return args
 
 
-class _RefuseMeshShape(argparse.Action):
-    """``--mesh_shape``: a device mesh is multi-GPU work, not ported."""
+class _MeshShape(argparse.Action):
+    """``--mesh_shape N`` or ``DP SP``; SP > 1 lays the model's frame axis
+    over ``sp``, which is not ported (ROADMAP A19)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} {' '.join(map(str, values))}: a device mesh (multi-GPU) "
-                     "is not ported yet (ROADMAP A12)")
+        if len(values) > 2:
+            parser.error(f"{option_string} takes N or DP SP, got {values}")
+        if len(values) == 2 and values[1] > 1:
+            parser.error(f"{option_string} {' '.join(map(str, values))}: a 2D mesh with sp > 1 "
+                         "(the model's sequence-parallel layout) is not ported yet (ROADMAP A19)")
+        setattr(namespace, self.dest, values)
 
 
 def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -166,8 +172,9 @@ def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--inference_img_db", type=str, default=None)
     parser.add_argument("--inference_batch_size", type=int, default=64)
     parser.add_argument("--inference_n_clips", type=int, default=1)
-    parser.add_argument("--mesh_shape", type=int, nargs="+", default=None,
-                        action=_RefuseMeshShape, help="not ported (ROADMAP A12)")
+    parser.add_argument("--mesh_shape", type=int, nargs="+", default=None, action=_MeshShape,
+                        help="process mesh: --mesh_shape N for dp=N (one process per GPU); "
+                        "DP 1 for a 2D mesh with sp=1 (sp > 1: ROADMAP A19)")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",

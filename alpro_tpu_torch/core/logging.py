@@ -1,8 +1,8 @@
 """Logging and metering (the port's copy of ``alpro_tpu/core/logging.py``):
 the ``LOGGER``, ``add_log_to_file``, the ``TB_LOGGER`` scalar writer and
 ``RunningMeter``'s EWMA smoothing. The scalar sink is a JSONL file,
-``<dir>/metrics.jsonl``, of rows {step, key, value, ts}. The JAX package's
-``NoOp`` logger for non-primary hosts comes with multi-GPU (ROADMAP A12).
+``<dir>/metrics.jsonl``, of rows {step, key, value, ts}, and the ``NoOp``
+sink that stands in for it on every process but rank 0.
 
 One difference: the JAX loop never advances its logger's step, so every row
 it writes says step 0; the port's train loop sets ``TB_LOGGER.global_step``
@@ -101,3 +101,14 @@ class RunningMeter:
     @property
     def name(self) -> str:
         return self._name
+
+
+class NoOp:
+    """Swallows every call: the metrics sink of a process other than rank 0
+    (reference ``logger.py:92``)."""
+
+    def __getattr__(self, _name):
+        return self.noop
+
+    def noop(self, *args, **kwargs):
+        return

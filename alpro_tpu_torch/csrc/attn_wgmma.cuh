@@ -556,6 +556,11 @@ attn_wgmma(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
         const int c = (kk * 16 % P) / 8 + (lane >> 4);
         hp::ldmatrix_x4(qf[kk], qb + (kk * 16 / P) * 64 * SW + hp::swizzled<SW>(row, c));
       }
+      // the ldmatrix reads (generic proxy) ordered before the TMA refill of
+      // this buffer (async proxy): without this fence the refill could
+      // overtake them (on an H100, 31 of 40 000 repeated (64, 197) B13 calls
+      // gave other outputs than the first; with it, none)
+      hp::fence_proxy_async();
       __syncthreads();  // the buffer is free for tile t + 2 (kSplit: after the tile)
       if (!kSplit && tid == 0 && t + 2 < ntiles) load_q(t + 2);
     }

@@ -9,7 +9,9 @@ fusion embedding of the erased patches.
 
 As in the JAX package (and unlike ALPRO's code, which compares the argmax
 index with the threshold), a row is ignored when its largest softmax
-probability is below ``MPM_IGNORE_THRESHOLD``.
+probability is below ``MPM_IGNORE_THRESHOLD``. The MPM loss divides by the
+rows kept in the whole batch: with a ``dp`` group that count is summed over
+the group.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
+
+from alpro_tpu_torch.parallel.collectives import all_reduce_sum
 
 MPM_IGNORE_THRESHOLD = 0.2
 
@@ -60,10 +64,10 @@ def masked_patch_mean(fusion_hidden: torch.Tensor, patch_masks: torch.Tensor,
 
 
 def mpm_loss(mpm_logits: torch.Tensor, soft_labels: torch.Tensor,
-             ignore_masks: torch.Tensor) -> torch.Tensor:
+             ignore_masks: torch.Tensor, group=None) -> torch.Tensor:
     """Soft cross entropy, the ignored rows zeroed, over the count of rows
     kept (at least 1)."""
     ce = -(torch.log_softmax(mpm_logits.float(), dim=1) * soft_labels.float()).sum(dim=1)
     ce = torch.where(ignore_masks, torch.zeros((), dtype=ce.dtype, device=ce.device), ce)
-    denom = (mpm_logits.shape[0] - ignore_masks.sum()).clamp(min=1)
+    denom = all_reduce_sum(mpm_logits.shape[0] - ignore_masks.sum(), group).clamp(min=1)
     return ce.sum() / denom

@@ -17,10 +17,22 @@ teacher; the prompter = VTC alone.
 A parameter that gets no gradient in a step (the QA classifier in a
 retrieval model, the heads a QA step does not use) is updated with a zero
 gradient, as the JAX step's gradient tree holds zeros there.
+
+``shard_step(step, mesh)`` runs the same step over the mesh's ``dp`` group,
+each process on its b rows of the global batch, and computes the JAX step's
+global program: each loss is the process's share of the global loss (a
+row mean 1/W of its rows' mean, MLM and MPM over the counts of the whole
+batch), VTC and VTM read the group's gathered rows with gradient, the
+gradients are summed over ``dp`` in one flat all-reduce per dtype before the
+optimizer clips and updates, and the metrics are summed over ``dp``. With
+W > 1, dropout and drop-path draw from (seed, step, dp rank) and the hard
+negatives from (seed, step), the same on every process; with W = 1 one
+generator serves both, so the wrapped step is the unwrapped one bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -31,16 +43,40 @@ from alpro_tpu_torch.objectives.mlm import IGNORE_INDEX, mlm_loss
 from alpro_tpu_torch.objectives.pem import masked_patch_mean, mpm_loss, pseudo_labels_from_feats
 from alpro_tpu_torch.objectives.vtc import vtc_loss
 from alpro_tpu_torch.objectives.vtm import sample_hard_negatives, vtm_loss_from_logits
+from alpro_tpu_torch.parallel.collectives import (
+    all_gather,
+    all_gather_with_grad,
+    all_reduce_sum,
+    flat_all_reduce_,
+    group_rank,
+    group_size,
+)
 from alpro_tpu_torch.serving.inference import qa_logits
 from alpro_tpu_torch.train.optimizer import project_temp
 from alpro_tpu_torch.train.state import TrainState
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The generator of one train step, seeded from (seed, step)."""
+def step_generator(seed: int, step: int, device, *more: int) -> torch.Generator:
+    """The generator of one train step, seeded from (seed, step, *more)."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1))
+    g.manual_seed(int(np.random.SeedSequence([seed, step, *more]).generate_state(
+        1, np.uint64)[0] >> 1))
     return g
+
+
+@dataclasses.dataclass
+class StepContext:
+    """What a loss function draws from and reduces over: the dropout and
+    drop-path generator, the hard negatives' generator (the same object in
+    one process), and the ``dp`` group (None in one process)."""
+
+    generator: torch.Generator
+    negatives: torch.Generator
+    group: Optional[object] = None
+
+    def share(self, mean: torch.Tensor) -> torch.Tensor:
+        """This process's share of a mean over the global batch's rows."""
+        return mean if self.group is None else mean / group_size(self.group)
 
 
 def _alignment_forward(model: AlproModel, batch, generator) -> Dict[str, torch.Tensor]:
@@ -53,102 +89,144 @@ def _alignment_forward(model: AlproModel, batch, generator) -> Dict[str, torch.T
                 temp=model.temperature())
 
 
-def _vtm_forward(model: AlproModel, batch, fwd, sim_v2t, sim_t2v, generator,
+def _vtm_forward(model: AlproModel, batch, fwd, sim_v2t, sim_t2v, ctx: StepContext,
                  num_local_blocks: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hard-negative VTM in one 3B-row fusion call: rows [0, B) are (text_i,
     video_i), [B, 2B) (text_i, video[neg_video_idx_i]), [2B, 3B)
-    (text[neg_text_idx_i], video_i). Returns (vtm_loss, fusion of the
-    positives)."""
+    (text[neg_text_idx_i], video_i). With a group, B is this process's rows
+    and the negatives are rows of the group's gathered embeddings and masks.
+    Returns (vtm_loss, fusion of the positives)."""
     text_embeds, video_embeds = fwd["text_embeds"], fwd["video_embeds"]
     text_mask = batch["text_input_mask"]
     neg_text_idx, neg_video_idx = sample_hard_negatives(
-        generator, sim_v2t.detach(), sim_t2v.detach(), num_local_blocks)
+        ctx.negatives, sim_v2t.detach(), sim_t2v.detach(), num_local_blocks, group=ctx.group)
     B = text_embeds.shape[0]
-    text_all = torch.cat([text_embeds, text_embeds, text_embeds[neg_text_idx]])
-    mask_all = torch.cat([text_mask, text_mask, text_mask[neg_text_idx]])
-    video_all = torch.cat([video_embeds, video_embeds[neg_video_idx], video_embeds])
-    fusion_all = model.fuse(text_all, mask_all, video_all, None, generator)
+    text_neg = all_gather_with_grad(text_embeds, ctx.group)[neg_text_idx]
+    mask_neg = all_gather(text_mask, ctx.group)[neg_text_idx]
+    video_neg = all_gather_with_grad(video_embeds, ctx.group)[neg_video_idx]
+    text_all = torch.cat([text_embeds, text_embeds, text_neg])
+    mask_all = torch.cat([text_mask, text_mask, mask_neg])
+    video_all = torch.cat([video_embeds, video_neg, video_embeds])
+    fusion_all = model.fuse(text_all, mask_all, video_all, None, ctx.generator)
     logits = model.itm_logits(fusion_all[:, 0, :])
-    loss, _, _ = vtm_loss_from_logits(logits[:B], logits[B:])
+    loss, _, _ = vtm_loss_from_logits(logits[:B], logits[B:], group=ctx.group)
     return loss, fusion_all[:B]
 
 
-def retrieval_loss(model: AlproModel, batch, generator,
+def retrieval_loss(model: AlproModel, batch, ctx,
                    num_local_blocks: int = 1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """VTC + VTM on a batch of ``visual_inputs``, ``text_input_ids`` and
-    ``text_input_mask``: (loss, metrics ``loss``/``vtc_loss``/``vtm_loss``)."""
-    fwd = _alignment_forward(model, batch, generator)
-    vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"])
-    vtm, _ = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, generator, num_local_blocks)
+    ``text_input_mask``: (loss, metrics ``loss``/``vtc_loss``/``vtm_loss``).
+    ``ctx``: the step's ``StepContext``."""
+    fwd = _alignment_forward(model, batch, ctx.generator)
+    vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"],
+                                     group=ctx.group)
+    vtm, _ = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, ctx, num_local_blocks)
     loss = vtc + vtm
     return loss, {"loss": loss.detach(), "vtc_loss": vtc.detach(), "vtm_loss": vtm.detach()}
 
 
-def qa_loss(model: AlproModel, batch, generator,
+def qa_loss(model: AlproModel, batch, ctx,
             n_options: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross entropy of ``qa_logits`` against ``labels`` (B,): (loss, acc)."""
-    logits = qa_logits(model, batch, n_options, generator)
+    """Cross entropy of ``qa_logits`` against ``labels`` (B,): (loss, acc),
+    each this process's share with a group. ``ctx``: the step's
+    ``StepContext``."""
+    logits = qa_logits(model, batch, n_options, ctx.generator)
     labels = batch["labels"].long()
     logp = torch.log_softmax(logits, dim=-1)
     loss = -torch.mean(torch.gather(logp, 1, labels[:, None]))
     acc = torch.mean((logits.argmax(dim=-1) == labels).float())
-    return loss, acc
+    return ctx.share(loss), ctx.share(acc)
 
 
 def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
-def _apply_updates(state: TrainState, optimizer) -> None:
+def _grads(model) -> list:
+    """Every parameter's gradient, zeros where a step gave it none."""
+    return [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
+
+
+def _apply_updates(state: TrainState, optimizer, grads: list) -> None:
     params = [p for _, p in state.model.named_parameters()]
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
     with torch.no_grad():
         optimizer.update(state.opt_state, params, grads)
     project_temp(state.model)
     state.step += 1
 
 
-def _train_step(model, optimizer, loss_fn: Callable) -> Callable:
-    """``loss_fn(batch, generator, *extras) -> (loss, metrics)`` as a train
-    step; the model is in training mode for the step and back in its mode
-    after."""
+def _sum_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each metric (a share) summed over the group, in one all-reduce."""
+    keys = list(metrics)
+    total = all_reduce_sum(torch.stack([metrics[k].float() for k in keys]), group)
+    return {k: total[i].to(metrics[k].dtype) for i, k in enumerate(keys)}
 
-    def step(state: TrainState, batch, seed: int = 0, *extras):
+
+class TrainStep:
+    """``loss_fn(batch, ctx, *extras) -> (loss, metrics)`` as a train step;
+    the model is in training mode for the step and back in its mode after.
+    ``group`` None: one process. Else the ``dp`` group of ``shard_step``."""
+
+    def __init__(self, model, optimizer, loss_fn: Callable, group=None):
+        self.model, self.optimizer, self.loss_fn, self.group = model, optimizer, loss_fn, group
+
+    def _context(self, seed: int, step: int) -> StepContext:
+        device = _device(self.model)
+        g = step_generator(seed, step, device)
+        if group_size(self.group) == 1:
+            return StepContext(g, g, self.group)
+        return StepContext(step_generator(seed, step, device, group_rank(self.group)), g,
+                           self.group)
+
+    def __call__(self, state: TrainState, batch, seed: int = 0, *extras):
+        model = self.model
         was_training = model.training
         model.train()
         try:
             model.zero_grad(set_to_none=True)
-            loss, metrics = loss_fn(batch, step_generator(seed, state.step, _device(model)),
-                                    *extras)
+            loss, metrics = self.loss_fn(batch, self._context(seed, state.step), *extras)
             loss.backward()
         finally:
             model.train(was_training)
-        _apply_updates(state, optimizer)
+        grads = _grads(model)
+        if self.group is not None:
+            flat_all_reduce_(grads, self.group)
+            metrics = _sum_metrics(metrics, self.group)
+        _apply_updates(state, self.optimizer, grads)
         model.zero_grad(set_to_none=True)
         return state, metrics
 
-    return step
+
+def shard_step(step_fn: TrainStep, mesh) -> TrainStep:
+    """The step over ``mesh``'s ``dp`` axis: each process feeds its b rows
+    of the global batch and gets the global step's update and metrics.
+    ``accum_steps`` and every ``remat_policy`` go through unchanged (the
+    gradients are summed over ``dp`` at each micro-step, as the JAX step's
+    are). DDP's module wrapper does not fit: the steps call ``embed_video``,
+    ``embed_text`` and ``fuse``, not ``forward``."""
+    return TrainStep(step_fn.model, step_fn.optimizer, step_fn.loss_fn, group=mesh.dp.group)
 
 
 def make_retrieval_train_step(model: AlproModel, optimizer,
-                              num_local_blocks: int = 1) -> Callable:
+                              num_local_blocks: int = 1) -> TrainStep:
     """Retrieval finetuning: loss = VTC + VTM; metrics ``loss``,
     ``vtc_loss``, ``vtm_loss``."""
-    return _train_step(model, optimizer,
-                       lambda batch, g: retrieval_loss(model, batch, g, num_local_blocks))
+    return TrainStep(model, optimizer,
+                     lambda batch, ctx: retrieval_loss(model, batch, ctx, num_local_blocks))
 
 
 def make_qa_train_step(model: AlproModel, optimizer, n_options: int = 1, n_clips: int = 1,
-                       num_frm: Optional[int] = None) -> Callable:
+                       num_frm: Optional[int] = None) -> TrainStep:
     """QA finetuning. ``n_clips > 1``: the (B, n_clips·num_frm, ...) frame
     stack splits into per-clip forwards; every clip's loss is computed, but —
     the reference's quirk, kept — only the last clip's loss is
     backpropagated (earlier clips run in training mode without a graph).
     ``n_options > 1``: multi-choice rows (``qa_logits``)."""
 
-    def loss_fn(batch, g):
+    def loss_fn(batch, ctx):
         if n_clips <= 1:
-            loss, acc = qa_loss(model, batch, g, n_options)
+            loss, acc = qa_loss(model, batch, ctx, n_options)
             return loss, {"loss": loss.detach(), "acc": acc}
         if num_frm is None:
             raise ValueError("n_clips > 1 needs num_frm")
@@ -158,7 +236,7 @@ def make_qa_train_step(model: AlproModel, optimizer, n_options: int = 1, n_clips
         for c in range(n_clips):
             sub = dict(batch, visual_inputs=vis[:, c])
             with torch.set_grad_enabled(c == n_clips - 1):
-                loss_c, acc_c = qa_loss(model, sub, g, n_options)
+                loss_c, acc_c = qa_loss(model, sub, ctx, n_options)
             losses.append(loss_c)
             accs.append(acc_c)
         loss = losses[-1]
@@ -166,7 +244,7 @@ def make_qa_train_step(model: AlproModel, optimizer, n_options: int = 1, n_clips
                       "loss_all_clips": torch.stack([x.detach() for x in losses]).mean(),
                       "acc_all_clips": torch.stack(accs).mean()}
 
-    return _train_step(model, optimizer, loss_fn)
+    return TrainStep(model, optimizer, loss_fn)
 
 
 # ---- pretraining (VTC + VTM + MLM + MPM) and the prompter (VTC) ----
@@ -187,12 +265,13 @@ def _mlm_logits(model: AlproModel, batch, video_embeds, generator) -> torch.Tens
     return model.mlm_logits(fusion[:, :ids.shape[1], :])
 
 
-def _mpm(model: AlproModel, teacher: AlproModel, batch, bank, fusion_pos) -> torch.Tensor:
+def _mpm(model: AlproModel, teacher: AlproModel, batch, bank, fusion_pos,
+         group=None) -> torch.Tensor:
     """MPM: the student's MPM logits of the mean fusion row over the erased
     patches of the VTM positives, against the teacher's soft labels."""
     soft, ignore = _teacher_pseudo_labels(teacher, batch, bank)
     mean = masked_patch_mean(fusion_pos, batch["mpm_mask"], batch["text_input_ids"].shape[1])
-    return mpm_loss(model.mpm_logits(mean), soft, ignore)
+    return mpm_loss(model.mpm_logits(mean), soft, ignore, group=group)
 
 
 def _check_objectives(use_itm: bool, use_mpm: bool, teacher) -> None:
@@ -205,7 +284,7 @@ def _check_objectives(use_itm: bool, use_mpm: bool, teacher) -> None:
 def make_pretrain_train_step(model: AlproModel, optimizer, use_itc: bool = True,
                              use_itm: bool = True, use_mlm: bool = True, use_mpm: bool = True,
                              num_local_blocks: int = 1, teacher: Optional[AlproModel] = None,
-                             banks: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
+                             banks: Optional[Dict[str, torch.Tensor]] = None) -> TrainStep:
     """ALPRO pretraining: loss = the sum of VTC, VTM, MLM and MPM as the
     ``use_*`` flags select (VTC is computed either way: VTM's hard negatives
     read its similarities). ``step(state, batch, seed, task_type='video')``:
@@ -215,37 +294,41 @@ def make_pretrain_train_step(model: AlproModel, optimizer, use_itc: bool = True,
     ``mlm_loss``, ``mpm_loss`` (the ones in use) and ``loss``."""
     _check_objectives(use_itm, use_mpm, teacher)
 
-    def loss_fn(batch, g, task_type: str = "video"):
-        fwd = _alignment_forward(model, batch, g)
+    def loss_fn(batch, ctx, task_type: str = "video"):
+        fwd = _alignment_forward(model, batch, ctx.generator)
         metrics: Dict[str, torch.Tensor] = {}
         loss = torch.zeros((), device=fwd["video_feat"].device)
-        vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"])
+        vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"],
+                                         group=ctx.group)
         if use_itc:
             loss = loss + vtc
             metrics["itc_loss"] = vtc.detach()
         fusion_pos = None
         if use_itm:
-            vtm, fusion_pos = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, g,
+            vtm, fusion_pos = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, ctx,
                                            num_local_blocks)
             loss = loss + vtm
             metrics["itm_loss"] = vtm.detach()
         if use_mlm:
-            mlm = mlm_loss(_mlm_logits(model, batch, fwd["video_embeds"], g), batch["mlm_labels"])
+            mlm = mlm_loss(_mlm_logits(model, batch, fwd["video_embeds"], ctx.generator),
+                           batch["mlm_labels"], group=ctx.group)
             loss = loss + mlm
             metrics["mlm_loss"] = mlm.detach()
         if use_mpm:
-            mpm = _mpm(model, teacher, batch, banks[task_type], fusion_pos)
+            mpm = _mpm(model, teacher, batch, banks[task_type], fusion_pos, group=ctx.group)
             loss = loss + mpm
             metrics["mpm_loss"] = mpm.detach()
         metrics["loss"] = loss.detach()
         return loss, metrics
 
-    return _train_step(model, optimizer, loss_fn)
+    return TrainStep(model, optimizer, loss_fn)
 
 
-def _accuracy(sim: torch.Tensor) -> torch.Tensor:
-    labels = torch.arange(sim.shape[0], device=sim.device)
-    return torch.mean((sim.argmax(dim=-1) == labels).float())
+def _accuracy(sim: torch.Tensor, group=None) -> torch.Tensor:
+    """The share of rows whose best column is their own (global) one."""
+    labels = torch.arange(sim.shape[0], device=sim.device) + sim.shape[0] * group_rank(group)
+    acc = torch.mean((sim.argmax(dim=-1) == labels).float())
+    return acc if group is None else acc / group_size(group)
 
 
 def make_pretrain_eval_fn(model: AlproModel, use_itc: bool = True, use_itm: bool = True,
@@ -263,8 +346,10 @@ def make_pretrain_eval_fn(model: AlproModel, use_itc: bool = True, use_itm: bool
         was_training = model.training
         model.eval()
         try:
-            g = step_generator(0, 0, _device(model))  # the hard negatives' draw
-            fwd = _alignment_forward(model, batch, g)
+            # the hard negatives' draw
+            g = step_generator(0, 0, _device(model))
+            ctx = StepContext(g, g)
+            fwd = _alignment_forward(model, batch, ctx.generator)
             metrics: Dict[str, torch.Tensor] = {}
             vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"])
             if use_itc:
@@ -273,9 +358,9 @@ def make_pretrain_eval_fn(model: AlproModel, use_itc: bool = True, use_itm: bool
             fusion_pos = None
             if use_itm:
                 metrics["val_itm_loss"], fusion_pos = _vtm_forward(
-                    model, batch, fwd, sim_v2t, sim_t2v, g, num_local_blocks)
+                    model, batch, fwd, sim_v2t, sim_t2v, ctx, num_local_blocks)
             if use_mlm and "mlm_text_input_ids" in batch:
-                logits = _mlm_logits(model, batch, fwd["video_embeds"], g)
+                logits = _mlm_logits(model, batch, fwd["video_embeds"], ctx.generator)
                 labels = batch["mlm_labels"]
                 metrics["val_mlm_loss"] = mlm_loss(logits, labels)
                 valid = labels != IGNORE_INDEX
@@ -290,13 +375,14 @@ def make_pretrain_eval_fn(model: AlproModel, use_itc: bool = True, use_itm: bool
     return evaluate
 
 
-def make_prompter_train_step(model: AlproModel, optimizer) -> Callable:
+def make_prompter_train_step(model: AlproModel, optimizer) -> TrainStep:
     """The prompter: loss = VTC; metrics ``loss``, ``i2t_acc``, ``t2i_acc``."""
 
-    def loss_fn(batch, g):
-        fwd = _alignment_forward(model, batch, g)
-        vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"])
-        return vtc, {"loss": vtc.detach(), "i2t_acc": _accuracy(sim_v2t),
-                     "t2i_acc": _accuracy(sim_t2v)}
+    def loss_fn(batch, ctx):
+        fwd = _alignment_forward(model, batch, ctx.generator)
+        vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"],
+                                         group=ctx.group)
+        return vtc, {"loss": vtc.detach(), "i2t_acc": _accuracy(sim_v2t, ctx.group),
+                     "t2i_acc": _accuracy(sim_t2v, ctx.group)}
 
-    return _train_step(model, optimizer, loss_fn)
+    return TrainStep(model, optimizer, loss_fn)

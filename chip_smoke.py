@@ -181,13 +181,31 @@ line):
    checkpointed video tower at depth 2, BERT at 2 layers) under each of the
    nine ``remat_policy`` values against the step without checkpointing:
    loss and gradients, B13's launches (the names family keeps B13's output:
-   no relaunch in the recompute), peak bytes.
+   no relaunch in the recompute), peak bytes;
+14. distributed — phase 11's retrieval finetuning CLI cut to 4 steps and one
+   validate, without a process group; then a NCCL process group of one
+   process on ``tcp://127.0.0.1`` at a free port, under which (a) the
+   wrapped retrieval step (``shard_step``, ALPRO-base, bf16, B 8,
+   ``--attn_impl pallas``, dropout 0.1) against the unwrapped one from the
+   same state and seed, 4 steps each in turns: metrics and every parameter
+   bit-equal, 24 B13 launches a step on both, the step times and the flat
+   gradient all-reduce alone; (b) ``ShardedRetrievalIndex`` against
+   ``RetrievalIndex`` on phase 4's model and 16 clips, top-8: ids equal,
+   scores bit-equal, K1-K5 launched alike, query p50 of each; (c) the same
+   CLI with ``--mesh_shape 1``: step metrics, final validate and deploy
+   checkpoint bit-equal to the run without a group; (d)
+   ``sharded_temporal_attention`` at (8·196, 8, 768), 12 heads, fp32, against
+   the unsplit attention; the group destroyed; (e) two gloo processes
+   (``python3 chip_smoke.py --gloo-worker``), both on cuda:0, the wrapped
+   step on B 4 each against one process on B 8 (fp32 compute, dropout 0),
+   losses within 1e-5 — or gloo's refusal of CUDA tensors, printed.
 
 Then one JSON line with the kernels (``launches`` from the main paths,
 ``eval_launches`` from phase 10's kernel runs, ``cli_train_launches`` from
 phase 11's, ``pretrain_launches`` from phase 12's prompter, pretraining and
 resumed pretraining runs, ``variant_launches`` from phase 13's counted
-calls), the ``nvidia-smi`` line, and last the result line ``{"ok": true,
+calls, ``dist_launches`` from phase 14's runs under the process group), the
+``nvidia-smi`` line, and last the result line ``{"ok": true,
 "device": {...}}``. There is no CPU path.
 """
 
@@ -1847,15 +1865,23 @@ def phase_last(card: str, res: dict, ret: dict) -> dict:
     return {k: counts[k] for k in ("temporal_roll", "block_attn")}
 
 
-def _train_model(build, vis_json: str, frames: int, attn_impl: str, **kwargs):
-    """fp32 parameters (seeded random) with bf16 compute, dropout and
-    drop-path at the configs' rates, built on the card."""
+def _train_model(build, vis_json: str, frames: int, attn_impl: str,
+                 dtype=torch.bfloat16, depths=None, **kwargs):
+    """fp32 parameters (seeded random) with ``dtype`` compute (bf16), dropout
+    and drop-path at the configs' rates, built on the card; ``depths``:
+    (video blocks, BERT layers, fusion layer) in place of the configs'."""
     from alpro_tpu_torch.models.alpro import init_random_
 
     bert_cfg = json.loads((REPO / "configs" / "base_model.json").read_text())
     vis_cfg = json.loads((REPO / "configs" / vis_json).read_text())
+    if depths is not None:
+        from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+
+        vis_cfg = dataclasses.replace(TimeSformerConfig.from_reference_cfg(vis_cfg, 224, frames),
+                                      depth=depths[0])
+        bert_cfg.update(num_hidden_layers=depths[1], fusion_layer=depths[2])
     with torch.device("meta"):
-        model = build(bert_cfg, vis_cfg, img_size=224, num_frm=frames, dtype=torch.bfloat16,
+        model = build(bert_cfg, vis_cfg, img_size=224, num_frm=frames, dtype=dtype,
                       attn_impl=attn_impl, **kwargs)
     model = model.to_empty(device="cuda")
     return init_random_(model, torch.Generator(device="cuda").manual_seed(SEED))
@@ -1870,13 +1896,13 @@ def _set_attn_impl(model, impl: str, **dropout) -> None:
                                    **{k: v for k, v in dropout.items() if hasattr(bert.cfg, k)})
 
 
-def _retrieval_train_setup(seed: int):
+def _retrieval_train_setup(seed: int, dtype=torch.bfloat16, depths=None):
     """Phase 6's retrieval finetuning under attn_impl='pallas': the model of
-    ``configs/msrvtt_ret.json`` (see ``_train_model``), its AdamW and linear
-    schedule over FT_TRAIN_STEPS, a TrainState, the train step with one
-    local block, and a batch of the reference's per-GPU B (train_batch_size
-    64 over 8 GPUs) synthetic uint8 clips and hashed texts drawn from
-    ``seed``. Returns (model, opt, state, step, batch)."""
+    ``configs/msrvtt_ret.json`` (see ``_train_model``; ``dtype`` compute),
+    its AdamW and linear schedule over FT_TRAIN_STEPS, a TrainState, the
+    train step with one local block, and a batch of the reference's per-GPU
+    B (train_batch_size 64 over 8 GPUs) synthetic uint8 clips and hashed
+    texts drawn from ``seed``. Returns (model, opt, state, step, batch)."""
     from alpro_tpu_torch.models.alpro import build_retrieval_model
     from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
     from alpro_tpu_torch.train.state import TrainState
@@ -1885,7 +1911,7 @@ def _retrieval_train_setup(seed: int):
     cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
     B = cfg["train_batch_size"] // 8
     model = _train_model(build_retrieval_model, Path(cfg["visual_model_cfg"]).name,
-                         cfg["num_frm"], "pallas")
+                         cfg["num_frm"], "pallas", dtype=dtype, depths=depths)
     opt = build_optimizer(get_lr_schedule(cfg["decay"], cfg["learning_rate"], FT_TRAIN_STEPS),
                           betas=tuple(cfg["betas"]), grad_norm=cfg["grad_norm"])
     state = TrainState.create(model, opt)
@@ -2002,8 +2028,8 @@ def phase_finetune(card: str) -> dict:
         model.train()
         model.zero_grad(set_to_none=True)
         try:
-            loss, _ = train_step.retrieval_loss(
-                model, batch, train_step.step_generator(SEED, 0, "cuda"))
+            g = train_step.step_generator(SEED, 0, "cuda")
+            loss, _ = train_step.retrieval_loss(model, batch, train_step.StepContext(g, g))
             loss.backward()
         finally:
             train_step.sample_hard_negatives = sample
@@ -2600,9 +2626,8 @@ class _LoopClock:
         self.steps, self.metrics, self.validates, self.results = [], [], [], []
         self.deploy_s, self.resume_s, self.loop, self.restored = [], [], (0.0, 0.0), None
         self.extras = []
-        make = {"run_video_qa": "make_qa_train_step", "run_pretrain": "make_pretrain_train_step",
-                "run_prompter": "make_prompter_train_step"}.get(kind, "make_retrieval_train_step")
-        patches = [(self.cli, make, self._make(getattr(self.cli, make)))]
+        # the step the loop runs: the CLI's step as ``setup_training`` shards it
+        patches = [(common, "shard_step", self._make(common.shard_step))]
         if kind in ("run_video_qa", "run_video_retrieval"):
             infer = "inference_qa" if kind == "run_video_qa" else "inference_retrieval"
             patches += [(self.cli, "validate", self._timed(self.cli.validate, self.validates)),
@@ -2748,9 +2773,9 @@ def _cli_train_launches(steps: int, per_step: int, video_calls: int, text_calls:
 
 
 def _train_run(cli, cfg: dict, want: dict, what: str, plain: bool = False,
-               negatives: list = None) -> dict:
-    """``cli.main(["--config", file])`` — the CLI as a user runs it, flags
-    at the parser's defaults but those ``cfg`` sets — under a
+               negatives: list = None, argv: tuple = ()) -> dict:
+    """``cli.main(["--config", file, *argv])`` — the CLI as a user runs it,
+    flags at the parser's defaults but those ``cfg`` and ``argv`` set — under a
     ``_LoopClock``, with the launch counts set to 0 just before and read
     just after (they must equal ``want``) and the peak device memory; with
     ``plain`` the CLI's model is put on the plain path (no kernel) right
@@ -2790,7 +2815,7 @@ def _train_run(cli, cfg: dict, want: dict, what: str, plain: bool = False,
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
             t0 = time.perf_counter()
-            state = cli.main(["--config", f.name])
+            state = cli.main(["--config", f.name, *argv])
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
             counts = _counts()
@@ -2848,7 +2873,7 @@ def _run_line(what: str, run: dict, batch: int, card: str) -> str:
             f"{run['peak'] / 2**30:.2f} GiB (max_memory_allocated) [{card}]")
 
 
-def phase_finetune_cli(card: str) -> dict:
+def phase_finetune_cli(card: str, root: Path) -> tuple:
     """Finetuning through the CLIs on the card (``device='cuda'``), at
     ALPRO-base width and depth: retrieval (``configs/msrvtt_ret.json``, bf16
     compute, fp32 parameters, dropout and drop-path 0) on phase 10's
@@ -2867,9 +2892,12 @@ def phase_finetune_cli(card: str) -> dict:
     sync resume save against the async one. (d) MSRVTT-QA
     (``configs/msrvtt_qa.json``: T = 16, its checkpointed video tower and
     accumulation over 2) at B = 4, 4 steps and one ``validate``, counted.
-    Returns the launch counts of the kernel runs, summed."""
+    The data goes under ``root``, which outlives the phase. Returns the
+    launch counts of the kernel runs, summed, and the reference of phase
+    14's ``--mesh_shape 1`` run: (a)'s config and its kernel run's first 4
+    steps (metrics, the validation at step 4, ``model_step_4.pt`` kept
+    under ``root``)."""
     import shutil
-    import tempfile
 
     from alpro_tpu_torch.cli import run_video_qa, run_video_retrieval
     from alpro_tpu_torch.checkpoint.restore import TrainingRestorer
@@ -2878,173 +2906,175 @@ def phase_finetune_cli(card: str) -> dict:
     zero = {k: 0 for k in KERNEL_TOL}
     n_vb, n_tc = -(-EVAL_VIDEOS // EVAL_VID_BSZ), -(-EVAL_TEXTS // EVAL_TXT_BSZ)
     per_validate = (n_vb, n_tc + n_vb * n_tc)
-    with tempfile.TemporaryDirectory(prefix="alpro_train_") as tmp:
-        root = Path(tmp)
-        data = _write_train_data(root, EVAL_WORDS, _write_eval_data(root, EVAL_WORDS))
-        ret_cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
-        ret_cfg.update(
-            model_config=data["bert_nodrop"], visual_model_cfg=data["vis_nodrop"],
-            tokenizer_dir=data["vocab"], device="cuda", do_inference=False,
-            e2e_weights_path=None, attn_impl="pallas", train_batch_size=CLI_TRAIN_BATCH,
-            vtm_negative_blocks=1, num_train_epochs=1, learning_rate=CLI_TRAIN_LR,
-            save_steps_ratio=0.5, num_valid=2, min_valid_steps=1, log_interval=1,
-            frm_sampling_strategy="rand", n_workers=0, inference_batch_size=EVAL_TXT_BSZ,
-            eval_video_batch_size=EVAL_VID_BSZ, inference_txt_db=None, inference_img_db=None,
-            train_datasets=[{"name": "synthetic", "txt": data["ret_train"],
-                             "img": data["ret_train_videos"]}],
-            val_datasets=[{"name": "synthetic", "txt": data["ret_ann"],
-                           "img": data["ret_videos"]}])
-        out = str(root / "out" / "kernels")
+    data = _write_train_data(root, EVAL_WORDS, _write_eval_data(root, EVAL_WORDS))
+    ret_cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
+    ret_cfg.update(
+        model_config=data["bert_nodrop"], visual_model_cfg=data["vis_nodrop"],
+        tokenizer_dir=data["vocab"], device="cuda", do_inference=False,
+        e2e_weights_path=None, attn_impl="pallas", train_batch_size=CLI_TRAIN_BATCH,
+        vtm_negative_blocks=1, num_train_epochs=1, learning_rate=CLI_TRAIN_LR,
+        save_steps_ratio=0.5, num_valid=2, min_valid_steps=1, log_interval=1,
+        frm_sampling_strategy="rand", n_workers=0, inference_batch_size=EVAL_TXT_BSZ,
+        eval_video_batch_size=EVAL_VID_BSZ, inference_txt_db=None, inference_img_db=None,
+        train_datasets=[{"name": "synthetic", "txt": data["ret_train"],
+                         "img": data["ret_train_videos"]}],
+        val_datasets=[{"name": "synthetic", "txt": data["ret_ann"],
+                       "img": data["ret_videos"]}])
+    out = str(root / "out" / "kernels")
 
-        # ---- (a) kernel run and plain run ----
-        want = _cli_train_launches(CLI_TRAIN_STEPS, 24, 3 * per_validate[0], 3 * per_validate[1])
-        negatives = []
-        kern = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=out), want,
-                          "retrieval (kernels)", negatives=negatives)
-        plain = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=None), zero,
-                           "retrieval (plain)", plain=True, negatives=negatives)
-        fail_if(len(negatives) != CLI_TRAIN_STEPS, f"{len(negatives)} hard-negative draws")
-        for k, v in kern["counts"].items():
+    # ---- (a) kernel run and plain run ----
+    want = _cli_train_launches(CLI_TRAIN_STEPS, 24, 3 * per_validate[0], 3 * per_validate[1])
+    negatives = []
+    kern = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=out), want,
+                      "retrieval (kernels)", negatives=negatives)
+    plain = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=None), zero,
+                       "retrieval (plain)", plain=True, negatives=negatives)
+    fail_if(len(negatives) != CLI_TRAIN_STEPS, f"{len(negatives)} hard-negative draws")
+    for k, v in kern["counts"].items():
+        total[k] += v
+    fail_if(kern["state"].step != CLI_TRAIN_STEPS or len(kern["metrics"]) != CLI_TRAIN_STEPS,
+            f"retrieval: {kern['state'].step} steps")
+    logged = _logged(out, "train_")
+    fail_if(len(logged) != 3 * CLI_TRAIN_STEPS or not all(np.isfinite(v) for *_, v in logged),
+            f"retrieval: logged losses {logged}")
+    vtc = [(m["vtc_loss"], p["vtc_loss"]) for m, p in zip(kern["metrics"], plain["metrics"])]
+    worst = max(abs(a - b) for a, b in vtc)
+    print("[cli-train] retrieval vtc_loss per step, kernels / plain: "
+          + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in vtc)
+          + f"; max |diff| {worst:.3e} (tol {CLI_VTC_TOL}); vtm_loss kernels "
+          + ", ".join(f"{m['vtm_loss']:.5f}" for m in kern["metrics"]), flush=True)
+    fail_if(worst > CLI_VTC_TOL, f"retrieval: vtc_loss kernel vs plain differs by {worst}")
+    kc, pc = kern["clock"], plain["clock"]
+    fail_if(len(kc.results) != 3 or len(pc.results) != 3, "retrieval: not 3 validates")
+    metrics = [run_video_retrieval.eval_retrieval(r, _gt_of(r)) for r in kc.results]
+    plain_metrics = [run_video_retrieval.eval_retrieval(r, _gt_of(r)) for r in pc.results]
+    for i, at in ((0, "step 4"), (2, "the end")):  # step 8's equals the end's
+        print(f"[cli-train] validate at {at}, kernel run vs plain run:", flush=True)
+        _retrieval_checks(dict(results=kc.results[i], metrics=metrics[i]),
+                          dict(results=pc.results[i], metrics=plain_metrics[i]), "k0",
+                          prob_tol=CLI_PROB_TOL, sim_tol=CLI_SIM_TOL)
+    for what, run in (("kernels", kern), ("plain", plain)):
+        print(_run_line(f"retrieval ({what}, prefetch_depth 2, n_workers 0)", run,
+                        CLI_TRAIN_BATCH, card), flush=True)
+        print(f"[cli-train] retrieval ({what}) validate s: "
+              + ", ".join(f"{t:.3f}" for t in _LoopClock.seconds(run["clock"].validates))
+              + "; R@1/5/10 t2v: " + ", ".join(
+                  "/".join(str(m["text2video"][f"r{k}"]) for k in (1, 5, 10))
+                  for m in (metrics if what == "kernels" else plain_metrics)), flush=True)
+    print(f"[cli-train] retrieval (kernels) launches {kern['counts']}", flush=True)
+    reference = dict(cfg=ret_cfg, per_validate=per_validate, metrics=kern["metrics"][:4],
+                     validate=kc.results[0])
+    size = (Path(out) / "restore" / f"{_slot_of(out, CLI_TRAIN_STEPS)}.pt").stat().st_size
+    sync_dir = root / "sync"
+    restorer = TrainingRestorer(str(sync_dir), save_steps=1, async_save=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restorer.save(kern["state"])
+    sync_s = time.perf_counter() - t0
+    print(f"[cli-train] resume save: async blocks the loop "
+          + " / ".join(f"{t:.3f}" for t in _LoopClock.seconds(kc.resume_s))
+          + f" s (the host snapshot), sync {sync_s:.3f} s; checkpoint {size / 1e9:.3f} GB "
+          f"(parameters, mu, nu in fp32); deploy save "
+          + ", ".join(f"{t:.3f}" for t in _LoopClock.seconds(kc.deploy_s)) + f" s [{card}]",
+          flush=True)
+    shutil.rmtree(sync_dir)
+    del kern["state"], plain["state"], restorer
+    torch.cuda.empty_cache()
+
+    # ---- (b) resume from step 4's slot, then inference on step 8 ----
+    slot8, slot4 = _slot_of(out, CLI_TRAIN_STEPS), _slot_of(out, CLI_TRAIN_STEPS // 2)
+    (Path(out) / "restore" / f"{slot8}.done").unlink()
+    (Path(out) / "restore" / f"{slot8}.pt").unlink()
+    saved4 = torch.load(Path(out) / "restore" / f"{slot4}.pt", map_location="cpu",
+                        weights_only=True)
+    want = _cli_train_launches(CLI_TRAIN_STEPS // 2, 24, 2 * per_validate[0],
+                               2 * per_validate[1])
+    res = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=out), want,
+                     "retrieval resumed")
+    for k, v in res["counts"].items():
+        total[k] += v
+    snap, devices = res["clock"].restored
+    bad = _same_snapshot(snap, saved4)
+    fail_if(bool(bad) or devices != {"cuda"},
+            f"resume: restored state differs from slot {slot4} at {bad[:5]} ({devices})")
+    fail_if(res["state"].step != CLI_TRAIN_STEPS or len(res["metrics"]) != CLI_TRAIN_STEPS // 2,
+            f"resume: ended at {res['state'].step} after {len(res['metrics'])} steps")
+    fail_if(not (Path(out) / "ckpt" / f"model_step_{CLI_TRAIN_STEPS}.pt").exists(),
+            "resume: no model_step_8.pt")
+    final = run_video_retrieval.eval_retrieval(res["clock"].results[-1],
+                                               _gt_of(res["clock"].results[-1]))
+    print(f"[cli-train] resumed from slot {slot4} (step {snap['step']}, count "
+          f"{snap['count']}): {len(saved4['params'])} parameters, {len(saved4['mu'])} mu and "
+          f"nu bit-equal on the card; ran steps {snap['step'] + 1}-{res['state'].step}; final "
+          f"validate {json.dumps(final)}", flush=True)
+    print(_run_line("retrieval resumed", res, CLI_TRAIN_BATCH, card), flush=True)
+    del res["state"]
+    torch.cuda.empty_cache()
+
+    _reset_counts()
+    inferred = run_video_retrieval.main(["--config", str(REPO / "configs" / "msrvtt_ret.json"),
+                                         "--output_dir", out, "--do_inference", "1",
+                                         "--inference_model_step", str(CLI_TRAIN_STEPS),
+                                         "--device", "cuda"])
+    icounts = _counts()
+    fail_if(icounts != _cli_train_launches(0, 0, *per_validate),
+            f"inference: launch counts {icounts}")
+    fail_if(inferred != final, f"inference_model_step 8 gives {inferred}, the final "
+            f"validate {final}")
+    print(f"[cli-train] --do_inference 1 --inference_model_step {CLI_TRAIN_STEPS}: "
+          f"R@k equal to the resumed run's final validate", flush=True)
+    reference["ckpt"] = shutil.move(str(Path(out) / "ckpt" / "model_step_4.pt"),
+                                    str(root / "reference_model_step_4.pt"))
+    shutil.rmtree(root / "out")
+
+    # ---- (c) the loop with and without the prefetcher ----
+    for depth in (2, 0):
+        cfg = dict(ret_cfg, output_dir=None, n_workers=4, prefetch_depth=depth,
+                   num_valid=1, min_valid_steps=100)
+        run = _train_run(run_video_retrieval, cfg,
+                         _cli_train_launches(CLI_TRAIN_STEPS, 24, *per_validate),
+                         f"retrieval prefetch_depth {depth}")
+        for k, v in run["counts"].items():
             total[k] += v
-        fail_if(kern["state"].step != CLI_TRAIN_STEPS or len(kern["metrics"]) != CLI_TRAIN_STEPS,
-                f"retrieval: {kern['state'].step} steps")
-        logged = _logged(out, "train_")
-        fail_if(len(logged) != 3 * CLI_TRAIN_STEPS or not all(np.isfinite(v) for *_, v in logged),
-                f"retrieval: logged losses {logged}")
-        vtc = [(m["vtc_loss"], p["vtc_loss"]) for m, p in zip(kern["metrics"], plain["metrics"])]
-        worst = max(abs(a - b) for a, b in vtc)
-        print("[cli-train] retrieval vtc_loss per step, kernels / plain: "
-              + ", ".join(f"{a:.5f}/{b:.5f}" for a, b in vtc)
-              + f"; max |diff| {worst:.3e} (tol {CLI_VTC_TOL}); vtm_loss kernels "
-              + ", ".join(f"{m['vtm_loss']:.5f}" for m in kern["metrics"]), flush=True)
-        fail_if(worst > CLI_VTC_TOL, f"retrieval: vtc_loss kernel vs plain differs by {worst}")
-        kc, pc = kern["clock"], plain["clock"]
-        fail_if(len(kc.results) != 3 or len(pc.results) != 3, "retrieval: not 3 validates")
-        metrics = [run_video_retrieval.eval_retrieval(r, _gt_of(r)) for r in kc.results]
-        plain_metrics = [run_video_retrieval.eval_retrieval(r, _gt_of(r)) for r in pc.results]
-        for i, at in ((0, "step 4"), (2, "the end")):  # step 8's equals the end's
-            print(f"[cli-train] validate at {at}, kernel run vs plain run:", flush=True)
-            _retrieval_checks(dict(results=kc.results[i], metrics=metrics[i]),
-                              dict(results=pc.results[i], metrics=plain_metrics[i]), "k0",
-                              prob_tol=CLI_PROB_TOL, sim_tol=CLI_SIM_TOL)
-        for what, run in (("kernels", kern), ("plain", plain)):
-            print(_run_line(f"retrieval ({what}, prefetch_depth 2, n_workers 0)", run,
-                            CLI_TRAIN_BATCH, card), flush=True)
-            print(f"[cli-train] retrieval ({what}) validate s: "
-                  + ", ".join(f"{t:.3f}" for t in _LoopClock.seconds(run["clock"].validates))
-                  + "; R@1/5/10 t2v: " + ", ".join(
-                      "/".join(str(m["text2video"][f"r{k}"]) for k in (1, 5, 10))
-                      for m in (metrics if what == "kernels" else plain_metrics)), flush=True)
-        print(f"[cli-train] retrieval (kernels) launches {kern['counts']}", flush=True)
-        size = (Path(out) / "restore" / f"{_slot_of(out, CLI_TRAIN_STEPS)}.pt").stat().st_size
-        sync_dir = root / "sync"
-        restorer = TrainingRestorer(str(sync_dir), save_steps=1, async_save=False)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        restorer.save(kern["state"])
-        sync_s = time.perf_counter() - t0
-        print(f"[cli-train] resume save: async blocks the loop "
-              + " / ".join(f"{t:.3f}" for t in _LoopClock.seconds(kc.resume_s))
-              + f" s (the host snapshot), sync {sync_s:.3f} s; checkpoint {size / 1e9:.3f} GB "
-              f"(parameters, mu, nu in fp32); deploy save "
-              + ", ".join(f"{t:.3f}" for t in _LoopClock.seconds(kc.deploy_s)) + f" s [{card}]",
-              flush=True)
-        shutil.rmtree(sync_dir)
-        del kern["state"], plain["state"], restorer
+        print(_run_line(f"retrieval (kernels, prefetch_depth {depth}, n_workers 4)", run,
+                        CLI_TRAIN_BATCH, card), flush=True)
+        del run["state"]
         torch.cuda.empty_cache()
 
-        # ---- (b) resume from step 4's slot, then inference on step 8 ----
-        slot8, slot4 = _slot_of(out, CLI_TRAIN_STEPS), _slot_of(out, CLI_TRAIN_STEPS // 2)
-        (Path(out) / "restore" / f"{slot8}.done").unlink()
-        (Path(out) / "restore" / f"{slot8}.pt").unlink()
-        saved4 = torch.load(Path(out) / "restore" / f"{slot4}.pt", map_location="cpu",
-                            weights_only=True)
-        want = _cli_train_launches(CLI_TRAIN_STEPS // 2, 24, 2 * per_validate[0],
-                                   2 * per_validate[1])
-        res = _train_run(run_video_retrieval, dict(ret_cfg, output_dir=out), want,
-                         "retrieval resumed")
-        for k, v in res["counts"].items():
-            total[k] += v
-        snap, devices = res["clock"].restored
-        bad = _same_snapshot(snap, saved4)
-        fail_if(bool(bad) or devices != {"cuda"},
-                f"resume: restored state differs from slot {slot4} at {bad[:5]} ({devices})")
-        fail_if(res["state"].step != CLI_TRAIN_STEPS or len(res["metrics"]) != CLI_TRAIN_STEPS // 2,
-                f"resume: ended at {res['state'].step} after {len(res['metrics'])} steps")
-        fail_if(not (Path(out) / "ckpt" / f"model_step_{CLI_TRAIN_STEPS}.pt").exists(),
-                "resume: no model_step_8.pt")
-        final = run_video_retrieval.eval_retrieval(res["clock"].results[-1],
-                                                   _gt_of(res["clock"].results[-1]))
-        print(f"[cli-train] resumed from slot {slot4} (step {snap['step']}, count "
-              f"{snap['count']}): {len(saved4['params'])} parameters, {len(saved4['mu'])} mu and "
-              f"nu bit-equal on the card; ran steps {snap['step'] + 1}-{res['state'].step}; final "
-              f"validate {json.dumps(final)}", flush=True)
-        print(_run_line("retrieval resumed", res, CLI_TRAIN_BATCH, card), flush=True)
-        del res["state"]
-        torch.cuda.empty_cache()
-
-        _reset_counts()
-        inferred = run_video_retrieval.main(["--config", str(REPO / "configs" / "msrvtt_ret.json"),
-                                             "--output_dir", out, "--do_inference", "1",
-                                             "--inference_model_step", str(CLI_TRAIN_STEPS),
-                                             "--device", "cuda"])
-        icounts = _counts()
-        fail_if(icounts != _cli_train_launches(0, 0, *per_validate),
-                f"inference: launch counts {icounts}")
-        fail_if(inferred != final, f"inference_model_step 8 gives {inferred}, the final "
-                f"validate {final}")
-        print(f"[cli-train] --do_inference 1 --inference_model_step {CLI_TRAIN_STEPS}: "
-              f"R@k equal to the resumed run's final validate", flush=True)
-        shutil.rmtree(root / "out")
-
-        # ---- (c) the loop with and without the prefetcher ----
-        for depth in (2, 0):
-            cfg = dict(ret_cfg, output_dir=None, n_workers=4, prefetch_depth=depth,
-                       num_valid=1, min_valid_steps=100)
-            run = _train_run(run_video_retrieval, cfg,
-                             _cli_train_launches(CLI_TRAIN_STEPS, 24, *per_validate),
-                             f"retrieval prefetch_depth {depth}")
-            for k, v in run["counts"].items():
-                total[k] += v
-            print(_run_line(f"retrieval (kernels, prefetch_depth {depth}, n_workers 4)", run,
-                            CLI_TRAIN_BATCH, card), flush=True)
-            del run["state"]
-            torch.cuda.empty_cache()
-
-        # ---- (d) MSRVTT-QA finetuning ----
-        qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
-        qa_cfg.update(
-            model_config=str(REPO / "configs" / "base_model.json"),
-            visual_model_cfg=str(REPO / "configs" / Path(qa_cfg["visual_model_cfg"]).name),
-            tokenizer_dir=data["vocab"], device="cuda", do_inference=False,
-            e2e_weights_path=None, attn_impl="pallas", train_batch_size=CLI_QA_BATCH,
-            num_train_epochs=1, learning_rate=CLI_TRAIN_LR, save_steps_ratio=0.5,
-            log_interval=1, frm_sampling_strategy="rand", n_workers=4,
-            inference_batch_size=QA_EVAL_BSZ, ans2label_path=data["ans2label"],
-            train_datasets=[{"name": "synthetic", "txt": data["qa_train"],
-                             "img": data["qa_videos"]}],
-            val_datasets=[{"name": "synthetic", "txt": data["qa_ann"], "img": data["qa_videos"]}],
-            output_dir=str(root / "out_qa"))
-        remat = json.loads(Path(qa_cfg["visual_model_cfg"]).read_text())["gradient_checkpointing"]
-        steps = CLI_QA_TRAIN_ROWS // CLI_QA_BATCH
-        n_qa = -(-QA_EVAL_QUESTIONS // QA_EVAL_BSZ)
-        # 12 spatial, again in the recompute of the checkpointed video tower, + 6 + 6
-        qa = _train_run(run_video_qa, qa_cfg, _cli_train_launches(
-            steps, 12 * (1 + remat) + 12, n_qa, 2 * n_qa), "qa")
-        for k, v in qa["counts"].items():
-            total[k] += v
-        fail_if(qa["state"].step != steps or qa["state"].opt_state.count != steps // 2,
-                f"QA: {qa['state'].step} steps, {qa['state'].opt_state.count} updates")
-        print(f"[cli-train] QA (T={qa_cfg['num_frm']}, B={CLI_QA_BATCH}, video tower "
-              f"checkpointed: {remat}, remat_policy {qa_cfg.get('remat_policy', 'dots_ln')}, "
-              f"accumulation {qa_cfg['gradient_accumulation_steps']}): losses "
-              + ", ".join(f"{m['loss']:.5f}" for m in qa["metrics"])
-              + f"; validate s {_LoopClock.seconds(qa['clock'].validates)}; launches "
-              f"{qa['counts']}", flush=True)
-        print(_run_line("QA (kernels)", qa, CLI_QA_BATCH, card), flush=True)
-        del qa["state"]
-        torch.cuda.empty_cache()
-    return total
+    # ---- (d) MSRVTT-QA finetuning ----
+    qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
+    qa_cfg.update(
+        model_config=str(REPO / "configs" / "base_model.json"),
+        visual_model_cfg=str(REPO / "configs" / Path(qa_cfg["visual_model_cfg"]).name),
+        tokenizer_dir=data["vocab"], device="cuda", do_inference=False,
+        e2e_weights_path=None, attn_impl="pallas", train_batch_size=CLI_QA_BATCH,
+        num_train_epochs=1, learning_rate=CLI_TRAIN_LR, save_steps_ratio=0.5,
+        log_interval=1, frm_sampling_strategy="rand", n_workers=4,
+        inference_batch_size=QA_EVAL_BSZ, ans2label_path=data["ans2label"],
+        train_datasets=[{"name": "synthetic", "txt": data["qa_train"],
+                         "img": data["qa_videos"]}],
+        val_datasets=[{"name": "synthetic", "txt": data["qa_ann"], "img": data["qa_videos"]}],
+        output_dir=str(root / "out_qa"))
+    remat = json.loads(Path(qa_cfg["visual_model_cfg"]).read_text())["gradient_checkpointing"]
+    steps = CLI_QA_TRAIN_ROWS // CLI_QA_BATCH
+    n_qa = -(-QA_EVAL_QUESTIONS // QA_EVAL_BSZ)
+    # 12 spatial, again in the recompute of the checkpointed video tower, + 6 + 6
+    qa = _train_run(run_video_qa, qa_cfg, _cli_train_launches(
+        steps, 12 * (1 + remat) + 12, n_qa, 2 * n_qa), "qa")
+    for k, v in qa["counts"].items():
+        total[k] += v
+    fail_if(qa["state"].step != steps or qa["state"].opt_state.count != steps // 2,
+            f"QA: {qa['state'].step} steps, {qa['state'].opt_state.count} updates")
+    print(f"[cli-train] QA (T={qa_cfg['num_frm']}, B={CLI_QA_BATCH}, video tower "
+          f"checkpointed: {remat}, remat_policy {qa_cfg.get('remat_policy', 'dots_ln')}, "
+          f"accumulation {qa_cfg['gradient_accumulation_steps']}): losses "
+          + ", ".join(f"{m['loss']:.5f}" for m in qa["metrics"])
+          + f"; validate s {_LoopClock.seconds(qa['clock'].validates)}; launches "
+          f"{qa['counts']}", flush=True)
+    print(_run_line("QA (kernels)", qa, CLI_QA_BATCH, card), flush=True)
+    del qa["state"]
+    torch.cuda.empty_cache()
+    return total, reference
 
 
 # ---- phase 12: pretraining and the prompter through their CLIs ----
@@ -3158,10 +3188,10 @@ class _PretrainProbe:
             self.labels.append((soft.float().cpu(), ignore.cpu()))
             return soft, ignore
 
-        def mpm_kept(logits, soft, ignore):
+        def mpm_kept(logits, soft, ignore, group=None):
             with torch.no_grad():
-                self.mpm_all.append(mpm(logits, soft, torch.zeros_like(ignore)))
-            return mpm(logits, soft, ignore)
+                self.mpm_all.append(mpm(logits, soft, torch.zeros_like(ignore), group=group))
+            return mpm(logits, soft, ignore, group=group)
 
         for (m, n, _), fn in zip(self._saved, (timed_banks, built, labelling, mpm_kept)):
             setattr(m, n, fn)
@@ -3687,7 +3717,7 @@ def _remat_policies(card: str, launches: dict) -> None:
     gradients, B13's launches, peak bytes."""
     from alpro_tpu_torch.models.alpro import build_qa_model
     from alpro_tpu_torch.models.remat import REMAT_POLICIES
-    from alpro_tpu_torch.train.step import qa_loss, step_generator
+    from alpro_tpu_torch.train.step import StepContext, qa_loss, step_generator
 
     qa_cfg = json.loads((REPO / "configs" / "msrvtt_qa.json").read_text())
     from alpro_tpu_torch.models.alpro import init_random_
@@ -3721,7 +3751,8 @@ def _remat_policies(card: str, launches: dict) -> None:
                                       remat_policy=policy or "nothing")
         model.train()
         model.zero_grad(set_to_none=True)
-        loss, _ = qa_loss(model, batch, step_generator(SEED, 0, "cuda"))
+        g = step_generator(SEED, 0, "cuda")
+        loss, _ = qa_loss(model, batch, StepContext(g, g))
         loss.backward()
         model.eval()
         return loss.item(), {n: p.grad.float().clone() for n, p in model.named_parameters()
@@ -3769,12 +3800,382 @@ def phase_variants(card: str, res: dict) -> dict:
     return launches
 
 
+# ---- phase 14: torch.distributed at one process under NCCL ----
+# the wrapped step (train/step.py::shard_step) against the unwrapped one:
+# DIST_STEPS bit-equal steps each in turns, the wall time of all but the
+# first DIST_WARM of them, then DIST_PROFILED more of each under the profiler
+DIST_STEPS, DIST_WARM, DIST_PROFILED, DIST_TOPK = 10, 2, 1, 8
+# phase 11's retrieval run (8 steps) again, cut after its step 4
+DIST_CLI_STEPS = 4
+# the sequence-parallel temporal attention at the retrieval tower's shape
+SP_SHAPE, SP_HEADS, SP_TOL = (8 * PATCHES, FRAMES, 768), 12, 1e-5
+# gloo with both ranks on cuda:0, B 4 each, fp32 compute and dropout 0,
+# against one process on B 8, at ALPRO-base width cut to 2 video blocks and
+# 4 BERT layers (2 text, 2 fusion); each process on 2 host threads
+GLOO_LOSS_TOL, GLOO_DEPTHS, GLOO_THREADS = 1e-5, (2, 4, 2), 2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _step_device_ms(step, state, batch, n: int):
+    """``n`` train steps under ``torch.profiler``: (device ms a step, {kernel
+    or copy name: (device ms, launches) a step})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step(state, batch, SEED)
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.time_range.elapsed_us() > 0:
+            name = kernel_name(e.name)
+            ms, k = by_name.get(name, (0.0, 0))
+            by_name[name] = (ms + e.time_range.elapsed_us() / 1e3 / n, k + 1)
+    fail_if(not by_name, "the profiler recorded no device kernel")
+    per_step = {k: (ms, c // n) for k, (ms, c) in by_name.items()}
+    return sum(ms for ms, _ in per_step.values()), per_step
+
+
+def _dist_steps(card: str, into: dict) -> None:
+    """(a) The wrapped retrieval step at W = 1 against the unwrapped one from
+    the same state and seed (ALPRO-base, bf16 compute, B 8, attn_impl
+    'pallas', dropout and drop-path 0.1), DIST_STEPS steps of each in turns:
+    the metrics and every parameter bit-equal after each step, B13 launched
+    24 times a step by both. The
+    overhead: the wall time of the steps after the first DIST_WARM (p50 of
+    each, and the p50 and range of the per-step differences), the device
+    time a step of DIST_PROFILED more steps of each under the profiler with
+    the kernels and copies that differ most, and the flat all-reduce of the
+    gradients alone (wall and CUDA-event time)."""
+    from alpro_tpu_torch.core.mesh import make_mesh
+    from alpro_tpu_torch.parallel.collectives import flat_all_reduce_
+    from alpro_tpu_torch.train.step import shard_step
+
+    t0 = time.perf_counter()
+    mesh = make_mesh([1])
+    runs = []
+    for wrapped in (False, True):
+        model, _, state, step, batch = _retrieval_train_setup(SEED + 40)
+        runs.append(dict(model=model, state=state, batch=batch, ms=[], metrics=[],
+                         step=shard_step(step, mesh) if wrapped else step))
+    want = _launches(masked=24)
+
+    def same_parameters(when: str) -> None:
+        named = [dict(r["model"].named_parameters()) for r in runs]
+        bad = [n for n, p in named[0].items() if not torch.equal(p, named[1][n])]
+        fail_if(bool(bad), f"{when}: {len(bad)} parameters differ, first {bad[:3]}")
+
+    for i in range(DIST_STEPS):
+        for wrapped, run in enumerate(runs):
+            what = "wrapped" if wrapped else "unwrapped"
+            values, ms, _, got = _timed_step(run["step"], run["state"], run["batch"], want, what)
+            run["ms"].append(ms)
+            run["metrics"].append(values)
+            if wrapped:
+                for k, v in got.items():
+                    into[k] = into.get(k, 0) + v
+        fail_if(runs[0]["metrics"][-1] != runs[1]["metrics"][-1],
+                f"step {i + 1}: wrapped {runs[1]['metrics'][-1]} != {runs[0]['metrics'][-1]}")
+        same_parameters(f"step {i + 1}")
+    t_steps = time.perf_counter()
+    device = [_step_device_ms(r["step"], r["state"], r["batch"], DIST_PROFILED) for r in runs]
+    same_parameters(f"after {DIST_STEPS} steps and {DIST_PROFILED} profiled ones")
+    t_prof = time.perf_counter()
+    grads = [p.detach().clone() for p in runs[1]["model"].parameters()]
+    ar_ms, ar_dev = [], []
+    for _ in range(7):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        flat_all_reduce_(grads, mesh.dp.group)
+        end.record()
+        torch.cuda.synchronize()
+        ar_ms.append((time.perf_counter() - t1) * 1e3)
+        ar_dev.append(start.elapsed_time(end))
+    n_values = sum(g.numel() for g in grads)
+    un, wr = (r["ms"][DIST_WARM:] for r in runs)
+    diffs = [w - u for u, w in zip(un, wr)]
+    (dev_un, by_un), (dev_wr, by_wr) = device
+    moved = sorted(((by_wr.get(k, (0.0, 0))[0] - by_un.get(k, (0.0, 0))[0], k)
+                    for k in set(by_un) | set(by_wr)), reverse=True)
+    print(f"[dist] wrapped step (NCCL, W=1) vs unwrapped, {DIST_STEPS} steps in turns: losses "
+          + ", ".join(f"{m['loss']:.6f}" for m in runs[1]["metrics"])
+          + f" bit-equal, every parameter bit-equal after each of the {DIST_STEPS} and after "
+          f"{DIST_PROFILED} profiled, B13 24 launches a step on both [{card}]",
+          flush=True)
+    print(f"[dist] step wall ms over steps {DIST_WARM + 1}-{DIST_STEPS}: unwrapped p50 "
+          f"{statistics.median(un):.2f} ({min(un):.2f}-{max(un):.2f}), wrapped p50 "
+          f"{statistics.median(wr):.2f} ({min(wr):.2f}-{max(wr):.2f}); wrapped - unwrapped per "
+          f"step p50 {statistics.median(diffs):+.2f} ms (range {min(diffs):+.2f} to "
+          f"{max(diffs):+.2f}); device ms a step ({DIST_PROFILED} profiled steps each): "
+          f"unwrapped {dev_un:.3f}, wrapped {dev_wr:.3f} ({dev_wr - dev_un:+.3f}); most added: "
+          + "; ".join(f"{k[:48]} {d:+.3f} ms ({by_wr.get(k, (0, 0))[1]}x)" for d, k in moved[:3])
+          + f"; the flat all-reduce of the {n_values} fp32 gradient values alone p50 "
+          f"{statistics.median(ar_ms[2:]):.3f} ms wall, {statistics.median(ar_dev[2:]):.3f} ms "
+          f"between CUDA events [{card}]", flush=True)
+    print(f"[dist] (a) took {time.perf_counter() - t0:.1f} s (to the profiled steps "
+          f"{t_steps - t0:.1f} s, profiled {t_prof - t_steps:.1f} s)", flush=True)
+    del runs, grads
+    torch.cuda.empty_cache()
+
+
+def _dist_index(card: str, into: dict) -> None:
+    """(b) ``ShardedRetrievalIndex`` at W = 1 against ``RetrievalIndex`` on
+    phase 4's model and clips: top-8 ids equal and scores bit-equal for
+    ``query`` and ``query_batch``, K1-K5 launched alike; query p50 of each."""
+    from alpro_tpu_torch.core.mesh import make_mesh
+    from alpro_tpu_torch.models.alpro import build_retrieval_model
+    from alpro_tpu_torch.serving.retrieval import RetrievalIndex
+    from alpro_tpu_torch.serving.sharded import ShardedRetrievalIndex
+
+    t0 = time.perf_counter()
+    model = _build_model(build_retrieval_model, "timesformer_divst_8x32_224_k600.json", FRAMES)
+    tok = HashTokenizer(model.cfg.bert.vocab_size)
+    clips = np.random.RandomState(SEED).randint(
+        0, 256, (N_CLIPS, FRAMES, 224, 224, 3), dtype=np.uint8)
+    ids = [f"vid{i:02d}" for i in range(N_CLIPS)]
+    _warm(model, (model.visual_encoder.model.cfg, model.text_encoder.bert.cfg), tok, clips)
+    out = {}
+    for name, make in (("plain index", lambda: RetrievalIndex(model, tok, "cuda")),
+                       ("sharded", lambda: ShardedRetrievalIndex(model, tok, "cuda",
+                                                                 make_mesh([1])))):
+        index = make()
+        _reset_counts()
+        _fill(index, clips, ids)
+        results = [index.query(t, topk=DIST_TOPK) for t in TEXTS]
+        results.append(index.query_batch(TEXTS, topk=DIST_TOPK))
+        out[name] = dict(index=index, results=results, counts=_counts())
+    a, b = out["plain index"], out["sharded"]
+    fail_if(b["results"] != a["results"], "sharded index: results differ from RetrievalIndex")
+    fail_if(b["counts"] != a["counts"], f"sharded index: launches {b['counts']} != {a['counts']}")
+    for k, v in b["counts"].items():
+        into[k] = into.get(k, 0) + v
+    _query_ms(a["index"], rounds=1)
+    ms = {name: [] for name in out}
+    for _ in range(3):  # in turns
+        for name in out:
+            ms[name] += _query_ms(out[name]["index"], rounds=1)
+    print(f"[dist] ShardedRetrievalIndex (NCCL, W=1) vs RetrievalIndex, {N_CLIPS} clips, top-"
+          f"{DIST_TOPK}: ids equal, P(match) and VTC sims bit-equal over {len(TEXTS)} queries and "
+          f"a query_batch; K1-K5 launches equal {b['counts']}; query p50 sharded "
+          f"{statistics.median(ms['sharded']):.2f} ms, RetrievalIndex "
+          f"{statistics.median(ms['plain index']):.2f} ms over {len(ms['sharded'])} each "
+          f"[{card}]; (b) took {time.perf_counter() - t0:.1f} s", flush=True)
+    del out, model
+    torch.cuda.empty_cache()
+
+
+def _dist_cli(card: str, reference: dict, root: Path, into: dict) -> None:
+    """(c) Phase 11's retrieval finetuning run (``reference``: its config
+    and its kernel run's first DIST_CLI_STEPS steps) again with
+    ``--mesh_shape 1`` under the group, cut after step DIST_CLI_STEPS: the
+    loop stops there, the schedule, resume saves and validations being
+    those of the whole run (phase 11 validates every 4 of its 8 steps,
+    which over 4 steps is ``num_valid`` 1). Each step's metrics, the
+    validations at step 4 and at the end (both of step 4's state) and
+    ``model_step_4.pt`` bit-equal to phase 11's at step 4; the launches of 4
+    steps and 2 validations."""
+    from alpro_tpu_torch.cli import common, run_video_retrieval
+    from alpro_tpu_torch.core.config import Config
+
+    t0 = time.perf_counter()
+    out = str(root / "mesh1")
+    n_vb, n_tc = reference["per_validate"]
+    want = _cli_train_launches(DIST_CLI_STEPS, 24, 2 * n_vb, 2 * n_tc)
+    loop = common.run_train_loop
+
+    def cut(cfg, step_fn, state, train_iter, num_train_steps, *args, **kwargs):
+        return loop(Config(cfg, num_valid=1), step_fn, state, train_iter, DIST_CLI_STEPS,
+                    *args, **kwargs)
+
+    common.run_train_loop = cut
+    try:
+        run = _train_run(run_video_retrieval, dict(reference["cfg"], output_dir=out), want,
+                         "retrieval --mesh_shape 1", argv=("--mesh_shape", "1"))
+    finally:
+        common.run_train_loop = loop
+    fail_if(run["metrics"] != reference["metrics"],
+            f"--mesh_shape 1: step metrics {run['metrics']} != {reference['metrics']}")
+    fail_if(run["clock"].results != [reference["validate"]] * 2,
+            "--mesh_shape 1: a validation differs from phase 11's at step 4")
+    got, want_ckpt = (torch.load(p, map_location="cpu", weights_only=True) for p in
+                      (Path(out) / "ckpt" / f"model_step_{DIST_CLI_STEPS}.pt", reference["ckpt"]))
+    bad = [k for k in want_ckpt if not torch.equal(got[k], want_ckpt[k])]
+    fail_if(bool(bad) or got.keys() != want_ckpt.keys(),
+            f"--mesh_shape 1: checkpoint differs {bad[:3]}")
+    for k, v in run["counts"].items():
+        into[k] = into.get(k, 0) + v
+    print(f"[dist] retrieval CLI --mesh_shape 1 under NCCL, phase 11's run cut after step "
+          f"{DIST_CLI_STEPS}, vs phase 11's kernel run: {DIST_CLI_STEPS} steps' metrics, the "
+          f"validations at step 4 and the end and model_step_4.pt ({len(want_ckpt)} tensors) "
+          f"bit-equal; launches {run['counts']}", flush=True)
+    print(_run_line("retrieval --mesh_shape 1 (NCCL, W=1)", run, CLI_TRAIN_BATCH, card),
+          flush=True)
+    print(f"[dist] (c) took {time.perf_counter() - t0:.1f} s", flush=True)
+    del run["state"]
+    torch.cuda.empty_cache()
+
+
+def _dist_seq_attention(card: str) -> None:
+    """(d) ``sharded_temporal_attention`` over the group at (8·196, 8, 768),
+    12 heads, fp32, against the unsplit plain attention."""
+    import torch.distributed as dist
+
+    from alpro_tpu_torch.ops.attention import multi_head_attention
+    from alpro_tpu_torch.parallel.seq_parallel import sharded_temporal_attention
+
+    F = torch.nn.functional
+    BN, T, D = SP_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(BN, T, D, device="cuda", generator=g)
+    qkv_w = torch.randn(3 * D, D, device="cuda", generator=g) * D ** -0.5
+    proj_w = torch.randn(D, D, device="cuda", generator=g) * D ** -0.5
+    qkv_b = torch.randn(3 * D, device="cuda", generator=g) * 0.02
+    proj_b = torch.randn(D, device="cuda", generator=g) * 0.02
+    with torch.no_grad():
+        got = sharded_temporal_attention(x, qkv_w, qkv_b, proj_w, proj_b, SP_HEADS,
+                                         dist.group.WORLD)
+        q, k, v = (F.linear(x, qkv_w, qkv_b).reshape(BN, T, 3, SP_HEADS, D // SP_HEADS)[:, :, i]
+                   .transpose(1, 2) for i in range(3))
+        ref = F.linear(multi_head_attention(q, k, v, impl="xla").transpose(1, 2)
+                       .reshape(BN, T, D), proj_w, proj_b)
+    err = float((got - ref).abs().max())
+    print(f"[dist] sharded_temporal_attention (NCCL, W=1) at {SP_SHAPE}, {SP_HEADS} heads, fp32: "
+          f"max_abs {err:.3e} against the unsplit attention (tol {SP_TOL}) [{card}]", flush=True)
+    fail_if(not torch.isfinite(got).all() or err > SP_TOL, f"sp attention off by {err}")
+
+
+def _gloo_setup():
+    """(e)'s model, state, step and B 8 batch: phase 6's retrieval setup in
+    fp32 compute with dropout and drop-path 0, cut to GLOO_DEPTHS."""
+    model, _, state, step, batch = _retrieval_train_setup(SEED + 50, dtype=torch.float32,
+                                                          depths=GLOO_DEPTHS)
+    _set_attn_impl(model, "pallas", hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                   drop_path_rate=0.0, drop_rate=0.0)
+    return model, state, step, batch
+
+
+def _gloo_reference() -> dict:
+    """(e)'s one-process step on B 8: its metrics."""
+    model, state, step, batch = _gloo_setup()
+    want = {k: float(v) for k, v in step(state, batch, SEED)[1].items()}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return want
+
+
+def _gloo_worker(argv) -> int:
+    """A rank of (e): the wrapped step on its 4 rows of the B 8 batch."""
+    import torch.distributed as dist
+
+    from alpro_tpu_torch.core.mesh import make_mesh, shard_batch
+    from alpro_tpu_torch.train.step import shard_step
+
+    rank, init, out = int(argv[0]), argv[1], argv[2]
+    torch.set_num_threads(GLOO_THREADS)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+    try:
+        _, state, step, batch = _gloo_setup()
+        mesh = make_mesh([2])
+        _, metrics = shard_step(step, mesh)(state, shard_batch(mesh, batch, "cuda"), SEED)
+        Path(out).write_text(json.dumps({k: float(v) for k, v in metrics.items()}))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _gloo_start(tmp: str) -> list:
+    """(e)'s two gloo processes, started: ``python3 chip_smoke.py
+    --gloo-worker RANK INIT OUT``, each logging to ``tmp``."""
+    init = f"file://{tmp}/rendezvous"
+    procs = []
+    for r in range(2):
+        with open(f"{tmp}/rank{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--gloo-worker", str(r), init,
+                 f"{tmp}/rank{r}.json"], cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _gloo_check(card: str, tmp: str, procs: list, want: dict) -> None:
+    """(e) Two gloo processes, both on cuda:0, the wrapped step on B 4 each
+    against one process's step on B 8 (``want``; fp32 compute, dropout 0):
+    the losses within GLOO_LOSS_TOL. A worker that fails fails the phase."""
+    for p in procs:
+        p.wait(timeout=300)
+    for r, p in enumerate(procs):
+        log = Path(f"{tmp}/rank{r}.log").read_text(errors="replace")
+        fail_if(p.returncode != 0, f"gloo rank {r} exited {p.returncode}:\n{log[-3000:]}")
+    got = [json.loads(Path(f"{tmp}/rank{r}.json").read_text()) for r in range(2)]
+    gap = max(abs(g[k] - want[k]) for g in got for k in want)
+    print(f"[dist] gloo with CUDA tensors, 2 processes on cuda:0 × B 4 vs 1 process × B 8 "
+          f"(fp32 compute, dropout 0, depths {GLOO_DEPTHS}): loss {got[0]['loss']:.7f} vs {want['loss']:.7f}, max "
+          f"|diff| over {sorted(want)} {gap:.3e} (tol {GLOO_LOSS_TOL}) [{card}]", flush=True)
+    fail_if(got[0] != got[1], f"gloo ranks disagree: {got}")
+    fail_if(gap > GLOO_LOSS_TOL, f"gloo 2 × B 4 differs from 1 × B 8 by {gap}")
+
+
+def phase_distributed(card: str, reference: dict) -> dict:
+    """Phase 14; ``reference``: phase 11's retrieval run as
+    ``phase_finetune_cli`` returns it. Returns the launches of the runs
+    under the process group (the wrapped steps, the sharded index, the
+    ``--mesh_shape 1`` CLI run). Order: (a) and (b), timed with the card
+    to themselves; then the gloo processes of (e) start and run beside (c)
+    and (d), and (e) is checked."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    fail_if(dist.is_initialized(), "a process group is open before phase 14 opens one")
+    port = _free_port()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1, rank=0)
+    print(f"[dist] NCCL process group on tcp://127.0.0.1:{port}, world size "
+          f"{dist.get_world_size()}, backend {dist.get_backend()}", flush=True)
+    with tempfile.TemporaryDirectory(prefix="alpro_dist_") as tmp:
+        procs = []
+        try:
+            try:
+                _dist_steps(card, launches)
+                _dist_index(card, launches)
+                procs = _gloo_start(tmp)
+                _dist_cli(card, reference, Path(tmp), launches)
+                _dist_seq_attention(card)
+                _gloo_check(card, tmp, procs, _gloo_reference())
+            finally:
+                dist.destroy_process_group()
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    print(f"[dist] phase 14 took {time.perf_counter() - t0:.1f} s; launches under the group "
+          f"{launches}", flush=True)
+    return launches
+
+
 def _gt_of(results) -> dict:
     """Ground truth of the planted retrieval set: text t{j} is video ret{j//2}."""
     return {r["txt_id"]: f"ret{int(r['txt_id'][1:]) // 2:03d}" for r in results}
 
 
 def main() -> int:
+    import tempfile
+
+    if sys.argv[1:2] == ["--gloo-worker"]:
+        return _gloo_worker(sys.argv[2:])
     card = phase_device()
     phase_build()
     res = phase_kernels(card)
@@ -3792,12 +4193,16 @@ def main() -> int:
     eval_launches = phase_eval(card, ret, qa)
     del ret, qa
     torch.cuda.empty_cache()
-    # the finetuning CLIs' own counts (B13, K2-K5), summed over their kernel runs
-    cli_train_launches = phase_finetune_cli(card)
-    # the pretraining CLIs' own counts (B13 and the teacher's and banks' K2-K5)
-    pretrain_launches = phase_pretrain_cli(card)
-    # int8 serving, the joint and space-only towers, the remat policies (K1-K5, B13)
-    variant_launches = phase_variants(card, res)
+    with tempfile.TemporaryDirectory(prefix="alpro_train_") as cli_root:
+        # the finetuning CLIs' own counts (B13, K2-K5), summed over their kernel runs
+        cli_train_launches, cli_reference = phase_finetune_cli(card, Path(cli_root))
+        # the pretraining CLIs' own counts (B13 and the teacher's and banks' K2-K5)
+        pretrain_launches = phase_pretrain_cli(card)
+        # int8 serving, the joint and space-only towers, the remat policies (K1-K5, B13)
+        variant_launches = phase_variants(card, res)
+        # torch.distributed at one process: the wrapped step, the sharded index, phase 11's
+        # run under the CLI's mesh
+        dist_launches = phase_distributed(card, cli_reference)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -3848,6 +4253,7 @@ def main() -> int:
             "cli_train_launches": cli_train_launches[name],
             "pretrain_launches": pretrain_launches[name],
             "variant_launches": variant_launches.get(name, 0),
+            "dist_launches": dist_launches.get(name, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -224,8 +224,10 @@ def test_cli_main_runs_on_the_cpu(retrieval_setup, tmp_path):
     assert json.loads((out / "results.json").read_text())["metrics"] == want
 
 
-def test_cli_refusals(retrieval_setup, tmp_path):
-    """``--mesh_shape`` names ROADMAP A12 (an argparse error); a
+def test_cli_refusals(retrieval_setup, tmp_path, capsys):
+    """``--mesh_shape``: N and DP 1 parse; DP SP with SP > 1 names ROADMAP
+    A19 (an argparse error, and ``setup_training``'s refusal of such a
+    config); a mesh wider than the processes fails on the world size; a
     ``remat_policy`` outside JAX's list is an argparse error and each of
     the others builds the model with it; a pretraining model builds; the
     default device is ``cuda``: with no card the CLI raises unless
@@ -238,6 +240,13 @@ def test_cli_refusals(retrieval_setup, tmp_path):
         with pytest.raises(SystemExit):
             mod.main(["--config", cfg["model_config"], "--device", "cpu", "--mesh_shape", "1",
                       "4"])
+        assert "ROADMAP A19" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        pcfg.get_video_retrieval_args(["--mesh_shape", "2", "2"])
+    assert "ROADMAP A19" in capsys.readouterr().err
+    for shape in (["1"], ["1", "1"], ["2"]):
+        assert pcfg.get_video_retrieval_args(["--mesh_shape", *shape])["mesh_shape"] == \
+            [int(n) for n in shape]
     with pytest.raises(SystemExit):
         pcfg.get_video_retrieval_args(["--remat_policy", "everything"])
     for name in ("dots", "dots_all", "dots_rng", "names", "dots_names", "dots_ln_names",
@@ -247,8 +256,10 @@ def test_cli_refusals(retrieval_setup, tmp_path):
                                             "retrieval")
         assert built.visual_encoder.model.cfg.remat_policy == name
         assert built.text_encoder.bert.cfg.remat_policy == name
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="holds 2 processes; the run has 1"):
         common.setup_training(Config(dict(cfg, mesh_shape=[2])), None, None, 1)
+    with pytest.raises(NotImplementedError, match="A19"):
+        common.setup_training(Config(dict(cfg, mesh_shape=[2, 2])), None, None, 1)
     pretrain = common.build_model_from_cfg(Config(dict(cfg, device="cpu", num_entities=7)),
                                            "pretrain")
     assert pretrain.cfg.with_mlm_head and pretrain.mpm_head[2].out_features == 7
@@ -276,7 +287,8 @@ def test_shipped_configs_parse_as_in_jax(name, parser):
     the JAX CLIs read from a config file only, which the port declares with
     the JAX CLIs' defaults; the keys it leaves out are JAX's flags that
     nothing reads or that are TPU-only, and such a flag on the command line
-    is refused, not ignored (``--mesh_shape`` with ROADMAP A12)."""
+    is refused, not ignored (``--mesh_shape`` with sp > 1 names ROADMAP
+    A19)."""
     import alpro_tpu.core.config as jcfg
     import alpro_tpu_torch.core.config as pcfg
 

@@ -40,6 +40,8 @@ that keeps o in fp32 misses by 10x the kernel's mean miss; past
 K2 and B8 launch on the current stream: under ``torch.cuda.stream(s)``
 (their result ready on s while the default stream still sleeps) and inside
 a CUDA-graph capture (a replay on new inputs).
+K1 and B13, called 20 000 times each on the same (64, 197) input, give the
+first call's output bit for bit.
 The limit predicates that ``auto`` reads agree with what the kernels take:
 S at the Python limit launches, one past it raises ``ValueError``, and
 where the C side reports a limit the two are equal.
@@ -81,6 +83,25 @@ def test_spatial_kernel_matches_twin(cuda, M, S, dtype):
     want = qkv_attn.spatial_attention_plain(x, H, hd ** -0.5)
     tol = 3e-2 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# the bf16 attention body K1 and B13 share (csrc/attn_wgmma.cuh) refills a
+# query buffer by TMA after reading it with ldmatrix; without the proxy fence
+# between the two, about one (64, 197) call in 1300 gave other outputs on an
+# H100: 20 000 calls each must all equal the first, bit for bit
+_REPEATS = 20000
+
+
+@pytest.mark.parametrize("kernel", ["spatial", "masked"])
+def test_attention_body_repeats_bit_equal(cuda, kernel):
+    H, M, S = 12, 64, 197
+    x = _randn((M, S, 3 * H * 64), 7, cuda, torch.bfloat16)
+    q, k, v = x[..., :768], x[..., 768:1536], x[..., 1536:]
+    call = {"spatial": lambda: qkv_attn.spatial_attention_qkv(x, H),
+            "masked": lambda: masked_attn.fused_attention_bshd(q, k, v, H)}[kernel]
+    first = call()
+    differ = sum(not torch.equal(call(), first) for _ in range(_REPEATS))
+    assert differ == 0, f"{differ} of {_REPEATS} calls differ from the first"
 
 
 # K1's and B6's envelope: S across the query-tile (64) and key-chunk edges

@@ -128,7 +128,7 @@ def test_int8_serving_kernels_match_int8_plain(cuda):
 def test_b13_launches_and_gradients_per_policy(cuda, policy, monkeypatch):
     from alpro_tpu_torch.models import remat
     from alpro_tpu_torch.models.alpro import build_qa_model
-    from alpro_tpu_torch.train.step import qa_loss, step_generator
+    from alpro_tpu_torch.train.step import StepContext, qa_loss, step_generator
 
     model = _narrow(cuda, build_qa_model, num_labels=7, dtype=torch.bfloat16,
                     attn_impl="pallas")
@@ -147,7 +147,8 @@ def test_b13_launches_and_gradients_per_policy(cuda, policy, monkeypatch):
         model.train()
         model.zero_grad(set_to_none=True)
         n = masked_attn.bshd_launches
-        loss, _ = qa_loss(model, batch, step_generator(0, 0, cuda))
+        g = step_generator(0, 0, cuda)
+        loss, _ = qa_loss(model, batch, StepContext(g, g))
         loss.backward()
         torch.cuda.synchronize()
         return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()
