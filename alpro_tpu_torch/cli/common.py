@@ -8,10 +8,12 @@ and the CPU is used only when ``device`` says ``cpu``. Several processes,
 one per GPU, run as one job when the environment names a rendezvous
 (``core/distributed.py``: ``torchrun``'s variables with
 ``ALPRO_DISTRIBUTED=1``, or ``ALPRO_COORDINATOR``), NCCL on CUDA and gloo on
-the CPU. The train step then runs over the ``dp`` axis of ``mesh_shape``
-(default: every process), each process loads its stripe of the data,
-rank 0's start state is broadcast, the processes agree on the resumed step,
-and rank 0 alone writes logs, metrics and checkpoints. The blocks are not
+the CPU. The train step then runs over the mesh of ``mesh_shape`` (default:
+every process on ``dp``; ``DP SP`` with SP > 1 also splits the video
+tower's temporal attention's frames over ``sp``), each process loads the
+stripe of its dp coordinate, rank 0's start state is broadcast, the
+processes agree on the resumed step, and rank 0 alone writes logs, metrics
+and checkpoints; ``validate`` runs unsplit. The blocks are not
 scanned, so unlike the JAX CLI the port turns no gradient checkpointing on
 by itself: a tower checkpoints its blocks when its model config sets
 ``gradient_checkpointing``, keeping what ``remat_policy`` keeps.
@@ -34,9 +36,14 @@ from alpro_tpu_torch.checkpoint.reference import load_reference_checkpoint, merg
 from alpro_tpu_torch.checkpoint.restore import TrainingRestorer, load_params, save_params
 from alpro_tpu_torch.checkpoint.visual_init import load_visual_weights
 from alpro_tpu_torch.core.config import Config, load_json_config
-from alpro_tpu_torch.core.distributed import is_primary, maybe_initialize, process_info
+from alpro_tpu_torch.core.distributed import (
+    is_primary,
+    maybe_initialize,
+    process_info,
+    sp_width,
+)
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, NoOp, RunningMeter, add_log_to_file
-from alpro_tpu_torch.core.mesh import make_mesh, replicate
+from alpro_tpu_torch.core.mesh import SEQ_AXIS, make_mesh, replicate
 from alpro_tpu_torch.core.misc import maybe_profile, save_training_meta, set_random_seed
 from alpro_tpu_torch.data.loader import DevicePrefetcher, stage_batch
 from alpro_tpu_torch.data.transforms import IMAGE_MEAN_CLIP, IMAGE_STD_CLIP
@@ -92,6 +99,9 @@ def setup_environment(cfg: Config) -> None:
             save_training_meta(cfg.output_dir, cfg)
     if distributed:
         LOGGER.info("distributed: process 0 of %d on %s", process_info()[1], device)
+    LOGGER.info("scan_blocks=%s and xla_compiler_options=%r steer XLA's compile alone: "
+                "accepted, with no effect on the port", cfg.get("scan_blocks", 1),
+                cfg.get("xla_compiler_options", ""))
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -113,8 +123,8 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
     ``torch.Generator`` seeded with ``seed``, computing in
     ``compute_dtype(cfg)``. ``attn_impl`` sets both towers' attention,
     ``remat_policy`` (default ``dots_ln``) what their checkpointed blocks
-    keep, and ``fused_patchify`` the video tower's patch embedding, as in
-    the JAX CLI."""
+    keep, ``fused_patchify`` the video tower's patch embedding and a
+    ``mesh_shape`` DP SP with SP > 1 its ``sp_axis``, as in the JAX CLI."""
     if task not in ("retrieval", "qa", "pretrain", "prompter"):
         raise ValueError(task)
     device = resolve_device(cfg)
@@ -140,6 +150,7 @@ def build_model_from_cfg(cfg: Config, task: str, seed: int = 0) -> AlproModel:
         pixel_mean=tuple(cfg.get("img_pixel_mean") or IMAGE_MEAN_CLIP),
         pixel_std=tuple(cfg.get("img_pixel_std") or IMAGE_STD_CLIP),
         fused_patchify=cfg.get("fused_patchify") or "auto",
+        sp_axis=SEQ_AXIS if sp_width(cfg.get("mesh_shape")) > 1 else None,
     )
     dtype = compute_dtype(cfg)
     with torch.device("meta"):
@@ -234,11 +245,16 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
     an ``output_dir``, the restorer
     saves every max(1, ``save_steps_ratio`` · num_train_steps) steps and the
     state resumes from its newest slot. ``make_step(model, optimizer)``
-    builds the step, which runs over the ``dp`` axis of ``mesh_shape``
+    builds the step, which runs over the mesh of ``mesh_shape``
     (``train/step.py::shard_step``; its product must be the number of
-    processes). Every process starts from rank 0's state and resumes from
-    the same step, or the run stops."""
+    processes): each call of the returned step runs under ``use_mesh`` of
+    that mesh, where a DP SP mesh with SP > 1 splits the frames. Every
+    process starts from rank 0's state and resumes from the same step (the
+    agreement over every process), or the run stops."""
     mesh = make_mesh(train_mesh_shape(cfg))
+    if mesh.sp_size > 1:
+        LOGGER.info("mesh (dp, sp) = %s: each train step splits the frames of the video "
+                    "tower's temporal attention over sp", tuple(mesh.shape))
     if cfg.get("optim", "adamw") != "adamw":
         raise ValueError(f"optim={cfg.optim!r}: only adamw exists")
     accum = int(cfg.get("gradient_accumulation_steps", 1))
@@ -285,16 +301,12 @@ def setup_training(cfg: Config, model: AlproModel, make_step: Callable, steps_pe
 
 
 def train_mesh_shape(cfg: Config) -> list:
-    """``mesh_shape`` as the train step's mesh: N (dp), or DP 1; default
-    every process on dp. DP SP with SP > 1 is ROADMAP A19."""
+    """``mesh_shape`` as the train step's mesh: N (dp) or DP SP; default
+    every process on dp."""
     shape = cfg.get("mesh_shape")
     if shape is None:
         return [process_info()[1]]
-    shape = [int(n) for n in shape]
-    if len(shape) == 2 and shape[1] > 1:
-        raise NotImplementedError(f"mesh_shape={shape}: a 2D mesh with sp > 1 (the model's "
-                                  "sequence-parallel layout) is not ported yet (ROADMAP A19)")
-    return shape
+    return [int(n) for n in shape]
 
 
 def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter,

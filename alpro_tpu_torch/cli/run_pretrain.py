@@ -39,7 +39,7 @@ from alpro_tpu_torch.cli.prompts import (
     load_entities,
 )
 from alpro_tpu_torch.core.config import Config, get_pretraining_args
-from alpro_tpu_torch.core.distributed import data_shards, local_batch_size
+from alpro_tpu_torch.core.distributed import data_shards, local_batch_size, reads_rows
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     PretrainCollator,
@@ -97,10 +97,12 @@ def setup_prompt_banks(cfg: Config, teacher, tokenizer) -> dict:
     return banks
 
 
-def build_pretrain_loaders(cfg: Config, tokenizer, use_mpm: bool) -> dict:
+def build_pretrain_loaders(cfg: Config, tokenizer, use_mpm: bool,
+                           placeholder: bool = False) -> dict:
     """One ``BatchLoader`` per ``train_datasets`` entry over this process's
     stripe of it, this process's rows of ``train_batch_size`` a batch,
-    sharing one ``PretrainCollator``."""
+    sharing one ``PretrainCollator`` (``placeholder``: loaders that read
+    nothing, for an sp rank > 0)."""
     collator = PretrainCollator(tokenizer, cfg.get("max_txt_len", 30),
                                 mlm=bool(cfg.get("use_mlm", True)), mpm=use_mpm,
                                 patch_size=16, seed=cfg.get("seed", 42))
@@ -119,11 +121,13 @@ def build_pretrain_loaders(cfg: Config, tokenizer, use_mpm: bool) -> dict:
                 frm_sampling_strategy=cfg.get("frm_sampling_strategy", "headtail"),
                 resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
                 seed=cfg.get("seed", 42))
-        num_shards, shard_id = data_shards()
-        loaders[spec["name"]] = BatchLoader(ds, collator, local_batch_size(cfg.train_batch_size),
+        num_shards, shard_id = data_shards(cfg.get("mesh_shape"))
+        rows_here = local_batch_size(cfg.train_batch_size, cfg.get("mesh_shape"))
+        loaders[spec["name"]] = BatchLoader(ds, collator, rows_here,
                                             seed=cfg.get("seed", 42), num_shards=num_shards,
                                             shard_id=shard_id,
-                                            num_workers=int(cfg.get("n_workers", 4)))
+                                            num_workers=int(cfg.get("n_workers", 4)),
+                                            placeholder=placeholder)
     return loaders
 
 
@@ -187,7 +191,8 @@ def start_training(cfg: Config):
         teacher = build_teacher(cfg)
         banks = setup_prompt_banks(cfg, teacher, tokenizer)
 
-    loaders = build_pretrain_loaders(cfg, tokenizer, use_mpm)
+    loaders = build_pretrain_loaders(cfg, tokenizer, use_mpm,
+                                     placeholder=not reads_rows(cfg.get("mesh_shape")))
     meta = MetaLoader(loaders, accum_steps=cfg.get("gradient_accumulation_steps", 1),
                       seed=cfg.get("seed", 42))
     steps_per_epoch = sum(len(loader) for loader in loaders.values())

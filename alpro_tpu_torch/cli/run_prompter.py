@@ -17,7 +17,7 @@ from __future__ import annotations
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_pretraining_args
-from alpro_tpu_torch.core.distributed import data_shards, local_batch_size
+from alpro_tpu_torch.core.distributed import data_shards, local_batch_size, reads_rows
 from alpro_tpu_torch.core.logging import LOGGER
 from alpro_tpu_torch.data.datasets import PretrainCollator, PretrainVideoDataset, load_datalist
 from alpro_tpu_torch.data.loader import BatchLoader, InfiniteIterator
@@ -46,10 +46,12 @@ def start_training(cfg: Config):
         resize_size=cfg.resize_size, crop_size=cfg.crop_img_size, seed=cfg.get("seed", 42),
     )
     collator = PretrainCollator(tokenizer, cfg.get("max_txt_len", 30), mlm=False, mpm=False)
-    num_shards, shard_id = data_shards()
-    loader = BatchLoader(ds, collator, local_batch_size(cfg.train_batch_size),
+    num_shards, shard_id = data_shards(cfg.get("mesh_shape"))
+    loader = BatchLoader(ds, collator,
+                         local_batch_size(cfg.train_batch_size, cfg.get("mesh_shape")),
                          seed=cfg.get("seed", 42), num_shards=num_shards, shard_id=shard_id,
-                         num_workers=int(cfg.get("n_workers", 4)))
+                         num_workers=int(cfg.get("n_workers", 4)),
+                         placeholder=not reads_rows(cfg.get("mesh_shape")))
     step_fn, state, num_steps, restorer = common.setup_training(
         cfg, model, make_prompter_train_step, steps_per_epoch=len(loader))
     LOGGER.info("training prompter (VTC only) for %d steps on %s", num_steps,

@@ -37,7 +37,8 @@ import torch
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_video_qa_args
-from alpro_tpu_torch.core.distributed import data_shards, is_primary, local_batch_size
+from alpro_tpu_torch.core.distributed import (data_shards, is_primary, local_batch_size,
+                                              reads_rows)
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     MULTI_CHOICE_QA,
@@ -172,11 +173,12 @@ def start_training(cfg: Config):
     tokenizer = build_tokenizer(cfg.tokenizer_dir)
     n_options = _effective_n_options(cfg)  # may force num_labels=1 (multi-choice)
     model = common.build_model_from_cfg(cfg, "qa", seed=cfg.get("seed", 42))
-    num_shards, shard_id = data_shards()
+    num_shards, shard_id = data_shards(cfg.get("mesh_shape"))
     train_loader = BatchLoader(
         _mk_datasets(cfg, "train"), _qa_collator(cfg, tokenizer),
-        local_batch_size(cfg.train_batch_size), seed=cfg.get("seed", 42),
+        local_batch_size(cfg.train_batch_size, cfg.get("mesh_shape")), seed=cfg.get("seed", 42),
         num_shards=num_shards, shard_id=shard_id, num_workers=int(cfg.get("n_workers", 4)),
+        placeholder=not reads_rows(cfg.get("mesh_shape")),
     )
     val_ds = _mk_datasets(cfg, "val")
     train_n_clips = int(cfg.get("train_n_clips", 1))

@@ -39,7 +39,8 @@ import torch
 
 from alpro_tpu_torch.cli import common
 from alpro_tpu_torch.core.config import Config, get_video_retrieval_args
-from alpro_tpu_torch.core.distributed import data_shards, is_primary, local_batch_size
+from alpro_tpu_torch.core.distributed import (data_shards, is_primary, local_batch_size,
+                                              reads_rows)
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER
 from alpro_tpu_torch.data.datasets import (
     RetrievalCollator,
@@ -74,11 +75,13 @@ def _mk_datasets(cfg: Config, tokenizer):
         resize_size=cfg.resize_size, crop_size=cfg.crop_img_size,
         seed=cfg.get("seed", 42), fps=cfg.get("fps", -1),
     )
-    num_shards, shard_id = data_shards()
+    num_shards, shard_id = data_shards(cfg.get("mesh_shape"))
     train_loader = BatchLoader(
         train_ds, RetrievalCollator(tokenizer, cfg.max_txt_len),
-        local_batch_size(cfg.train_batch_size), shuffle=True, seed=cfg.get("seed", 42),
+        local_batch_size(cfg.train_batch_size, cfg.get("mesh_shape")), shuffle=True,
+        seed=cfg.get("seed", 42),
         num_shards=num_shards, shard_id=shard_id, num_workers=int(cfg.get("n_workers", 4)),
+        placeholder=not reads_rows(cfg.get("mesh_shape")),
     )
     eval_ds = RetrievalEvalDataset(
         load_datalist(cfg.val_datasets[0]["txt"]), cfg.val_datasets[0]["img"],

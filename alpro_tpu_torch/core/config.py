@@ -4,15 +4,21 @@ The port's own copy of ``alpro_tpu/core/config.py``: a JSON config file fills
 any flag that was not explicitly passed on the command line, CLI flags always
 win, and int flags declared as booleans (0/1) are coerced to bool.
 
-Differences from the JAX parser: only the flags that the port's paths read
-are declared; the TPU-only ``--xla_compiler_options`` and ``--scan_blocks``
-never are, and ``--mesh_shape`` takes the 1-D ``N`` and the 2-D ``DP 1``
-(``DP SP`` with SP > 1, the model's sequence-parallel layout, is refused:
-ROADMAP A19). Keys that the JAX CLIs read from a config file with a default
+The parsers declare every flag of the JAX package's three parsers, with
+its names, types and defaults, so that a command line the JAX CLIs take
+runs on the port. Flags that the JAX CLIs declare and never read
+(``--inference_split``, ``--img_input_format``, ``--num_workers``,
+``--eval_retrieval_batch_size``, ``--classifier``, ``--dropout``,
+``--pin_mem``) have no effect here either. ``--scan_blocks`` and
+``--xla_compiler_options`` steer XLA's compile alone (scanned blocks give
+the unrolled math): the port accepts them and logs once that they have no
+effect on it (``cli/common.py::setup_environment``). ``--mesh_shape`` takes
+``N`` (dp) and ``DP SP`` (SP > 1: the model's sequence-parallel layout).
+Keys that the JAX CLIs read from a config file with a default
 (``apply_weight_decay``, ``prefetch_depth``, ``vtm_negative_blocks``, and
 for pretraining ``prompt_chunk_size`` and ``num_val_batches``) are declared
-here with that default. ``--device`` (default ``cuda``) takes the
-place of the JAX package's ``ALPRO_PLATFORM``.
+here with that default. ``--device`` (default ``cuda``) takes the place of
+the JAX package's ``ALPRO_PLATFORM``.
 """
 
 from __future__ import annotations
@@ -98,24 +104,19 @@ def _coerce_bool_flags(args: Config) -> Config:
 
 
 class _MeshShape(argparse.Action):
-    """``--mesh_shape N`` or ``DP SP``; SP > 1 lays the model's frame axis
-    over ``sp``, which is not ported (ROADMAP A19)."""
+    """``--mesh_shape N`` (dp) or ``DP SP`` (SP > 1 splits the video tower's
+    frames over ``sp`` in training)."""
 
     def __call__(self, parser, namespace, values, option_string=None):
         if len(values) > 2:
             parser.error(f"{option_string} takes N or DP SP, got {values}")
-        if len(values) == 2 and values[1] > 1:
-            parser.error(f"{option_string} {' '.join(map(str, values))}: a 2D mesh with sp > 1 "
-                         "(the model's sequence-parallel layout) is not ported yet (ROADMAP A19)")
         setattr(namespace, self.dest, values)
 
 
 def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The flags of the task CLIs that the port's inference, finetuning and
-    pretraining paths read, with the JAX parser's names and defaults. A flag the port
-    does not read is not declared: on the command line it is an argparse
-    error, not a silent no-op (a config file's other keys still come
-    through the JSON overlay)."""
+    """The flags of the task CLIs: every flag of the JAX package's
+    ``shared_training_args``, with its names and defaults, and the port's
+    own (``--device``, the config-file keys of the JAX CLIs)."""
     from alpro_tpu_torch.models.remat import REMAT_POLICIES
 
     parser.add_argument("--config", type=str, default=None, help="JSON config path")
@@ -132,6 +133,7 @@ def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--resize_size", type=int, default=256)
     parser.add_argument("--img_pixel_mean", type=float, nargs=3, default=None)
     parser.add_argument("--img_pixel_std", type=float, nargs=3, default=None)
+    parser.add_argument("--img_input_format", type=str, default="RGB")  # read by neither CLI
     parser.add_argument("--num_frm", type=int, default=8)
     parser.add_argument("--frm_sampling_strategy", type=str, default="uniform")
     parser.add_argument("--train_n_clips", type=int, default=1)
@@ -147,6 +149,7 @@ def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--optim", type=str, default="adamw", choices=["adamw"])
     parser.add_argument("--betas", type=float, nargs=2, default=[0.9, 0.98])
     parser.add_argument("--decay", type=str, default="linear")
+    parser.add_argument("--dropout", type=float, default=0.1)  # read by neither CLI
     parser.add_argument("--weight_decay", type=float, default=1e-3)
     # read by the JAX CLI from a config file only (default off: the
     # reference never forwards its weight decay)
@@ -163,24 +166,32 @@ def shared_args(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="AdamW second-moment storage dtype (default fp32)")
     parser.add_argument("--fp16", type=int, default=0)
     parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--num_workers", type=int, default=4)  # read by neither CLI
     parser.add_argument("--n_workers", type=int, default=4)
+    # XLA's compile alone (no effect on the port: cli/common.py logs it)
+    parser.add_argument("--scan_blocks", type=int, default=1)
+    parser.add_argument("--pin_mem", type=int, default=1)  # read by neither CLI
     parser.add_argument("--do_inference", type=int, default=0)
     parser.add_argument("--inference_model_step", type=str, default="")
     # direct path to an ALPRO-key .pt checkpoint to run inference with
     parser.add_argument("--inference_model_ckpt", type=str, default=None)
+    parser.add_argument("--inference_split", type=str, default="val")  # read by neither CLI
     parser.add_argument("--inference_txt_db", type=str, default=None)
     parser.add_argument("--inference_img_db", type=str, default=None)
     parser.add_argument("--inference_batch_size", type=int, default=64)
     parser.add_argument("--inference_n_clips", type=int, default=1)
     parser.add_argument("--mesh_shape", type=int, nargs="+", default=None, action=_MeshShape,
-                        help="process mesh: --mesh_shape N for dp=N (one process per GPU); "
-                        "DP 1 for a 2D mesh with sp=1 (sp > 1: ROADMAP A19)")
+                        help="process mesh, one process per GPU: --mesh_shape N for dp=N; "
+                        "DP SP for a 2D dp x sp mesh (sp splits the temporal attention's "
+                        "frames in training)")
     parser.add_argument("--attn_impl", type=str, default="auto",
                         choices=["auto", "xla", "pallas"])
     parser.add_argument("--compute_dtype", type=str, default="bfloat16",
                         choices=["bfloat16", "float32"])
     parser.add_argument("--profile", type=int, default=0,
                         help="trace train steps [start+2, start+7) with torch.profiler")
+    # XLA's compile alone (no effect on the port: cli/common.py logs it)
+    parser.add_argument("--xla_compiler_options", type=str, default="")
     parser.add_argument("--remat_policy", type=str, default="dots_ln",
                         choices=list(REMAT_POLICIES),
                         help="what per-block gradient checkpointing keeps "
@@ -204,6 +215,7 @@ def get_video_retrieval_args(argv=None) -> Config:
     shared_args(parser)
     # read by the JAX CLI from a config file only, with this default
     parser.add_argument("--vtm_negative_blocks", type=int, default=1)
+    parser.add_argument("--eval_retrieval_batch_size", type=int, default=256)  # read by neither
     parser.add_argument(
         "--eval_rerank_topk", type=int, default=0,
         help="0 (default): the exact reference protocol — VTM-score every "
@@ -224,6 +236,7 @@ def get_video_qa_args(argv=None) -> Config:
     parser.add_argument("--n_options", type=int, default=5)
     parser.add_argument("--ans2label_path", type=str, default=None)
     parser.add_argument("--num_labels", type=int, default=1500)
+    parser.add_argument("--classifier", type=str, default="mlp")  # read by neither CLI
     parser.add_argument("--cls_hidden_scale", type=int, default=2)
     parser.add_argument("--score_agg_func", type=str, default="mean",
                         choices=["mean", "max", "lse"])

@@ -87,19 +87,36 @@ def is_primary() -> bool:
     return process_info()[0] == 0
 
 
-def data_shards() -> tuple:
+def sp_width(mesh_shape) -> int:
+    """The ``sp`` width of a ``mesh_shape`` (1 unless it is DP SP)."""
+    return int(mesh_shape[1]) if mesh_shape is not None and len(mesh_shape) == 2 else 1
+
+
+def data_shards(mesh_shape=None) -> tuple:
     """(num_shards, shard_id) of this process's dataset stripe, the
     DistributedSampler role; the shared shuffle seed in ``BatchLoader`` keeps
-    the stripes disjoint."""
+    the stripes disjoint. Under a ``mesh_shape`` (DP, SP) the stripe is the
+    dp coordinate, rank // SP: the SP processes of a coordinate share one
+    stripe, which sp rank 0 alone reads (``reads_rows``)."""
     rank, world = process_info()
-    return world, rank
+    sp = sp_width(mesh_shape)
+    return world // sp, rank // sp
 
 
-def local_batch_size(global_batch_size: int) -> int:
-    """This process's rows of the global batch; ``train_batch_size`` is
-    global, as in the JAX package (the reference's was per process)."""
+def reads_rows(mesh_shape=None) -> bool:
+    """Whether this process's training loader reads its rows: every process
+    but an sp rank > 0 of a ``mesh_shape`` (DP, SP), whose train step takes
+    sp rank 0's batch (``BatchLoader(placeholder=True)``)."""
+    return process_info()[0] % sp_width(mesh_shape) == 0
+
+
+def local_batch_size(global_batch_size: int, mesh_shape=None) -> int:
+    """This process's rows of the global batch, over the dp width of
+    ``mesh_shape`` (default every process); ``train_batch_size`` is global,
+    as in the JAX package (the reference's was per process)."""
     _, world = process_info()
-    if global_batch_size % world:
+    dp = world // sp_width(mesh_shape)
+    if global_batch_size % dp:
         raise ValueError(f"train_batch_size {global_batch_size} must divide evenly over "
-                         f"{world} processes")
-    return global_batch_size // world
+                         f"{dp} data-parallel processes")
+    return global_batch_size // dp

@@ -10,10 +10,19 @@ group itself (a one-process group included, so that a one-rank run under a
 process group still runs its collectives); an axis of one process in a wider
 world, or any axis without a process group, has no group, and its
 collectives are the identity.
+
+JAX's ambient mesh (``jax.set_mesh`` around the step, read by
+``maybe_shard_axis``) is ``use_mesh`` here: the model reads the innermost
+mesh's axis through ``active_axis``, and only there does the video tower
+split its temporal attention's frames over ``sp``. ``shard_step`` enters it
+around each step; param init, eval, ``validate`` and serving run outside
+it, unsplit.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional, Sequence
@@ -21,7 +30,7 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from alpro_tpu_torch.core.distributed import process_info
+from alpro_tpu_torch.core.distributed import process_info, sp_width
 
 DATA_AXIS = "dp"
 SEQ_AXIS = "sp"
@@ -64,6 +73,36 @@ class Mesh:
     @property
     def dp(self) -> MeshAxis:
         return self[DATA_AXIS]
+
+    @property
+    def sp_size(self) -> int:
+        """The width of ``sp`` (1 on a 1-D mesh)."""
+        return sp_width(self.shape)
+
+
+_ACTIVE: contextvars.ContextVar = contextvars.ContextVar("alpro_mesh", default=None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Optional[Mesh]):
+    """Make ``mesh`` the one ``active_axis`` reads inside the block (None:
+    no mesh)."""
+    token = _ACTIVE.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.reset(token)
+
+
+def active_axis(name: Optional[str]) -> Optional[MeshAxis]:
+    """Axis ``name`` of the mesh of the innermost ``use_mesh``, where it
+    spans more than one process; else None, and the caller runs unsplit
+    (JAX's ``maybe_shard_axis`` without an ambient mesh)."""
+    mesh = _ACTIVE.get()
+    if not name or mesh is None or name not in mesh.axis_names:
+        return None
+    axis = mesh[name]
+    return axis if axis.size > 1 else None
 
 
 def make_mesh(shape: Optional[Sequence[int]] = None) -> Mesh:

@@ -1,7 +1,8 @@
 """Datasets and collators of retrieval, video QA and pretraining.
 
 The port's counterpart of ``alpro_tpu/data/datasets.py``: annotation
-jsonl/json files with {vid_id, txt} rows, decode with retry
+jsonl/json files and pandas ``.pkl`` datalists with {vid_id, txt} rows,
+decode (``.npy`` clips or video containers, ``media/``) with retry
 (a failed training decode resamples another example), the retrieval
 training pairs (frames sampled by ``frm_sampling_strategy``, a random square
 crop, one caption drawn from a list), the retrieval eval protocol's video
@@ -9,9 +10,9 @@ iteration over the full text bank (with a zero clip for a video that fails
 to decode, so the id→score protocol stays whole), the QA dataset
 (open-ended and multi-choice; ``is_train`` gives the training split's
 sampling and random crops), the pretraining datasets (WebVid-style clips
-with the temporally consistent RandAugment, CC3M-style ``.npy`` images
-through ``random_resized_crop``, ``random_hflip`` and RandAugment, repeated
-to ``num_frm`` frames), the collators that tokenize and ``PretrainCollator``,
+with the temporally consistent RandAugment, CC3M-style images, ``.npy`` or
+image files, through ``random_resized_crop``, ``random_hflip`` and
+RandAugment, repeated to ``num_frm`` frames), the collators that tokenize and ``PretrainCollator``,
 which adds the MLM ids and labels and the random-erase views of MPM. Every
 draw comes from the dataset's or the collator's ``ThreadSafeRng``, in the
 JAX module's order. Batches are plain numpy dicts; the pixels are
@@ -51,9 +52,10 @@ def load_json(path: str):
 
 
 def load_datalist(path: str) -> List[dict]:
-    """Annotation loader: .jsonl rows or .json lists; rows normalize to
-    {vid_id, txt, ...}. The pandas ``.pkl`` WebVid datalists are not read:
-    pandas is not a dependency of the port (ROADMAP A17)."""
+    """Annotation loader: .jsonl rows, .json lists, or the reference's pandas
+    .pkl WebVid datalists (read through pandas, imported here: a .pkl with
+    no pandas installed raises, naming it). Rows normalize to {vid_id, txt,
+    ...}."""
     if path.endswith(".jsonl"):
         return [_normalize_row(r) for r in load_jsonl(path)]
     if path.endswith(".json"):
@@ -61,11 +63,20 @@ def load_datalist(path: str) -> List[dict]:
         assert isinstance(data, list), f"{path} must hold a list of rows"
         return [_normalize_row(r) for r in data]
     if path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{path}: pandas .pkl datalists (WebVid pretraining) are not read "
-            "by the port yet (ROADMAP A17); convert the rows to .jsonl"
-        )
+        pd = _optional("pandas", "pandas", f"the .pkl datalist {path}")
+        return [_normalize_row(r) for r in pd.read_pickle(path).to_dict("records")]
     raise ValueError(f"unsupported annotation format: {path}")
+
+
+def _optional(module: str, package: str, what: str):
+    """``import module``, or an ImportError that names ``package`` and what
+    needs it."""
+    import importlib
+
+    try:
+        return importlib.import_module(module)
+    except ImportError as e:
+        raise ImportError(f"reading {what} needs {package}, which is not installed") from e
 
 
 _ID_KEYS = ("vid_id", "video_id", "videoid", "id", "image_id", "clip_id")
@@ -324,7 +335,8 @@ class PretrainVideoDataset(VideoDatasetBase):
 
 class PretrainImageDataset:
     """CC3M-style (image, caption) rows, each image a ``.npy``/``.npz``
-    array (H, W, 3), or (T, H, W, 3) of which the first frame is taken.
+    array (H, W, 3), or (T, H, W, 3) of which the first frame is taken, or
+    an image file (PNG, JPEG, ...) read through Pillow as RGB.
     Training: ``random_resized_crop`` (bicubic) → ``random_hflip`` →
     RandAugment (N 2, M 7, ``IMAGE_AUGS``), then the image repeated to
     ``num_frm`` frames; eval: repeated, resized and centre-cropped. A row
@@ -351,14 +363,20 @@ class PretrainImageDataset:
 
     @staticmethod
     def _load(path: str) -> Optional[np.ndarray]:
-        if not path.endswith((".npy", ".npz")):
-            raise NotImplementedError(
-                f"{path}: only .npy/.npz images are read by the port; decoding image "
-                "files is the media binding's work (ROADMAP A17)")
-        try:  # a corrupt or short file is replaced by another row
-            arr = np.load(path)
-            img = arr["frames"] if hasattr(arr, "files") else arr
-            return img[0] if img.ndim == 4 else img
+        """An (H, W, 3) uint8 image: a ``.npy``/``.npz`` array (its first
+        frame when 4-D), or an image file through Pillow, imported here
+        (without Pillow it raises, naming it). A corrupt or short file is
+        None, and the row is replaced by another."""
+        if path.endswith((".npy", ".npz")):
+            try:
+                arr = np.load(path)
+                img = arr["frames"] if hasattr(arr, "files") else arr
+                return img[0] if img.ndim == 4 else img
+            except Exception:
+                return None
+        image = _optional("PIL.Image", "Pillow", f"the image file {path}")
+        try:
+            return np.asarray(image.open(path).convert("RGB"))
         except Exception:
             return None
 

@@ -34,6 +34,7 @@ class BatchLoader:
         shard_id: int = 0,
         num_workers: int = 0,
         prefetch_factor: int = 2,
+        placeholder: bool = False,
     ):
         """num_shards/shard_id shard the (seed-synchronized) shuffled order
         across processes — the DistributedSampler role.
@@ -44,7 +45,11 @@ class BatchLoader:
         reference's `DataLoader(num_workers=n)` role. Threads, not processes:
         numpy releases the GIL in its array loops, and no batch is pickled
         across process boundaries. Datasets/collators must use thread-local
-        RNGs (`data/rng.py`) when num_workers > 1."""
+        RNGs (`data/rng.py`) when num_workers > 1.
+
+        placeholder=True yields an empty dict in place of each batch, of the
+        same count, reading nothing: the loader of an sp rank > 0, whose
+        train step takes sp rank 0's batch (`train/step.py`)."""
         self.dataset = dataset
         self.collator = collator
         self.batch_size = batch_size
@@ -56,6 +61,7 @@ class BatchLoader:
         self.shard_id = shard_id
         self.num_workers = num_workers
         self.prefetch_factor = prefetch_factor
+        self.placeholder = placeholder
 
     def __len__(self) -> int:
         # ceil-divide like torch's DistributedSampler: every shard is padded
@@ -88,6 +94,10 @@ class BatchLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         batches = self._index_batches()
+        if self.placeholder:
+            for _ in batches:
+                yield {}
+            return
         if self.num_workers <= 0:
             for idx in batches:
                 yield self._make(idx)

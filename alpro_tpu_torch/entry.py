@@ -7,8 +7,9 @@
 * ``dryrun_multichip(n, device='cuda')`` — one retrieval train step over an
   n-process ``dp`` mesh at the JAX dry run's tiny widths, the
   sequence-parallel temporal attention over the same processes, with
-  n >= 4 the step on an (n/2, 2) mesh with sp replicated and the attention
-  over ``sp``, and a ``ShardedRetrievalIndex`` of n + 1 videos (a padded
+  n >= 4 the step on an (n/2, 2) mesh, the model splitting its frames over
+  ``sp`` as JAX's 2-D dry run lays them, and the attention alone over
+  ``sp``, and a ``ShardedRetrievalIndex`` of n + 1 videos (a padded
   slice), top-3. ``device='cuda'`` runs one NCCL process per GPU and
   raises with fewer than n GPUs; ``device='cpu'`` runs n gloo processes.
   Neither falls back to the other.
@@ -69,26 +70,27 @@ _BERT = dict(vocab_size=512, hidden_size=32, num_hidden_layers=4, num_attention_
              intermediate_size=64, fusion_layer=2)
 
 
-def _tiny_model(device):
+def _tiny_model(device, sp_axis=None):
     from alpro_tpu_torch.models.alpro import build_retrieval_model, init_random_
     from alpro_tpu_torch.models.bert import BertConfig
     from alpro_tpu_torch.models.timesformer import TimeSformerConfig
 
-    model = build_retrieval_model(BertConfig(**_BERT), TimeSformerConfig(**_VIS), img_size=32,
-                                  num_frm=2).to(device)
+    model = build_retrieval_model(BertConfig(**_BERT), TimeSformerConfig(**_VIS, sp_axis=sp_axis),
+                                  img_size=32, num_frm=2).to(device)
     return init_random_(model, torch.Generator(device=device).manual_seed(0))
 
 
 def _train_step_on(mesh, batch, device, blocks: int) -> float:
-    """One retrieval train step over ``mesh``'s dp axis from rank 0's
-    state; returns the loss, checked finite and equal on every process."""
-    from alpro_tpu_torch.core.mesh import replicate, shard_batch
+    """One retrieval train step over ``mesh`` from rank 0's state (a 2-D
+    mesh's model splits its frames over ``sp``); returns the loss, checked
+    finite and equal on every process."""
+    from alpro_tpu_torch.core.mesh import SEQ_AXIS, replicate, shard_batch
     from alpro_tpu_torch.parallel.host_sync import all_gather_list
     from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
     from alpro_tpu_torch.train.state import TrainState
     from alpro_tpu_torch.train.step import make_retrieval_train_step, shard_step
 
-    model = _tiny_model(device)
+    model = _tiny_model(device, SEQ_AXIS if mesh.sp_size > 1 else None)
     opt = build_optimizer(get_lr_schedule("linear", 1e-4, 100), grad_norm=5.0)
     state = TrainState.create(model, opt)
     replicate(model, state.opt_state)

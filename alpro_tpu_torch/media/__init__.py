@@ -1,12 +1,16 @@
-"""Media: the ``.npy``/``.npz`` raw-clip video backend.
+"""Media: the video decode backends (the port's counterpart of
+``alpro_tpu/media/__init__.py``).
 
-The port's counterpart of ``alpro_tpu/media/__init__.py`` for the eval path:
 ``read_video`` samples frame indices (the reference-exact samplers, fitted
-to the fixed frame count), reads those frames of a (T, H, W, C) uint8 clip
-stored as ``.npy`` (or under ``frames`` in an ``.npz``) and resizes them when
-a size is asked for. Decoding container formats (the FFmpeg backend,
-``media/binding.py`` and ``decoder.cpp`` of the JAX package) is not ported
-(ROADMAP A17): such a path raises, and no blank clip takes its place.
+to the fixed frame count) and reads those frames: of a (T, H, W, C) uint8
+clip stored as ``.npy`` (or under ``frames`` in an ``.npz``) through
+``NpyVideoBackend``, resized when a size is asked for; of any other path, a
+video container, through ``FFmpegVideoBackend``, the native decoder of
+``media/binding.py`` (``decoder.cpp``, built at first use), which seeks,
+decodes only the sampled frames and resizes them in the decoder. Unlike
+the JAX package's ``auto``, no backend gives way to another: a decoder that
+does not build raises, and no ``.npy`` reader (which returns None for every
+container) takes its place.
 """
 
 from __future__ import annotations
@@ -88,20 +92,57 @@ class NpyVideoBackend:
         return clip
 
 
+class FFmpegVideoBackend:
+    """The native FFmpeg decoder (``media/binding.py``); building it is the
+    first use's work and raises when it fails."""
+
+    def __init__(self):
+        from alpro_tpu_torch.media.binding import get_decoder
+
+        self._dec = get_decoder()
+
+    def read(self, path, num_frm, sampling="uniform", rng=None,
+             height=None, width=None, start_time=None, end_time=None,
+             fps=-1):
+        info = self._dec.probe(path)
+        if info is None or info.num_frames <= 0:
+            return None
+        # timestamps against the container's own rate when none is forced
+        # (decord resolves times through the container the same way)
+        eff_fps = fps if (fps and fps > 0) else getattr(info, "fps", -1)
+        idx = _sample_fitted(info.num_frames, num_frm, sampling, rng,
+                             start_time, end_time, eff_fps)
+        if idx is None:
+            return None
+        return self._dec.decode_frames(
+            path, idx, height or 0, width or 0,
+            native_size=(info.height, info.width),  # no second probe
+        )
+
+
+def get_video_backend(name: str = "auto"):
+    """``npy``, ``ffmpeg``, or ``auto`` (the FFmpeg decoder, as in JAX, but
+    a failed build raises instead of giving way to ``npy``)."""
+    if name == "npy":
+        return NpyVideoBackend()
+    if name in ("ffmpeg", "auto"):
+        return FFmpegVideoBackend()
+    raise ValueError(f"unknown video backend {name!r}")
+
+
 def read_video(path: str, num_frm: int, sampling: str = "uniform",
                rng=None, height=None, width=None, backend=None,
                start_time=None, end_time=None, fps=-1):
     """Sample ``num_frm`` frames of the clip at ``path``. `start_time` /
     `end_time` (seconds) + `fps` restrict sampling to the [start_idx,
-    end_idx) frame window. Returns None where the file cannot be read or
-    sampled (the caller's retry decides); a path that is not ``.npy`` or
-    ``.npz`` raises without a ``backend``."""
+    end_idx) frame window. Without a ``backend``, ``.npy``/``.npz`` paths
+    go to ``NpyVideoBackend`` and every other path to
+    ``FFmpegVideoBackend``. Returns None where the file cannot be read or
+    sampled (the caller's retry decides)."""
     if backend is None:
-        if not path.endswith((".npy", ".npz")):
-            raise NotImplementedError(
-                f"{path}: only .npy/.npz clips are read; decoding video "
-                "containers (the FFmpeg backend) is not ported yet (ROADMAP A17)"
-            )
-        backend = NpyVideoBackend()
+        if path.endswith((".npy", ".npz")):
+            backend = NpyVideoBackend()
+        else:
+            backend = get_video_backend("auto")
     return backend.read(path, num_frm, sampling, rng, height, width,
                         start_time=start_time, end_time=end_time, fps=fps)

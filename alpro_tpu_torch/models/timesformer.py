@@ -75,6 +75,17 @@ over: they are to be re-decided on the H100.
 normalize → patchify → embed kernel (``ops/preprocess.py``) in both modes;
 ``auto`` and ``off`` keep the unfused path, as in JAX. Pre-patchified input
 never takes it.
+
+``sp_axis`` (``--mesh_shape DP SP`` with SP > 1 sets 'sp') splits the frames
+of the plain temporal branch (``plain``, and ``auto`` in training) over that
+mesh axis, where a ``core/mesh.py::use_mesh`` block makes it active (a train
+step under ``shard_step``; the tower reads it once, before its blocks, and
+hands it to each, so a checkpointed block's recompute in the backward pass
+splits as its forward did): each process attends its T/SP frames' queries
+over all T and the output's frames are gathered back before the projection
+dropout, the drop-path and ``temporal_fc``. Every kernel value and the
+``packed`` and ``circulant`` forms stay unsplit, as JAX's constraint sits on
+its XLA branch alone; outside such a block the model runs unsplit.
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from alpro_tpu_torch.core.mesh import MeshAxis, active_axis
 from alpro_tpu_torch.models.remat import (
     TS_SPATIAL_ATTN,
     TS_TEMPORAL_ATTN,
@@ -115,6 +127,7 @@ from alpro_tpu_torch.ops.qkv_attn import (
     temporal_fits,
 )
 from alpro_tpu_torch.ops.temporal_attn import temporal_attention_circulant, temporal_attention_packed
+from alpro_tpu_torch.parallel.seq_parallel import gather_frames, sharded_temporal_attention
 
 # field → the values naming a kernel (the first is what 'auto' gives in eval)
 _KERNEL_IMPL = {
@@ -166,6 +179,10 @@ class TimeSformerConfig:
     # JointBlock attention over [cls; T·N]) or 'space_only' (JointBlock per
     # frame over [cls; N], then the mean over frames)
     attention_type: str = "divided_space_time"
+    # the mesh axis the divided blocks' plain temporal attention splits its
+    # frames over inside a train step run under a mesh with that axis
+    # (``--mesh_shape DP SP``, SP > 1: 'sp'); unsplit everywhere else
+    sp_axis: Optional[str] = None
 
     def __post_init__(self):
         resolve_remat_policy(self.remat_policy)
@@ -338,8 +355,28 @@ class DividedSTBlock(nn.Module):
                                            self.temporal_fc.bias.to(dtype))
         return w_eff, b_eff
 
+    def _sp_temporal(self, xt, sp, cfg: TimeSformerConfig, dtype, generator):
+        """The plain temporal attention of xt (B·N, T, D) with its frames
+        split over mesh axis ``sp``: this process's T/SP frames attend over
+        all T (``parallel/seq_parallel.py``), and the output's frames are
+        gathered back, with gradient, to (B·N, T, D)."""
+        T = xt.shape[1]
+        if T % sp.size:
+            raise ValueError(f"{T} frames do not split over sp={sp.size}")
+        t = T // sp.size
+        a = self.temporal_attn
+        local = sharded_temporal_attention(
+            xt[:, sp.rank * t:(sp.rank + 1) * t], a.qkv.weight.to(dtype), a.qkv.bias.to(dtype),
+            a.proj.weight.to(dtype), a.proj.bias.to(dtype), cfg.num_heads, sp.group,
+            cfg.attn_drop_rate, generator, self.training)
+        return gather_frames(local, sp.group)
+
     def forward(self, cls, x, cfg: TimeSformerConfig, dtype, dp_rate: float = 0.0,
-                generator=None):
+                generator=None, sp: Optional[MeshAxis] = None):
+        """``sp``: the mesh axis the plain temporal branch splits its frames
+        over (None: unsplit), resolved by the tower before any block runs,
+        since a checkpointed block's recompute may run on the autograd
+        engine's device thread, where the ``use_mesh`` context is unset."""
         B, T, N, D = x.shape
         H = cfg.num_heads
         train = self.training
@@ -373,8 +410,11 @@ class DividedSTBlock(nn.Module):
                     t_out = linear(t_att, self.temporal_attn.proj, dtype)
                 else:
                     xt = xt.permute(0, 2, 1, 3).reshape(B * N, T, D)
-                    t_out = self.temporal_attn.plain(xt, H, dtype, "xla", cfg.attn_drop_rate,
-                                                     generator, train)
+                    if sp is not None:
+                        t_out = self._sp_temporal(xt, sp, cfg, dtype, generator)
+                    else:
+                        t_out = self.temporal_attn.plain(xt, H, dtype, "xla",
+                                                         cfg.attn_drop_rate, generator, train)
                     t_out = t_out.reshape(B, N, T, D).permute(0, 2, 1, 3)
                 return dropout(t_out, cfg.drop_rate, generator, train)
 
@@ -615,13 +655,14 @@ class TimeSformer(nn.Module):
         else:
             remat = train and cfg.gradient_checkpointing and torch.is_grad_enabled()
             context_fn = resolve_remat_policy(cfg.remat_policy) if remat else None
+            sp = active_axis(cfg.sp_axis)
             for blk, rate in zip(self.blocks, rates):
                 if remat:
                     cls, x = checkpoint(
-                        lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator),
+                        lambda c, v, blk=blk, rate=rate: blk(c, v, cfg, dt, rate, generator, sp),
                         generator, cls, x, context_fn=context_fn)
                 else:
-                    cls, x = blk(cls, x, cfg, dt, rate, generator)
+                    cls, x = blk(cls, x, cfg, dt, rate, generator, sp)
         cls = self.norm(cls, dt)
         x = self.norm(x, dt)
         if pooling == "temporal":

@@ -34,7 +34,8 @@ def _resolve(impl: str) -> str:
     return "xla" if impl in ("auto", "plain") else impl
 
 
-def _plain(q, k, v, key_mask, scale, eq_scores, eq_out, dropout_rate, generator, training):
+def _plain(q, k, v, key_mask, scale, eq_scores, eq_out, dropout_rate, generator, training,
+           query_rows=None):
     dtype = q.dtype
     bias = None
     if key_mask is not None:
@@ -49,7 +50,7 @@ def _plain(q, k, v, key_mask, scale, eq_scores, eq_out, dropout_rate, generator,
         if bias is not None:
             scores = scores + bias
     probs = torch.softmax(scores.float(), dim=-1)
-    probs = dropout(probs, dropout_rate, generator, training)
+    probs = dropout(probs, dropout_rate, generator, training, rows=query_rows)
     return torch.einsum(eq_out, probs.to(dtype), v)
 
 
@@ -90,12 +91,15 @@ def multi_head_attention(
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
     training: bool = False,
+    query_rows: Optional[tuple] = None,
 ) -> torch.Tensor:
     """q: (B, H, Sq, hd); k, v: (B, H, Sk, hd); key_mask: optional (B, Sk).
-    Returns (B, H, Sq, hd) in q.dtype."""
+    Returns (B, H, Sq, hd) in q.dtype. ``query_rows`` (n, start): q is rows
+    [start, start + Sq) of n queries, and the attention dropout keeps those
+    rows of a mask drawn for all n (``ops/layers.py::dropout``)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if _resolve(impl) == "pallas":
         return fused_attention(q, k, v, key_mask=key_mask, scale=scale)
     return _plain(q, k, v, key_mask, scale, "bhqd,bhkd->bhqk", "bhqk,bhkd->bhqd",
-                  dropout_rate, generator, training)
+                  dropout_rate, generator, training, query_rows)

@@ -83,12 +83,20 @@ def _keep_mask(shape, rate: float, generator: torch.Generator, device) -> torch.
 
 
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
-            training: bool) -> torch.Tensor:
+            training: bool, rows: Optional[tuple] = None) -> torch.Tensor:
     """flax ``nn.Dropout``: in training, each element kept with probability
-    1 - rate and scaled by 1/(1 - rate); the identity otherwise."""
+    1 - rate and scaled by 1/(1 - rate); the identity otherwise. ``rows``
+    (n, start): x holds rows [start, start + x.shape[-2]) of n along dim -2;
+    the mask is drawn for all n rows and those rows of it kept, so that a
+    split along dim -2 draws what the whole does."""
     if not training or rate == 0.0:
         return x
-    keep = _keep_mask(x.shape, rate, generator, x.device)
+    if rows is None:
+        keep = _keep_mask(x.shape, rate, generator, x.device)
+    else:
+        n, start = rows
+        keep = _keep_mask((*x.shape[:-2], n, x.shape[-1]), rate, generator, x.device)
+        keep = keep[..., start:start + x.shape[-2], :]
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -28,6 +28,21 @@ optimizer clips and updates, and the metrics are summed over ``dp``. With
 W > 1, dropout and drop-path draw from (seed, step, dp rank) and the hard
 negatives from (seed, step), the same on every process; with W = 1 one
 generator serves both, so the wrapped step is the unwrapped one bit for bit.
+
+Over a (DP, SP) mesh with SP > 1 the step runs inside ``use_mesh(mesh)``,
+where a video tower built with ``sp_axis='sp'`` splits its temporal
+attention's frames over ``sp``. The SP processes of a dp coordinate hold
+the same rows (sp rank 0 alone loads them, and its batch and extras are
+broadcast over ``sp``: loader threads' draws would part the processes,
+and the other ranks' loaders read nothing, ``BatchLoader(placeholder=
+True)``), draw from the same generators (seeded by
+the dp coordinate) and compute the same loss, but each holds only its
+frames' part of the temporal weights' gradient. The rule: each process's
+loss is its dp share / SP, and the gradients and metrics are summed over
+every process. It is exact because the frame gathers' backward
+(``all_gather_with_grad``) already sums over ``sp``: the processes' losses
+add up to the global loss, and each process's gradient is its part of that
+sum's. VTC and VTM gather over ``dp`` alone.
 """
 
 from __future__ import annotations
@@ -37,7 +52,9 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from alpro_tpu_torch.core.mesh import SEQ_AXIS, use_mesh
 from alpro_tpu_torch.models.alpro import AlproModel
 from alpro_tpu_torch.objectives.mlm import IGNORE_INDEX, mlm_loss
 from alpro_tpu_torch.objectives.pem import masked_patch_mean, mpm_loss, pseudo_labels_from_feats
@@ -166,10 +183,15 @@ def _sum_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Ten
 class TrainStep:
     """``loss_fn(batch, ctx, *extras) -> (loss, metrics)`` as a train step;
     the model is in training mode for the step and back in its mode after.
-    ``group`` None: one process. Else the ``dp`` group of ``shard_step``."""
+    ``group`` None: one process. Else the ``dp`` group of ``shard_step``,
+    whose ``mesh`` the step runs under (None: no mesh)."""
 
-    def __init__(self, model, optimizer, loss_fn: Callable, group=None):
+    def __init__(self, model, optimizer, loss_fn: Callable, group=None, mesh=None):
         self.model, self.optimizer, self.loss_fn, self.group = model, optimizer, loss_fn, group
+        self.mesh = mesh
+        self.sp = 1 if mesh is None else mesh.sp_size
+        # where the gradients and metrics are summed: dp, or every process under sp
+        self.reduce_group = dist.group.WORLD if self.sp > 1 else group
 
     def _context(self, seed: int, step: int) -> StepContext:
         device = _device(self.model)
@@ -179,33 +201,61 @@ class TrainStep:
         return StepContext(step_generator(seed, step, device, group_rank(self.group)), g,
                            self.group)
 
+    def _sp_rows(self, batch, extras) -> tuple:
+        """(batch, extras) of sp rank 0 on every process of its ``sp``
+        group: the keys, shapes, dtypes and extras in one object broadcast,
+        then each tensor; the other ranks' own batch goes unread."""
+        axis = self.mesh[SEQ_AXIS]
+        src = dist.get_global_rank(axis.group, 0)
+        lead = axis.rank == 0
+        spec = [([(k, tuple(v.shape), v.dtype) for k, v in batch.items()], extras)
+                if lead else None]
+        dist.broadcast_object_list(spec, src, group=axis.group)
+        layout, extras = spec[0]
+        if not lead:
+            device = _device(self.model)
+            batch = {k: torch.empty(shape, dtype=dtype, device=device)
+                     for k, shape, dtype in layout}
+        for k, _, _ in layout:
+            dist.broadcast(batch[k], src, group=axis.group)
+        return batch, tuple(extras)
+
     def __call__(self, state: TrainState, batch, seed: int = 0, *extras):
         model = self.model
         was_training = model.training
         model.train()
         try:
             model.zero_grad(set_to_none=True)
-            loss, metrics = self.loss_fn(batch, self._context(seed, state.step), *extras)
-            loss.backward()
+            with use_mesh(self.mesh):
+                if self.sp > 1:
+                    batch, extras = self._sp_rows(batch, extras)
+                loss, metrics = self.loss_fn(batch, self._context(seed, state.step), *extras)
+                if self.sp > 1:  # the SP equal losses add up to the dp share
+                    loss = loss / self.sp
+                    metrics = {k: v / self.sp for k, v in metrics.items()}
+                loss.backward()
         finally:
             model.train(was_training)
         grads = _grads(model)
-        if self.group is not None:
-            flat_all_reduce_(grads, self.group)
-            metrics = _sum_metrics(metrics, self.group)
+        if self.reduce_group is not None:
+            flat_all_reduce_(grads, self.reduce_group)
+            metrics = _sum_metrics(metrics, self.reduce_group)
         _apply_updates(state, self.optimizer, grads)
         model.zero_grad(set_to_none=True)
         return state, metrics
 
 
 def shard_step(step_fn: TrainStep, mesh) -> TrainStep:
-    """The step over ``mesh``'s ``dp`` axis: each process feeds its b rows
-    of the global batch and gets the global step's update and metrics.
-    ``accum_steps`` and every ``remat_policy`` go through unchanged (the
-    gradients are summed over ``dp`` at each micro-step, as the JAX step's
-    are). DDP's module wrapper does not fit: the steps call ``embed_video``,
+    """The step over ``mesh``: each process feeds its dp coordinate's b rows
+    of the global batch and gets the global step's update and metrics; over
+    a (DP, SP) mesh the step runs under ``use_mesh(mesh)`` and the SP
+    processes of a coordinate split the frames (the module docstring's
+    rule). ``accum_steps`` and every ``remat_policy`` go through unchanged
+    (the gradients are summed at each micro-step, as the JAX step's are).
+    DDP's module wrapper does not fit: the steps call ``embed_video``,
     ``embed_text`` and ``fuse``, not ``forward``."""
-    return TrainStep(step_fn.model, step_fn.optimizer, step_fn.loss_fn, group=mesh.dp.group)
+    return TrainStep(step_fn.model, step_fn.optimizer, step_fn.loss_fn, group=mesh.dp.group,
+                     mesh=mesh)
 
 
 def make_retrieval_train_step(model: AlproModel, optimizer,

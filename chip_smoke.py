@@ -199,12 +199,32 @@ line):
    (``python3 chip_smoke.py --gloo-worker``), both on cuda:0, the wrapped
    step on B 4 each against one process on B 8 (fp32 compute, dropout 0),
    losses within 1e-5 — or gloo's refusal of CUDA tensors, printed.
+15. sequence parallelism and the FFmpeg decoder — (a) two gloo processes
+   (``python3 chip_smoke.py --sp-worker``), both on cuda:0, a (1, 2) mesh:
+   the retrieval step (``shard_step``) at ALPRO-base width cut to
+   GLOO_DEPTHS, T = 16 split 8 + 8 in every divided block (``sp_axis``
+   'sp'), bf16 compute, ``--attn_impl pallas``, the config's dropout and
+   drop-path, B 4, against one process's unsplit step from the same state,
+   seed and batch: the losses within SP_LOSS_TOL, AdamW's first moment (0.1
+   · the clipped gradient) within phase 6's pallas-vs-xla tolerances
+   (relative L2 overall, per parameter, the temporal q/k/v weights), beside
+   the unsplit step in fp32 as the yardstick of bf16's own error, the two
+   processes' parameters bit-equal, B13 launched 6 times a step by each;
+   then the same split step in fp32 compute with the video blocks
+   checkpointed against the unsplit fp32 step: losses, the gradient norm
+   before clipping and AdamW's first moment to the SP_FP32_* tolerances;
+   (b) where ``pkg-config`` finds FFmpeg,
+   a test video encoded by the port's media library and decoded through
+   ``read_video`` (its FFmpeg backend), bit-equal to the same frames saved
+   as ``.npy`` and read through ``read_video``; else a line saying so. The
+   phase prints its seconds.
 
 Then one JSON line with the kernels (``launches`` from the main paths,
 ``eval_launches`` from phase 10's kernel runs, ``cli_train_launches`` from
 phase 11's, ``pretrain_launches`` from phase 12's prompter, pretraining and
 resumed pretraining runs, ``variant_launches`` from phase 13's counted
-calls, ``dist_launches`` from phase 14's runs under the process group), the
+calls, ``dist_launches`` from phase 14's runs under the process group,
+``sp_launches`` from phase 15's two processes' steps, summed), the
 ``nvidia-smi`` line, and last the result line ``{"ok": true,
 "device": {...}}``. There is no CPU path.
 """
@@ -1896,22 +1916,25 @@ def _set_attn_impl(model, impl: str, **dropout) -> None:
                                    **{k: v for k, v in dropout.items() if hasattr(bert.cfg, k)})
 
 
-def _retrieval_train_setup(seed: int, dtype=torch.bfloat16, depths=None):
+def _retrieval_train_setup(seed: int, dtype=torch.bfloat16, depths=None, frames=None,
+                           batch_size=None):
     """Phase 6's retrieval finetuning under attn_impl='pallas': the model of
     ``configs/msrvtt_ret.json`` (see ``_train_model``; ``dtype`` compute),
     its AdamW and linear schedule over FT_TRAIN_STEPS, a TrainState, the
     train step with one local block, and a batch of the reference's per-GPU
     B (train_batch_size 64 over 8 GPUs) synthetic uint8 clips and hashed
-    texts drawn from ``seed``. Returns (model, opt, state, step, batch)."""
+    texts drawn from ``seed`` (``frames`` and ``batch_size`` in place of the
+    config's T and B). Returns (model, opt, state, step, batch)."""
     from alpro_tpu_torch.models.alpro import build_retrieval_model
     from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
     from alpro_tpu_torch.train.state import TrainState
     from alpro_tpu_torch.train.step import make_retrieval_train_step
 
     cfg = json.loads((REPO / "configs" / "msrvtt_ret.json").read_text())
-    B = cfg["train_batch_size"] // 8
+    B = batch_size or cfg["train_batch_size"] // 8
+    T = frames or cfg["num_frm"]
     model = _train_model(build_retrieval_model, Path(cfg["visual_model_cfg"]).name,
-                         cfg["num_frm"], "pallas", dtype=dtype, depths=depths)
+                         T, "pallas", dtype=dtype, depths=depths)
     opt = build_optimizer(get_lr_schedule(cfg["decay"], cfg["learning_rate"], FT_TRAIN_STEPS),
                           betas=tuple(cfg["betas"]), grad_norm=cfg["grad_norm"])
     state = TrainState.create(model, opt)
@@ -1920,7 +1943,7 @@ def _retrieval_train_setup(seed: int, dtype=torch.bfloat16, depths=None):
     tok = HashTokenizer(model.cfg.bert.vocab_size)(
         [f"{TEXTS[i % len(TEXTS)]} {i}" for i in range(B)], max_length=cfg["max_txt_len"])
     batch = {"visual_inputs": torch.from_numpy(rng.randint(
-                 0, 256, (B, cfg["num_frm"], 224, 224, 3), dtype=np.uint8)).cuda(),
+                 0, 256, (B, T, 224, 224, 3), dtype=np.uint8)).cuda(),
              "text_input_ids": torch.from_numpy(tok["input_ids"]).long().cuda(),
              "text_input_mask": torch.from_numpy(tok["attention_mask"]).long().cuda()}
     return model, opt, state, step, batch
@@ -4166,6 +4189,246 @@ def phase_distributed(card: str, reference: dict) -> dict:
     return launches
 
 
+# ---- phase 15: the model's sequence-parallel layout, and the FFmpeg decoder ----
+# the retrieval step on a (1, 2) mesh of two gloo processes on cuda:0, T = 16
+# split 8 + 8, against one process's unsplit step: ALPRO-base width cut to
+# GLOO_DEPTHS, bf16 compute, attn_impl 'pallas', the config's dropout and
+# drop-path, SP_BATCH clips. The split changes only where bf16 rounds (the
+# q/k/v projection over 8 frames' rows instead of 16, the scores and p·v over
+# the gathered keys), as phase 6's pallas and xla paths differ only there, so
+# the gradients are held to phase 6's tolerances (FT_*: whole, each parameter
+# but BERT's key biases, and the temporal q/k/v weights to the q/k/v one);
+# the losses, computed in fp32 from the fusion's logits, to SP_LOSS_TOL. On
+# the CPU in fp32 the split is exact to 1e-6 (tests/test_torch_sp_step.py).
+# Beside them, the bf16 unsplit step against the same step in fp32 compute
+# (the same weights, batch and dropout draws): the error bf16 itself makes.
+# Those gates sit at bf16's noise, so each sp process also runs the split
+# step in fp32 compute with the video blocks checkpointed (the recompute in
+# the backward pass runs on the autograd engine's device thread, where the
+# step's use_mesh context is unset, and must split as the forward did),
+# held to the unsplit fp32 step: the losses to SP_FP32_LOSS_TOL, the global
+# gradient norm before clipping to SP_FP32_NORM_TOL (relative; clipping
+# hides a gradient scaled by SP from AdamW's moment, not from the norm),
+# AdamW's first moment to SP_FP32_GRAD_TOL (relative L2, whole and the
+# temporal q/k/v weights) and SP_FP32_PARAM_TOL (worst parameter). A wrong
+# split (frame rows, dropout rows, a missing / SP) moves these by O(1).
+SP_FRAMES, SP_BATCH, SP_SEED = 16, 4, SEED + 60
+SP_LOSS_TOL = 8e-3
+SP_FP32_LOSS_TOL, SP_FP32_NORM_TOL, SP_FP32_GRAD_TOL, SP_FP32_PARAM_TOL = 1e-5, 1e-5, 2e-5, 1e-4
+SP_B13_A_STEP = GLOO_DEPTHS[0] + GLOO_DEPTHS[1]  # video blocks + text and fusion layers
+TEMPORAL_QKV = re.compile(r"\.temporal_attn\.qkv\.weight$")
+
+
+def _sp_setup(sp_axis, dtype=torch.bfloat16, checkpointed: bool = False):
+    """(a)'s model (``sp_axis`` set on its video tower; ``dtype`` compute;
+    ``checkpointed``: its blocks under gradient checkpointing), state, step
+    and batch."""
+    model, _, state, step, batch = _retrieval_train_setup(
+        SP_SEED, dtype=dtype, depths=GLOO_DEPTHS, frames=SP_FRAMES, batch_size=SP_BATCH)
+    vis = model.visual_encoder.model
+    vis.cfg = dataclasses.replace(vis.cfg, sp_axis=sp_axis, gradient_checkpointing=checkpointed)
+    return model, state, step, batch
+
+
+def _sp_run(step, model, state, batch) -> dict:
+    """One step with the counts set to 0 just before it and read just after:
+    its metrics, counts, the global gradient norm before clipping and
+    AdamW's first moment by parameter name (fp32, on the host)."""
+    opt, norms = step.optimizer, []
+    update = opt.update
+
+    def recorded(opt_state, params, grads):
+        norms.append(float(torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.double()) for g in grads]))))
+        return update(opt_state, params, grads)
+
+    opt.update = recorded
+    torch.cuda.synchronize()
+    _reset_counts()
+    try:
+        _, metrics = step(state, batch, SEED)
+        torch.cuda.synchronize()
+    finally:
+        opt.update = update
+    counts = _counts()
+    names = [n for n, _ in model.named_parameters()]
+    with torch.no_grad():
+        checksum = float(sum(p.double().sum() for p in model.parameters()))
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": counts,
+            "grad_norm": norms[0],
+            "mu": {n: m.float().cpu() for n, m in zip(names, state.opt_state.mu)},
+            "checksum": checksum}
+
+
+def _sp_worker(argv) -> int:
+    """A rank of (a): the sp step on the (1, 2) mesh in bf16, then in fp32
+    with the video blocks checkpointed, their results saved."""
+    import torch.distributed as dist
+
+    from alpro_tpu_torch.core.mesh import SEQ_AXIS, make_mesh
+    from alpro_tpu_torch.train.step import shard_step
+
+    rank, init, out = int(argv[0]), argv[1], argv[2]
+    torch.set_num_threads(GLOO_THREADS)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+    try:
+        mesh, runs = make_mesh([1, 2]), {}
+        for name, dtype, checkpointed in (("bf16", torch.bfloat16, False),
+                                          ("fp32_ckpt", torch.float32, True)):
+            model, state, step, batch = _sp_setup(SEQ_AXIS, dtype, checkpointed)
+            runs[name] = _sp_run(shard_step(step, mesh), model, state, batch)
+            del model, state, step, batch
+            torch.cuda.empty_cache()
+        torch.save(runs, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _sp_start(tmp: str) -> list:
+    init = f"file://{tmp}/sp_rendezvous"
+    procs = []
+    for r in range(2):
+        with open(f"{tmp}/sp{r}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--sp-worker", str(r), init,
+                 f"{tmp}/sp{r}.pt"], cwd=str(REPO), stdout=log, stderr=subprocess.STDOUT))
+    return procs
+
+
+def _sp_step(card: str, into: dict) -> None:
+    """(a) The two sp processes against one process's unsplit step."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="alpro_sp_") as tmp:
+        procs = _sp_start(tmp)
+        try:
+            runs = []
+            for dtype in (torch.bfloat16, torch.float32):
+                model, state, step, batch = _sp_setup(None, dtype)
+                runs.append(_sp_run(step, model, state, batch))
+                del model, state, step, batch
+                torch.cuda.empty_cache()
+            want, fp32 = runs
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            log = Path(f"{tmp}/sp{r}.log").read_text(errors="replace")
+            fail_if(p.returncode != 0, f"sp rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        saved = [torch.load(f"{tmp}/sp{r}.pt", weights_only=False) for r in range(2)]
+    got, exact = [r["bf16"] for r in saved], [r["fp32_ckpt"] for r in saved]
+    b13 = _launches(masked=SP_B13_A_STEP)
+    fail_if(want["counts"] != b13, f"unsplit step: launches {want['counts']} != {b13}")
+    for r, g in enumerate(got):
+        fail_if(g["counts"] != b13, f"sp rank {r}: launches {g['counts']} != {b13}")
+        for k, v in g["counts"].items():
+            into[k] = into.get(k, 0) + v
+    fail_if(got[0]["metrics"] != got[1]["metrics"] or got[0]["checksum"] != got[1]["checksum"],
+            f"sp ranks disagree: {got[0]['metrics']} / {got[1]['metrics']}, parameter sums "
+            f"{got[0]['checksum']} / {got[1]['checksum']}")
+    fail_if(fp32["counts"] != b13, f"unsplit fp32 step: launches {fp32['counts']} != {b13}")
+    loss_gap = max(abs(got[0]["metrics"][k] - v) for k, v in want["metrics"].items())
+    gaps, yard = grad_gaps(got[0]["mu"], want["mu"]), grad_gaps(want["mu"], fp32["mu"])
+    temporal = {n: r for n, r in gaps["params"] if TEMPORAL_QKV.search(n)}
+    yard_temporal = {n: r for n, r in yard["params"] if TEMPORAL_QKV.search(n)}
+    fail_if(len(temporal) != GLOO_DEPTHS[0], f"temporal q/k/v gradients: {sorted(temporal)}")
+    print(f"[sp] retrieval step on a (1, 2) mesh, 2 gloo processes on cuda:0, T {SP_FRAMES} "
+          f"split 8 + 8, B {SP_BATCH}, bf16, pallas, depths {GLOO_DEPTHS}, vs one process "
+          f"unsplit: losses {got[0]['metrics']} vs {want['metrics']}, max |diff| "
+          f"{loss_gap:.3e} (tol {SP_LOSS_TOL}); AdamW mu (0.1 x clipped gradient) rel L2 "
+          f"{gaps['whole']:.3e} over {gaps['values']} values (tol {FT_GRAD_TOL}), temporal "
+          f"qkv " + ", ".join(f"{r:.3e}" for r in temporal.values())
+          + f" (tol {FT_QKV_GRAD_TOL}), worst parameter {gaps['params'][0][0]} "
+          f"{gaps['params'][0][1]:.3e} (tol {FT_PARAM_GRAD_TOL}); yardstick, the unsplit bf16 "
+          f"step against fp32 compute: losses {fp32['metrics']}, rel L2 {yard['whole']:.3e}, "
+          f"temporal qkv " + ", ".join(f"{r:.3e}" for r in yard_temporal.values())
+          + f", worst {yard['params'][0][0]} {yard['params'][0][1]:.3e}; parameters "
+          f"bit-equal across the 2 ranks; B13 {SP_B13_A_STEP} a step on each [{card}]; (a) "
+          f"took {time.perf_counter() - t0:.1f} s", flush=True)
+    fail_if(loss_gap > SP_LOSS_TOL, f"sp step losses differ by {loss_gap}")
+    fail_if(gaps["whole"] > FT_GRAD_TOL or max(temporal.values()) > FT_QKV_GRAD_TOL
+            or gaps["params"][0][1] > FT_PARAM_GRAD_TOL,
+            f"sp step gradient off: whole {gaps['whole']}, temporal {temporal}, worst "
+            f"{gaps['params'][0]}")
+    fail_if(exact[0]["metrics"] != exact[1]["metrics"]
+            or exact[0]["checksum"] != exact[1]["checksum"],
+            f"fp32 sp ranks disagree: {exact[0]['metrics']} / {exact[1]['metrics']}")
+    x_loss = max(abs(exact[0]["metrics"][k] - v) for k, v in fp32["metrics"].items())
+    x_norm = abs(exact[0]["grad_norm"] - fp32["grad_norm"]) / fp32["grad_norm"]
+    x = grad_gaps(exact[0]["mu"], fp32["mu"])
+    x_temporal = [r for n, r in x["params"] if TEMPORAL_QKV.search(n)]
+    print(f"[sp] the same in fp32 compute, the video blocks checkpointed, against the unsplit "
+          f"fp32 step: losses {exact[0]['metrics']} vs {fp32['metrics']}, max |diff| "
+          f"{x_loss:.3e} (tol {SP_FP32_LOSS_TOL}); gradient norm before clipping "
+          f"{exact[0]['grad_norm']:.7f} vs {fp32['grad_norm']:.7f}, rel {x_norm:.3e} (tol "
+          f"{SP_FP32_NORM_TOL}); AdamW mu rel L2 {x['whole']:.3e}, temporal qkv "
+          + ", ".join(f"{r:.3e}" for r in x_temporal) + f" (tol {SP_FP32_GRAD_TOL}), worst "
+          f"parameter {x['params'][0][0]} {x['params'][0][1]:.3e} (tol {SP_FP32_PARAM_TOL}); "
+          f"parameters bit-equal across the 2 ranks [{card}]", flush=True)
+    fail_if(x_loss > SP_FP32_LOSS_TOL or x_norm > SP_FP32_NORM_TOL
+            or x["whole"] > SP_FP32_GRAD_TOL or max(x_temporal) > SP_FP32_GRAD_TOL
+            or x["params"][0][1] > SP_FP32_PARAM_TOL,
+            f"fp32 sp step off: loss {x_loss}, norm {x_norm}, whole {x['whole']}, temporal "
+            f"{x_temporal}, worst {x['params'][0]}")
+
+
+def _sp_media(card: str) -> None:
+    """(b) A container through the port's FFmpeg backend against the same
+    frames as ``.npy``, or a line saying the machine has no FFmpeg."""
+    import shutil
+    import tempfile
+
+    from alpro_tpu_torch.media import read_video
+
+    have = shutil.which("pkg-config") is not None and subprocess.run(
+        ["pkg-config", "--exists", "libavformat"]).returncode == 0
+    if not have:
+        print("[sp] media: pkg-config finds no FFmpeg (libavformat) on this machine; the FFmpeg "
+              "backend was not run", flush=True)
+        return
+    from alpro_tpu_torch.media.binding import get_decoder
+
+    t0 = time.perf_counter()
+    dec = get_decoder()  # builds libalpro_media.so on first use
+    t_build = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="alpro_media_") as tmp:
+        video, npy = f"{tmp}/clip.avi", f"{tmp}/clip.npy"
+        fail_if(not dec.encode_test_video(video, w=320, h=240, n_frames=48, seed=3),
+                "encode_test_video failed")
+        info = dec.probe(video)
+        np.save(npy, dec.decode_frames(video, list(range(info.num_frames))))
+        for kw in (dict(num_frm=16), dict(num_frm=8, sampling="rand"),
+                   dict(num_frm=4, start_time=0.4, end_time=1.6)):
+            a = read_video(video, rng=np.random.default_rng(1), **kw)
+            b = read_video(npy, rng=np.random.default_rng(1), **dict(kw, fps=info.fps)
+                           if "start_time" in kw else kw)
+            fail_if(a is None or b is None or not np.array_equal(a, b),
+                    f"FFmpeg backend differs from the .npy frames at {kw}")
+    print(f"[sp] media: libalpro_media.so built in {t_build:.1f} s; a {info.width}x{info.height} "
+          f"x {info.num_frames}-frame video through read_video's FFmpeg backend bit-equal to its "
+          f"frames as .npy (uniform 16, rand 8, a 0.4-1.6 s window) [{card}]", flush=True)
+
+
+def phase_sp(card: str) -> dict:
+    """Phase 15; returns the launches of (a)'s two sp processes, summed."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    _sp_step(card, launches)
+    _sp_media(card)
+    print(f"[sp] phase 15 took {time.perf_counter() - t0:.1f} s; launches of the sp steps "
+          f"{launches}", flush=True)
+    return launches
+
+
 def _gt_of(results) -> dict:
     """Ground truth of the planted retrieval set: text t{j} is video ret{j//2}."""
     return {r["txt_id"]: f"ret{int(r['txt_id'][1:]) // 2:03d}" for r in results}
@@ -4176,6 +4439,8 @@ def main() -> int:
 
     if sys.argv[1:2] == ["--gloo-worker"]:
         return _gloo_worker(sys.argv[2:])
+    if sys.argv[1:2] == ["--sp-worker"]:
+        return _sp_worker(sys.argv[2:])
     card = phase_device()
     phase_build()
     res = phase_kernels(card)
@@ -4203,6 +4468,8 @@ def main() -> int:
         # torch.distributed at one process: the wrapped step, the sharded index, phase 11's
         # run under the CLI's mesh
         dist_launches = phase_distributed(card, cli_reference)
+    # the model's sequence-parallel layout on two processes (B13), and the FFmpeg decoder
+    sp_launches = phase_sp(card)
     sources = {
         "spatial_attn": ("alpro_tpu_torch/csrc/spatial_attn.cu",
                          "alpro_tpu/ops/pallas_qkv_attn.py:99"),
@@ -4254,6 +4521,7 @@ def main() -> int:
             "pretrain_launches": pretrain_launches[name],
             "variant_launches": variant_launches.get(name, 0),
             "dist_launches": dist_launches.get(name, 0),
+            "sp_launches": sp_launches.get(name, 0),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

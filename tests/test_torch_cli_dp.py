@@ -33,9 +33,9 @@ from fixtures import write_video_dataset
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _two_processes(cfg, out, cli="run_video_retrieval", *argv):
-    """``cli`` with ``--mesh_shape 2`` on two gloo processes joined by the
-    ``ALPRO_COORDINATOR`` variables → each process's output."""
+def _two_processes(cfg, out, cli="run_video_retrieval", *argv, mesh_shape=("2",)):
+    """``cli`` with ``--mesh_shape`` ``mesh_shape`` on two gloo processes
+    joined by the ``ALPRO_COORDINATOR`` variables → each process's output."""
     cfg_path = out + ".json"
     with open(cfg_path, "w") as f:
         json.dump(cfg, f)
@@ -47,7 +47,7 @@ def _two_processes(cfg, out, cli="run_video_retrieval", *argv):
                OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", f"alpro_tpu_torch.cli.{cli}", "--config", cfg_path,
-         "--device", "cpu", "--mesh_shape", "2", "--output_dir", out, *argv],
+         "--device", "cpu", "--mesh_shape", *mesh_shape, "--output_dir", out, *argv],
         env=dict(env, ALPRO_PROCESS_ID=str(r)), cwd=REPO, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(2)]
     try:

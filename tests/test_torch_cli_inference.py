@@ -14,9 +14,8 @@ tolerance, the port's ``eval_retrieval`` on JAX's results gives JAX's
 metrics; QA answers equal wherever JAX's top-1 margin exceeds twice the
 logit tolerance. Also the reference ``.pt`` loader (module resizes, the
 prefix, the non-strict merge), the config parser on the shipped configs, and
-the CLIs' refusals: ``--mesh_shape`` (ROADMAP A12), the ``remat_policy``
-values that are not ported (A18), a pretraining model (A11), and the
-``cuda`` default without a card.
+the CLIs' flags: ``--mesh_shape`` N, DP 1 and DP SP, the ``remat_policy``
+values, a pretraining model, and the ``cuda`` default without a card.
 """
 
 import json
@@ -225,9 +224,9 @@ def test_cli_main_runs_on_the_cpu(retrieval_setup, tmp_path):
 
 
 def test_cli_refusals(retrieval_setup, tmp_path, capsys):
-    """``--mesh_shape``: N and DP 1 parse; DP SP with SP > 1 names ROADMAP
-    A19 (an argparse error, and ``setup_training``'s refusal of such a
-    config); a mesh wider than the processes fails on the world size; a
+    """``--mesh_shape``: N, DP 1 and DP SP parse (SP > 1 gives the video
+    tower ``sp_axis='sp'``; a mesh wider than the processes fails on the
+    world size in ``setup_training``), three numbers do not; a
     ``remat_policy`` outside JAX's list is an argparse error and each of
     the others builds the model with it; a pretraining model builds; the
     default device is ``cuda``: with no card the CLI raises unless
@@ -239,14 +238,15 @@ def test_cli_refusals(retrieval_setup, tmp_path, capsys):
     for mod in (run_video_retrieval, run_video_qa):
         with pytest.raises(SystemExit):
             mod.main(["--config", cfg["model_config"], "--device", "cpu", "--mesh_shape", "1",
-                      "4"])
-        assert "ROADMAP A19" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        pcfg.get_video_retrieval_args(["--mesh_shape", "2", "2"])
-    assert "ROADMAP A19" in capsys.readouterr().err
-    for shape in (["1"], ["1", "1"], ["2"]):
+                      "2", "2"])
+        assert "takes N or DP SP" in capsys.readouterr().err
+    for shape in (["1"], ["1", "1"], ["2"], ["1", "2"], ["2", "2"]):
         assert pcfg.get_video_retrieval_args(["--mesh_shape", *shape])["mesh_shape"] == \
             [int(n) for n in shape]
+    for shape, axis in (([1, 2], "sp"), ([2, 1], None), (None, None)):
+        built = common.build_model_from_cfg(Config(dict(cfg, device="cpu", mesh_shape=shape)),
+                                            "retrieval")
+        assert built.visual_encoder.model.cfg.sp_axis == axis
     with pytest.raises(SystemExit):
         pcfg.get_video_retrieval_args(["--remat_policy", "everything"])
     for name in ("dots", "dots_all", "dots_rng", "names", "dots_names", "dots_ln_names",
@@ -258,7 +258,7 @@ def test_cli_refusals(retrieval_setup, tmp_path, capsys):
         assert built.text_encoder.bert.cfg.remat_policy == name
     with pytest.raises(ValueError, match="holds 2 processes; the run has 1"):
         common.setup_training(Config(dict(cfg, mesh_shape=[2])), None, None, 1)
-    with pytest.raises(NotImplementedError, match="A19"):
+    with pytest.raises(ValueError, match="holds 4 processes; the run has 1"):
         common.setup_training(Config(dict(cfg, mesh_shape=[2, 2])), None, None, 1)
     pretrain = common.build_model_from_cfg(Config(dict(cfg, device="cpu", num_entities=7)),
                                            "pretrain")
@@ -282,13 +282,11 @@ def test_cli_refusals(retrieval_setup, tmp_path, capsys):
                                          ("pretrain_prompter.json", "get_pretraining_args")])
 def test_shipped_configs_parse_as_in_jax(name, parser):
     """``configs/msrvtt_{ret,qa}.json`` and ``configs/pretrain_{alpro,
-    prompter}.json`` parse unchanged: every key of the
-    port's result has JAX's value, but ``device='cuda'`` and the keys that
-    the JAX CLIs read from a config file only, which the port declares with
-    the JAX CLIs' defaults; the keys it leaves out are JAX's flags that
-    nothing reads or that are TPU-only, and such a flag on the command line
-    is refused, not ignored (``--mesh_shape`` with sp > 1 names ROADMAP
-    A19)."""
+    prompter}.json`` parse unchanged: every key of JAX's result has JAX's
+    value in the port's, which adds ``device='cuda'`` and the keys that the
+    JAX CLIs read from a config file only, with the JAX CLIs' defaults.
+    JAX's XLA-only flags, its unread ones and a 2-D mesh parse to JAX's
+    values too."""
     import alpro_tpu.core.config as jcfg
     import alpro_tpu_torch.core.config as pcfg
 
@@ -302,18 +300,17 @@ def test_shipped_configs_parse_as_in_jax(name, parser):
     for key, value in defaults.items():
         if key not in config_keys and key in got:
             assert key not in want and got.pop(key) == value
-    assert got == {k: want[k] for k in got}
+    assert got == want
     assert config_keys <= set(got)
     assert {"learning_rate", "profile", "remat_policy", "num_train_epochs", "log_interval",
-            "train_datasets", "frm_sampling_strategy"} <= set(got)
-    dropped = {"xla_compiler_options", "scan_blocks", "num_workers", "dropout"} - config_keys
-    assert dropped and dropped <= set(want) - set(got)
-    for flag in (["--mesh_shape", "1", "4"], ["--xla_compiler_options", "a=b"],
-                 ["--scan_blocks", "0"]):
-        with pytest.raises(SystemExit):
-            getattr(pcfg, parser)(argv + flag)
+            "train_datasets", "frm_sampling_strategy", "xla_compiler_options", "scan_blocks",
+            "num_workers", "dropout", "inference_split", "pin_mem"} <= set(got)
     for flag, key, value in ((["--profile", "1"], "profile", 1),
-                             (["--learning_rate", "1e-4"], "learning_rate", 1e-4)):
+                             (["--learning_rate", "1e-4"], "learning_rate", 1e-4),
+                             (["--mesh_shape", "1", "4"], "mesh_shape", [1, 4]),
+                             (["--xla_compiler_options", "a=b"], "xla_compiler_options", "a=b"),
+                             (["--scan_blocks", "0"], "scan_blocks", 0),
+                             (["--inference_split", "test"], "inference_split", "test")):
         assert getattr(pcfg, parser)(argv + flag)[key] == getattr(jcfg, parser)(argv + flag)[key] \
             == value
 

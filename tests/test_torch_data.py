@@ -4,13 +4,15 @@ Tokenizer ids and masks (unknown words, punctuation, truncation), frame
 sampling for every strategy and seed, the shorter-side resize (the port's
 numpy bilinear against JAX's Pillow ``Image.BILINEAR``: exact, no uint8
 level of difference allowed), ``read_video`` on ``.npy``/``.npz``, the eval
-datasets' items, the collators' batches and ``BatchLoader``'s order. The
-port reads only ``.npy``/``.npz`` clips and ``.json``/``.jsonl``
-annotations: other paths raise naming the ROADMAP item that ports them.
+datasets' items, the collators' batches and ``BatchLoader``'s order. A
+container path goes to the FFmpeg backend (its decoding against JAX's:
+``tests/test_torch_media.py``), and a pandas ``.pkl`` datalist reads as
+JAX's.
 """
 
 import json
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -142,8 +144,13 @@ def test_read_video_matches_jax(tmp_path):
                 assert got is None
             else:
                 np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="A17"):
-        pmedia.read_video(str(tmp_path / "v.mp4"), 8)
+    # a container path goes to the FFmpeg backend: a missing file reads as
+    # None; where the decoder cannot be built, that raises
+    if subprocess.run(["pkg-config", "--exists", "libavformat"]).returncode == 0:
+        assert pmedia.read_video(str(tmp_path / "v.mp4"), 8) is None
+    else:
+        with pytest.raises(RuntimeError, match="failed to build"):
+            pmedia.read_video(str(tmp_path / "v.mp4"), 8)
     with pytest.raises(AssertionError, match="fps"):
         pmedia.read_video(str(tmp_path / "v.npy"), 4, start_time=1.0, end_time=2.0)
 
@@ -155,8 +162,17 @@ def test_datalists_match_jax(tmp_path):
     (tmp_path / "a.jsonl").write_text("".join(json.dumps(r) + "\n\n" for r in rows))
     for name in ("a.json", "a.jsonl"):
         assert pds.load_datalist(str(tmp_path / name)) == jds.load_datalist(str(tmp_path / name))
-    with pytest.raises(NotImplementedError, match="A17"):
-        pds.load_datalist(str(tmp_path / "train.pkl"))
+    try:
+        import pandas
+    except ImportError:
+        with pytest.raises(ImportError, match="needs pandas"):
+            pds.load_datalist(str(tmp_path / "train.pkl"))
+    else:
+        webvid = [{"videoid": 7 + i, "name": r.get("caption", "x"), "page_dir": "00"}
+                  for i, r in enumerate(rows)]
+        pandas.DataFrame(webvid).to_pickle(tmp_path / "train.pkl")
+        got = pds.load_datalist(str(tmp_path / "train.pkl"))
+        assert got == jds.load_datalist(str(tmp_path / "train.pkl")) and len(got) == 3
     with pytest.raises(ValueError):
         pds.load_datalist(str(tmp_path / "a.csv"))
 
@@ -224,6 +240,25 @@ def test_batch_loader_order_matches_jax(shuffle, drop_last, shards, workers):
         assert len(got) == len(want)
         for _ in range(2):  # two epochs: the shuffle's seed moves with the epoch
             assert list(got) == list(want)
+
+
+def test_placeholder_loader_reads_nothing():
+    """An sp rank > 0's loader (``placeholder=True``): as many batches as
+    the reading loader, each an empty dict, and no item read."""
+
+    class Unread:
+        def __len__(self):
+            return 23
+
+        def __getitem__(self, i):
+            raise AssertionError(f"item {i} read")
+
+    kw = dict(batch_size=4, shuffle=True, seed=5, num_shards=2, shard_id=1, num_workers=2)
+    got = ploader.BatchLoader(Unread(), list, placeholder=True, **kw)
+    want = ploader.BatchLoader(list(range(23)), list, **kw)
+    assert len(got) == len(want) == 3
+    for _ in range(2):
+        assert list(got) == [{}] * len(list(want))
 
 
 def test_retrieval_training_dataset_matches_jax(tmp_path):

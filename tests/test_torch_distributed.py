@@ -40,7 +40,7 @@ def test_one_process_without_a_group(monkeypatch):
         monkeypatch.delenv(key, raising=False)
     assert not D.maybe_initialize("cpu") and not dist.is_initialized()
     assert D.process_info() == (0, 1) and D.is_primary() and D.data_shards() == (1, 0)
-    assert D.local_batch_size(3) == 3
+    assert D.local_batch_size(3) == 3 and D.reads_rows() and D.reads_rows([1, 1])
     assert (D.backend_for("cuda:1"), D.backend_for("cpu")) == ("nccl", "gloo")
     mesh = M.make_mesh()
     assert (mesh.shape, mesh.axis_names, mesh.dp) == ((1,), ("dp",), M.MeshAxis("dp", 1, 0, None))
@@ -117,6 +117,9 @@ def test_process_info_on_two_processes(spawned):
     for r, o in enumerate(out):
         assert o["process_info"] == (r, 2) and o["primary"] == (r == 0)
         assert o["data_shards"] == (2, r) and o["local_batch"] == 2
+        # over (1, 2) both read dp stripe 0, and only sp rank 0 loads its rows
+        assert o["sp_shards"] == (1, 0) and o["sp_local_batch"] == 4
+        assert o["reads_rows"] == (True, r == 0)
 
 
 def test_all_gather_with_grad_matches_one_process_autograd(spawned):

@@ -1,6 +1,6 @@
 """Worker processes of the port's multi-process CPU tests
 (``tests/test_torch_{distributed,dp_step,dp_step_tasks,sharded_serving,
-seq_parallel}.py``).
+seq_parallel,sp_step}.py``).
 
 ``spawn(job, world, workdir)`` starts ``world`` processes of this file, each
 joining one gloo process group on a ``FileStore`` in ``workdir``; each runs
@@ -148,7 +148,9 @@ def job_distributed(rank, world, inputs):
     from alpro_tpu_torch.parallel.host_sync import all_gather_list, barrier, broadcast_object
 
     out = {"process_info": D.process_info(), "primary": D.is_primary(),
-           "data_shards": D.data_shards(), "local_batch": D.local_batch_size(4)}
+           "data_shards": D.data_shards(), "local_batch": D.local_batch_size(4),
+           "sp_shards": D.data_shards([1, 2]), "sp_local_batch": D.local_batch_size(4, [1, 2]),
+           "reads_rows": (D.reads_rows(), D.reads_rows([1, 2]))}
     group = dist.group.WORLD
     # all_gather_with_grad: every rank's loss reads every rank's rows
     x = torch.from_numpy(inputs["x"][rank]).requires_grad_(True)
@@ -247,8 +249,114 @@ def job_seq(rank, world, inputs):
             "w_grads": [w.grad.numpy() for w in ws]}
 
 
+class _BackwardOnAThread:
+    """Within the block, ``Tensor.backward`` runs on a new thread, which
+    starts with an empty ``contextvars`` context, as the autograd engine's
+    device thread does for a CUDA graph (the CPU's engine runs the backward
+    on the calling thread)."""
+
+    def __enter__(self):
+        import threading
+
+        self.backward = torch.Tensor.backward
+        backward = self.backward
+
+        def on_a_thread(tensor, *args, **kw):
+            failed = []
+
+            def run():
+                try:
+                    backward(tensor, *args, **kw)
+                except BaseException as e:  # raised again on the caller's thread
+                    failed.append(e)
+
+            t = threading.Thread(target=run)
+            t.start()
+            t.join()
+            if failed:
+                raise failed[0]
+
+        torch.Tensor.backward = on_a_thread
+        return self
+
+    def __exit__(self, *exc):
+        torch.Tensor.backward = self.backward
+
+
+def job_sp_steps(rank, world, inputs):
+    """Each case's retrieval step over the mesh ``inputs['mesh']`` with
+    AdamW → (metrics, parameters after the step, AdamW's first moment, the
+    global gradient norm before clipping, the calls of the model's split
+    temporal attention). A case with ``backward_thread`` runs its backward
+    pass on another thread (``_BackwardOnAThread``)."""
+    import contextlib
+
+    from alpro_tpu_torch.core.mesh import SEQ_AXIS, make_mesh, shard_batch
+    from alpro_tpu_torch.models import alpro, timesformer
+    from alpro_tpu_torch.models.bert import BertConfig
+    from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+    from alpro_tpu_torch.train import step as port_step
+    from alpro_tpu_torch.train.optimizer import build_optimizer, get_lr_schedule
+    from alpro_tpu_torch.train.state import TrainState
+
+    mesh = make_mesh(inputs["mesh"])
+    calls = [0]
+    split = timesformer.sharded_temporal_attention
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return split(*args, **kw)
+
+    timesformer.sharded_temporal_attention = counted
+    out = {}
+    for name, case in inputs["cases"].items():
+        vis = TimeSformerConfig(**case["vis"])
+        model = alpro.build_retrieval_model(BertConfig(**case["bert"]), vis,
+                                            img_size=vis.img_size, num_frm=vis.num_frames)
+        model.load_state_dict(case["state"])
+        opt = build_optimizer(get_lr_schedule("constant", case["lr"], 100), grad_norm=5.0)
+        state = TrainState.create(model, opt)
+        norms = []
+        update = opt.update
+
+        def recorded(opt_state, params, grads, update=update, norms=norms):
+            norms.append(float(torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.double()) for g in grads]))))
+            return update(opt_state, params, grads)
+
+        opt.update = recorded
+        step = port_step.shard_step(port_step.make_retrieval_train_step(model, opt), mesh)
+        calls[0] = 0
+        # an sp rank > 0 feeds nothing: its step takes sp rank 0's batch
+        batch = (shard_batch(mesh, {k: torch.from_numpy(v) for k, v in case["batch"].items()})
+                 if mesh[SEQ_AXIS].rank == 0 else {})
+        with _BackwardOnAThread() if case.get("backward_thread") else contextlib.nullcontext():
+            _, metrics = step(state, batch, case.get("seed", 0))
+        names = [k for k, _ in model.named_parameters()]
+        out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
+                     "params": {k: p.detach().numpy().copy()
+                                for k, p in model.named_parameters()},
+                     "mu": {k: m.numpy().copy() for k, m in zip(names, state.opt_state.mu)},
+                     "grad_norm": norms[0], "split_calls": calls[0]}
+    # the step's extras come from sp rank 0 too, beside its batch
+    seen = []
+    lin = torch.nn.Linear(2, 1)
+
+    def probe(batch, ctx, tag):
+        seen.append((tag, batch["x"].tolist()))
+        loss = lin(batch["x"]).sum()
+        return loss, {"loss": loss.detach()}
+
+    opt = build_optimizer(get_lr_schedule("constant", 0.0, 100))
+    x = {"x": torch.full((1, 2), float(rank))} if mesh[SEQ_AXIS].rank == 0 else {}
+    port_step.shard_step(port_step.TrainStep(lin, opt, probe), mesh)(
+        TrainState.create(lin, opt), x, 0, f"from rank {rank}")
+    out["extras_seen"] = seen
+    return out
+
+
 JOBS = {"steps": job_steps, "distributed": job_distributed, "index": job_index,
-        "seq": job_seq}
+        "seq": job_seq, "sp_steps": job_sp_steps}
 
 
 def main(argv) -> None:
