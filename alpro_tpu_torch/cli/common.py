@@ -44,7 +44,8 @@ from alpro_tpu_torch.core.distributed import (
 )
 from alpro_tpu_torch.core.logging import LOGGER, TB_LOGGER, NoOp, RunningMeter, add_log_to_file
 from alpro_tpu_torch.core.mesh import SEQ_AXIS, make_mesh, replicate
-from alpro_tpu_torch.core.misc import maybe_profile, save_training_meta, set_random_seed
+from alpro_tpu_torch.core.misc import save_training_meta, set_random_seed
+from alpro_tpu_torch.core.trace import maybe_profile, span
 from alpro_tpu_torch.data.loader import DevicePrefetcher, stage_batch
 from alpro_tpu_torch.data.transforms import IMAGE_MEAN_CLIP, IMAGE_STD_CLIP
 from alpro_tpu_torch.models.alpro import (
@@ -326,7 +327,8 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
     rounded up to a multiple of ``min_valid_steps``) ``validate_fn`` and
     ``save_model_fn`` run; a resume checkpoint is saved where
     ``restorer.due``. ``debug`` validates every step and stops after four;
-    ``profile`` traces steps [start+2, start+7). On the way out the last
+    ``profile`` traces steps [start+2, start+7), with the program's spans
+    (``core/trace.py``). On the way out the last
     async save is committed and the prefetcher closed."""
     device = model_device(state.model)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
@@ -357,8 +359,10 @@ def run_train_loop(cfg: Config, step_fn: Callable, state: TrainState, train_iter
                     profiling.enter_context(maybe_profile(cfg.output_dir, True))
                 elif profile and global_step == start_step + 7:
                     profiling.close()
-                staged_batch, extras = next(staged)
-                state, metrics = step_fn(state, staged_batch.wait(), seed, *extras)
+                with span("loop.data_wait"):
+                    staged_batch, extras = next(staged)
+                    batch = staged_batch.wait()
+                state, metrics = step_fn(state, batch, seed, *extras)
                 # metrics stay on the device between log steps: reading them
                 # every step would wait for the device every step
                 if (global_step + 1) % log_interval == 0 or debug:

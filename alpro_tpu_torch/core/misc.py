@@ -1,16 +1,15 @@
-"""Seeding, retried IO, the training-meta snapshot and the profiler hook
-(the port's copy of ``alpro_tpu/core/misc.py``; its ``parse_compiler_options``
-is XLA's and has no counterpart)."""
+"""Seeding, retried IO and the training-meta snapshot (the port's copy of
+``alpro_tpu/core/misc.py``; its ``parse_compiler_options`` is XLA's and has
+no counterpart, and its ``maybe_profile`` is ``core/trace.py``'s)."""
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import random
 import time
 import zipfile
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
@@ -69,23 +68,3 @@ def save_training_meta(output_dir: str, cfg: dict) -> None:
                     full = os.path.join(base, name)
                     zf.write(full, os.path.relpath(full, root))
     LOGGER.info("saved training meta to %s", log_dir)
-
-
-@contextlib.contextmanager
-def maybe_profile(output_dir: Optional[str], enabled: bool = False):
-    """A ``torch.profiler`` trace (CPU, and CUDA when a card is present) of
-    the body, written as a Chrome trace to ``output_dir/profile/trace.json``;
-    a no-op unless ``enabled`` and ``output_dir`` are given."""
-    if not enabled or not output_dir:
-        yield
-        return
-    trace_dir = os.path.join(output_dir, "profile")
-    os.makedirs(trace_dir, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    path = os.path.join(trace_dir, "trace.json")
-    prof.export_chrome_trace(path)
-    LOGGER.info("wrote profiler trace to %s", path)

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from alpro_tpu_torch.core.trace import span
 from alpro_tpu_torch.models.bert import BertConfig, BertMLMHead, BertModel, container
 from alpro_tpu_torch.models.timesformer import TimeSformer, TimeSformerConfig
 from alpro_tpu_torch.ops.layers import LayerNorm, linear
@@ -80,15 +81,17 @@ class AlproModel(nn.Module):
                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Video (see ``TimeSformer.forward`` for the input forms) →
         temporally pooled (B, 1+N, D) tokens."""
-        return self.visual_encoder.model(pixels, generator)
+        with span("video"):
+            return self.visual_encoder.model(pixels, generator)
 
     def embed_text(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Token ids → (B, Lt, D) through the text half (layers 0..fusion)."""
-        return self.text_encoder.bert(
-            input_ids=input_ids, attention_mask=attention_mask, mode="text",
-            generator=generator,
-        )
+        with span("text"):
+            return self.text_encoder.bert(
+                input_ids=input_ids, attention_mask=attention_mask, mode="text",
+                generator=generator,
+            )
 
     def _l2_feat(self, tokens: torch.Tensor, proj: nn.Linear) -> torch.Tensor:
         feat = linear(tokens[:, 0, :], proj, self.dtype).float()
@@ -105,16 +108,17 @@ class AlproModel(nn.Module):
              video_embeds: torch.Tensor, video_mask: Optional[torch.Tensor] = None,
              generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[text; video] through the fusion half (layers fusion..end)."""
-        B, Lv = video_embeds.shape[:2]
-        if video_mask is None:
-            video_mask = torch.ones((B, Lv), dtype=text_mask.dtype, device=text_mask.device)
-        embeds = torch.cat(
-            [text_embeds.to(self.dtype), video_embeds.to(self.dtype)], dim=1
-        )
-        mask = torch.cat([text_mask, video_mask], dim=1)
-        return self.text_encoder.bert(
-            encoder_embeds=embeds, attention_mask=mask, mode="fusion", generator=generator
-        )
+        with span("fusion"):
+            B, Lv = video_embeds.shape[:2]
+            if video_mask is None:
+                video_mask = torch.ones((B, Lv), dtype=text_mask.dtype, device=text_mask.device)
+            embeds = torch.cat(
+                [text_embeds.to(self.dtype), video_embeds.to(self.dtype)], dim=1
+            )
+            mask = torch.cat([text_mask, video_mask], dim=1)
+            return self.text_encoder.bert(
+                encoder_embeds=embeds, attention_mask=mask, mode="fusion", generator=generator
+            )
 
     def itm_logits(self, fusion_cls: torch.Tensor) -> torch.Tensor:
         return linear(fusion_cls, self.itm_head, self.dtype).float()

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from alpro_tpu_torch.core.trace import span
 from alpro_tpu_torch.ops.quant import quantize_tree
 from alpro_tpu_torch.serving.inference import (
     make_fusion_score_fn,
@@ -79,11 +80,14 @@ class RetrievalIndex:
                 f"clips must be (B, T, H, W, 3) with B == len(ids); got "
                 f"{tuple(clips.shape)} for {len(ids)} ids"
             )
-        embeds, feat = self._embed_video(clips.to(self.device))
-        self._token_chunks.append(embeds)
-        self._feat_chunks.append(feat.float())
-        self.ids.extend(str(i) for i in ids)
-        self._bank = None
+        with span("ingest"):
+            with span("ingest.h2d"):
+                pixels = clips.to(self.device)
+            embeds, feat = self._embed_video(pixels)
+            self._token_chunks.append(embeds)
+            self._feat_chunks.append(feat.float())
+            self.ids.extend(str(i) for i in ids)
+            self._bank = None
 
     def _banks(self):
         if self._bank is None:
@@ -100,22 +104,26 @@ class RetrievalIndex:
         k = min(self.topk if topk is None else int(topk), len(self.ids))
         if k < 1:
             raise ValueError(f"topk must be >= 1 (got {topk!r})")
-        feats, tokens = self._banks()
-        enc = self.tokenizer(list(texts), max_length=self.max_txt_len)
-        ids = torch.from_numpy(np.asarray(enc["input_ids"], np.int32)).to(self.device)
-        mask = torch.from_numpy(np.asarray(enc["attention_mask"], np.int32)).to(self.device)
-        text_embeds, tfeat = self._encode_text(
-            {"text_input_ids": ids, "text_input_mask": mask}
-        )
-        B = ids.shape[0]
-        top_sims, top_idx = torch.topk(tfeat @ feats.T, k, dim=1)   # (B, k)
-        logits = self._fusion_score(
-            text_embeds.repeat_interleave(k, dim=0),                 # query-major
-            mask.repeat_interleave(k, dim=0),
-            tokens[top_idx.reshape(-1)],
-        )
-        probs = torch.softmax(logits, dim=-1)[:, 1].reshape(B, k)
-        return probs.cpu().numpy(), top_sims.cpu().numpy(), top_idx.cpu().numpy()
+        with span("query"):
+            feats, tokens = self._banks()
+            with span("query.tokenize"):
+                enc = self.tokenizer(list(texts), max_length=self.max_txt_len)
+                ids = torch.from_numpy(np.asarray(enc["input_ids"], np.int32)).to(self.device)
+                mask = torch.from_numpy(
+                    np.asarray(enc["attention_mask"], np.int32)).to(self.device)
+            text_embeds, tfeat = self._encode_text(
+                {"text_input_ids": ids, "text_input_mask": mask}
+            )
+            B = ids.shape[0]
+            top_sims, top_idx = torch.topk(tfeat @ feats.T, k, dim=1)   # (B, k)
+            logits = self._fusion_score(
+                text_embeds.repeat_interleave(k, dim=0),                 # query-major
+                mask.repeat_interleave(k, dim=0),
+                tokens[top_idx.reshape(-1)],
+            )
+            probs = torch.softmax(logits, dim=-1)[:, 1].reshape(B, k)
+            with span("query.readback"):
+                return probs.cpu().numpy(), top_sims.cpu().numpy(), top_idx.cpu().numpy()
 
     def _ranked(self, probs, sims, idx) -> List[Result]:
         order = np.argsort(-probs, kind="stable")

@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from alpro_tpu_torch.core.distributed import is_primary
+from alpro_tpu_torch.core.trace import span
 from alpro_tpu_torch.parallel.collectives import all_gather
 from alpro_tpu_torch.parallel.host_sync import barrier
 from alpro_tpu_torch.serving.retrieval import RetrievalIndex
@@ -67,12 +68,15 @@ class ShardedRetrievalIndex(RetrievalIndex):
         m = -(-n // self.n_proc)
         rows = np.arange(self.rank * m, (self.rank + 1) * m)
         gidx = np.where(rows < n, rows + len(self.ids), -1)
-        embeds, feat = self._embed_video(clips[np.minimum(rows, n - 1)].to(self.device))
-        self._token_chunks.append(embeds)
-        self._feat_chunks.append(feat.float())
-        self._gidx_chunks.append(torch.from_numpy(gidx).to(self.device))
-        self.ids.extend(str(i) for i in ids)
-        self._bank = None
+        with span("ingest"):
+            with span("ingest.h2d"):
+                pixels = clips[np.minimum(rows, n - 1)].to(self.device)
+            embeds, feat = self._embed_video(pixels)
+            self._token_chunks.append(embeds)
+            self._feat_chunks.append(feat.float())
+            self._gidx_chunks.append(torch.from_numpy(gidx).to(self.device))
+            self.ids.extend(str(i) for i in ids)
+            self._bank = None
 
     def _banks(self):
         if self._bank is None:
@@ -93,27 +97,32 @@ class ShardedRetrievalIndex(RetrievalIndex):
         k = min(self.topk if topk is None else int(topk), len(self.ids))
         if k < 1:
             raise ValueError(f"topk must be >= 1 (got {topk!r})")
-        feats, tokens, gidx = self._banks()
-        enc = self.tokenizer(list(texts), max_length=self.max_txt_len)
-        ids = torch.from_numpy(np.asarray(enc["input_ids"], np.int32)).to(self.device)
-        mask = torch.from_numpy(np.asarray(enc["attention_mask"], np.int32)).to(self.device)
-        text_embeds, tfeat = self._encode_text({"text_input_ids": ids, "text_input_mask": mask})
-        B = ids.shape[0]
-        sims = torch.where(gidx[None, :] >= 0, tfeat @ feats.T, float("-inf"))
-        local_s, local_i = torch.topk(sims, min(k, sims.shape[1]), dim=1)  # (B, kk)
-        s_all = self._gathered(local_s)
-        g_all = self._gathered(gidx[local_i])
-        t_all = self._gathered(tokens[local_i])
-        top_s, j = torch.topk(s_all, k, dim=1)  # the global top-k of the survivors
-        cand = t_all[torch.arange(B, device=j.device)[:, None], j]  # (B, k, 1+N, D)
-        logits = self._fusion_score(
-            text_embeds.repeat_interleave(k, dim=0),  # query-major
-            mask.repeat_interleave(k, dim=0),
-            cand.reshape((B * k,) + tuple(cand.shape[2:])),
-        )
-        probs = torch.softmax(logits, dim=-1)[:, 1].reshape(B, k)
-        return (probs.cpu().numpy(), top_s.cpu().numpy(),
-                torch.gather(g_all, 1, j).cpu().numpy())
+        with span("query"):
+            feats, tokens, gidx = self._banks()
+            with span("query.tokenize"):
+                enc = self.tokenizer(list(texts), max_length=self.max_txt_len)
+                ids = torch.from_numpy(np.asarray(enc["input_ids"], np.int32)).to(self.device)
+                mask = torch.from_numpy(
+                    np.asarray(enc["attention_mask"], np.int32)).to(self.device)
+            text_embeds, tfeat = self._encode_text(
+                {"text_input_ids": ids, "text_input_mask": mask})
+            B = ids.shape[0]
+            sims = torch.where(gidx[None, :] >= 0, tfeat @ feats.T, float("-inf"))
+            local_s, local_i = torch.topk(sims, min(k, sims.shape[1]), dim=1)  # (B, kk)
+            s_all = self._gathered(local_s)
+            g_all = self._gathered(gidx[local_i])
+            t_all = self._gathered(tokens[local_i])
+            top_s, j = torch.topk(s_all, k, dim=1)  # the global top-k of the survivors
+            cand = t_all[torch.arange(B, device=j.device)[:, None], j]  # (B, k, 1+N, D)
+            logits = self._fusion_score(
+                text_embeds.repeat_interleave(k, dim=0),  # query-major
+                mask.repeat_interleave(k, dim=0),
+                cand.reshape((B * k,) + tuple(cand.shape[2:])),
+            )
+            probs = torch.softmax(logits, dim=-1)[:, 1].reshape(B, k)
+            with span("query.readback"):
+                return (probs.cpu().numpy(), top_s.cpu().numpy(),
+                        torch.gather(g_all, 1, j).cpu().numpy())
 
     def save(self, path: str) -> None:
         """The whole gallery in ``RetrievalIndex``'s format, written by the

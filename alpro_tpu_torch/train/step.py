@@ -55,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from alpro_tpu_torch.core.mesh import SEQ_AXIS, use_mesh
+from alpro_tpu_torch.core.trace import span
 from alpro_tpu_torch.models.alpro import AlproModel
 from alpro_tpu_torch.objectives.mlm import IGNORE_INDEX, mlm_loss
 from alpro_tpu_torch.objectives.pem import masked_patch_mean, mpm_loss, pseudo_labels_from_feats
@@ -221,6 +222,10 @@ class TrainStep:
         return batch, tuple(extras)
 
     def __call__(self, state: TrainState, batch, seed: int = 0, *extras):
+        with span("step", rid=state.step):
+            return self._step(state, batch, seed, *extras)
+
+    def _step(self, state: TrainState, batch, seed: int, *extras):
         model = self.model
         was_training = model.training
         model.train()
@@ -229,18 +234,22 @@ class TrainStep:
             with use_mesh(self.mesh):
                 if self.sp > 1:
                     batch, extras = self._sp_rows(batch, extras)
-                loss, metrics = self.loss_fn(batch, self._context(seed, state.step), *extras)
+                with span("step.forward"):
+                    loss, metrics = self.loss_fn(batch, self._context(seed, state.step), *extras)
                 if self.sp > 1:  # the SP equal losses add up to the dp share
                     loss = loss / self.sp
                     metrics = {k: v / self.sp for k, v in metrics.items()}
-                loss.backward()
+                with span("step.backward"):
+                    loss.backward()
         finally:
             model.train(was_training)
         grads = _grads(model)
         if self.reduce_group is not None:
-            flat_all_reduce_(grads, self.reduce_group)
-            metrics = _sum_metrics(metrics, self.reduce_group)
-        _apply_updates(state, self.optimizer, grads)
+            with span("step.reduce"):
+                flat_all_reduce_(grads, self.reduce_group)
+                metrics = _sum_metrics(metrics, self.reduce_group)
+        with span("step.optimizer"):
+            _apply_updates(state, self.optimizer, grads)
         model.zero_grad(set_to_none=True)
         return state, metrics
 

@@ -145,6 +145,32 @@ def test_two_processes_match_the_jax_global_step(runs, case):
     _check_both(runs, case)
 
 
+def test_wrapped_step_spans_forward_backward_reduce_optimizer(runs):
+    """With a process group the step's spans are, in order, forward (holding
+    the model spans), backward, reduce (the all-reduce) and optimizer, on
+    every process and in every case, all under the micro-step's rid."""
+    _, cases, got = runs
+    for rank in range(2):
+        for name in cases:
+            spans = got[rank][name]["spans"]
+            (step,) = [s for s in spans if s["name"] == "alpro.step"]
+            assert (step["parent"], step["rid"]) == (None, 0)
+            kids = sorted((s for s in spans if s["parent"] == step["id"]),
+                          key=lambda s: s["start"])
+            assert [k["name"] for k in kids] == ["alpro.step.forward", "alpro.step.backward",
+                                                 "alpro.step.reduce", "alpro.step.optimizer"]
+            assert all(a["end"] <= b["start"] for a, b in zip(kids, kids[1:]))
+            forward, frontier = [], {kids[0]["id"]}
+            while frontier:
+                below = [s for s in spans if s["parent"] in frontier]
+                forward += below
+                frontier = {s["id"] for s in below}
+            assert "alpro.video" in {s["name"] for s in forward}
+            assert {s["name"] for s in forward} <= {"alpro.video", "alpro.text", "alpro.fusion"}
+            assert len(spans) == 1 + len(kids) + len(forward)
+            assert {s["rid"] for s in spans} == {0}
+
+
 def test_two_processes_match_one_process_on_the_whole_batch(runs):
     """2 × B 2 against 1 × B 4: the same hard negatives (global indices),
     the metrics within 1e-5, the gradients within 1e-4."""

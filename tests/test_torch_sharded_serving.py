@@ -79,6 +79,26 @@ def test_sharded_index_matches_one_process(setup, weights):
         _same(o[weights]["batch"], index.query_batch(TEXTS), 1e-5)
 
 
+def test_sharded_index_opens_the_serving_spans(setup):
+    """On every process each ``add_videos`` is an ``alpro.ingest`` span (the
+    copy of its slice, then the video tower) and each ``query`` or
+    ``query_batch`` an ``alpro.query`` span (tokenize, the text half, the
+    fusion half, the readback), as on one process."""
+    for o in setup[3]:
+        spans = o["spans"]
+        tops = sorted((s for s in spans if s["parent"] is None), key=lambda s: s["start"])
+        assert [t["name"] for t in tops] == (["alpro.ingest"] * len(CALLS)
+                                             + ["alpro.query"] * (len(TEXTS) + 1))
+        for t in tops:
+            kids = sorted((s for s in spans if s["parent"] == t["id"]), key=lambda s: s["start"])
+            assert [k["name"] for k in kids] == (
+                ["alpro.ingest.h2d", "alpro.video"] if t["name"] == "alpro.ingest" else
+                ["alpro.query.tokenize", "alpro.text", "alpro.fusion", "alpro.query.readback"])
+            assert all(t["start"] <= k["start"] <= k["end"] <= t["end"] for k in kids)
+        assert len(spans) == len(tops) + sum(2 if t["name"] == "alpro.ingest" else 4
+                                             for t in tops)
+
+
 def test_saved_sharded_gallery_loads_whole(setup):
     inputs, port, _, out = setup
     for o in out:  # loaded back into a sharded index (other slices): the same answers

@@ -97,8 +97,10 @@ def rows_of(batch: dict, rank: int, world: int) -> dict:
 
 # ---- jobs ----
 def job_steps(rank, world, inputs):
-    """Each case's wrapped step on this rank's rows → (metrics, gradients,
-    the hard negatives drawn for this rank's rows)."""
+    """Each case's wrapped step on this rank's rows, with the program's
+    spans on → (metrics, gradients, the hard negatives drawn for this
+    rank's rows, the step's spans)."""
+    from alpro_tpu_torch.core import trace
     from alpro_tpu_torch.core.mesh import make_mesh
     from alpro_tpu_torch.train import step as port_step
     from alpro_tpu_torch.train.state import TrainState
@@ -127,12 +129,24 @@ def job_steps(rank, world, inputs):
         make = getattr(port_step, f"make_{case['make']}_train_step")
         step = port_step.shard_step(make(model, tap, **kw), mesh)
         drawn.clear()
-        _, metrics = step(TrainState.create(model, tap), rows_of(case["batch"], rank, world), 0,
-                          *case.get("extras", ()))
+        trace.enable()
+        try:
+            _, metrics = step(TrainState.create(model, tap), rows_of(case["batch"], rank, world),
+                              0, *case.get("extras", ()))
+        finally:
+            trace.disable()
         out[name] = {"metrics": {k: float(v) for k, v in metrics.items()},
                      "grads": {k: g.numpy() for k, g in tap.grads.items()},
-                     "negatives": [tuple(t.numpy() for t in d) for d in drawn]}
+                     "negatives": [tuple(t.numpy() for t in d) for d in drawn],
+                     "spans": _drained(trace)}
     return out
+
+
+def _drained(trace) -> list:
+    """The spans kept since the last drain, as dicts (none dropped)."""
+    spans, dropped = trace.drain()
+    assert dropped == 0
+    return [s._asdict() for s in spans]
 
 
 def job_distributed(rank, world, inputs):
@@ -199,8 +213,10 @@ def job_distributed(rank, world, inputs):
 
 def job_index(rank, world, inputs):
     """``ShardedRetrievalIndex`` (bf16 weights as stored, and int8) on this
-    rank's slice of the gallery; ``save`` of the whole gallery, and its
-    ``load`` into another sharded index."""
+    rank's slice of the gallery, the bf16 one with the program's spans on;
+    ``save`` of the whole gallery, and its ``load`` into another sharded
+    index."""
+    from alpro_tpu_torch.core import trace
     from alpro_tpu_torch.core.mesh import make_mesh
     from alpro_tpu_torch.data.tokenization import WordPieceTokenizer, make_test_vocab
     from alpro_tpu_torch.serving import sharded
@@ -214,12 +230,18 @@ def job_index(rank, world, inputs):
     for weights in ("bf16", "int8"):
         index = ShardedRetrievalIndex(model, tok, "cpu", make_mesh([world]), max_txt_len=8,
                                       topk=3, weights=weights)
-        for lo, hi in inputs["calls"]:
-            index.add_videos(inputs["clips"][lo:hi], inputs["ids"][lo:hi])
-        out[weights] = {"query": [index.query(t) for t in inputs["texts"]],
-                        "batch": index.query_batch(inputs["texts"]),
-                        "rows": int(index._banks()[0].shape[0])}
         if weights == "bf16":
+            trace.enable()
+        try:
+            for lo, hi in inputs["calls"]:
+                index.add_videos(inputs["clips"][lo:hi], inputs["ids"][lo:hi])
+            out[weights] = {"query": [index.query(t) for t in inputs["texts"]],
+                            "batch": index.query_batch(inputs["texts"]),
+                            "rows": int(index._banks()[0].shape[0])}
+        finally:
+            trace.disable()
+        if weights == "bf16":
+            out["spans"] = _drained(trace)
             sharded.SAVE_BLOCK = 2  # each process's 3 rows in 2 blocks
             index.save(os.path.join(inputs["dir"], "bank"))
             loaded = ShardedRetrievalIndex(model, tok, "cpu", make_mesh([world]), max_txt_len=8,
