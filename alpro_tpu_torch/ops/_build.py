@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 # C signature of every entry point: (argtypes, restype)
 _SIGNATURES = {
     # qkv, out, M, S, H, hd, scale, is_bf16, device, stream
@@ -98,6 +98,10 @@ _SIGNATURES = {
     "alpro_gemm_bf16": ([_P] * 4 + [_I] * 5 + [_P], _I),
     # is_bf16, device
     "alpro_block_attn_max_seq": ([_I, _I], _I),
+    # h, g, n, is_bf16, device, stream
+    "alpro_gelu_fwd": ([_P, _P, _L, _I, _I, _P], _I),
+    # h, dg, dh, n, is_bf16, device, stream
+    "alpro_gelu_bwd": ([_P, _P, _P, _L, _I, _I, _P], _I),
     "alpro_error_string": ([_I], ctypes.c_char_p),
 }
 

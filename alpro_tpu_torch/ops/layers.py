@@ -6,7 +6,9 @@ the compute dtype. That is not the algorithm of ``torch.nn.functional
 .layer_norm`` (Welford), so it is written out here; the JAX package, the
 fused kernels and this module all share it. ``LayerNorm(impl='pallas')`` runs
 it as the CUDA kernel of ``ops/layernorm.py``, as the JAX module's
-``impl='pallas'`` runs its Pallas kernel.
+``impl='pallas'`` runs its Pallas kernel. The exact GELU on a CUDA tensor is
+the kernel of ``ops/gelu.py`` (one pass forward, one backward), on a CPU
+tensor its plain twin.
 """
 
 from __future__ import annotations
@@ -18,13 +20,15 @@ import torch.utils.checkpoint
 from torch import nn
 
 from alpro_tpu_torch.models.remat import layernorm_region
-from alpro_tpu_torch.ops.kernel_math import gelu_exact_f32, ln_rows_f32
+from alpro_tpu_torch.ops.gelu import gelu
+from alpro_tpu_torch.ops.kernel_math import ln_rows_f32
 from alpro_tpu_torch.ops.layernorm import layernorm
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Exact-erf GELU evaluated in fp32, returned in ``x.dtype``."""
-    return gelu_exact_f32(x).to(x.dtype)
+    """Exact-erf GELU evaluated in fp32, returned in ``x.dtype``
+    (``ops/gelu.py``: the kernel on a CUDA tensor, the twin on a CPU one)."""
+    return gelu(x)
 
 
 def layernorm_apply(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -42,7 +42,11 @@ line):
    = 32 and 48 (K2's wide path); B15 with its device time, its split by
    launch (the patch rows pass, the GEMM) and its one-ulp contract at both
    video shapes, beside the normalize + ``F.conv2d`` and ``F.linear`` on
-   its bf16 patch rows;
+   its bf16 patch rows; the exact GELU of the training path (``ops/gelu.py``,
+   not a TPU kernel) forward and backward at the QA finetuning's fc1 output
+   (75264, 3072): the forward bit-equal to its twin, the backward within one
+   bf16 ulp of autograd through the twin, beside the twin's times (its
+   forward's seven launches, autograd's backward) and the byte bound;
 4. retrieval — TimeSformer-B/16 (224², T=8, depth 12) + BERT-base
    (``configs/base_model.json``) with seeded random bf16 weights and a
    hashing stand-in tokenizer: a ``RetrievalIndex`` embeds 16 clips in two
@@ -64,8 +68,11 @@ line):
    launches per pallas step and no serving kernel, finite losses, every
    parameter changed, temp clamped; then pallas vs xla loss, whole gradient
    and each parameter's gradient with dropout off; then two MSRVTT-QA steps (T=16, B=4) with
-   their launch counts. Step ms, train clips/s and peak device memory for
-   both paths;
+   their launch counts. Every step also launches the exact GELU's kernels
+   (``ops/gelu.py``) by the model's depth: forward 2 a video block (the CLS
+   rows and the patches; again in the recompute of the checkpointed QA
+   tower) and 1 a BERT layer, backward 2 a block and 1 a layer. Step ms,
+   train clips/s and peak device memory for both paths;
 7. opt-in video paths — phase 4's model and clips under the video tower's
    opt-in serving forms (``OPT_IN_PATHS``): path (a) (raw-frame patch embed,
    whole spatial and temporal attention chains), path (b) (LN→qkv in front
@@ -219,7 +226,8 @@ line):
    as ``.npy`` and read through ``read_video``; else a line saying so. The
    phase prints its seconds.
 
-Then one JSON line with the kernels (``launches`` from the main paths,
+Then one JSON line with the kernels (the 17 TPU kernels' and the GELU's
+two; ``launches`` from the main paths, the GELU's from phase 6's steps,
 ``eval_launches`` from phase 10's kernel runs, ``cli_train_launches`` from
 phase 11's, ``pretrain_launches`` from phase 12's prompter, pretraining and
 resumed pretraining runs, ``variant_launches`` from phase 13's counted
@@ -345,6 +353,9 @@ QA_CACHE_TOL = {"prob": 1e-6, "logp": 1e-3}
 # finetuning: the linear schedule with warmup ratio 0.1 runs over this many
 # steps (the run takes the first few); QA takes 4 clips per step
 FT_TRAIN_STEPS, QA_TRAIN_BATCH = 40, 4
+# the exact GELU's main shape: fc1's output in the QA finetuning cell
+# (perfbench's qa_train_t16_b24: 24 clips x 16 frames x 196 patches, 3072)
+GELU_SHAPE = (24 * QA_FRAMES * PATCHES, 3072)
 # attn_impl 'pallas' vs 'xla' in bf16, dropout off, same weights, batch and
 # negatives: the two attentions round at other points (the xla path keeps
 # bf16 scores), so the VTC + VTM loss may differ by this much and the whole
@@ -616,7 +627,59 @@ def phase_kernels(card: str) -> dict:
     _masked_attn_kernels(res, randn, card)
     _fused_ingest_kernels(res, randn, ln, card)
     _opt_in_kernels(res, randn, card)
+    _gelu_kernels(res, card)
     return res
+
+
+def _gelu_kernels(res, card) -> None:
+    """The exact GELU's forward and backward kernels (``ops/gelu.py``; no TPU
+    kernel: XLA fused the chain) at GELU_SHAPE in bf16: the forward bit-equal
+    to ``gelu_plain``, the backward within one bf16 ulp of autograd through
+    the twin; the median ms of a wrapper call and of the twin's (the
+    forward's seven launches; autograd's backward through a kept graph), the
+    kernel's device time (``graph_ms``), the twin's (the sum of its kernels,
+    ``kernel_split``) and the byte bound (4 and 6 bytes an element)."""
+    from alpro_tpu_torch.ops import gelu
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    x = (torch.randn(GELU_SHAPE, generator=g, device="cuda") * 3.0).to(torch.bfloat16)
+    dg = torch.randn(GELU_SHAPE, generator=g, device="cuda").to(torch.bfloat16)
+    fail_if(not torch.equal(gelu.gelu(x), gelu.gelu_plain(x)),
+            f"gelu {GELU_SHAPE}: the forward differs from its twin")
+    h = x.detach().requires_grad_(True)
+    y = gelu.gelu_plain(h)
+
+    def twin_backward():
+        return torch.autograd.grad(y, h, dg, retain_graph=True)[0]
+
+    want = twin_backward().float()
+    diff = (gelu.gelu_backward(x, dg).float() - want).abs()
+    m, e = torch.frexp(want.abs())
+    ulp = torch.where(m == 0, torch.zeros_like(m), torch.ldexp(torch.ones_like(m), e - 8))
+    worst = float((diff / ulp.clamp_min(2.0 ** -133)).max())
+    fail_if(worst > 1, f"gelu backward {GELU_SHAPE}: {worst:.2f} bf16 ulps from autograd")
+    del want, diff, m, e, ulp
+    n = x.numel()
+    for name, kernel, twin, nbytes in (
+            ("gelu_fwd", lambda: gelu.gelu(x), lambda: gelu.gelu_plain(x), 4 * n),
+            ("gelu_bwd", lambda: gelu.gelu_backward(x, dg), twin_backward, 6 * n)):
+        ms, plain_ms = median_ms(kernel), median_ms(twin)
+        dev, why = graph_ms(kernel)
+        # autograd's engine thread cannot launch into a capture: the twin's
+        # device time is the sum of its kernels under the profiler
+        plain_dev = kernel_split(twin, iters=5)[1]
+        bound = nbytes / PEAK_BYTES * 1e3
+        res[name] = [{"shape": list(GELU_SHAPE), "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": None, "main": True, "device_ms": dev,
+                      "plain_device_ms": plain_dev, "library_device_ms": None,
+                      "bound_ms": bound, "bound_by": "bytes", "max_ulps": worst}]
+        dev_txt = (f"device {dev:.4f} ms ({100 * bound / dev:.1f}% of the bound)"
+                   if why is None else f"device_ms not measured ({why})")
+        print(f"[kernel] {name} {GELU_SHAPE} bf16: kernel {ms:.4f} ms, {dev_txt}; twin "
+              f"{plain_ms:.4f} ms, device {plain_dev:.4f}; bound {bound:.4f} ms by bytes "
+              f"({nbytes / 1e6:.1f} MB); forward bit-equal, backward within {worst:.2f} ulp "
+              f"[{card}]", flush=True)
+    del y, h
 
 
 def _text_mask(M: int, S: int) -> torch.Tensor:
@@ -1971,19 +2034,42 @@ def grad_gaps(got: dict, ref: dict) -> dict:
             "key_bias": [r for n, r in rel.items() if ZERO_GRAD.search(n)]}
 
 
-def _timed_step(step, state, batch, want: dict, what: str):
+def _gelu_counts() -> tuple:
+    from alpro_tpu_torch.ops import gelu
+
+    return gelu.launches, gelu.backward_launches
+
+
+def _gelu_want(model) -> tuple:
+    """The exact GELU's (forward, backward) launches in one train step of
+    ``model``: 2 a video block (CLS rows, patches), again in the recompute
+    of a checkpointed tower, and 1 a BERT layer; backward 2 a block and 1 a
+    layer."""
+    depth, layers = model.cfg.visual.depth, model.cfg.bert.num_hidden_layers
+    remat = model.cfg.visual.gradient_checkpointing
+    return 2 * depth * (1 + remat) + layers, 2 * depth + layers
+
+
+def _timed_step(step, state, batch, want: dict, what: str, gelu_want=None):
     """One train step with the launch counts set to 0 just before it and
     read just after; returns (metrics, host ms, peak device bytes, launch
-    counts)."""
+    counts, with the GELU's as ``gelu`` and ``gelu_backward``), holding the
+    GELU's to ``gelu_want`` (forward, backward) where given."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
+    before = _gelu_counts()
     t0 = time.perf_counter()
     _, metrics = step(state, batch, SEED)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     got = _counts()
     fail_if(got != want, f"{what} step {state.step}: launch counts {got} != {want}")
+    gelu_got = tuple(b - a for a, b in zip(before, _gelu_counts()))
+    fail_if(gelu_want is not None and gelu_got != tuple(gelu_want),
+            f"{what} step {state.step}: GELU launches (forward, backward) {gelu_got} != "
+            f"{gelu_want}")
+    got = dict(got, gelu=gelu_got[0], gelu_backward=gelu_got[1])
     values = {k: float(v) for k, v in metrics.items()}
     fail_if(not all(np.isfinite(v) for v in values.values()), f"{what}: non-finite {values}")
     return values, ms, torch.cuda.max_memory_allocated(), got
@@ -2012,9 +2098,11 @@ def phase_finetune(card: str) -> dict:
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     want = {"pallas": _launches(masked=24), "xla": _launches()}
     runs = {"pallas": [], "xla": []}
+    gelu_ret = _gelu_want(model)
     for impl in ["pallas", "xla"] + ["pallas", "xla"] * 3:
         _set_attn_impl(model, impl)
-        runs[impl].append(_timed_step(step, state, batch, want[impl], f"retrieval {impl}"))
+        runs[impl].append(_timed_step(step, state, batch, want[impl], f"retrieval {impl}",
+                                      gelu_ret))
     for impl, rows in runs.items():
         print(f"[finetune] retrieval {impl}: losses "
               + ", ".join(f"{r[0]['loss']:.5f} (vtc {r[0]['vtc_loss']:.5f}, vtm "
@@ -2084,6 +2172,10 @@ def phase_finetune(card: str) -> dict:
             f"{qkv[0][1]} (relative L2)")
     launches = {k: sum(r[3][k] for r in runs["pallas"])
                 for k in ("masked_attn_bshd", "masked_attn_bhsd")}
+    launches["gelu_fwd"] = sum(r[3]["gelu"] for rows in runs.values() for r in rows)
+    launches["gelu_bwd"] = sum(r[3]["gelu_backward"] for rows in runs.values() for r in rows)
+    print(f"[finetune] retrieval: GELU kernel launches per step {gelu_ret} (forward, backward) "
+          f"on both paths", flush=True)
     del model, state, opt, grads, step
     torch.cuda.empty_cache()
 
@@ -2110,7 +2202,10 @@ def phase_finetune(card: str) -> dict:
     # 12 spatial attentions, again in the backward's recompute when the
     # video tower is checkpointed (configs: gradient_checkpointing), + 6 + 6
     qa_want = _launches(masked=12 * (1 + remat) + 12)
-    rows = [_timed_step(step, state, qbatch, qa_want, "qa") for _ in range(2)]
+    gelu_qa = _gelu_want(model)
+    rows = [_timed_step(step, state, qbatch, qa_want, "qa", gelu_qa) for _ in range(2)]
+    launches["gelu_fwd"] += sum(r[3]["gelu"] for r in rows)
+    launches["gelu_bwd"] += sum(r[3]["gelu_backward"] for r in rows)
     fail_if(state.opt_state.count != 1, f"QA: {state.opt_state.count} updates after 2 steps "
             f"with accumulation over {qa_cfg['gradient_accumulation_steps']}")
     print(f"[finetune] QA (T={T}, B={Bq}, {L} labels, video tower checkpointed: {remat}, "
@@ -2118,7 +2213,8 @@ def phase_finetune(card: str) -> dict:
           f"{', '.join(f'{r[0]['loss']:.5f}' for r in rows)}; step ms "
           f"{', '.join(f'{r[1]:.2f}' for r in rows)}; peak {max(r[2] for r in rows) / 2**30:.2f} "
           f"GiB; launches per step {[r[3]['masked_attn_bshd'] for r in rows]} masked_attn_bshd, "
-          f"0 of K1-K5 [{card}]", flush=True)
+          f"0 of K1-K5; GELU kernel launches per micro-step {gelu_qa} (forward, backward) "
+          f"[{card}]", flush=True)
     del model, state, opt
     torch.cuda.empty_cache()
     return launches
@@ -4522,6 +4618,17 @@ def main() -> int:
             "variant_launches": variant_launches.get(name, 0),
             "dist_launches": dist_launches.get(name, 0),
             "sp_launches": sp_launches.get(name, 0),
+        })
+    for name in ("gelu_fwd", "gelu_bwd"):  # not a TPU kernel: XLA fused the chain
+        row = res[name][0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "alpro_tpu_torch/csrc/gelu.cu",
+            "replaces": None, "launches": launches[name], "max_ulps": row["max_ulps"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "shape": row["shape"], "device_ms": row["device_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "dist_launches": dist_launches.get("gelu" if name == "gelu_fwd" else "gelu_backward",
+                                               0),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -45,6 +45,14 @@ first call's output bit for bit.
 The limit predicates that ``auto`` reads agree with what the kernels take:
 S at the Python limit launches, one past it raises ``ValueError``, and
 where the C side reports a limit the two are equal.
+The exact GELU (``ops/gelu.py``, no TPU counterpart): its forward bit-equal
+to the twin in bf16 and fp32 at the QA training path's (75264, 3072), the
+CLS rows' (24, 3072) and sizes with n mod 8 not 0, on special values and an
+unaligned view; its backward within one bf16 ulp (four fp32 ulps) of
+autograd through the twin; repeats bit-equal; a non-contiguous input or
+another dtype refused; on the current stream and in a graph capture; a
+checkpointed divided block under ``dots_ln`` and ``nothing`` against the
+plain block; the launches of one QA micro-step by the model's depth.
 """
 
 import pytest
@@ -1538,3 +1546,228 @@ def test_unfolded_uint8_normalize_is_the_cpus_bit_for_bit(cuda, form, dtype):
     cpu, card = seen
     assert card.dtype == torch.float32 and card.device.type == "cuda"
     torch.testing.assert_close(card.cpu(), cpu, atol=0, rtol=0)
+
+
+# ---- the exact GELU (``ops/gelu.py``, ``csrc/gelu.cu``; not a TPU kernel) ----
+# the training path's fc1 output (24 clips x 16 frames x 196 patches, 3072),
+# the CLS rows', and sizes whose n mod 8 (the bf16 vector) is not 0
+GELU_SHAPES = [(75264, 3072), (24, 3072), (7, 3), (1, 13), (3, 1000003)]
+
+
+def _gelu_inputs(shape, dtype, cuda, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=cuda) * 3.0).to(dtype)
+    dg = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x, dg
+
+
+def _ulp(v: torch.Tensor, dtype) -> torch.Tensor:
+    """The spacing of ``dtype`` at each |v| (its least subnormal at 0)."""
+    fi = torch.finfo(dtype)
+    frac = {torch.bfloat16: 7, torch.float32: 23}[dtype]
+    m, e = torch.frexp(v.float().abs())
+    ulp = torch.ldexp(torch.ones_like(m), e - 1 - frac)
+    return torch.where(m == 0, torch.full_like(ulp, fi.tiny * fi.eps), ulp)
+
+
+def _gelu_autograd(x, dg):
+    from alpro_tpu_torch.ops import gelu
+
+    h = x.detach().requires_grad_(True)
+    (dh,) = torch.autograd.grad(gelu.gelu_plain(h), h, dg)
+    return dh
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GELU_SHAPES)
+def test_gelu_forward_is_the_twin_bit_for_bit(cuda, dtype, shape):
+    from alpro_tpu_torch.ops import gelu
+
+    x, _ = _gelu_inputs(shape, dtype, cuda, seed=1)
+    n = gelu.launches
+    got = gelu.gelu(x)
+    assert gelu.launches == n + 1 and got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, gelu.gelu_plain(x))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_forward_special_values(cuda, dtype):
+    """Zeros, subnormals, the erf's saturation and large magnitudes, on the
+    vector body, its scalar tail and the unaligned scalar body (a view that
+    starts one element in)."""
+    from alpro_tpu_torch.ops import gelu
+
+    fi = torch.finfo(dtype)
+    vals = torch.tensor([0.0, -0.0, fi.tiny, -fi.tiny, fi.tiny / 4, 1e-20, -1e-20, 0.5, -0.5,
+                         -0.7517915, 3.9, -3.9, 5.5, -5.5, 10.0, -10.0, 1e4, -1e4, 1e30,
+                         -1e30, fi.max, 2.0 ** -14, 1.0, -1.0, 7.0], device=cuda).to(dtype)
+    for x in (vals, vals[1:]):
+        assert torch.equal(gelu.gelu(x), gelu.gelu_plain(x))
+        dg = torch.ones_like(x)
+        got = gelu.gelu_backward(x, dg)
+        want = _gelu_autograd(x, dg)
+        both = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), both)
+        assert bool(((got.float() - want.float()).abs()[both]
+                     <= _ulp(want, dtype)[both] * (1 if dtype == torch.bfloat16 else 4)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GELU_SHAPES)
+def test_gelu_backward_within_ulps_of_autograd(cuda, dtype, shape):
+    """The custom op's backward (one ``gelu_bwd`` launch) against autograd
+    through the twin: within one bf16 ulp, or four fp32 ulps, of each
+    element."""
+    from alpro_tpu_torch.ops import gelu
+
+    x, dg = _gelu_inputs(shape, dtype, cuda, seed=2)
+    h = x.clone().requires_grad_(True)
+    n = (gelu.launches, gelu.backward_launches)
+    y = gelu.gelu(h)
+    (got,) = torch.autograd.grad(y, h, dg)
+    assert (gelu.launches, gelu.backward_launches) == (n[0] + 1, n[1] + 1)
+    want = _gelu_autograd(x, dg)
+    del y, h
+    ulps = 1 if dtype == torch.bfloat16 else 4
+    miss = (got.float() - want.float()).abs() > ulps * _ulp(want, dtype)
+    assert not bool(miss.any()), (int(miss.sum()), x[miss][:4], got[miss][:4], want[miss][:4])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gelu_repeats_bit_equal(cuda, dtype):
+    from alpro_tpu_torch.ops import gelu
+
+    x, dg = _gelu_inputs((9408, 3072), dtype, cuda, seed=3)
+    first, first_dh = gelu.gelu(x), gelu.gelu_backward(x, dg)
+    for _ in range(20):
+        assert torch.equal(gelu.gelu(x), first)
+        assert torch.equal(gelu.gelu_backward(x, dg), first_dh)
+
+
+def test_gelu_refuses_what_it_does_not_take(cuda):
+    from alpro_tpu_torch.ops import gelu
+
+    x, dg = _gelu_inputs((64, 96), torch.bfloat16, cuda, seed=4)
+    n = (gelu.launches, gelu.backward_launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        gelu.gelu(x.t())
+    with pytest.raises(ValueError, match="contiguous"):
+        gelu.gelu(x.t().requires_grad_(True))
+    with pytest.raises(ValueError, match="dtype"):
+        gelu.gelu(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gelu.gelu_backward(x, dg.t().contiguous().t())
+    with pytest.raises(ValueError, match="dtype"):
+        gelu.gelu_backward(x, dg.float())
+    assert (gelu.launches, gelu.backward_launches) == n
+
+
+def test_gelu_launches_on_the_current_stream(cuda):
+    """Under ``torch.cuda.stream(s)`` and inside a CUDA-graph capture."""
+    from alpro_tpu_torch.ops import gelu
+
+    x, dg = _gelu_inputs((4096, 3072), torch.bfloat16, cuda, seed=5)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(50_000_000)
+        got = gelu.gelu(x)
+    s.synchronize()
+    assert torch.equal(got, gelu.gelu_plain(x))
+    static = x.clone()
+    gelu.gelu(static)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, dh = gelu.gelu(static), gelu.gelu_backward(static, dg)
+    fresh = (x.float() * 0.5 + 0.25).to(x.dtype)
+    static.copy_(fresh)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, gelu.gelu_plain(fresh))
+    assert torch.equal(dh, gelu.gelu_backward(fresh, dg))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("policy", ["dots_ln", "nothing"])
+def test_checkpointed_block_with_gelu_kernel_matches_plain(cuda, dtype, policy, monkeypatch):
+    """A divided space-time block in training, checkpointed under
+    ``policy``, with the GELU kernel: its forward twice (forward and
+    recompute) on the CLS rows and the patches, its backward once each;
+    gradients of the inputs and parameters against the same block on the
+    plain path unchecked (autograd through the twin): relative L2 within
+    1e-5 in fp32, the step tests' tolerance, and in bf16 within 1e-2, about
+    one bf16 ulp (2^-7)."""
+    from alpro_tpu_torch.models import timesformer
+    from alpro_tpu_torch.models.remat import resolve_remat_policy
+    from alpro_tpu_torch.models.timesformer import DividedSTBlock, TimeSformerConfig
+    from alpro_tpu_torch.ops import gelu
+    from alpro_tpu_torch.ops.layers import checkpoint
+
+    cfg = TimeSformerConfig(img_size=64, patch_size=16, num_frames=4, embed_dim=256, depth=1,
+                            num_heads=4)
+    torch.manual_seed(0)
+    blk = DividedSTBlock(cfg).to(cuda).train()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cls = torch.randn((2, 1, 256), generator=g, device=cuda).to(dtype)
+    x = torch.randn((2, 4, 16, 256), generator=g, device=cuda).to(dtype)
+    dc = torch.randn(cls.shape, generator=g, device=cuda).to(dtype)
+    dx = torch.randn(x.shape, generator=g, device=cuda).to(dtype)
+
+    def grads(run):
+        blk.zero_grad(set_to_none=True)
+        c, v = cls.clone().requires_grad_(True), x.clone().requires_grad_(True)
+        oc, ov = run(c, v)
+        torch.autograd.backward([oc, ov], [dc, dx])
+        return [c.grad, v.grad] + [p.grad for p in blk.parameters()]
+
+    def fwd(c, v):
+        return blk(c, v, cfg, dtype, 0.0, None, None)
+
+    with monkeypatch.context() as m:
+        m.setattr(timesformer, "gelu_exact", gelu.gelu_plain)
+        n = (gelu.launches, gelu.backward_launches)
+        want = grads(fwd)
+        assert (gelu.launches, gelu.backward_launches) == n
+    got = grads(lambda c, v: checkpoint(fwd, None, c, v,
+                                        context_fn=resolve_remat_policy(policy)))
+    assert (gelu.launches, gelu.backward_launches) == (n[0] + 4, n[1] + 2)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for a, b in zip(got, want):
+        assert float((a.float() - b.float()).norm()) <= tol * float(b.float().norm())
+
+
+def test_qa_micro_step_launches_gelu_by_depth(cuda):
+    """One QA micro-step (loss and backward) with the video tower
+    checkpointed under ``dots_ln``: the GELU forward twice a block (CLS rows
+    and patches) in the forward and again in the recompute, once a BERT
+    layer; its backward once a block's call and once a layer."""
+    import numpy as np
+
+    from alpro_tpu_torch.models.alpro import build_qa_model, init_random_
+    from alpro_tpu_torch.models.bert import BertConfig
+    from alpro_tpu_torch.models.timesformer import TimeSformerConfig
+    from alpro_tpu_torch.ops import gelu
+    from alpro_tpu_torch.train.step import StepContext, qa_loss, step_generator
+
+    bert = BertConfig(vocab_size=1000, hidden_size=256, num_hidden_layers=3,
+                      num_attention_heads=4, intermediate_size=1024, fusion_layer=2)
+    vis = TimeSformerConfig(img_size=64, patch_size=16, num_frames=4, embed_dim=256, depth=2,
+                            num_heads=4, gradient_checkpointing=True, remat_policy="dots_ln")
+    model = build_qa_model(bert, vis, img_size=64, num_frm=4, num_labels=7, dtype=torch.bfloat16)
+    model = init_random_(model, torch.Generator().manual_seed(0)).to(cuda)
+    assert model.visual_encoder.model.cfg.gradient_checkpointing
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(1000, size=(4, 12))).to(cuda)
+    batch = {"visual_inputs": torch.from_numpy(rng.randint(0, 256, (4, 4, 64, 64, 3),
+                                                           dtype=np.uint8)).to(cuda),
+             "text_input_ids": ids, "text_input_mask": torch.ones_like(ids),
+             "labels": torch.from_numpy(rng.randint(0, 7, 4)).to(cuda)}
+    model.train()
+    n = (gelu.launches, gelu.backward_launches)
+    g = step_generator(0, 0, cuda)
+    loss, _ = qa_loss(model, batch, StepContext(g, g))
+    loss.backward()
+    torch.cuda.synchronize()
+    depth, layers = vis.depth, bert.num_hidden_layers
+    assert (gelu.launches - n[0], gelu.backward_launches - n[1]) == \
+        (2 * depth * 2 + layers, 2 * depth + layers)
