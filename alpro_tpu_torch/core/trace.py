@@ -35,6 +35,18 @@ The spans and where they are opened:
   ``alpro.step.forward`` (the loss, holding the model spans),
   ``alpro.step.backward``, ``alpro.step.reduce`` (with a process group
   only), ``alpro.step.optimizer``: ``TrainStep.__call__``.
+- ``alpro.pretrain.vtc``, ``alpro.pretrain.vtm``, ``alpro.pretrain.mlm``
+  and ``alpro.pretrain.mpm``, in that order under ``alpro.step.forward``
+  (after the towers' ``alpro.video`` and ``alpro.text``): the objectives of
+  ``make_pretrain_train_step``'s loss, each around its own forward (VTM's
+  3B-row ``alpro.fusion``, MLM's second ``alpro.text`` and
+  ``alpro.fusion``, the heads and the loss).
+- ``alpro.teacher``: the frozen teacher's no-grad forward of the erased
+  crops and its soft labels (``_teacher_pseudo_labels``), inside
+  ``alpro.pretrain.mpm`` in a step and inside the pretraining ``validate``.
+- ``alpro.prompt_bank``: one a prompt bank built (``objectives/pem.py::
+  build_prompt_bank``, which ``cli/run_pretrain.py::setup_prompt_banks``
+  calls for the video and the image bank).
 - ``alpro.loop.data_wait``: ``run_train_loop``'s wait for the next staged
   batch.
 """

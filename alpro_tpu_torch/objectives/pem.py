@@ -16,10 +16,11 @@ the group.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
+from alpro_tpu_torch.core.trace import span
 from alpro_tpu_torch.parallel.collectives import all_reduce_sum
 
 MPM_IGNORE_THRESHOLD = 0.2
@@ -33,14 +34,16 @@ def build_prompt_bank(encode_text_feat: Callable[[torch.Tensor, torch.Tensor], t
     ``encode_text_feat(ids, mask)`` (the teacher's text half → ``text_proj``
     → L2 norm), run in chunks of ``chunk_size`` rows. Prompts are
     template-major (template t holds rows [t·E, (t+1)·E)). The mean is not
-    normalized again, as in the JAX function."""
+    normalized again, as in the JAX function. One ``alpro.prompt_bank`` span
+    a bank."""
     total = prompt_ids.shape[0]
     if total % num_entities:
         raise ValueError(f"{total} prompts are not a multiple of {num_entities} entities")
-    feats = torch.cat([encode_text_feat(prompt_ids[s: s + chunk_size],
-                                        prompt_mask[s: s + chunk_size])
-                       for s in range(0, total, chunk_size)])
-    return feats.reshape(total // num_entities, num_entities, -1).mean(dim=0)
+    with span("prompt_bank"):
+        feats = torch.cat([encode_text_feat(prompt_ids[s: s + chunk_size],
+                                            prompt_mask[s: s + chunk_size])
+                           for s in range(0, total, chunk_size)])
+        return feats.reshape(total // num_entities, num_entities, -1).mean(dim=0)
 
 
 def pseudo_labels_from_feats(crop_video_feat: torch.Tensor, prompt_bank: torch.Tensor,
@@ -64,10 +67,14 @@ def masked_patch_mean(fusion_hidden: torch.Tensor, patch_masks: torch.Tensor,
 
 
 def mpm_loss(mpm_logits: torch.Tensor, soft_labels: torch.Tensor,
-             ignore_masks: torch.Tensor, group=None) -> torch.Tensor:
+             ignore_masks: torch.Tensor, group=None,
+             kept: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Soft cross entropy, the ignored rows zeroed, over the count of rows
-    kept (at least 1)."""
+    kept (at least 1). ``kept``: that count of this process's rows where
+    the caller already holds it (rows − ``ignore_masks.sum()``)."""
     ce = -(torch.log_softmax(mpm_logits.float(), dim=1) * soft_labels.float()).sum(dim=1)
     ce = torch.where(ignore_masks, torch.zeros((), dtype=ce.dtype, device=ce.device), ce)
-    denom = all_reduce_sum(mpm_logits.shape[0] - ignore_masks.sum(), group).clamp(min=1)
+    if kept is None:
+        kept = mpm_logits.shape[0] - ignore_masks.sum()
+    denom = all_reduce_sum(kept, group).clamp(min=1)
     return ce.sum() / denom

@@ -310,7 +310,7 @@ def make_qa_train_step(model: AlproModel, optimizer, n_options: int = 1, n_clips
 def _teacher_pseudo_labels(teacher: AlproModel, batch, bank: torch.Tensor):
     """The frozen teacher's soft labels and ignore mask for the erased crops
     (its eval-mode video tower, its feature and temperature, no graph)."""
-    with torch.no_grad():
+    with span("teacher"), torch.no_grad():
         crop_feat = teacher.video_feat(teacher.embed_video(batch["crop_visual_inputs"]))
         return pseudo_labels_from_feats(crop_feat, bank, teacher.temperature())
 
@@ -325,12 +325,15 @@ def _mlm_logits(model: AlproModel, batch, video_embeds, generator) -> torch.Tens
 
 
 def _mpm(model: AlproModel, teacher: AlproModel, batch, bank, fusion_pos,
-         group=None) -> torch.Tensor:
+         group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """MPM: the student's MPM logits of the mean fusion row over the erased
-    patches of the VTM positives, against the teacher's soft labels."""
+    patches of the VTM positives, against the teacher's soft labels →
+    (loss, this process's rows kept: the count the loss divides by before
+    it is summed over the group)."""
     soft, ignore = _teacher_pseudo_labels(teacher, batch, bank)
     mean = masked_patch_mean(fusion_pos, batch["mpm_mask"], batch["text_input_ids"].shape[1])
-    return mpm_loss(model.mpm_logits(mean), soft, ignore, group=group)
+    kept = ignore.shape[0] - ignore.sum()
+    return mpm_loss(model.mpm_logits(mean), soft, ignore, group=group, kept=kept), kept
 
 
 def _check_objectives(use_itm: bool, use_mpm: bool, teacher) -> None:
@@ -350,33 +353,43 @@ def make_pretrain_train_step(model: AlproModel, optimizer, use_itc: bool = True,
     MPM pseudo-labels the batch's erased crops by the frozen ``teacher``
     against ``banks[task_type]``. The teacher is outside the train state:
     not optimized, not checkpointed. Metrics: ``itc_loss``, ``itm_loss``,
-    ``mlm_loss``, ``mpm_loss`` (the ones in use) and ``loss``."""
+    ``mlm_loss``, ``mpm_loss`` (the ones in use), ``loss`` and, with MPM,
+    ``mpm_kept``: the rows whose largest soft label reaches
+    ``MPM_IGNORE_THRESHOLD``, a device tensor summed over the group like
+    every metric. Each objective runs in its span, ``alpro.pretrain.vtc``,
+    ``.vtm``, ``.mlm`` and ``.mpm`` (⊃ ``alpro.teacher``)."""
     _check_objectives(use_itm, use_mpm, teacher)
 
     def loss_fn(batch, ctx, task_type: str = "video"):
         fwd = _alignment_forward(model, batch, ctx.generator)
         metrics: Dict[str, torch.Tensor] = {}
         loss = torch.zeros((), device=fwd["video_feat"].device)
-        vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"],
-                                         group=ctx.group)
-        if use_itc:
-            loss = loss + vtc
-            metrics["itc_loss"] = vtc.detach()
+        with span("pretrain.vtc"):
+            vtc, sim_v2t, sim_t2v = vtc_loss(fwd["video_feat"], fwd["text_feat"], fwd["temp"],
+                                             group=ctx.group)
+            if use_itc:
+                loss = loss + vtc
+                metrics["itc_loss"] = vtc.detach()
         fusion_pos = None
         if use_itm:
-            vtm, fusion_pos = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, ctx,
-                                           num_local_blocks)
-            loss = loss + vtm
-            metrics["itm_loss"] = vtm.detach()
+            with span("pretrain.vtm"):
+                vtm, fusion_pos = _vtm_forward(model, batch, fwd, sim_v2t, sim_t2v, ctx,
+                                               num_local_blocks)
+                loss = loss + vtm
+                metrics["itm_loss"] = vtm.detach()
         if use_mlm:
-            mlm = mlm_loss(_mlm_logits(model, batch, fwd["video_embeds"], ctx.generator),
-                           batch["mlm_labels"], group=ctx.group)
-            loss = loss + mlm
-            metrics["mlm_loss"] = mlm.detach()
+            with span("pretrain.mlm"):
+                mlm = mlm_loss(_mlm_logits(model, batch, fwd["video_embeds"], ctx.generator),
+                               batch["mlm_labels"], group=ctx.group)
+                loss = loss + mlm
+                metrics["mlm_loss"] = mlm.detach()
         if use_mpm:
-            mpm = _mpm(model, teacher, batch, banks[task_type], fusion_pos, group=ctx.group)
-            loss = loss + mpm
-            metrics["mpm_loss"] = mpm.detach()
+            with span("pretrain.mpm"):
+                mpm, kept = _mpm(model, teacher, batch, banks[task_type], fusion_pos,
+                                 group=ctx.group)
+                loss = loss + mpm
+                metrics["mpm_loss"] = mpm.detach()
+                metrics["mpm_kept"] = kept
         metrics["loss"] = loss.detach()
         return loss, metrics
 
@@ -426,7 +439,7 @@ def make_pretrain_eval_fn(model: AlproModel, use_itc: bool = True, use_itm: bool
                 correct = (logits.argmax(dim=-1) == labels) & valid
                 metrics["val_mlm_acc"] = correct.sum() / valid.sum().clamp(min=1)
             if use_mpm and teacher is not None and fusion_pos is not None and bank is not None:
-                metrics["val_mpm_loss"] = _mpm(model, teacher, batch, bank, fusion_pos)
+                metrics["val_mpm_loss"] = _mpm(model, teacher, batch, bank, fusion_pos)[0]
             return metrics
         finally:
             model.train(was_training)

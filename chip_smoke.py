@@ -3307,10 +3307,10 @@ class _PretrainProbe:
             self.labels.append((soft.float().cpu(), ignore.cpu()))
             return soft, ignore
 
-        def mpm_kept(logits, soft, ignore, group=None):
+        def mpm_kept(logits, soft, ignore, group=None, kept=None):
             with torch.no_grad():
                 self.mpm_all.append(mpm(logits, soft, torch.zeros_like(ignore), group=group))
-            return mpm(logits, soft, ignore, group=group)
+            return mpm(logits, soft, ignore, group=group, kept=kept)
 
         for (m, n, _), fn in zip(self._saved, (timed_banks, built, labelling, mpm_kept)):
             setattr(m, n, fn)
@@ -3455,7 +3455,7 @@ def _pretrain_cli_runs(card: str, data: dict, root: Path) -> dict:
     logged = _logged(out, "train_")
     keys = {k for _, k, _ in logged}
     fail_if(keys != {"train_itc_loss", "train_itm_loss", "train_mlm_loss", "train_mpm_loss",
-                     "train_loss"} or len(logged) != 5 * PT_STEPS
+                     "train_mpm_kept", "train_loss"} or len(logged) != 6 * PT_STEPS
             or not all(np.isfinite(v) for *_, v in logged), f"pretrain: logged losses {logged}")
     late = []  # the comparisons' failures, raised once everything is printed
     for key, tol in PT_TRAJ_TOL.items():

@@ -1,0 +1,9 @@
+"""``device_idle_pct.pretrain`` (%): the share of the traced span of
+pretraining micro-steps in which no operation (kernel, copy, set) runs on
+the card. Layer: device."""
+
+
+def read(run, info):
+    if run is None or run.window_s <= 0.0:
+        return None
+    return 100.0 * (1.0 - run.busy_s / run.window_s)

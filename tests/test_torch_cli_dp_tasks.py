@@ -60,5 +60,6 @@ def test_pretraining_chain_on_two_processes(tmp_path):
     assert sorted(os.listdir(os.path.join(out, "ckpt"))) == ["model_step_4.pt", "model_step_8.pt"]
     rows = T.by_key(T.metric_rows(out, "train_"))
     assert sorted(rows) == ["train_itc_loss", "train_itm_loss", "train_loss", "train_mlm_loss",
-                            "train_mpm_loss"]
+                            "train_mpm_kept", "train_mpm_loss"]
+    assert all(0 <= v <= 2 for v in rows["train_mpm_kept"])
     assert all(len(v) == 8 and np.isfinite(v).all() for v in rows.values())

@@ -127,6 +127,13 @@ def _jax_step(make, *args, **kwargs):
 
 
 def _check(jmetrics, pmetrics, jgrads, pgrads):
+    """JAX's metrics and gradients; the port's one metric more with MPM,
+    ``mpm_kept`` (the step's rows kept, which JAX does not report), a whole
+    number of rows."""
+    pmetrics = dict(pmetrics)
+    if "mpm_loss" in jmetrics:
+        kept = pmetrics.pop("mpm_kept")
+        assert not kept.is_floating_point() and 0 <= int(kept) <= B
     assert set(pmetrics) == set(jmetrics)
     for key, value in pmetrics.items():
         np.testing.assert_allclose(float(value), float(jmetrics[key]), atol=METRIC_ATOL, rtol=0,
@@ -158,7 +165,12 @@ def check_pretrain_step(attn_impl):
                                          "image": torch.from_numpy(-bank)})
     state, pmetrics = step(state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0, "video")
     assert state.step == 1 and not port.training and not tport.training
-    assert sorted(pmetrics) == ["itc_loss", "itm_loss", "loss", "mlm_loss", "mpm_loss"]
+    assert sorted(pmetrics) == ["itc_loss", "itm_loss", "loss", "mlm_loss", "mpm_kept",
+                                "mpm_loss"]
+    _, ignore = port_step._teacher_pseudo_labels(
+        tport, {"crop_visual_inputs": torch.from_numpy(batch["crop_visual_inputs"])},
+        torch.from_numpy(bank))
+    assert int(pmetrics["mpm_kept"]) == B - int(ignore.sum())
     _check(jmetrics, pmetrics, jgrads, tap.grads)
     for n, p in tport.named_parameters():  # the teacher: no gradient, not moved
         assert p.grad is None and not p.requires_grad and torch.equal(p, teacher_before[n]), n

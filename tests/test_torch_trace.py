@@ -245,3 +245,82 @@ def test_store_is_capped_and_counts_drops_and_parents_stay_on_their_thread(monke
     assert other_span.thread != outer_span.thread
     assert (inner.parent, inner.rid) == (outer.id, 5)
     assert trace.drain() == ([], 0)
+
+
+def _pretrain_parts():
+    from alpro_tpu_torch.models.alpro import build_pretrain_model, build_prompter_model
+
+    model = build_pretrain_model(BertConfig(**BERT), TimeSformerConfig(**VIS), num_entities=4,
+                                 img_size=32, num_frm=2)
+    init_random_(model, torch.Generator().manual_seed(1))
+    teacher = build_prompter_model(BertConfig(**BERT), TimeSformerConfig(**VIS), img_size=32,
+                                   num_frm=2)
+    init_random_(teacher, torch.Generator().manual_seed(2))
+    return model, teacher.eval().requires_grad_(False)
+
+
+def _pretrain_batch() -> dict:
+    batch = _qa_batch(0, 3)
+    del batch["labels"]
+    ids, rng = batch["text_input_ids"], np.random.RandomState(4)
+    labels = np.full_like(ids, -100)
+    labels[:, 1] = ids[:, 1]
+    crop = np.zeros_like(batch["visual_inputs"])
+    crop[:, :, :16, :16] = batch["visual_inputs"][:, :, :16, :16]
+    mpm_mask = np.ones((3, 2, 2), np.float32)
+    mpm_mask[:, 0, 0] = 0
+    batch.update(mlm_text_input_ids=np.where(labels != -100, 4, ids), mlm_labels=labels,
+                 crop_visual_inputs=crop, mpm_mask=mpm_mask)
+    batch["visual_inputs"] = rng.randint(0, 255, batch["visual_inputs"].shape).astype(np.uint8)
+    return _torch_batch(batch)
+
+
+def test_pretrain_objectives_teacher_and_banks_have_their_spans():
+    """A pretraining step's forward holds, in order, the towers, then
+    ``alpro.pretrain.vtc``, ``.vtm`` (⊃ the 3B-row fusion), ``.mlm`` (⊃ the
+    second text half and fusion) and ``.mpm`` (⊃ ``alpro.teacher`` ⊃ the
+    teacher's tower); one ``alpro.prompt_bank`` a bank built; the step's
+    numbers are bit-equal with spans on and off."""
+    from alpro_tpu_torch.objectives.pem import build_prompt_bank
+    from alpro_tpu_torch.train.step import make_pretrain_train_step
+
+    got = {}
+    for on in (False, True):
+        model, teacher = _pretrain_parts()
+        (trace.enable if on else trace.disable)()
+        enc = WordPieceTokenizer(make_test_vocab())([f"a {w}" for w in ("dog", "cat")] * 2,
+                                                    max_length=8)
+        ids, mask = (torch.as_tensor(np.asarray(enc[k])) for k in ("input_ids",
+                                                                    "attention_mask"))
+        banks = {kind: build_prompt_bank(lambda i, m: teacher.text_feat(teacher.embed_text(i, m)),
+                                         ids, mask, 2, chunk_size=3)
+                 for kind in ("video", "image")}
+        opt = build_optimizer(lambda s: 1e-3, grad_norm=1.0)
+        step = make_pretrain_train_step(model, opt, num_local_blocks=1, teacher=teacher,
+                                        banks={k: torch.cat([v, -v]) for k, v in banks.items()})
+        state, metrics = step(TrainState.create(model, opt), _pretrain_batch(), 7, "image")
+        got[on] = metrics, dict(state.model.named_parameters())
+    spans, dropped = trace.drain()
+    assert dropped == 0
+    banks = [s for s in spans if s.name == "alpro.prompt_bank"]
+    assert len(banks) == 2 and {s.parent for s in banks} == {None}
+    assert all({d.name for d in _descendants(spans, b)} == {"alpro.text"} for b in banks)
+    (step_span,) = [s for s in spans if s.name == "alpro.step"]
+    (forward,) = [s for s in _children(spans, step_span) if s.name == "alpro.step.forward"]
+    kids = _children(spans, forward)
+    assert [k.name for k in kids] == ["alpro.video", "alpro.text", "alpro.pretrain.vtc",
+                                      "alpro.pretrain.vtm", "alpro.pretrain.mlm",
+                                      "alpro.pretrain.mpm"]
+    assert all(a.end <= b.start for a, b in zip(kids, kids[1:]))
+    under = {k.name: [c.name for c in _children(spans, k)] for k in kids}
+    assert under["alpro.pretrain.vtc"] == []
+    assert under["alpro.pretrain.vtm"] == ["alpro.fusion"]
+    assert under["alpro.pretrain.mlm"] == ["alpro.text", "alpro.fusion"]
+    assert under["alpro.pretrain.mpm"] == ["alpro.teacher"]
+    (teacher_span,) = [s for s in spans if s.name == "alpro.teacher"]
+    assert [c.name for c in _children(spans, teacher_span)] == ["alpro.video"]
+    assert {d.rid for d in _descendants(spans, step_span)} == {0}
+    assert set(got[True][0]) == {"itc_loss", "itm_loss", "mlm_loss", "mpm_loss", "mpm_kept",
+                                 "loss"}
+    assert all(torch.equal(v, got[True][0][k]) for k, v in got[False][0].items())
+    assert all(torch.equal(p, got[True][1][n]) for n, p in got[False][1].items())

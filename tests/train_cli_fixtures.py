@@ -94,9 +94,18 @@ def by_key(rows):
 
 
 def check_losses(dirs):
-    """The ``train_*`` series of both runs, key by key, within LOSS_ATOL."""
+    """The ``train_*`` series of both runs, key by key, within LOSS_ATOL. The
+    port's pretraining also logs ``train_mpm_kept`` (the EWMA of the rows MPM
+    kept, which the JAX CLI does not report): a series as long as the loss's,
+    between 0 and the global batch."""
     jax_rows = by_key(metric_rows(dirs["alpro_tpu"], "train_"))
     port_rows = by_key(metric_rows(dirs["alpro_tpu_torch"], "train_"))
+    if "train_mpm_loss" in jax_rows:
+        kept = port_rows.pop("train_mpm_kept")
+        with open(os.path.join(dirs["alpro_tpu_torch"], "log", "args.json")) as f:
+            batch = json.load(f)["train_batch_size"]
+        assert len(kept) == len(jax_rows["train_loss"])
+        assert all(0 <= v <= batch for v in kept)
     assert port_rows.keys() == jax_rows.keys() and jax_rows
     for k, want in jax_rows.items():
         np.testing.assert_allclose(port_rows[k], want, atol=LOSS_ATOL, rtol=0, err_msg=k)
